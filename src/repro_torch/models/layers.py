@@ -1,0 +1,234 @@
+"""Shared transformer layer primitives (PyTorch port of ``repro/models/layers.py``).
+
+RMSNorm, RoPE, GQA attention with an online-softmax KV-block loop (causal,
+sliding-window, logit soft-cap) and the (Sw/Ge)GLU MLP, on the reference's
+parameter layout: ``wq (d,H,Dh)``, ``wk/wv (d,K,Dh)``, ``wo (H,Dh,d)``,
+``wi_gate/wi_up (d,F)``, ``wo (F,d)``.
+
+Attention that the flash kernel covers (no offset: training/forward and
+prefill from an empty cache) goes to ``kernels.ops.gqa_flash_attention``;
+decode (``Tq`` new tokens at ``q_offset = pos > 0`` against the cache,
+masked at ``kv_len``) has no TPU kernel in the reference and stays on
+``attention`` below, the plain translation of the reference's scan.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+Params = dict[str, Any]
+
+NEG_INF = -1e30
+
+
+# --- initialization helpers ------------------------------------------------------
+
+def dense_init(gen: torch.Generator, in_dim: int, out_shape: tuple[int, ...],
+               dtype: torch.dtype) -> torch.Tensor:
+    """N(0, 1/in_dim) weight of shape (in_dim, *out_shape), drawn in float32
+    on ``gen``'s device and cast to ``dtype``."""
+    scale = 1.0 / (in_dim ** 0.5)
+    w = torch.randn((in_dim, *out_shape), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+# --- norms -----------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm with a zero-centred weight: scales by ``1 + weight``."""
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps) * (1.0 + weight.float())
+    return out.to(dt)
+
+
+# --- rotary embeddings ----------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embeddings on split halves.  x: (..., T, H, Dh); positions: (..., T)."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    angles = positions[..., None].float() * freqs               # (..., T, half)
+    cos = torch.cos(angles)[..., None, :]                        # (..., T, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _softcap(s: torch.Tensor, cap: float) -> torch.Tensor:
+    return cap * torch.tanh(s / cap) if cap > 0.0 else s
+
+
+# --- attention -------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnSpec:
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    window: int = 0               # >0: sliding window size
+    softcap: float = 0.0
+    kv_block: int = 512
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              spec: AttnSpec, *, q_offset: int = 0, is_global: bool = True,
+              kv_len: int | None = None) -> torch.Tensor:
+    """Online-softmax attention over KV blocks.
+
+    q: (B, Tq, H, Dh); k, v: (B, Tk, K, Dh).  Causal with optional sliding
+    window (disabled when ``is_global``) and logit soft-capping.
+    ``q_offset`` is the absolute position of q[0] (decode: cache length so
+    far); ``kv_len`` masks out cache positions >= kv_len.  Memory is
+    O(Tq * block), never O(Tq * Tk).
+    """
+    B, Tq, H, Dh = q.shape
+    Tk, K = k.shape[1], k.shape[2]
+    G = H // K
+    blk = min(spec.kv_block, Tk)
+    nblk = -(-Tk // blk)
+    dev = q.device
+    qg = (q.float() * Dh ** -0.5).reshape(B, Tq, K, G, Dh)
+    qpos = q_offset + torch.arange(Tq, device=dev)                   # (Tq,)
+    limit = Tk if kv_len is None else kv_len
+    m = torch.full((B, Tq, K, G), NEG_INF, dtype=torch.float32, device=dev)
+    lsum = torch.zeros((B, Tq, K, G), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Tq, K, G, Dh), dtype=torch.float32, device=dev)
+    for i in range(nblk):
+        kstart = i * blk
+        kblk = k[:, kstart:kstart + blk].float()
+        vblk = v[:, kstart:kstart + blk].float()
+        n = kblk.shape[1]
+        if n < blk:                   # ragged last block, zero-padded
+            kblk = F.pad(kblk, (0, 0, 0, 0, 0, blk - n))
+            vblk = F.pad(vblk, (0, 0, 0, 0, 0, blk - n))
+        s = torch.einsum("btkgd,bskd->btkgs", qg, kblk)             # B,Tq,K,G,blk
+        s = _softcap(s, spec.softcap)
+        kpos = kstart + torch.arange(blk, device=dev)                # (blk,)
+        delta = qpos[:, None] - kpos[None, :]                        # (Tq, blk)
+        ok = (delta >= 0) & (kpos[None, :] < limit)
+        if spec.window > 0 and not is_global:
+            ok &= delta < spec.window
+        s = s.masked_fill(~ok[None, :, None, None, :], NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        lsum = lsum * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("btkgs,bskd->btkgd", p, vblk)
+        m = m_new
+    out = acc / torch.clamp(lsum, min=1e-30)[..., None]
+    return out.reshape(B, Tq, H, Dh).to(q.dtype)
+
+
+def init_attn_params(gen: torch.Generator, d_model: int, spec: AttnSpec,
+                     dtype: torch.dtype, qk_norm: bool = False) -> Params:
+    p = {
+        "wq": dense_init(gen, d_model, (spec.n_heads, spec.head_dim), dtype),
+        "wk": dense_init(gen, d_model, (spec.n_kv_heads, spec.head_dim), dtype),
+        "wv": dense_init(gen, d_model, (spec.n_kv_heads, spec.head_dim), dtype),
+        "wo": dense_init(gen, spec.n_heads * spec.head_dim, (d_model,),
+                         dtype).reshape(spec.n_heads, spec.head_dim, d_model),
+    }
+    if qk_norm:
+        p["q_norm"] = torch.zeros((spec.head_dim,), dtype=dtype, device=gen.device)
+        p["k_norm"] = torch.zeros((spec.head_dim,), dtype=dtype, device=gen.device)
+    return p
+
+
+def attn_block(params: Params, x: torch.Tensor, spec: AttnSpec, *,
+               rope_theta: float, norm_eps: float, positions: torch.Tensor,
+               is_global: bool = True,
+               kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,
+               cache_len: int | None = None, use_rope: bool = True,
+               constrain_dp: bool = False,
+               ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Projections + (cached) attention.  Returns (out, (k_all, v_all)).
+
+    * training/prefill: ``kv_cache`` is None -> attends within x, through
+      the flash kernel.
+    * cached: ``kv_cache`` holds (B, S, K, Dh) tensors, written in place at
+      ``cache_len`` (the reference returns an updated copy; the port saves
+      the copy).  From an empty cache (``cache_len == 0``, prefill) the
+      kernel attends over the T keys just written, which is what the
+      reference's causal mask over the whole cache leaves; otherwise
+      (decode) ``attention`` runs over the whole cache masked at
+      ``cache_len + T``.
+    * ``constrain_dp`` pins sharding in the reference; serving on one card
+      has none, so it is accepted and ignored.  Cross-attention (``xkv``)
+      belongs to the VLM family and is not ported yet.
+    """
+    del norm_eps, constrain_dp
+    B, T, _ = x.shape
+    H, K, Dh = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    d = x.shape[-1]
+    q = (x @ params["wq"].reshape(d, H * Dh)).view(B, T, H, Dh)
+    k = (x @ params["wk"].reshape(d, K * Dh)).view(B, T, K, Dh)
+    v = (x @ params["wv"].reshape(d, K * Dh)).view(B, T, K, Dh)
+    if "q_norm" in params:
+        q = rms_norm(q, params["q_norm"], 1e-6)
+        k = rms_norm(k, params["k_norm"], 1e-6)
+    if use_rope:
+        q = rope(q, positions, rope_theta)
+        k = rope(k, positions, rope_theta)
+    window = 0 if is_global else spec.window
+
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        pos = 0 if cache_len is None else int(cache_len)
+        ck[:, pos:pos + T] = k.to(ck.dtype)
+        cv[:, pos:pos + T] = v.to(cv.dtype)
+        if pos == 0:
+            out = ops.gqa_flash_attention(q, ck[:, :T], cv[:, :T], causal=True,
+                                          window=window, softcap=spec.softcap)
+        else:
+            out = attention(q, ck, cv, spec, q_offset=pos, is_global=is_global,
+                            kv_len=pos + T)
+        k_all, v_all = ck, cv
+    else:
+        out = ops.gqa_flash_attention(q, k, v, causal=True, window=window,
+                                      softcap=spec.softcap)
+        k_all, v_all = k, v
+    out = out.reshape(B, T, H * Dh) @ params["wo"].reshape(H * Dh, d)
+    return out, (k_all, v_all)
+
+
+# --- MLP -------------------------------------------------------------------------
+
+def init_mlp_params(gen: torch.Generator, d_model: int, d_ff: int,
+                    dtype: torch.dtype) -> Params:
+    return {
+        "wi_gate": dense_init(gen, d_model, (d_ff,), dtype),
+        "wi_up": dense_init(gen, d_model, (d_ff,), dtype),
+        "wo": dense_init(gen, d_ff, (d_model,), dtype),
+    }
+
+
+def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.silu(x) if kind == "silu" else F.gelu(x, approximate="tanh")
+
+
+def mlp_block(params: Params, x: torch.Tensor, act: str,
+              overlap: bool = False, constrain_dp: bool = False
+              ) -> torch.Tensor:
+    """(Sw/Ge)GLU FFN.
+
+    ``overlap`` (tensor-parallel collective rings over a mesh) and
+    ``constrain_dp`` (sharding pins) do nothing on one card: both are
+    accepted and ignored, which is the reference's own ``overlap=True``
+    behaviour without a mesh.
+    """
+    del overlap, constrain_dp
+    g = _act(x @ params["wi_gate"], act)
+    u = x @ params["wi_up"]
+    return (g * u) @ params["wo"]

@@ -1,0 +1,225 @@
+"""Model assembly, dense family (PyTorch port of ``repro/models/model.py``).
+
+``build(cfg, device)`` returns a ``Model`` with:
+
+* ``init(gen)``                       -> params (stacked layers, leading L dim)
+* ``forward(params, batch)``          -> logits (training / prefill path)
+* ``init_cache(B, max_len)``          -> decode cache (K/V + position)
+* ``prefill(params, cache, tokens)``  -> (last-position logits, cache at T)
+* ``decode_step(params, cache, tok)`` -> (logits, cache)  [one-token serve step]
+
+The parameter tree is the reference's leaf for leaf (a dict with the layer
+stack on a leading ``L`` dim), so a JAX parameter tree converts by a tree
+map (``repro_torch.convert``).  The reference scans the layer stack; the
+port runs a Python loop over it, and its per-layer local/global flag is a
+Python bool.  The other families (MoE, SSM, hybrid, VLM, audio) are not
+ported yet and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve
+from repro_torch.models import layers
+from repro_torch.models.layers import AttnSpec, Params
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def tree_map(fn: Callable, tree: Any) -> Any:
+    """Apply ``fn`` to every leaf of a tree of nested dicts."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stack_init(fn: Callable[[], Params], n: int) -> Params:
+    """Call a per-layer init n times -> params stacked on a leading n dim.
+
+    The stack is allocated once and filled layer by layer, so the peak is
+    one layer above the stack (not two stacks, as ``torch.stack`` would)."""
+    first = fn()
+    out = tree_map(lambda a: a.new_empty((n, *a.shape)), first)
+
+    def put(dst, src, i):
+        for key, val in src.items():
+            if isinstance(val, dict):
+                put(dst[key], val, i)
+            else:
+                dst[key][i] = val
+
+    put(out, first, 0)
+    for i in range(1, n):
+        put(out, fn(), i)
+    return out
+
+
+def _take(tree: Params, i: int) -> Params:
+    return tree_map(lambda a: a[i], tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    device: torch.device
+
+    # ---------------- parameter init ----------------
+
+    def init(self, gen: torch.Generator) -> Params:
+        """Random parameters, made on ``gen``'s device (the model's)."""
+        cfg = self.cfg
+        if gen.device.type != self.device.type:
+            raise ValueError(f"generator on {gen.device}, model on "
+                             f"{self.device}")
+        dtype = torch_dtype(cfg.dtype)
+        dev = gen.device
+        p: Params = {
+            "embed": (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                                  device=dev, dtype=torch.float32)
+                      * 0.02).to(dtype),
+            "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+        }
+        if not cfg.tie_embeddings:
+            p["unembed"] = layers.dense_init(gen, cfg.d_model,
+                                             (cfg.vocab_size,), dtype)
+        p["blocks"] = _stack_init(lambda: self._init_block(gen, dtype),
+                                  cfg.n_layers)
+        return p
+
+    def _attn_spec(self) -> AttnSpec:
+        cfg = self.cfg
+        return AttnSpec(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                        window=cfg.sliding_window,
+                        softcap=cfg.attn_logit_softcap)
+
+    def _init_block(self, gen: torch.Generator, dtype: torch.dtype) -> Params:
+        cfg = self.cfg
+        dev = gen.device
+        return {
+            "ln1": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+            "attn": layers.init_attn_params(gen, cfg.d_model,
+                                            self._attn_spec(), dtype,
+                                            qk_norm=cfg.qk_norm),
+            "ln2": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+            "mlp": layers.init_mlp_params(gen, cfg.d_model, cfg.d_ff, dtype),
+        }
+
+    # ---------------- per-layer flags ----------------
+
+    def _layer_is_global(self) -> list[bool]:
+        cfg = self.cfg
+        if cfg.sliding_window and cfg.local_global_every:
+            every = cfg.local_global_every
+            return [i % every == every - 1 for i in range(cfg.n_layers)]
+        return [True] * cfg.n_layers
+
+    # ---------------- forward (train / prefill) ----------------
+
+    def embed_inputs(self, params: Params, batch: dict) -> torch.Tensor:
+        cfg = self.cfg
+        x = params["embed"][batch["tokens"]]
+        # the reference's `dense and tied or audio`, for the dense family
+        if cfg.tie_embeddings:
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+        return x
+
+    def forward(self, params: Params, batch: dict) -> torch.Tensor:
+        cfg = self.cfg
+        x = self.embed_inputs(params, batch)
+        B, T, _ = x.shape
+        positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
+        x = self._run_decoder(params, x, positions)
+        x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return self._unembed(params, x)
+
+    def _unembed(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+        logits = x @ w.to(x.dtype)
+        if cfg.final_logit_softcap:
+            logits = (cfg.final_logit_softcap
+                      * torch.tanh(logits / cfg.final_logit_softcap))
+        return logits
+
+    def _decoder_layer(self, blk: Params, x, positions, is_global: bool,
+                       kv_cache=None, cache_len=None):
+        cfg = self.cfg
+        h = layers.rms_norm(x, blk["ln1"], cfg.norm_eps)
+        a, kv = layers.attn_block(
+            blk["attn"], h, self._attn_spec(), rope_theta=cfg.rope_theta,
+            norm_eps=cfg.norm_eps, positions=positions, is_global=is_global,
+            kv_cache=kv_cache, cache_len=cache_len)
+        x = x + a
+        h = layers.rms_norm(x, blk["ln2"], cfg.norm_eps)
+        x = x + layers.mlp_block(blk["mlp"], h, cfg.act)
+        return x, kv
+
+    def _run_decoder(self, params, x, positions, cache=None, cache_len=None):
+        """All layers over x; with a cache, layer i reads and writes its
+        K/V rows ``cache["k"][i]``, ``cache["v"][i]`` in place."""
+        for i, is_global in enumerate(self._layer_is_global()):
+            kv = None if cache is None else (cache["k"][i], cache["v"][i])
+            x, _ = self._decoder_layer(_take(params["blocks"], i), x,
+                                       positions, is_global, kv_cache=kv,
+                                       cache_len=cache_len)
+        return x
+
+    # ---------------- prefill ----------------
+
+    @torch.no_grad()
+    def prefill(self, params: Params, cache: dict, tokens: torch.Tensor
+                ) -> tuple[torch.Tensor, dict]:
+        """Fill the decode cache from a (B, T) prompt; returns last-position
+        logits and the cache positioned at T.  The cache's K/V tensors are
+        written in place."""
+        cfg = self.cfg
+        x = self.embed_inputs(params, {"tokens": tokens})
+        B, T, _ = x.shape
+        positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
+        x = self._run_decoder(params, x, positions, cache=cache, cache_len=0)
+        x = layers.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+        return self._unembed(params, x), {**cache, "pos": T}
+
+    # ---------------- decode ----------------
+
+    def init_cache(self, batch_size: int, max_len: int) -> dict:
+        """K/V ``(L, B, max_len, K, Dh)`` in the model dtype and the shared
+        position ``pos`` (a Python int)."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads,
+                 cfg.head_dim)
+        dtype = torch_dtype(cfg.dtype)
+        return {"pos": 0,
+                "k": torch.zeros(shape, dtype=dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+
+    @torch.no_grad()
+    def decode_step(self, params: Params, cache: dict, tokens: torch.Tensor
+                    ) -> tuple[torch.Tensor, dict]:
+        """One serve step: tokens (B, 1) -> logits (B, 1, V), updated cache."""
+        cfg = self.cfg
+        x = self.embed_inputs(params, {"tokens": tokens})
+        pos = int(cache["pos"])
+        positions = torch.full((tokens.shape[0], 1), pos, dtype=torch.long,
+                               device=x.device)
+        x = self._run_decoder(params, x, positions, cache=cache,
+                              cache_len=pos)
+        x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return self._unembed(params, x), {**cache, "pos": pos + 1}
+
+
+def build(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet; the port "
+            "covers the dense family (see ROADMAP.md Queue 1)")
+    return Model(cfg, resolve(device))

@@ -1,0 +1,94 @@
+"""Batched serving engine (PyTorch port of ``repro/serve/engine.py``).
+
+Static max-batch slots, one batched prefill of left-padded prompts into the
+KV cache, then lockstep decode with greedy or temperature sampling and
+per-slot EOS.  As in the reference, pads are token 0 and are not masked,
+and all slots share one position.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.models.model import Model
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_batch: int = 8
+    max_len: int = 256
+    temperature: float = 0.0     # 0 -> greedy
+    eos_token: int = 1
+    seed: int = 0
+
+
+class Engine:
+    def __init__(self, model: Model, params, cfg: ServeConfig):
+        self.model = model
+        self.params = params
+        self.cfg = cfg
+        # filled by each generate(): host-clock seconds of the prefill and of
+        # the decode steps (each ends in a device->host copy of the sampled
+        # tokens, so the clock covers the device work), and the sampled-
+        # position logits of every step, (B, V) each
+        self.timing: dict[str, float] = {}
+        self.step_logits: list[torch.Tensor] = []
+
+    @torch.no_grad()
+    def generate(self, prompts: list[list[int]], max_new: int = 32
+                 ) -> list[list[int]]:
+        """Generate continuations for a batch of prompts (one static batch).
+
+        Prompts are left-padded to a common length so a single batched
+        prefill fills every slot's cache; decode then proceeds lockstep with
+        per-slot EOS masking.
+        """
+        cfg = self.cfg
+        B = len(prompts)
+        if B > cfg.max_batch:
+            raise ValueError(f"{B} prompts > max_batch {cfg.max_batch}")
+        dev = self.model.device
+        plen = max(len(p) for p in prompts)
+        toks = np.zeros((B, plen), np.int64)
+        for i, p in enumerate(prompts):
+            toks[i, plen - len(p):] = p          # left-pad
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        self.step_logits = []
+        t0 = time.perf_counter()
+        cache = self.model.init_cache(B, cfg.max_len)
+        logits, cache = self.model.prefill(
+            self.params, cache, torch.as_tensor(toks, device=dev))
+        cur = self._sample(logits, gen)
+        cur_host = cur[:, 0].tolist()
+        t1 = time.perf_counter()
+        out = [list(p) for p in prompts]
+        done = np.zeros(B, bool)
+        steps = 0
+        for _ in range(max_new):
+            for i in range(B):
+                if not done[i]:
+                    out[i].append(cur_host[i])
+                    done[i] |= cur_host[i] == cfg.eos_token
+            if done.all() or cache["pos"] >= cfg.max_len - 1:
+                break
+            logits, cache = self.model.decode_step(self.params, cache, cur)
+            cur = self._sample(logits, gen)
+            cur_host = cur[:, 0].tolist()
+            steps += 1
+        t2 = time.perf_counter()
+        self.timing = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
+                       "decode_steps": steps}
+        return out
+
+    def _sample(self, logits: torch.Tensor, gen: torch.Generator
+                ) -> torch.Tensor:
+        lg = logits[:, -1, :]
+        self.step_logits.append(lg)
+        if self.cfg.temperature <= 0:
+            return torch.argmax(lg, dim=-1)[:, None]
+        probs = torch.softmax(lg.float() / self.cfg.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)
