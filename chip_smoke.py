@@ -9,13 +9,26 @@ Phases, each printing what it found; any failure raises and exits non-zero:
    (one ``nvcc`` per source, started together), with ``-Xptxas -v`` output;
 3. kernels against their plain PyTorch versions on the card, with stated
    tolerances, timed with CUDA events beside the plain version, a PyTorch
-   library call computing the same function, and the card's bound;
-4. serving: glm4-9b at full width (40 layers, bf16, random weights from a
-   seeded generator on the card) answers 4 requests of several hundred to
-   1100 tokens through ``Engine.generate``; launch counts are zeroed just
-   before and read just after, and every kernel of the path must have run;
-5. decode against forward: the teacher-forced forward logits at the
-   generated positions against the logits decode produced.
+   library call computing the same function where there is one, and the
+   card's bound: flash attention, the selective scan's two entry points
+   (``mamba_scan``, ``selective_scan``) and the LUT matmul;
+4. for each served model, glm4-9b (40 layers) then falcon-mamba-7b (64
+   Mamba-1 layers), at full width in bf16 with random weights from a seeded
+   generator on the card, the previous model's weights freed first:
+   a. serving: 4 requests of several hundred to 1100 tokens through
+      ``Engine.generate``; launch counts are zeroed just before and read
+      just after, and every kernel of the model's path must have run (flash
+      once per layer in prefill; the selective scan once per layer in
+      prefill and in every decode step);
+   b. decode against forward: the teacher-forced forward logits at the
+      generated positions against the logits decode produced (for the
+      Mamba model, whose state carries each step's bf16 rounding, the
+      served run is held at its prefill step and every step is held on
+      the same model in float32, teacher-forced);
+   c. profile: one prefill and one decode step under ``torch.profiler``;
+5. the entry points no model calls: ``ops.quantize_weights`` +
+   ``ops.lut_matmul`` on falcon-mamba's layer-0 ``in_proj`` and
+   ``ops.mamba_scan`` on the decay and input it builds, counted the same way.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -24,6 +37,8 @@ the repository beside it, the script fails before printing either.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import pathlib
 import subprocess
@@ -38,7 +53,10 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import lut_matmul as lm  # noqa: E402
+from repro_torch.kernels import mamba_scan as ms  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 
@@ -46,17 +64,35 @@ from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# special-function units (exp): 16 per clock per SM, 132 SMs, 1.98 GHz boost
+# (NVIDIA's arithmetic-instruction throughput table, compute capability 9.0)
+PEAK_SFU_OPS = 16 * 132 * 1.98e9
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # abs, against the plain
 # version on the same inputs: f32 differs by summation order only; bf16 by
 # one rounding of the output (1 ulp of |o| < 4 is <= 1.6e-2)
 
-ARCH = "glm4-9b"
+# the selective scan against its plain version (both f32 recurrences: fma
+# contraction and the order of the 16-term sum over n differ); elementwise
+# |got - want| <= atol + rtol * |want|, TestMambaScan's 1e-4
+SCAN_TOL = dict(rtol=1e-4, atol=1e-4)
+# the LUT matmul against dequantize + cuBLAS SGEMM (TF32 off): f32 sums of K
+# products in two orders; TestLutMatmul's f32 tolerance, with weights at the
+# models' init scale N(0, 1/K) so that y ~ N(0, 1) and the rounding of the
+# partial sums (~sqrt(K) * 2^-24 ~ 4e-6 at K = 4096) stays far below 1e-4
+LUT_TOL = dict(rtol=1e-5, atol=1e-4)
+# 4-bit codebooks against the bf16 weights they quantize: uniform rounding
+# error over a ~4.8-sigma group range in 15 steps is ~9% of the product's
+# rms; relative L2 above this is a wrong product, not quantization
+LUT_QUANT_REL_L2 = 0.15
+
+ARCHS = ("glm4-9b", "falcon-mamba-7b")
 PROMPT_LENS = (347, 611, 893, 1100)        # none a multiple of 128
 MAX_NEW = 16
 MAX_LEN = 2048
 # decode vs forward at full width in bf16: the two paths round differently
-# (kernel vs blockwise attention, different GEMM shapes) through 40 layers
+# (kernel vs blockwise attention, different GEMM shapes) through 40 layers;
+# the same limits hold falcon-mamba-7b (64 layers)
 DECODE_REL_L2 = 5e-2                        # per step, ||d|| / ||logits||
 DECODE_MAX_ABS_FRAC = 0.1                   # max |d| / max |logits|
 
@@ -64,6 +100,21 @@ DECODE_MAX_ABS_FRAC = 0.1                   # max |d| / max |logits|
 def log(phase: str, **kv) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
           flush=True)
+
+
+COUNTED = {"flash_attention": fa.flash_attention_gqa,
+           "mamba_scan": ms.mamba_scan,
+           "selective_scan": ms.selective_scan,
+           "lut_matmul": lm.lut_matmul}
+
+
+def zero_counts() -> None:
+    for fn in COUNTED.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in COUNTED.items()}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -122,7 +173,7 @@ def _rand(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
-def phase_kernels(gen) -> dict:
+def phase_flash(gen) -> dict:
     """Flash attention against its plain versions in ``kernels/ref.py``."""
     cases = []
     for T in (1000, 1100):                       # the serving prefill shape
@@ -148,10 +199,11 @@ def phase_kernels(gen) -> dict:
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         tol = TOL[c["dtype"]]
-        log("kernel", case={k_: (str(v_).replace("torch.", "") if
-                                 k_ == "dtype" else v_)
-                            for k_, v_ in c.items()}.__repr__()
-            .replace(" ", ""), max_abs_err=f"{err:.3e}", tol=tol)
+        case = {k_: (str(v_).replace("torch.", "") if k_ == "dtype" else v_)
+                for k_, v_ in c.items()}
+        log("kernel", name="flash_attention",
+            case=repr(case).replace(" ", ""), max_abs_err=f"{err:.3e}",
+            tol=tol)
         if not err <= tol:
             raise AssertionError(f"flash attention off by {err} > {tol}: {c}")
     # the (BH, T, D) entry point of the reference's layout
@@ -159,8 +211,8 @@ def phase_kernels(gen) -> dict:
     got = fa.flash_attention(q, q * 0.5, q * 2, window=33)
     want = ref.flash_attention_ref(q, q * 0.5, q * 2, window=33)
     err = (got - want).abs().max().item()
-    log("kernel", case="bh_layout", max_abs_err=f"{err:.3e}",
-        tol=TOL[torch.float32])
+    log("kernel", name="flash_attention", case="bh_layout",
+        max_abs_err=f"{err:.3e}", tol=TOL[torch.float32])
     if not err <= TOL[torch.float32]:
         raise AssertionError(f"flash_attention (BH layout) off by {err}")
 
@@ -183,7 +235,8 @@ def phase_kernels(gen) -> dict:
     flops, nbytes = attn_cost(B, T, T, H, K, D, 2, True)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     bound_ms = max(t_ops, t_bytes)
-    log("kernel-time", shape=f"B{B}_T{T}_H{H}_K{K}_D{D}_bf16_causal",
+    log("kernel-time", name="flash_attention",
+        shape=f"B{B}_T{T}_H{H}_K{K}_D{D}_bf16_causal",
         ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
         library_ms=f"{library_ms:.4f}", library_err=f"{lib_err.item():.3e}",
         bound_ms=f"{bound_ms:.4f}", gflop=f"{flops / 1e9:.2f}",
@@ -200,13 +253,195 @@ def phase_kernels(gen) -> dict:
             "library_ms": library_ms}
 
 
+def _close(got, want, rtol, atol) -> tuple[float, bool]:
+    """Max |got - want| and whether every element is within
+    ``atol + rtol * |want|``."""
+    d = (got.float() - want.float()).abs()
+    return d.max().item(), bool((d <= atol + rtol * want.float().abs()).all())
+
+
+def _held(name, case, got, want, tol) -> float:
+    err, ok = _close(got, want, **tol)
+    log("kernel", name=name, case=repr(case).replace(" ", ""),
+        max_abs_err=f"{err:.3e}", tol=repr(tol).replace(" ", ""))
+    if not ok:
+        raise AssertionError(f"{name} off its plain version by {err} "
+                             f"(tol {tol}) at {case}")
+    return err
+
+
+def _scan_inputs(gen, B, T, D, N):
+    decay = torch.rand((B, T, D, N), generator=gen, device="cuda") * 0.5 + 0.5
+    u = torch.randn((B, T, D, N), generator=gen, device="cuda") * 0.1
+    c = torch.randn((B, T, N), generator=gen, device="cuda")
+    return decay, u, c
+
+
+def phase_mamba_scan(gen) -> dict:
+    """``mamba_scan``, the TPU kernel's contract, against
+    ``ref.mamba_scan_ref``; timed at B=1, T=1024, D=8192, N=16."""
+    for case in [(2, 100, 37, 5), (3, 192, 8, 16), (2, 77, 300, 12)]:
+        args = _scan_inputs(gen, *case)
+        _held("mamba_scan", case, ms.mamba_scan(*args),
+              ref.mamba_scan_ref(*args), SCAN_TOL)
+    B, T, D, N = 1, 1024, 8192, 16
+    args = _scan_inputs(gen, B, T, D, N)
+    err = _held("mamba_scan", (B, T, D, N), ms.mamba_scan(*args),
+                ref.mamba_scan_ref(*args), SCAN_TOL)
+    ms_ = cuda_ms(lambda: ms.mamba_scan(*args))
+    plain_ms = cuda_ms(lambda: ref.mamba_scan_ref(*args), iters=2, warmup=1)
+    nbytes = 4 * (2 * B * T * D * N + B * T * N + B * T * D)
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    log("kernel-time", name="mamba_scan", shape=f"B{B}_T{T}_D{D}_N{N}_f32",
+        ms=f"{ms_:.4f}", plain_ms=f"{plain_ms:.4f}", library_ms="none",
+        bound_ms=f"{bound_ms:.4f}", mbytes=f"{nbytes / 1e6:.2f}",
+        gbytes_s=f"{nbytes / ms_ / 1e6:.1f}", max_abs_err=f"{err:.3e}")
+    return {"name": "mamba_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+            "replaces": "src/repro/kernels/mamba_scan.py:42",
+            "launches": None, "max_abs_err": err, "ms": ms_,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None}
+
+
+def _selective_inputs(gen, B, T, D, N, dtype, offset=7):
+    """dt from a softplus as in the model, x and b, c (slices of one
+    projection, ``offset`` columns in, as the model passes them) in
+    ``dtype``, A = -(1..N) as the model's init, h0 random."""
+    dt = F.softplus(torch.randn((B, T, D), generator=gen, device="cuda") - 1)
+    x = torch.randn((B, T, D), generator=gen, device="cuda").to(dtype)
+    proj = torch.randn((B, T, offset + 2 * N), generator=gen,
+                       device="cuda").to(dtype)
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device="cuda"
+                      ).repeat(D, 1)
+    h0 = torch.randn((B, D, N), generator=gen, device="cuda") * 0.5
+    return (dt, x, proj[..., offset:offset + N], proj[..., offset + N:], A,
+            h0)
+
+
+def _selective_cost(B, T, D, N, itemsize):
+    nbytes = (4 * B * T * D + itemsize * B * T * D + 2 * itemsize * B * T * N
+              + 4 * D * N + 2 * 4 * B * D * N + 4 * B * T * D)
+    return B * T * D * N, nbytes          # exp evaluations, bytes
+
+
+def phase_selective_scan(gen) -> dict:
+    """``selective_scan``, the fused Mamba-1 form the model calls, against
+    ``ref.selective_scan_ref``; timed at the serving prefill shape (B=4,
+    T=1100, d_inner 8192, n 16, bf16 x/b/c) and the decode step's (T=1)."""
+    for case in [(2, 37, 48, 12, torch.float32), (2, 300, 96, 16,
+                                                  torch.bfloat16),
+                 (3, 1, 64, 16, torch.bfloat16), (1, 70, 40, 5,
+                                                  torch.float32)]:
+        args = _selective_inputs(gen, *case)
+        y, h = ms.selective_scan(*args)
+        wy, wh = ref.selective_scan_ref(*args)
+        _held("selective_scan", case[:4] + (str(case[4])[6:], "y"), y, wy,
+              SCAN_TOL)
+        _held("selective_scan", case[:4] + (str(case[4])[6:], "h_last"), h,
+              wh, SCAN_TOL)
+    rec = None
+    for T in (max(PROMPT_LENS), 1):
+        B, D, N = 4, 8192, 16
+        args = _selective_inputs(gen, B, T, D, N, torch.bfloat16, offset=256)
+        y, h = ms.selective_scan(*args)
+        wy, wh = ref.selective_scan_ref(*args)
+        err = max(_held("selective_scan", (B, T, D, N, "bfloat16", "y"), y,
+                        wy, SCAN_TOL),
+                  _held("selective_scan", (B, T, D, N, "bfloat16", "h_last"),
+                        h, wh, SCAN_TOL))
+        ms_ = cuda_ms(lambda: ms.selective_scan(*args))
+        plain_ms = cuda_ms(lambda: ref.selective_scan_ref(*args), iters=2,
+                           warmup=1)
+        exps, nbytes = _selective_cost(B, T, D, N, 2)
+        t_ops = exps / PEAK_SFU_OPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        log("kernel-time", name="selective_scan",
+            shape=f"B{B}_T{T}_D{D}_N{N}_bf16", ms=f"{ms_:.4f}",
+            plain_ms=f"{plain_ms:.4f}", library_ms="none",
+            bound_ms=f"{max(t_ops, t_bytes):.4f}",
+            sfu_bound_ms=f"{t_ops:.4f}", bytes_bound_ms=f"{t_bytes:.4f}",
+            mexp=f"{exps / 1e6:.1f}", mbytes=f"{nbytes / 1e6:.2f}",
+            max_abs_err=f"{err:.3e}")
+        if rec is None:                   # the prefill shape is the record
+            rec = {"name": "selective_scan", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+                   "replaces": "src/repro/kernels/mamba_scan.py:42",
+                   "launches": None, "max_abs_err": err, "ms": ms_,
+                   "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "library_ms": None}
+    return rec
+
+
+def _lut_inputs(gen, M, K, N, dtype):
+    """x ~ N(0, 1) and weights at the models' init scale N(0, 1/K), so that
+    y ~ N(0, 1); codes and codebooks from ``quantize_weights``."""
+    x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+    w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
+    codes, lut = lm.quantize_weights(w)
+    return x, codes, lut
+
+
+def phase_lut_matmul(gen) -> dict:
+    """``lut_matmul`` against ``ref.lut_matmul_ref`` (dequantize, then
+    SGEMM); timed at falcon-mamba's in_proj, M=1024, K=4096, N=16384, f32,
+    beside cuBLAS SGEMM (TF32 off) on the dequantized weights."""
+    for case in [(100, 192, 77, torch.float32), (3, 512, 300, torch.bfloat16),
+                 (256, 4096, 2048, torch.bfloat16),
+                 (130, 128, 260, torch.float32)]:
+        args = _lut_inputs(gen, *case)
+        _held("lut_matmul", case[:3] + (str(case[3])[6:],),
+              lm.lut_matmul(*args), ref.lut_matmul_ref(*args), LUT_TOL)
+    M, K, N = 1024, 4096, 16384
+    x, codes, lut = _lut_inputs(gen, M, K, N, torch.float32)
+    want = ref.lut_matmul_ref(x, codes, lut)
+    err = _held("lut_matmul", (M, K, N, "float32"),
+                lm.lut_matmul(x, codes, lut), want, LUT_TOL)
+    del want
+    ms_ = cuda_ms(lambda: lm.lut_matmul(x, codes, lut))
+    plain_ms = cuda_ms(lambda: ref.lut_matmul_ref(x, codes, lut), iters=5)
+    w = torch.take_along_dim(lut.transpose(1, 2), codes.reshape(
+        K // lm.GROUP, lm.GROUP, N).long(), dim=1).reshape(K, N)
+    library_ms = cuda_ms(lambda: torch.matmul(x, w))
+    flops = 2 * M * K * N
+    nbytes = 4 * M * K + K * N + 4 * (K // lm.GROUP) * N * 16 + 4 * M * N
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    log("kernel-time", name="lut_matmul", shape=f"M{M}_K{K}_N{N}_f32",
+        ms=f"{ms_:.4f}", plain_ms=f"{plain_ms:.4f}",
+        library_ms=f"{library_ms:.4f}", bound_ms=f"{max(t_ops, t_bytes):.4f}",
+        gflop=f"{flops / 1e9:.2f}", mbytes=f"{nbytes / 1e6:.2f}",
+        tflops=f"{flops / ms_ / 1e9:.2f}",
+        library_tflops=f"{flops / library_ms / 1e9:.2f}",
+        max_abs_err=f"{err:.3e}")
+    return {"name": "lut_matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/lut_matmul.cu",
+            "replaces": "src/repro/kernels/lut_matmul.py:60",
+            "launches": None, "max_abs_err": err, "ms": ms_,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms}
+
+
 def _prompts(gen, vocab):
     return [torch.randint(2, vocab, (n,), generator=gen, device="cuda")
             .tolist() for n in PROMPT_LENS]
 
 
-def phase_serve(gen) -> tuple:
-    cfg = registry.get(ARCH)
+def _expected_counts(cfg, decode_steps: int) -> dict[str, int]:
+    """Launches of the model's serving path: flash once per layer in
+    prefill (decode attention is plain PyTorch); the selective scan once per
+    layer in prefill and in every decode step."""
+    want = dict.fromkeys(COUNTED, 0)
+    if cfg.family == "ssm":
+        want["selective_scan"] = cfg.n_layers * (1 + decode_steps)
+    else:
+        want["flash_attention"] = cfg.n_layers
+    return want
+
+
+def phase_serve(arch, gen) -> tuple:
+    cfg = registry.get(arch)
     model = model_lib.build(cfg, "cuda")
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -214,6 +449,7 @@ def phase_serve(gen) -> tuple:
     n_params = sum(p.numel() for p in _leaves(params))
     log("serve-init", arch=cfg.name, layers=cfg.n_layers,
         d_model=cfg.d_model, params_B=f"{n_params / 1e9:.3f}",
+        weights_GB=f"{sum(p.nbytes for p in _leaves(params)) / 1e9:.2f}",
         seconds=f"{time.perf_counter() - t0:.1f}")
     engine = Engine(model, params, ServeConfig(max_batch=4, max_len=MAX_LEN,
                                                eos_token=-1))
@@ -222,21 +458,21 @@ def phase_serve(gen) -> tuple:
     prompts = _prompts(gen, cfg.vocab_size)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_gqa.launches = 0
+    zero_counts()
     outs = engine.generate(prompts, max_new=MAX_NEW)
     torch.cuda.synchronize()
-    launches = fa.flash_attention_gqa.launches
+    counts = read_counts()
     tm = engine.timing
     new = [o[len(p):] for o, p in zip(outs, prompts)]
     n_new = sum(len(g) for g in new)
-    log("serve", prompts=list(PROMPT_LENS), max_new=MAX_NEW,
+    log("serve", arch=cfg.name, prompts=list(PROMPT_LENS), max_new=MAX_NEW,
         prefill_ms=f"{tm['prefill_s'] * 1e3:.2f}",
         decode_ms_per_step=f"{tm['decode_s'] * 1e3 / tm['decode_steps']:.2f}",
         decode_steps=tm["decode_steps"],
         decode_tok_s=f"{4 * tm['decode_steps'] / tm['decode_s']:.1f}",
         e2e_tok_s=f"{n_new / (tm['prefill_s'] + tm['decode_s']):.1f}",
         peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
-        flash_launches=launches)
+        launches=repr(counts).replace(" ", ""))
     if not all(len(g) == MAX_NEW for g in new):
         raise AssertionError(f"generated lengths {[len(g) for g in new]}")
     if not all(0 <= t < cfg.vocab_size for g in new for t in g):
@@ -244,9 +480,10 @@ def phase_serve(gen) -> tuple:
     for lg in engine.step_logits:
         if not bool(torch.isfinite(lg.float()).all()):
             raise AssertionError("non-finite logits")
-    if launches != cfg.n_layers * 1:           # one prefill call
-        raise AssertionError(f"flash launches {launches} != {cfg.n_layers}")
-    return model, params, engine, prompts, outs, launches
+    want = _expected_counts(cfg, tm["decode_steps"])
+    if counts != want:
+        raise AssertionError(f"{cfg.name} launches {counts} != {want}")
+    return model, params, engine, prompts, outs, counts
 
 
 def _leaves(tree):
@@ -257,27 +494,116 @@ def _leaves(tree):
             yield v
 
 
-def phase_decode_vs_forward(model, params, engine, prompts, outs) -> None:
+def _padded(prompts, outs):
     plen = max(len(p) for p in prompts)
     rows = [[0] * (plen - len(p)) + o for p, o in zip(prompts, outs)]
-    toks = torch.tensor(rows, device="cuda")
+    return plen, torch.tensor(rows, device="cuda")
+
+
+def _teacher_forced(model, params, prompts, outs) -> list:
+    """The logits ``Engine.generate`` produces for these tokens: prefill of
+    the left-padded prompts, then one decode step per generated token."""
+    plen, toks = _padded(prompts, outs)
+    with torch.no_grad():
+        lg, cache = model.prefill(params, model.init_cache(len(prompts),
+                                                           MAX_LEN),
+                                  toks[:, :plen])
+        steps = [lg[:, -1]]
+        for j in range(MAX_NEW - 1):
+            lg, cache = model.decode_step(params, cache,
+                                          toks[:, plen + j:plen + j + 1])
+            steps.append(lg[:, -1])
+    return steps
+
+
+def _against_forward(model, params, prompts, outs, step_logits):
+    """Per-step relative L2 and max-abs fraction of the step logits against
+    the teacher-forced forward at the same positions, and the greedy
+    agreement."""
+    plen, toks = _padded(prompts, outs)
     with torch.no_grad():
         full = model.forward(params, {"tokens": toks})
-    worst_rel, worst_frac, agree, n = 0.0, 0.0, 0, 0
-    for j, lg in enumerate(engine.step_logits[:MAX_NEW]):
+    rels, fracs, agree, n = [], [], 0, 0
+    for j, lg in enumerate(step_logits[:MAX_NEW]):
         want = full[:, plen - 1 + j].float()
         d = lg.float() - want
-        rel = (d.norm() / want.norm()).item()
-        frac = (d.abs().max() / want.abs().max()).item()
-        worst_rel, worst_frac = max(worst_rel, rel), max(worst_frac, frac)
+        rels.append((d.norm() / want.norm()).item())
+        fracs.append((d.abs().max() / want.abs().max()).item())
         agree += int((lg.argmax(-1) == want.argmax(-1)).sum())
         n += lg.shape[0]
-    log("decode-vs-forward", steps=MAX_NEW, worst_rel_l2=f"{worst_rel:.3e}",
+    return rels, fracs, f"{agree}/{n}"
+
+
+def _rounding_sensitivity(model, params, prompts) -> float:
+    """Relative change of the last logits when the last position's input
+    embedding is scaled by 1 + 2^-8 (at most one bf16 ulp): how far the
+    model's own rounding noise reaches its output."""
+    plen = max(len(p) for p in prompts)
+    toks = torch.tensor([[0] * (plen - len(p)) + p for p in prompts],
+                        device="cuda")
+    cfg = model.cfg
+
+    def last_logits(x):
+        if cfg.family == "ssm":
+            h = model._run_ssm(params, x)
+        else:
+            pos = torch.arange(plen, device="cuda")[None].expand(len(x), plen)
+            h = model._run_decoder(params, x, pos)
+        h = layers.rms_norm(h[:, -1:], params["final_norm"], cfg.norm_eps)
+        return model._unembed(params, h).float()
+
+    with torch.no_grad():
+        x = model.embed_inputs(params, {"tokens": toks})
+        xp = x.clone()
+        xp[:, -1] = (xp[:, -1].float() * (1 + 2 ** -8)).to(x.dtype)
+        a, b = last_logits(x), last_logits(xp)
+    return ((b - a).norm() / a.norm()).item()
+
+
+def _fmt(xs) -> str:
+    return "[" + ",".join(f"{x:.2e}" for x in xs) + "]"
+
+
+def phase_decode_vs_forward(model, params, engine, prompts, outs) -> None:
+    """The served bf16 logits against the forward's.  A dense model is held
+    at every step.  A Mamba model carries each decode step's bf16 rounding
+    in its state, so only its prefill step (no carried state yet) is held
+    here; ``phase_decode_vs_forward_f32`` holds every step of its cached
+    path."""
+    cfg = model.cfg
+    rels, fracs, agree = _against_forward(model, params, prompts, outs,
+                                          engine.step_logits)
+    held = len(rels) if cfg.family != "ssm" else 1
+    worst_rel, worst_frac = max(rels[:held]), max(fracs[:held])
+    noise = _rounding_sensitivity(model, params, prompts)
+    log("decode-vs-forward", arch=cfg.name, dtype=cfg.dtype, steps=MAX_NEW,
+        held_steps=held, worst_rel_l2=f"{worst_rel:.3e}",
         tol_rel_l2=DECODE_REL_L2, worst_max_abs_frac=f"{worst_frac:.3e}",
-        tol_max_abs_frac=DECODE_MAX_ABS_FRAC,
-        greedy_agreement=f"{agree}/{n}")
+        tol_max_abs_frac=DECODE_MAX_ABS_FRAC, greedy_agreement=agree,
+        per_step_rel_l2=_fmt(rels),
+        rounding_sensitivity=f"{noise:.3e}")
     if not (worst_rel <= DECODE_REL_L2 and worst_frac <= DECODE_MAX_ABS_FRAC):
         raise AssertionError("decode logits disagree with forward")
+
+
+def phase_decode_vs_forward_f32(arch, prompts, outs) -> None:
+    """The cached path's function at full width without bf16's noise: the
+    same model in float32 (weights from the same seed), the served tokens
+    teacher-forced through prefill and decode, against its forward, held
+    at every step under the same limits."""
+    cfg = dataclasses.replace(registry.get(arch), dtype="float32")
+    model = model_lib.build(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    steps = _teacher_forced(model, params, prompts, outs)
+    rels, fracs, agree = _against_forward(model, params, prompts, outs,
+                                          steps)
+    log("decode-vs-forward", arch=cfg.name, dtype=cfg.dtype, steps=MAX_NEW,
+        held_steps=len(rels), worst_rel_l2=f"{max(rels):.3e}",
+        tol_rel_l2=DECODE_REL_L2, worst_max_abs_frac=f"{max(fracs):.3e}",
+        tol_max_abs_frac=DECODE_MAX_ABS_FRAC, greedy_agreement=agree,
+        per_step_rel_l2=_fmt(rels))
+    if not (max(rels) <= DECODE_REL_L2 and max(fracs) <= DECODE_MAX_ABS_FRAC):
+        raise AssertionError("float32 decode logits disagree with forward")
 
 
 def phase_profile(model, params, prompts) -> None:
@@ -310,7 +636,8 @@ def phase_profile(model, params, prompts) -> None:
                 rec[0] += ev.time_range.elapsed_us()
                 rec[1] += 1
         dev_us = sum(us for us, _ in kernels.values())
-        log("profile", step=name, wall_ms=f"{wall_us / 1e3:.2f}",
+        log("profile", arch=model.cfg.name, step=name,
+            wall_ms=f"{wall_us / 1e3:.2f}",
             device_ms=(f"{dev_us / 1e3:.2f}" if dev_us else "not_measured"),
             busy_share=(f"{dev_us / wall_us:.3f}" if dev_us else
                         "not_measured"),
@@ -320,16 +647,88 @@ def phase_profile(model, params, prompts) -> None:
             print(f"    {us / 1e3:9.3f} ms  x{n:<5d} {kname[:90]}", flush=True)
 
 
+def phase_entry_points(model, params, prompts, gen) -> dict[str, int]:
+    """The entry points that no model path calls, driven as a user would:
+    ``ops.quantize_weights`` + ``ops.lut_matmul`` on falcon-mamba's layer-0
+    ``in_proj`` (the layer's normalized input over the first 256 tokens of
+    each prompt)
+    against the product with the bf16 weights; ``ops.mamba_scan`` on the
+    decay and input that ``ops.selective_scan`` builds, against it.
+    Counts are zeroed just before and read just after."""
+    cfg = model.cfg
+    n = min(256, *map(len, prompts))
+    toks = torch.tensor([p[:n] for p in prompts], device="cuda")
+    h = layers.rms_norm(params["embed"][toks], params["blocks"]["ln"][0],
+                        cfg.norm_eps).reshape(-1, cfg.d_model).float()
+    w = params["blocks"]["mixer"]["in_proj"][0]
+    B, T, D, N = 1, 1024, cfg.d_inner, cfg.ssm_state
+    dt, x, b, c, A, _ = _selective_inputs(gen, B, T, D, N, torch.float32)
+    torch.cuda.synchronize()
+    zero_counts()
+    y4 = ops.lut_matmul(h, *ops.quantize_weights(w.float()))
+    y_fused, _ = ops.selective_scan(dt, x, b, c, A,
+                                    torch.zeros((B, D, N), device="cuda"))
+    decay = torch.exp(dt[..., None] * A)
+    u = (dt * x)[..., None] * b[:, :, None, :]
+    y_tpu = ops.mamba_scan(decay, u, c.contiguous())
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = h @ w.float()
+    rel = ((y4 - want).norm() / want.norm()).item()
+    log("entry-points", lut_shape=f"M{h.shape[0]}_K{w.shape[0]}_N{w.shape[1]}",
+        lut_rel_l2_vs_bf16_weights=f"{rel:.4f}", tol=LUT_QUANT_REL_L2,
+        launches=repr(counts).replace(" ", ""))
+    if not (bool(torch.isfinite(y4).all()) and rel <= LUT_QUANT_REL_L2):
+        raise AssertionError(f"4-bit in_proj off the bf16 product: {rel}")
+    _held("mamba_scan_vs_selective_scan", (B, T, D, N), y_tpu, y_fused,
+          SCAN_TOL)
+    want_counts = {"flash_attention": 0, "mamba_scan": 1,
+                   "selective_scan": 1, "lut_matmul": 1}
+    if counts != want_counts:
+        raise AssertionError(f"entry-point launches {counts} != "
+                             f"{want_counts}")
+    return counts
+
+
+def run_arch(arch, gen) -> tuple:
+    """Serve, decode against forward and profile one model (and, for the
+    Mamba model, drive the entry points no model calls); its weights are
+    freed when this returns."""
+    model, params, engine, prompts, outs, counts = phase_serve(arch, gen)
+    phase_decode_vs_forward(model, params, engine, prompts, outs)
+    phase_profile(model, params, prompts)
+    entry = (phase_entry_points(model, params, prompts, gen)
+             if model.cfg.family == "ssm" else None)
+    return counts, entry, prompts, outs
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     smi = phase_card()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    record = phase_kernels(gen)
-    model, params, engine, prompts, outs, launches = phase_serve(gen)
-    record["launches"] = launches
-    phase_decode_vs_forward(model, params, engine, prompts, outs)
-    phase_profile(model, params, prompts)
-    print(json.dumps({"kernels": [record]}))
+    records = [phase_flash(gen), phase_mamba_scan(gen),
+               phase_selective_scan(gen), phase_lut_matmul(gen)]
+    by_name = {r["name"]: r for r in records}
+    for arch in ARCHS:
+        counts, entry, prompts, outs = run_arch(arch, gen)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if registry.get(arch).family == "ssm":
+            phase_decode_vs_forward_f32(arch, prompts, outs)
+            gc.collect()
+            torch.cuda.empty_cache()
+        for name, n in counts.items():     # the model path of each kernel
+            if n:
+                by_name[name]["launches"] = n
+        for name, n in (entry or {}).items():
+            if n and by_name[name]["launches"] is None:
+                by_name[name]["launches"] = n
+    missing = [r["name"] for r in records if not r["launches"]]
+    if missing:
+        raise AssertionError(f"kernels never launched on a path: {missing}")
+    log("done", seconds=f"{time.perf_counter() - t_start:.1f}")
+    print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Architecture registry: ``get("glm4-9b")`` -> ModelConfig.
 
-The port covers the dense family.  The other six archs of the reference
-registry are known by name and raise ``NotImplementedError`` naming the
-ROADMAP item (Queue 1) that will add them.
+The port covers the dense family and the Mamba-1 member of the SSM family.
+The other five archs of the reference registry are known by name and raise
+``NotImplementedError`` naming the ROADMAP item (Queue 1) that will add
+them.
 """
 
 from __future__ import annotations
@@ -16,14 +17,14 @@ _MODULES = {
     "granite-3-2b": "granite_3_2b",
     "gemma2-9b": "gemma2_9b",
     "glm4-9b": "glm4_9b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
 }
 
 _NOT_PORTED = {
     "qwen2-moe-a2.7b": "ROADMAP Queue 1 item 6 (models/moe.py, MoE family)",
     "llama4-maverick-400b-a17b":
         "ROADMAP Queue 1 item 6 (models/moe.py, moe_every interleave)",
-    "falcon-mamba-7b": "ROADMAP Queue 1 item 7 (models/ssm.py, Mamba-1)",
-    "zamba2-2.7b": "ROADMAP Queue 1 item 7 (models/ssm.py, Mamba-2 hybrid)",
+    "zamba2-2.7b": "ROADMAP Queue 1 item 7b (models/ssm.py, Mamba-2 hybrid)",
     "llama-3.2-vision-11b": "ROADMAP Queue 1 item 8 (VLM cross blocks)",
     "musicgen-medium": "ROADMAP Queue 1 item 8 (audio family)",
 }

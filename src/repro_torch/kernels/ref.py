@@ -55,3 +55,58 @@ def flash_attention_gqa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = flash_attention_ref(qf, kf, vf, causal=causal, window=window,
                               softcap=softcap)
     return out.reshape(B, H, Tq, D).permute(0, 2, 1, 3)
+
+
+def mamba_scan_ref(decay: torch.Tensor, u: torch.Tensor, c: torch.Tensor
+                   ) -> torch.Tensor:
+    """Sequential selective scan, the TPU kernel's contract.
+
+    decay, u: (B, T, D, N); c: (B, T, N) -> y: (B, T, D) float32, with
+    ``h_t = decay_t * h_{t-1} + u_t``, ``h_{-1} = 0`` and
+    ``y_t = sum_n h_t * c_t``, all in float32.
+    """
+    decay, u, c = decay.float(), u.float(), c.float()
+    B, T, D, N = decay.shape
+    h = torch.zeros((B, D, N), dtype=torch.float32, device=decay.device)
+    ys = []
+    for t in range(T):
+        h = decay[:, t] * h + u[:, t]
+        ys.append((h * c[:, t, None, :]).sum(dim=-1))
+    return torch.stack(ys, dim=1)
+
+
+def selective_scan_ref(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, A: torch.Tensor, h0: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba-1 recurrence with its inputs built step by step.
+
+    dt, x: (B, T, di); b, c: (B, T, n); A: (di, n); h0: (B, di, n).
+    ``decay_t = exp(dt_t * A)``, ``u_t = (dt_t * x_t) * b_t``, then the
+    recurrence of ``mamba_scan_ref`` from ``h0``; all in float32, as
+    ``make_chunk``/``emit_chunk`` of the reference's ``mamba1_block``.
+    Returns y (B, T, di) and the last state (B, di, n), float32.
+    """
+    dt, x, b, c = dt.float(), x.float(), b.float(), c.float()
+    A = A.float()
+    h = h0.float()
+    ys = []
+    for t in range(dt.shape[1]):
+        decay = torch.exp(dt[:, t, :, None] * A)
+        u = (dt[:, t] * x[:, t])[..., None] * b[:, t, None, :]
+        h = decay * h + u
+        ys.append((h * c[:, t, None, :]).sum(dim=-1))
+    return torch.stack(ys, dim=1), h
+
+
+def lut_matmul_ref(x: torch.Tensor, codes: torch.Tensor, lut: torch.Tensor
+                   ) -> torch.Tensor:
+    """Dequantize the whole weight matrix, then a float32 matmul.
+
+    x: (M, K); codes: (K, N) uint8; lut: (K // group, N, 16) float32 with
+    ``group = K // lut.shape[0]`` -> (M, N) float32.
+    """
+    K, N = codes.shape
+    g = lut.shape[0]
+    c = codes.reshape(g, K // g, N).long()
+    w = torch.take_along_dim(lut.float().transpose(1, 2), c, dim=1)
+    return x.float() @ w.reshape(K, N)

@@ -1,6 +1,7 @@
 """Serving launcher: batched generation with the KV-cache engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b --smoke
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a card the

@@ -1,10 +1,12 @@
-"""Model assembly, dense family (PyTorch port of ``repro/models/model.py``).
+"""Model assembly, dense and SSM families (PyTorch port of
+``repro/models/model.py``).
 
 ``build(cfg, device)`` returns a ``Model`` with:
 
 * ``init(gen)``                       -> params (stacked layers, leading L dim)
 * ``forward(params, batch)``          -> logits (training / prefill path)
-* ``init_cache(B, max_len)``          -> decode cache (K/V + position)
+* ``init_cache(B, max_len)``          -> decode cache (K/V or conv/SSM
+                                         state, and the position)
 * ``prefill(params, cache, tokens)``  -> (last-position logits, cache at T)
 * ``decode_step(params, cache, tok)`` -> (logits, cache)  [one-token serve step]
 
@@ -12,8 +14,9 @@ The parameter tree is the reference's leaf for leaf (a dict with the layer
 stack on a leading ``L`` dim), so a JAX parameter tree converts by a tree
 map (``repro_torch.convert``).  The reference scans the layer stack; the
 port runs a Python loop over it, and its per-layer local/global flag is a
-Python bool.  The other families (MoE, SSM, hybrid, VLM, audio) are not
-ported yet and raise ``NotImplementedError``.
+Python bool.  The SSM family covers Mamba-1 (falcon-mamba); the other
+families (MoE, Mamba-2 hybrid, VLM, audio) are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
-from repro_torch.models import layers
+from repro_torch.models import layers, ssm
 from repro_torch.models.layers import AttnSpec, Params
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -91,9 +94,19 @@ class Model:
         if not cfg.tie_embeddings:
             p["unembed"] = layers.dense_init(gen, cfg.d_model,
                                              (cfg.vocab_size,), dtype)
-        p["blocks"] = _stack_init(lambda: self._init_block(gen, dtype),
+        init_block = (self._init_ssm_block if cfg.family == "ssm"
+                      else self._init_block)
+        p["blocks"] = _stack_init(lambda: init_block(gen, dtype),
                                   cfg.n_layers)
         return p
+
+    def param_dtypes(self) -> Params:
+        """The dtype of every leaf that ``init`` makes, as a tree: the
+        reduced config's init on the CPU (``reduced()`` keeps the family and
+        its flags, so the tree and the dtypes are the same)."""
+        small = Model(self.cfg.reduced(), torch.device("cpu"))
+        return tree_map(lambda a: a.dtype,
+                        small.init(torch.Generator().manual_seed(0)))
 
     def _attn_spec(self) -> AttnSpec:
         cfg = self.cfg
@@ -113,6 +126,13 @@ class Model:
             "mlp": layers.init_mlp_params(gen, cfg.d_model, cfg.d_ff, dtype),
         }
 
+    def _init_ssm_block(self, gen: torch.Generator, dtype: torch.dtype
+                        ) -> Params:
+        cfg = self.cfg
+        return {"ln": torch.zeros((cfg.d_model,), dtype=dtype,
+                                  device=gen.device),
+                "mixer": ssm.init_mamba_params(gen, cfg, dtype)}
+
     # ---------------- per-layer flags ----------------
 
     def _layer_is_global(self) -> list[bool]:
@@ -127,8 +147,8 @@ class Model:
     def embed_inputs(self, params: Params, batch: dict) -> torch.Tensor:
         cfg = self.cfg
         x = params["embed"][batch["tokens"]]
-        # the reference's `dense and tied or audio`, for the dense family
-        if cfg.tie_embeddings:
+        # the reference's `dense and tied or audio`, for the ported families
+        if cfg.family == "dense" and cfg.tie_embeddings:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
         return x
 
@@ -136,8 +156,11 @@ class Model:
         cfg = self.cfg
         x = self.embed_inputs(params, batch)
         B, T, _ = x.shape
-        positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
-        x = self._run_decoder(params, x, positions)
+        if cfg.family == "ssm":
+            x = self._run_ssm(params, x)
+        else:
+            positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
+            x = self._run_decoder(params, x, positions)
         x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self._unembed(params, x)
 
@@ -173,31 +196,63 @@ class Model:
                                        cache_len=cache_len)
         return x
 
+    def _ssm_layer(self, blk: Params, x, state=None):
+        cfg = self.cfg
+        h = layers.rms_norm(x, blk["ln"], cfg.norm_eps)
+        y, new_state = ssm.mamba1_block(blk["mixer"], h, cfg, state=state)
+        return x + y, new_state
+
+    def _run_ssm(self, params, x, cache=None):
+        """All Mamba layers over x; with a cache, layer i starts from
+        ``cache["conv"][i]``, ``cache["h"][i]`` and writes its new state
+        there in place."""
+        for i in range(self.cfg.n_layers):
+            st = None if cache is None else (cache["conv"][i], cache["h"][i])
+            x, (conv, h) = self._ssm_layer(_take(params["blocks"], i), x, st)
+            if cache is not None:
+                cache["conv"][i].copy_(conv)
+                cache["h"][i].copy_(h)
+        return x
+
     # ---------------- prefill ----------------
 
     @torch.no_grad()
     def prefill(self, params: Params, cache: dict, tokens: torch.Tensor
                 ) -> tuple[torch.Tensor, dict]:
         """Fill the decode cache from a (B, T) prompt; returns last-position
-        logits and the cache positioned at T.  The cache's K/V tensors are
-        written in place."""
+        logits and the cache positioned at T.  The cache's tensors (K/V, or
+        conv and SSM state) are written in place."""
         cfg = self.cfg
         x = self.embed_inputs(params, {"tokens": tokens})
         B, T, _ = x.shape
-        positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
-        x = self._run_decoder(params, x, positions, cache=cache, cache_len=0)
+        if cfg.family == "ssm":
+            x = self._run_ssm(params, x, cache=cache)
+        else:
+            positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
+            x = self._run_decoder(params, x, positions, cache=cache,
+                                  cache_len=0)
         x = layers.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
         return self._unembed(params, x), {**cache, "pos": T}
 
     # ---------------- decode ----------------
 
     def init_cache(self, batch_size: int, max_len: int) -> dict:
-        """K/V ``(L, B, max_len, K, Dh)`` in the model dtype and the shared
-        position ``pos`` (a Python int)."""
+        """The shared position ``pos`` (a Python int) and, for attention,
+        K/V ``(L, B, max_len, K, Dh)`` in the model dtype; for Mamba-1,
+        ``conv`` ``(L, B, ssm_conv - 1, d_inner)`` in the model dtype and
+        ``h`` ``(L, B, d_inner, ssm_state)`` in float32, whatever
+        ``max_len``."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads,
-                 cfg.head_dim)
         dtype = torch_dtype(cfg.dtype)
+        L, dev = cfg.n_layers, self.device
+        if cfg.family == "ssm":
+            di = cfg.d_inner
+            return {"pos": 0,
+                    "conv": torch.zeros((L, batch_size, cfg.ssm_conv - 1, di),
+                                        dtype=dtype, device=dev),
+                    "h": torch.zeros((L, batch_size, di, cfg.ssm_state),
+                                     dtype=torch.float32, device=dev)}
+        shape = (L, batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
         return {"pos": 0,
                 "k": torch.zeros(shape, dtype=dtype, device=self.device),
                 "v": torch.zeros(shape, dtype=dtype, device=self.device)}
@@ -209,17 +264,21 @@ class Model:
         cfg = self.cfg
         x = self.embed_inputs(params, {"tokens": tokens})
         pos = int(cache["pos"])
-        positions = torch.full((tokens.shape[0], 1), pos, dtype=torch.long,
-                               device=x.device)
-        x = self._run_decoder(params, x, positions, cache=cache,
-                              cache_len=pos)
+        if cfg.family == "ssm":
+            x = self._run_ssm(params, x, cache=cache)
+        else:
+            positions = torch.full((tokens.shape[0], 1), pos,
+                                   dtype=torch.long, device=x.device)
+            x = self._run_decoder(params, x, positions, cache=cache,
+                                  cache_len=pos)
         x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self._unembed(params, x), {**cache, "pos": pos + 1}
 
 
 def build(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
-    if cfg.family != "dense":
+    if not (cfg.family == "dense" or
+            cfg.family == "ssm" and cfg.mamba_version == 1):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet; the port "
-            "covers the dense family (see ROADMAP.md Queue 1)")
+            "covers the dense family and Mamba-1 (see ROADMAP.md Queue 1)")
     return Model(cfg, resolve(device))

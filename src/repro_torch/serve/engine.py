@@ -1,9 +1,10 @@
 """Batched serving engine (PyTorch port of ``repro/serve/engine.py``).
 
 Static max-batch slots, one batched prefill of left-padded prompts into the
-KV cache, then lockstep decode with greedy or temperature sampling and
-per-slot EOS.  As in the reference, pads are token 0 and are not masked,
-and all slots share one position.
+decode cache (K/V, or a Mamba model's conv and SSM state), then lockstep
+decode with greedy or temperature sampling and per-slot EOS.  As in the
+reference, pads are token 0 and are not masked (a Mamba model runs them
+through its state), and all slots share one position.
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
-"""Port's flash attention against the JAX reference kernel and oracle.
+"""Port's kernels against the JAX reference kernels and oracles.
 
-The port's plain version (``repro_torch.kernels.ref``) and its GQA wrapper
-are held against JAX's ``ref.flash_attention_ref``, the Pallas kernel in
-interpret mode and the model's ``layers.attention``, on the same numpy
-inputs.  The CUDA kernel itself runs only on a card: its test is marked
-``cuda`` and skips here.
+The port's plain versions (``repro_torch.kernels.ref``) and its wrappers
+are held against JAX's ``ref.py`` oracles, the Pallas kernels in interpret
+mode and the model code that computes the same function (``layers.attention``
+for flash attention, ``mamba1_block``'s scan for the selective scan), on the
+same numpy inputs.  The CUDA kernels themselves run only on a card: their
+tests are marked ``cuda`` and skip here.
 """
 
 import importlib
@@ -14,6 +15,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import lut_matmul as lm
+from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import ops, ref
 
 
@@ -166,3 +169,352 @@ def test_cuda_kernel_matches_plain_version(D, dtype):
                                            **kw)
         torch.cuda.synchronize()
         assert (got - want).abs().max().item() <= tol
+
+
+def _jmods(*names):
+    return [importlib.import_module(n) for n in names]
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+
+
+# ---- selective scan ---------------------------------------------------------
+
+# TestMambaScan's grid in tests/test_kernels.py: B, T, D, N, bt
+SCAN_GRID = [(1, 64, 32, 8, 32), (2, 128, 64, 16, 64), (2, 128, 16, 4, 128),
+             (3, 192, 8, 16, 64)]
+
+
+def _scan_inputs(B, T, D, N, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0.5, 1.0, (B, T, D, N)).astype(np.float32),
+            (rng.normal(size=(B, T, D, N)) * 0.1).astype(np.float32),
+            rng.normal(size=(B, T, N)).astype(np.float32))
+
+
+@pytest.mark.parametrize("against", ["jax_ref", "pallas_interpret"])
+@pytest.mark.parametrize("B,T,D,N,bt", SCAN_GRID)
+def test_mamba_scan_ref_matches_jax(B, T, D, N, bt, against):
+    """At TestMambaScan's 1e-4."""
+    jnp, jms, jref = _jmods("jax.numpy", "repro.kernels.mamba_scan",
+                            "repro.kernels.ref")
+    decay, u, c = _scan_inputs(B, T, D, N, B * T + D)
+    jin = [jnp.asarray(a) for a in (decay, u, c)]
+    want = (jref.mamba_scan_ref(*jin) if against == "jax_ref"
+            else jms.mamba_scan(*jin, bt=bt, interpret=True))
+    tin = [torch.from_numpy(a) for a in (decay, u, c)]
+    got = ref.mamba_scan_ref(*tin)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    # the wrapper takes a CPU tensor to the same plain version
+    np.testing.assert_array_equal(ops.mamba_scan(*tin).numpy(), got.numpy())
+
+
+def test_mamba_scan_state_carries_over_the_whole_sequence():
+    """TestMambaScan's impulse: a unit input at t=0 with decay 1 persists to
+    the last step (the TPU kernel's carry across time blocks)."""
+    jnp, jms = _jmods("jax.numpy", "repro.kernels.mamba_scan")
+    B, T, D, N = 1, 128, 4, 2
+    decay = np.ones((B, T, D, N), np.float32)
+    u = np.zeros((B, T, D, N), np.float32)
+    u[:, 0] = 1.0
+    c = np.ones((B, T, N), np.float32)
+    y = ops.mamba_scan(*(torch.from_numpy(a) for a in (decay, u, c)))
+    np.testing.assert_allclose(y[0, -1].numpy(), np.full(D, N), rtol=1e-6)
+    want = jms.mamba_scan(*(jnp.asarray(a) for a in (decay, u, c)), bt=32,
+                          interpret=True)
+    np.testing.assert_array_equal(y.numpy(), np.asarray(want))
+
+
+def _selective_inputs(B, T, D, N, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0.01, 1.0, (B, T, D)).astype(np.float32),   # dt
+            rng.normal(size=(B, T, D)).astype(np.float32),          # x
+            rng.normal(size=(B, T, N)).astype(np.float32),          # b
+            rng.normal(size=(B, T, N)).astype(np.float32),          # c
+            -rng.uniform(0.5, 8.0, (D, N)).astype(np.float32),      # A
+            (rng.normal(size=(B, D, N)) * 0.5).astype(np.float32))  # h0
+
+
+def _jax_mamba1_scan(dt, x, b, c, A, h0):
+    """The scan of ``repro.models.ssm.mamba1_block``: ``fused_ssm_scan``
+    with its ``make_chunk``/``emit_chunk`` (ssm.py:167-176)."""
+    jnp, jssm = _jmods("jax.numpy", "repro.models.ssm")
+    A = jnp.asarray(A)
+
+    def make_chunk(dt_c, x_c, b_c, _c_c):
+        decay = jnp.exp(dt_c[..., None] * A)
+        bx = (dt_c * x_c.astype(jnp.float32))[..., None] \
+            * b_c.astype(jnp.float32)[..., None, :]
+        return decay, bx
+
+    def emit_chunk(h_all, _dt, _x, _b, c_c):
+        return jnp.einsum("bcin,bcn->bci", h_all, c_c.astype(jnp.float32))
+
+    ins = tuple(jnp.asarray(a) for a in (dt, x, b, c))
+    return jssm.fused_ssm_scan(make_chunk, emit_chunk, ins, jnp.asarray(h0),
+                               dt.shape[1], jssm.CHUNK)
+
+
+@pytest.mark.parametrize("T", [1, 37, 300])
+def test_selective_scan_ref_matches_jax_mamba1_scan(T):
+    """From a non-zero h0, across the reference's 256-step chunk at T=300;
+    float32 summation order only, at the model parity tests' 2e-4."""
+    args = _selective_inputs(2, T, 16, 8, T)
+    jy, jh = _jax_mamba1_scan(*args)
+    tin = [torch.from_numpy(a) for a in args]
+    ty, th = ref.selective_scan_ref(*tin)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=2e-4,
+                               atol=2e-4)
+    wy, wh = ops.selective_scan(*tin)
+    np.testing.assert_array_equal(wy.numpy(), ty.numpy())
+    np.testing.assert_array_equal(wh.numpy(), th.numpy())
+
+
+def test_selective_scan_ref_is_mamba_scan_ref_on_built_inputs():
+    """From h0 = 0, the fused form is the TPU contract on the decay and u it
+    builds."""
+    dt, x, b, c, A, _ = (torch.from_numpy(a) for a in
+                         _selective_inputs(2, 20, 8, 4, 5))
+    y, _ = ref.selective_scan_ref(dt, x, b, c, A, torch.zeros(2, 8, 4))
+    decay = torch.exp(dt[..., None] * A)
+    u = (dt * x)[..., None] * b[:, :, None, :]
+    np.testing.assert_allclose(y.numpy(),
+                               ref.mamba_scan_ref(decay, u, c).numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("bad,err", [
+    ("dtype", TypeError), ("c_shape", ValueError), ("strides", ValueError),
+    ("state", ValueError)])
+def test_mamba_scan_wrapper_rejects_what_the_kernel_does_not_take(bad, err):
+    B, T, D, N = 1, 4, 8, 16
+    decay, u, c = torch.zeros(B, T, D, N), torch.zeros(B, T, D, N), \
+        torch.zeros(B, T, N)
+    if bad == "dtype":
+        u = u.double()
+    elif bad == "c_shape":
+        c = torch.zeros(B, T, N + 1)
+    elif bad == "strides":
+        decay = torch.zeros(B, T, N, D).transpose(2, 3)
+    elif bad == "state":
+        decay = u = torch.zeros(B, T, D, ms.MAX_STATE + 1)
+        c = torch.zeros(B, T, ms.MAX_STATE + 1)
+    with pytest.raises(err):
+        ms._check_scan(decay, u, c)
+
+
+@pytest.mark.parametrize("bad,err", [
+    ("dt_dtype", TypeError), ("mixed_dtypes", TypeError),
+    ("last_stride", ValueError), ("A_shape", ValueError),
+    ("h0_strides", ValueError)])
+def test_selective_scan_wrapper_rejects_what_the_kernel_does_not_take(bad,
+                                                                      err):
+    B, T, D, N = 2, 3, 8, 4
+    dt, x = torch.zeros(B, T, D), torch.zeros(B, T, D)
+    b = c = torch.zeros(B, T, N)
+    A, h0 = torch.zeros(D, N), torch.zeros(B, D, N)
+    if bad == "dt_dtype":
+        dt = dt.bfloat16()
+    elif bad == "mixed_dtypes":
+        x = x.bfloat16()
+    elif bad == "last_stride":
+        b = torch.zeros(B, T, 2 * N)[:, :, ::2]
+    elif bad == "A_shape":
+        A = torch.zeros(N, D)
+    elif bad == "h0_strides":
+        h0 = torch.zeros(B, N, D).transpose(1, 2)
+    with pytest.raises(err):
+        ms._check_selective(dt, x, b, c, A, h0)
+    # the model's b, c: batch/time-strided slices of one projection pass
+    proj = torch.zeros(B, T, 5 + 2 * N)
+    ms._check_selective(torch.zeros(B, T, D), torch.zeros(B, T, D),
+                        proj[..., 5:5 + N], proj[..., 5 + N:],
+                        torch.zeros(D, N), torch.zeros(B, D, N))
+
+
+# ---- LUT matmul -------------------------------------------------------------
+
+# TestLutMatmul's shapes in tests/test_kernels.py (M, K, N)
+LUT_GRID = [(128, 128, 128), (256, 256, 128), (128, 512, 256),
+            (384, 128, 128)]
+
+
+@pytest.mark.parametrize("M,K,N", LUT_GRID)
+def test_quantize_weights_matches_jax(M, K, N):
+    """Codes byte for byte; levels within 1 float32 ulp."""
+    jnp, jlm = _jmods("jax.numpy", "repro.kernels.lut_matmul")
+    w = np.random.default_rng(M + K + N).normal(size=(K, N)).astype(
+        np.float32)
+    jcodes, jlut = jlm.quantize_weights(jnp.asarray(w))
+    tcodes, tlut = ops.quantize_weights(torch.from_numpy(w))
+    assert tcodes.dtype == torch.uint8 and tlut.dtype == torch.float32
+    np.testing.assert_array_equal(tcodes.numpy(), np.asarray(jcodes))
+    np.testing.assert_array_max_ulp(tlut.numpy(), np.asarray(jlut), maxulp=1)
+
+
+@pytest.mark.parametrize("against", ["jax_ref", "pallas_interpret"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N", LUT_GRID)
+def test_lut_matmul_ref_matches_jax(M, K, N, dtype, against):
+    """At TestLutMatmul's tolerances: 1e-5 (f32), 2e-2 (bf16)."""
+    jnp, jlm, jref = _jmods("jax.numpy", "repro.kernels.lut_matmul",
+                            "repro.kernels.ref")
+    rng = np.random.default_rng(M + K + N)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    w = rng.normal(size=(K, N)).astype(np.float32)
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    codes, lut = jlm.quantize_weights(jnp.asarray(w))
+    want = (jref.lut_matmul_ref(jx, codes, lut) if against == "jax_ref"
+            else jlm.lut_matmul(jx, codes, lut, interpret=True))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    tc, tl = torch.from_numpy(np.array(codes)), torch.from_numpy(
+        np.array(lut))
+    got = ref.lut_matmul_ref(tx, tc, tl)
+    assert got.dtype == torch.float32
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                               atol=tol * 10)
+    np.testing.assert_array_equal(ops.lut_matmul(tx, tc, tl).numpy(),
+                                  got.numpy())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_lut_matmul_ref_random_codebooks_match_jax(seed):
+    """TestLutMatmul.test_random_codebooks' inputs, 1e-5 / 1e-4."""
+    jnp, jref = _jmods("jax.numpy", "repro.kernels.ref")
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(128, 128)).astype(np.float32)
+    codes = rng.integers(0, 16, (128, 128)).astype(np.uint8)
+    lut = rng.normal(size=(128 // lm.GROUP, 128, 16)).astype(np.float32)
+    want = jref.lut_matmul_ref(jnp.asarray(x), jnp.asarray(codes),
+                               jnp.asarray(lut))
+    got = ref.lut_matmul_ref(*(torch.from_numpy(a) for a in (x, codes, lut)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-4)
+
+
+def test_quantizer_reconstruction_error_bounded():
+    """TestLutMatmul's bound: half a quantization step per (group, column)."""
+    w = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(256, 128)).astype(np.float32))
+    codes, lut = ops.quantize_weights(w)
+    g = w.reshape(-1, lm.GROUP, 128)
+    scale = (g.amax(1) - g.amin(1)) / 15.0
+    wq = ref.lut_matmul_ref(torch.eye(256), codes, lut)
+    bound = scale.repeat_interleave(lm.GROUP, dim=0) * 0.5 + 1e-6
+    assert bool(((wq - w).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("bad,err", [
+    ("K", ValueError), ("codes_dtype", TypeError), ("lut_shape", ValueError),
+    ("x_dtype", TypeError), ("misaligned", ValueError),
+    ("strides", ValueError)])
+def test_lut_matmul_wrapper_rejects_what_the_kernel_does_not_take(bad, err):
+    M, K, N = 4, 128, 32
+    x = torch.zeros(M, K)
+    codes = torch.zeros(K, N, dtype=torch.uint8)
+    lut = torch.zeros(K // lm.GROUP, N, 16)
+    if bad == "K":
+        x, codes = torch.zeros(M, 96), torch.zeros(96, N, dtype=torch.uint8)
+    elif bad == "codes_dtype":
+        codes = codes.int()
+    elif bad == "lut_shape":
+        lut = torch.zeros(K // lm.GROUP, 16, N)
+    elif bad == "x_dtype":
+        x = x.half()
+    elif bad == "misaligned":     # rows start 1 element off 16 bytes
+        x = torch.zeros(M * K + 1)[1:].view(M, K)
+    elif bad == "strides":
+        x = torch.zeros(K, M).T
+    with pytest.raises(err):
+        lm._check(x, codes, lut)
+
+
+@pytest.mark.parametrize("which", ["mamba_scan", "selective_scan",
+                                   "lut_matmul"])
+def test_new_wrappers_never_fall_back_off_the_cpu(which):
+    """A tensor that is not on the CPU goes to the kernel or raises; it
+    never reaches the plain version."""
+    meta = dict(device="meta")
+    if which == "mamba_scan":
+        fn = ms.mamba_scan
+        args = (torch.zeros(1, 4, 8, 4, **meta),) * 2 + (
+            torch.zeros(1, 4, 4, **meta),)
+    elif which == "selective_scan":
+        fn = ms.selective_scan
+        args = (torch.zeros(1, 4, 8, **meta),) * 2 + (
+            torch.zeros(1, 4, 4, **meta),) * 2 + (
+            torch.zeros(8, 4, **meta), torch.zeros(1, 8, 4, **meta))
+    else:
+        fn = lm.lut_matmul
+        args = (torch.zeros(2, 64, **meta),
+                torch.zeros(64, 8, dtype=torch.uint8, **meta),
+                torch.zeros(1, 8, 16, **meta))
+    before = fn.launches
+    with pytest.raises(ValueError):
+        fn(*args)
+    assert fn.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,N", [(1, 64, 32, 8), (2, 128, 64, 16),
+                                     (2, 128, 16, 4), (3, 192, 8, 16),
+                                     (1, 100, 5, 2), (2, 33, 40, 12)])
+def test_cuda_mamba_scan_matches_plain_version(B, T, D, N):
+    """TestMambaScan's shapes and ragged ones, at its 1e-4."""
+    _cuda_or_skip()
+    decay, u, c = (torch.from_numpy(a).cuda() for a in
+                   _scan_inputs(B, T, D, N, T + D + N))
+    got = ms.mamba_scan(decay, u, c)
+    want = ref.mamba_scan_ref(decay, u, c)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,N", [(1, 16), (37, 8), (300, 16), (70, 5)])
+def test_cuda_selective_scan_matches_plain_version(T, N, dtype):
+    """b and c as slices of one projection, as the model passes them; the
+    bf16 inputs widen exactly, so both dtypes hold 2e-4."""
+    _cuda_or_skip()
+    dt, x, b, c, A, h0 = (torch.from_numpy(a).cuda() for a in
+                          _selective_inputs(2, T, 48, N, T + N))
+    dtp = getattr(torch, dtype)
+    proj = torch.cat([torch.zeros_like(b[..., :3]), b, c], dim=-1).to(dtp)
+    x, b, c = x.to(dtp), proj[..., 3:3 + N], proj[..., 3 + N:]
+    y, h = ms.selective_scan(dt, x, b, c, A, h0)
+    wy, wh = ref.selective_scan_ref(dt, x, b, c, A, h0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, wy, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(h, wh, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N", [(128, 128, 128), (384, 128, 128),
+                                   (100, 192, 77), (3, 512, 300)])
+def test_cuda_lut_matmul_matches_plain_version(M, K, N, dtype):
+    """TestLutMatmul's f32 tolerance (1e-5 relative, 1e-4 absolute) for
+    both dtypes: bf16 x widens exactly and the products are f32 in both;
+    the plain version's matmul runs with TF32 off."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(M + K + N)
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).cuda()
+    w = torch.from_numpy(rng.normal(size=(K, N)).astype(np.float32)).cuda()
+    codes, lut = ops.quantize_weights(w)
+    x = x.to(getattr(torch, dtype))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = lm.lut_matmul(x, codes, lut)
+        want = ref.lut_matmul_ref(x, codes, lut)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)

@@ -47,7 +47,8 @@ def _prompts(cfg, seed=0):
             for n in (3, 7, 5, 9)]
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "glm4-9b"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "glm4-9b",
+                                  "falcon-mamba-7b"])
 def test_greedy_matches_jax_engine(arch):
     cfg, jeng, teng = _engines(arch)
     prompts = _prompts(cfg)
@@ -97,6 +98,13 @@ def test_temperature_deterministic_under_seed():
 
 def test_launcher_smoke_on_cpu():
     outs = tlaunch.main(["--smoke", "--device", "cpu", "--max-new", "4"])
+    assert len(outs) == 4
+    assert all(0 <= t < 256 for o in outs for t in o)
+
+
+def test_launcher_smoke_on_cpu_serves_falcon_mamba():
+    outs = tlaunch.main(["--arch", "falcon-mamba-7b", "--smoke", "--device",
+                         "cpu", "--max-new", "4"])
     assert len(outs) == 4
     assert all(0 <= t < 256 for o in outs for t in o)
 
