@@ -9,9 +9,11 @@ Phases, each printing what it found; any failure raises and exits non-zero:
    (one ``nvcc`` per source, started together), with ``-Xptxas -v`` output;
 3. kernels against their plain PyTorch versions on the card, with stated
    tolerances, timed with CUDA events beside the plain version, a PyTorch
-   library call computing the same function where there is one, and the
-   card's bound: flash attention, the selective scan's two entry points
-   (``mamba_scan``, ``selective_scan``) and the LUT matmul;
+   library call computing the same function where there is one (flash and
+   LUT: kernel and library timed in turns, three times each, median and
+   range printed), and the card's bound: flash attention, the selective
+   scan's two entry points (``mamba_scan``, ``selective_scan``) and the LUT
+   matmul;
 4. for each served model, glm4-9b (40 layers) then falcon-mamba-7b (64
    Mamba-1 layers), at full width in bf16 with random weights from a seeded
    generator on the card, the previous model's weights freed first:
@@ -41,6 +43,7 @@ import dataclasses
 import gc
 import json
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -62,6 +65,7 @@ from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 
 # H100 SXM published dense peaks (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # special-function units (exp): 16 per clock per SM, 132 SMs, 1.98 GHz boost
@@ -130,6 +134,21 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def in_turns(kernel, library, rounds: int = 3, iters: int = 20):
+    """Kernel and library call timed in turns (kernel, library, kernel,
+    ...), ``rounds`` times each; the median and range of each, in ms."""
+    ks, ls = [], []
+    for _ in range(rounds):
+        ks.append(cuda_ms(kernel, iters))
+        ls.append(cuda_ms(library, iters))
+    return ((statistics.median(ks), min(ks), max(ks)),
+            (statistics.median(ls), min(ls), max(ls)))
+
+
+def _range(stat) -> str:
+    return f"[{stat[1]:.4f},{stat[2]:.4f}]"
+
+
 def attn_cost(B, Tq, Tk, H, K, D, itemsize, causal):
     """Matmul FLOPs (q.k and p.v over the unmasked pairs) and the bytes of
     q, k, v read once and o written once."""
@@ -162,7 +181,8 @@ def phase_build() -> None:
     libs = _build.load_all()
     for name, lib in libs.items():
         ptxas = [ln.strip() for ln in lib.log.splitlines()
-                 if "registers" in ln or "spill" in ln or "Compiling" in ln]
+                 if "registers" in ln or "spill" in ln or "Compiling" in ln
+                 or "Performance Loss" in ln]
         log("build", kernel=name, seconds=f"{time.perf_counter() - t0:.1f}",
             lib=lib.path.name)
         for ln in ptxas:
@@ -224,29 +244,35 @@ def phase_flash(gen) -> dict:
     got = fa.flash_attention_gqa(q, k, v)
     want = ref.flash_attention_gqa_ref(q, k, v)
     err = (got.float() - want.float()).abs().max().item()
-    ms = cuda_ms(lambda: fa.flash_attention_gqa(q, k, v))
     plain_ms = cuda_ms(lambda: ref.flash_attention_gqa_ref(q, k, v), iters=5)
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     lib_out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
                                              enable_gqa=True)
     lib_err = (lib_out.transpose(1, 2).float() - want.float()).abs().max()
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True, enable_gqa=True))
+    kern, lib = in_turns(
+        lambda: fa.flash_attention_gqa(q, k, v),
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                               enable_gqa=True))
+    ms, library_ms = kern[0], lib[0]
     flops, nbytes = attn_cost(B, T, T, H, K, D, 2, True)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     bound_ms = max(t_ops, t_bytes)
+    # the design multiplies P V twice (P as bf16 hi + lo): 1.5x the work
+    design_ms = max(1.5 * t_ops, t_bytes)
     log("kernel-time", name="flash_attention",
         shape=f"B{B}_T{T}_H{H}_K{K}_D{D}_bf16_causal",
-        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        library_ms=f"{library_ms:.4f}", library_err=f"{lib_err.item():.3e}",
-        bound_ms=f"{bound_ms:.4f}", gflop=f"{flops / 1e9:.2f}",
-        mbytes=f"{nbytes / 1e6:.2f}",
+        ms=f"{ms:.4f}", ms_range=_range(kern), plain_ms=f"{plain_ms:.4f}",
+        library_ms=f"{library_ms:.4f}", library_range=_range(lib),
+        library_err=f"{lib_err.item():.3e}",
+        bound_ms=f"{bound_ms:.4f}", design_bound_ms=f"{design_ms:.4f}",
+        gflop=f"{flops / 1e9:.2f}", mbytes=f"{nbytes / 1e6:.2f}",
         tflops=f"{flops / ms / 1e9:.2f}",
         f32_core_bound_ms=f"{flops / PEAK_F32_FLOPS * 1e3:.4f}",
         max_abs_err=f"{err:.3e}")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:71",
+            "replaces": "src/repro/kernels/flash_attention.py:73",
             "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -298,7 +324,7 @@ def phase_mamba_scan(gen) -> dict:
         gbytes_s=f"{nbytes / ms_ / 1e6:.1f}", max_abs_err=f"{err:.3e}")
     return {"name": "mamba_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
-            "replaces": "src/repro/kernels/mamba_scan.py:42",
+            "replaces": "src/repro/kernels/mamba_scan.py:43",
             "launches": None, "max_abs_err": err, "ms": ms_,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": None}
@@ -366,7 +392,7 @@ def phase_selective_scan(gen) -> dict:
         if rec is None:                   # the prefill shape is the record
             rec = {"name": "selective_scan", "route": "cuda",
                    "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
-                   "replaces": "src/repro/kernels/mamba_scan.py:42",
+                   "replaces": "src/repro/kernels/mamba_scan.py:43",
                    "launches": None, "max_abs_err": err, "ms": ms_,
                    "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -399,24 +425,30 @@ def phase_lut_matmul(gen) -> dict:
     err = _held("lut_matmul", (M, K, N, "float32"),
                 lm.lut_matmul(x, codes, lut), want, LUT_TOL)
     del want
-    ms_ = cuda_ms(lambda: lm.lut_matmul(x, codes, lut))
     plain_ms = cuda_ms(lambda: ref.lut_matmul_ref(x, codes, lut), iters=5)
     w = torch.take_along_dim(lut.transpose(1, 2), codes.reshape(
         K // lm.GROUP, lm.GROUP, N).long(), dim=1).reshape(K, N)
-    library_ms = cuda_ms(lambda: torch.matmul(x, w))
+    kern, lib = in_turns(lambda: lm.lut_matmul(x, codes, lut),
+                         lambda: torch.matmul(x, w), iters=10)
+    ms_, library_ms = kern[0], lib[0]
     flops = 2 * M * K * N
     nbytes = 4 * M * K + K * N + 4 * (K // lm.GROUP) * N * 16 + 4 * M * N
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    # the design runs three TF32 products (3xTF32) on the tensor cores
+    t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    f32_core_ms = flops / PEAK_F32_FLOPS * 1e3
     log("kernel-time", name="lut_matmul", shape=f"M{M}_K{K}_N{N}_f32",
-        ms=f"{ms_:.4f}", plain_ms=f"{plain_ms:.4f}",
-        library_ms=f"{library_ms:.4f}", bound_ms=f"{max(t_ops, t_bytes):.4f}",
+        ms=f"{ms_:.4f}", ms_range=_range(kern), plain_ms=f"{plain_ms:.4f}",
+        library_ms=f"{library_ms:.4f}", library_range=_range(lib),
+        bound_ms=f"{max(t_ops, t_bytes):.4f}",
+        f32_core_bound_ms=f"{f32_core_ms:.4f}",
         gflop=f"{flops / 1e9:.2f}", mbytes=f"{nbytes / 1e6:.2f}",
         tflops=f"{flops / ms_ / 1e9:.2f}",
         library_tflops=f"{flops / library_ms / 1e9:.2f}",
         max_abs_err=f"{err:.3e}")
     return {"name": "lut_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/lut_matmul.cu",
-            "replaces": "src/repro/kernels/lut_matmul.py:60",
+            "replaces": "src/repro/kernels/lut_matmul.py:62",
             "launches": None, "max_abs_err": err, "ms": ms_,
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",

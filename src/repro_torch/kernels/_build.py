@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for Hopper into a shared
 library with a plain C interface and loaded with ``ctypes`` (seconds to
 build, where ``torch.utils.cpp_extension.load`` on a source that includes
 PyTorch's headers takes minutes).  The library goes to ``build/kernels/`` at
-the root of the checkout, named by a hash of its source and flags so that an
-edited source is rebuilt; it is built at first use, never at import.
+the root of the checkout, named by a hash of its source, the shared headers
+``csrc/*.cuh`` it may include and the flags, so that an edited source or
+header is rebuilt; it is built at first use, never at import.
 ``-Xptxas -v`` in ``NVCC_FLAGS`` prints each kernel's registers, shared
 memory and spills; the output is kept in ``Library.log``.
 """
@@ -24,7 +25,8 @@ import subprocess
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(CSRC))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,14 +49,21 @@ def nvcc() -> str:
     return found
 
 
+def digest(name: str, csrc: pathlib.Path = CSRC) -> str:
+    """Hash of ``<name>.cu``, every ``*.cuh`` beside it and the flags."""
+    h = hashlib.sha256()
+    for path in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> Library:
     """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    out = BUILD_DIR / f"lib{name}-{digest(name)}.so"
     log_path = out.with_suffix(".log")
     if not out.exists():
         tmp = out.with_suffix(f".tmp{os.getpid()}")

@@ -20,30 +20,34 @@
 //     that of attention over exactly Tk keys;
 //   * key tiles wholly above the causal diagonal are skipped (exact: every
 //     row that has such a tile also has its diagonal key unmasked, so the
-//     skipped tile's weight would be exp(-1e30 - m) = 0).
+//     skipped tile's weight would be exp(-1e30 - m) = 0); the bf16 path
+//     also skips tiles wholly outside the window when every row of the
+//     block keeps an unmasked key, by the same argument.
 //
 // Layout: q (B, Tq, H, D), k/v (B, Tk, H/G, D), o (B, Tq, H, D); heads and
 // head_dim contiguous, batch and time strides given in elements (so a slice
 // of a longer KV cache is taken without a copy).  Inputs float32 or bfloat16,
-// D in {64, 128, 256}.  bf16 rows are copied as 16-byte vectors, so the
-// wrapper requires 16-byte aligned base pointers and batch and time strides
-// that are multiples of 8 elements.
+// D in {64, 128, 256}.  The bf16 path reads q, k, v through TMA tensor maps,
+// so the wrapper requires 16-byte aligned base pointers and batch and time
+// strides that are multiples of 8 elements (16 bytes).
 //
 // What bounds it on this card: at the serving prefill shape (B=4, H=32, K=2,
-// T~1024, D=128, bf16) the causal work is ~34 GFLOP, ~35 us at the H100's
-// 989 TFLOP/s bf16 tensor rate, against ~71 MB of q/k/v/o traffic, ~21 us at
+// T=1100, D=128, bf16) the causal work is 39.7 GFLOP, 40 us at the H100's
+// 989 TFLOP/s bf16 tensor rate, against ~77 MB of q/k/v/o traffic, ~23 us at
 // 3.35 TB/s: it is compute-bound, so the bf16 path runs both products on the
-// tensor cores (mma.sync, f32 accumulation; see the note above
-// fa_fwd_bf16_kernel for how P keeps f32-level precision).  The f32 path
-// keeps all math in f32 on the CUDA cores (a tensor-core product would round
-// the f32 inputs).  Neither overlaps its global loads with compute yet:
-// cp.async/TMA pipelining, wgmma and warp specialisation are later work; the
-// measured times are in PERF.md.
+// tensor cores with wgmma, fed by a TMA ring under a producer warp (see the
+// note above fa_fwd_bf16_kernel); P's hi + lo split makes the P V work
+// twice, so the design's own bound is 1.5 x 40 = 60 us.  The f32 path keeps
+// all math in f32 on the CUDA cores (a tensor-core product would round the
+// f32 inputs).  The measured times are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -62,6 +66,7 @@ struct Params {
   long long q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st;
   int causal, window;
   float softcap, scale;
+  int B;
 };
 
 template <int D>
@@ -225,222 +230,384 @@ __global__ void __launch_bounds__(NT) fa_fwd_f32_kernel(const Params p) {
 }
 
 
-// ---- bfloat16: tensor cores (mma.sync m16n8k16, float32 accumulate) --------
+// ---- bfloat16: TMA ring + wgmma, warp-specialised --------------------------
 //
-// Four warps own 16 query rows each.  S = Q K^T: bf16 operands, f32
-// accumulation (the products of two bf16 values are exact in f32).  P V: P
-// is split into hi + lo bf16 parts (p - hi rounds to lo with a relative
-// error of 2^-17), two products per tile, so P keeps ~16 significant bits
-// where one bf16 P would keep 8; V is bf16 already.  The score accumulator
-// layout of m16n8 is the A-operand layout of the next product, so P never
-// leaves registers.
+// Work items are 128 query rows of one (batch, head), longest first; a
+// persistent grid of one block an SM walks them.  A block holds two consumer
+// warpgroups of 64 rows each and one producer warpgroup, of which one thread
+// issues the TMA loads: Q once an item (a "qfree" barrier says when the
+// consumers are done with the last one), and K and V tiles of BK keys
+// through a ring of S stages, each with a "full" barrier (TMA bytes landed)
+// and an "empty" barrier (all 8 consumer warps done with it); the ring runs
+// on across items, so the next item's first tiles load under this one's
+// tail.  Each row of 128 bytes is one 64-element chunk of the head dim
+// (D/64 chunks), 128-byte swizzled, so the tiles are wgmma operands as
+// they land.
+//
+// S = Q K^T: wgmma m64nBKk16, both operands from shared memory (K-major),
+// f32 accumulation (products of bf16 values are exact in f32).  The online
+// softmax runs on the accumulator fragment in registers, in log2 units.
+// O += P V: wgmma m64nDk16 with A = P from registers and B = V from shared
+// memory, MN-major (transposed).  P is split into hi + lo bf16 parts and
+// both are multiplied, so P keeps ~16 significant bits as the reference's
+// f32 p @ v needs, where one bf16 P would keep 8.  The accumulator layout
+// of S is the register-A layout of the P V product, so P never leaves
+// registers.  setmaxnreg moves registers from the producer (24) to the
+// consumers (240).
+//
+// Tiles wholly above the causal diagonal or wholly outside the window are
+// skipped.
 
-constexpr int MQ = 64;          // query rows per block, 16 per warp
-constexpr int MK = 64;          // key rows per tile
-constexpr int MT = 128;         // threads per block: 4 warps
+constexpr int FQ = 128;        // query rows per block: 2 consumer warpgroups
+constexpr int FT = 384;        // threads: warpgroups 0, 1 consume; 2 produces
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
-constexpr size_t mma_smem_bytes() {
-  // sQ, sK, sV as bf16 rows of D + 8: the 16-byte pad puts the 8 rows of
-  // each ldmatrix on distinct banks
-  return sizeof(__nv_bfloat16) * (size_t)(MQ + 2 * MK) * (D + 8);
-}
+struct Bf16Cfg {
+  static constexpr int BK = D == 256 ? 64 : 128;     // keys per tile
+  static constexpr int S = D == 256 ? 2 : 3;         // ring stages
+  static constexpr int CH = D / 64;                  // 128-byte row chunks
+  static constexpr uint32_t Q_BYTES = CH * FQ * 128;
+  static constexpr uint32_t KV_BYTES = CH * BK * 128;  // one of K or V
+  static constexpr size_t SMEM =
+      1024 + Q_BYTES + 2 * S * KV_BYTES + (2 * S + 1) * sizeof(uint64_t);
+};
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
+struct Bf16Maps {
+  CUtensorMap q, k, v;
+};
 
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t* r) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x, y) -> bf16x2 hi and lo with hi + lo ~= (x, y); x in the low half
+// (x, y) -> bf16x2 hi and lo with hi + lo ~= (x, y); x in the low half.  hi
+// is the top 16 bits of each float (one byte permute, no conversion); lo =
+// x - hi is exact in f32, below 2^-7 |x|, and rounds to bf16 within 2^-8 of
+// itself, so hi + lo is within 2^-15 |x| of x.
 __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
                                            uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+  const uint32_t xb = __float_as_uint(x), yb = __float_as_uint(y);
+  hi = __byte_perm(xb, yb, 0x7632);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(x - __uint_as_float(xb & 0xffff0000u),
+                            y - __uint_as_float(yb & 0xffff0000u));
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// rows [row0, row0 + rows) of a (T, D) slice with row stride `stride`;
-// rows at or past `valid` are zero-filled.  16-byte vector copies.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* s,
-                                          const __nv_bfloat16* g,
-                                          long long stride, int row0,
-                                          int valid, int rows) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < rows * CH; i += MT) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < valid)
-      v = *reinterpret_cast<const uint4*>(g + (long long)(row0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(s + r * (D + 8) + c) = v;
-  }
+// 2^x on the special-function unit; subnormal results flush to 0
+__device__ __forceinline__ float ex2(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
 }
 
 template <int D>
-__global__ void __launch_bounds__(MT) fa_fwd_bf16_kernel(const Params p) {
-  constexpr int SR = D + 8;
-  constexpr int NS = MK / 8;   // score n-tiles of 8 keys
-  constexpr int NO = D / 8;    // output n-tiles of 8 columns
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + MQ * SR;
-  __nv_bfloat16* sV = sK + MK * SR;
+__global__ void __launch_bounds__(FT, 1)
+fa_fwd_bf16_kernel(const __grid_constant__ Bf16Maps maps, const Params p) {
+  using Cfg = Bf16Cfg<D>;
+  constexpr int BK = Cfg::BK, S = Cfg::S, CH = Cfg::CH;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = hopper::align1024(smem_raw);
+  unsigned char* sK = sQ + Cfg::Q_BYTES;
+  unsigned char* sV = sK + S * Cfg::KV_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sV + S * Cfg::KV_BYTES);
+  uint64_t* empty = full + S;
+  uint64_t* qbar = empty + S;
+  uint64_t* qfree = qbar + 1;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.x;
-  const int b = bh / p.H, h = bh % p.H, kh = h / p.G;
-  const int q0 = blockIdx.y * MQ;
-  const int wrow = warp * 16;
+  // Work item w: query tile nqt - 1 - w / (B H) of (batch, head) w % (B H),
+  // so items run longest first.  The grid is persistent: in round r a
+  // block takes item r G + (block, or G - 1 - block in odd rounds), so the
+  // long and the short tiles of neighbouring rounds even out.
+  const int nqt = (p.Tq + FQ - 1) / FQ;
+  const int n_items = p.B * p.H * nqt;
+  auto item_of = [&](int r) {
+    const int G = gridDim.x;
+    return r * G + ((r & 1) ? G - 1 - (int)blockIdx.x : (int)blockIdx.x);
+  };
+  struct Item {
+    int b, h, q0, kt_lo, n;
+  };
+  auto decode = [&](int w) {
+    Item it;
+    const int bh = w % (p.B * p.H);
+    it.b = bh / p.H;
+    it.h = bh % p.H;
+    it.q0 = (nqt - 1 - w / (p.B * p.H)) * FQ;
+    // key tiles [kt_lo, kt_hi): those above the causal diagonal of the
+    // last row, and, when every row keeps an unmasked key, those wholly
+    // outside the window of the first row, carry weight exp(-1e30 - m) = 0
+    int kt_hi = (p.Tk + BK - 1) / BK;
+    if (p.causal) kt_hi = min(kt_hi, (it.q0 + FQ - 1) / BK + 1);
+    it.kt_lo = 0;
+    if (p.window > 0 && min(it.q0 + FQ, p.Tq) - 1 - p.window < p.Tk - 1)
+      it.kt_lo = max(0, it.q0 - p.window + 1) / BK;
+    it.n = kt_hi - it.kt_lo;
+    return it;
+  };
 
-  using bf16 = __nv_bfloat16;
-  const bf16* Q = static_cast<const bf16*>(p.q) + b * p.q_sb + (long long)h * D;
-  const bf16* K = static_cast<const bf16*>(p.k) + b * p.k_sb + (long long)kh * D;
-  const bf16* V = static_cast<const bf16*>(p.v) + b * p.v_sb + (long long)kh * D;
-  bf16* O = static_cast<bf16*>(p.o) + b * p.o_sb + (long long)h * D;
-
-  load_tile<D>(sQ, Q, p.q_st, q0, p.Tq, MQ);
-
-  float o[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  float m_r[2] = {NEG_INF, NEG_INF};  // rows g and g + 8 of this warp
-  float l_r[2] = {0.f, 0.f};          // this thread's share of the row sums
-
-  int nkt = (p.Tk + MK - 1) / MK;
-  if (p.causal) nkt = min(nkt, (q0 + MQ - 1) / MK + 1);
-
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * MK;
-    __syncthreads();  // previous tile's products are done with sK, sV
-    load_tile<D>(sK, K, p.k_st, k0, p.Tk, MK);
-    load_tile<D>(sV, V, p.v_st, k0, p.Tk, MK);
-    __syncthreads();
-
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(smem_u32(sQ + (wrow + (lane & 7) + 8 * ((lane >> 3) & 1)) * SR +
-                       kk * 16 + 8 * (lane >> 4)), a);
-#pragma unroll
-      for (int j = 0; j < NS; j += 2) {
-        uint32_t bk[4];
-        ldsm_x4(smem_u32(sK + (j * 8 + (lane & 7) + 8 * (lane >> 4)) * SR +
-                         kk * 16 + 8 * ((lane >> 3) & 1)), bk);
-        mma_bf16(s[j], a, bk[0], bk[1]);
-        mma_bf16(s[j + 1], a, bk[2], bk[3]);
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);    // one arrival per consumer warp
     }
-
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qpos = q0 + wrow + g + 8 * (e >> 1);
-        const int kpos = k0 + j * 8 + 2 * t + (e & 1);
-        float x = s[j][e] * p.scale;
-        if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
-        bool ok = true;
-        if (p.causal) ok = ok && kpos <= qpos;
-        if (p.window > 0) ok = ok && (qpos - kpos) < p.window;
-        if (!ok) x = NEG_INF;
-        if (kpos >= p.Tk) x = -INFINITY;  // past the ragged end: weight 0
-        s[j][e] = x;
-      }
-
-    // online softmax; the four lanes of a quad share rows g and g + 8
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_r[r], mx);
-      const float corr = expf(m_r[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        s[j][2 * r] = expf(s[j][2 * r] - m_new);
-        s[j][2 * r + 1] = expf(s[j][2 * r + 1] - m_new);
-        sum += s[j][2 * r] + s[j][2 * r + 1];
-      }
-      l_r[r] = l_r[r] * corr + sum;
-      m_r[r] = m_new;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        o[n][2 * r] *= corr;
-        o[n][2 * r + 1] *= corr;
-      }
-    }
-
-    // O += P V, 16 keys a step
-#pragma unroll
-    for (int kk = 0; kk < MK / 16; ++kk) {
-      uint32_t ph[4], pl[4];
-      split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-      split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-#pragma unroll
-      for (int n = 0; n < NO; n += 2) {
-        uint32_t bv[4];
-        ldsm_x4_trans(smem_u32(sV + (kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * SR +
-                               n * 8 + 8 * (lane >> 4)), bv);
-        mma_bf16(o[n], ph, bv[0], bv[1]);
-        mma_bf16(o[n], pl, bv[0], bv[1]);
-        mma_bf16(o[n + 1], ph, bv[2], bv[3]);
-        mma_bf16(o[n + 1], pl, bv[2], bv[3]);
-      }
-    }
+    hopper::mbar_init(qbar, 1);
+    hopper::mbar_init(qfree, 8);
+    hopper::mbar_fence_init();
   }
+  __syncthreads();
 
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: Q once an item, K/V tiles through the ring ----
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      int gt = 0;                           // tiles issued, over all items
+      for (int r = 0; item_of(r) < n_items; ++r) {
+        const Item it = decode(item_of(r));
+        const int kh = it.h / p.G;
+        if (r > 0) hopper::mbar_wait(qfree, (r - 1) & 1);
+        hopper::mbar_arrive_expect_tx(qbar, Cfg::Q_BYTES);
+        for (int c = 0; c < CH; ++c)
+          hopper::tma_load_4d(sQ + c * FQ * 128, &maps.q, qbar, c * 64, it.h,
+                              it.q0, it.b);
+        for (int i = 0; i < it.n; ++i, ++gt) {
+          const int s = gt % S;
+          if (gt >= S) hopper::mbar_wait(&empty[s], ((gt / S) - 1) & 1);
+          hopper::mbar_arrive_expect_tx(&full[s], 2 * Cfg::KV_BYTES);
+          const int k0 = (it.kt_lo + i) * BK;
+          unsigned char* k_dst = sK + s * Cfg::KV_BYTES;
+          unsigned char* v_dst = sV + s * Cfg::KV_BYTES;
+          for (int c = 0; c < CH; ++c) {
+            hopper::tma_load_4d(k_dst + c * BK * 128, &maps.k, &full[s],
+                                c * 64, kh, k0, it.b);
+            hopper::tma_load_4d(v_dst + c * BK * 128, &maps.v, &full[s],
+                                c * 64, kh, k0, it.b);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers ----
+    // Phase i of an item issues S_i = Q K_i and O += P_{i-1} V_{i-1}
+    // together, runs the softmax of S_i while the P V product finishes,
+    // then rescales O and splits P_i; the first phase has no P V, the last
+    // no S.  The two warpgroups take turns to issue (named barriers 2 and
+    // 3), so one's softmax overlaps the other's products.  No wgmma is
+    // issued under a branch: ptxas serializes them all if one is.
+    hopper::setmaxnreg_inc<240>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const uint32_t q_addr = hopper::smem_u32(sQ) + wg * 64 * 128;
+    const int bar_mine = 2 + wg, bar_other = 3 - wg;
+    const float scale2 = p.scale * LOG2E;
+
+    float o[D / 2];
+    float m_r[2], l_r[2];   // rows row0, row0 + 8 (log2 units); this
+                            // thread's share of the row sums
+    uint32_t ph[BK / 16][4], pl[BK / 16][4];
+    float sc[BK / 2];
+    float corr[2];          // the rescale of O by tile i's new maxima
+    int q0 = 0, row0 = 0, kt_lo = 0;
+
+    auto issue_s = [&](int gi) {          // S = Q K of ring tile gi
+      const uint32_t k_addr = hopper::smem_u32(sK + (gi % S) * Cfg::KV_BYTES);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_r[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    l = fmaxf(l, 1e-30f);
-    const int row = q0 + wrow + g + 8 * r;
-    if (row >= p.Tq) continue;
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;    // k16 step in the chunk
+        hopper::Wgmma<BK>::ss_bf16(
+            sc, hopper::desc_sw128(q_addr + (kk / 4) * FQ * 128 + off, 16),
+            hopper::desc_sw128(k_addr + (kk / 4) * BK * 128 + off, 16),
+            kk > 0);
+      }
+    };
+    auto issue_pv = [&](int gi) {         // O += P_hi V + P_lo V
+      const uint32_t v_addr = hopper::smem_u32(sV + (gi % S) * Cfg::KV_BYTES);
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(O + row * p.o_st + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(o[n][2 * r] / l, o[n][2 * r + 1] / l);
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t dv =
+            hopper::desc_sw128(v_addr + kk * 16 * 128, BK * 128);
+        hopper::Wgmma<D>::rs_bf16_tb(o, ph[kk], dv, 1);
+        hopper::Wgmma<D>::rs_bf16_tb(o, pl[kk], dv, 1);
+      }
+    };
+    auto begin_issue = [&]() {
+      hopper::named_sync(bar_mine, 256);
+      hopper::fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        hopper::fence_regs(ph[kk]);
+        hopper::fence_regs(pl[kk]);
+      }
+      hopper::wgmma_fence();
+    };
+    // the second warpgroup's last arrival of an item is left out, so that
+    // each item's arrivals match its waits
+    auto end_issue = [&](bool last) {
+      hopper::wgmma_commit();
+      if (!(last && wg == 1)) hopper::named_arrive(bar_other, 256);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      hopper::fence_regs(sc);
+    };
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(bar);
+    };
+    // scores of tile i in log2 units: scale, soft-cap, mask; masking only
+    // where a tile crosses the diagonal, the window's edge or the ragged
+    // end; then the online softmax: maxima, exponentials, sums
+    auto softmax = [&](int i) {
+      const int k0 = (kt_lo + i) * BK;
+      if (p.softcap > 0.f) {
+        const float c2 = p.softcap * LOG2E, inv = p.scale / p.softcap;
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) sc[e] = c2 * tanhf(sc[e] * inv);
+      } else {
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) sc[e] *= scale2;
+      }
+      if (k0 + BK > p.Tk || (p.causal && k0 + BK - 1 > q0) ||
+          (p.window > 0 && q0 + FQ - 1 - k0 >= p.window)) {
+        // column c = 8j + (e & 1) of this thread is key k0 + 2t + c: row
+        // r keeps c in (lo[r], hi[r]], and c >= past is beyond the end
+        const int cb = k0 + 2 * t, past = p.Tk - cb;
+        int lo[2], hi[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qpos = row0 + 8 * r;
+          hi[r] = p.causal ? qpos - cb : INT_MAX;
+          lo[r] = p.window > 0 ? qpos - cb - p.window : INT_MIN;
+        }
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 8 * j + (e & 1), r = e >> 1;
+            float x = sc[4 * j + e];
+            if (c > hi[r] || c <= lo[r]) x = NEG_INF;
+            if (c >= past) x = -INFINITY;     // past the ragged end: weight 0
+            sc[4 * j + e] = x;
+          }
+      }
+      // the four lanes of a quad share rows row0, row0 + 8; maxima and sums
+      // in four interleaved partials a row (one serial chain would leave
+      // the two warps of a scheduler waiting on latency)
+      float mx[2][4], sm[2][4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          mx[r][c] = -INFINITY;
+          sm[r][c] = 0.f;
+        }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          mx[r][j % 4] = fmaxf(mx[r][j % 4], fmaxf(sc[4 * j + 2 * r],
+                                                   sc[4 * j + 2 * r + 1]));
+      float m_new[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float m = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+        m_new[r] = fmaxf(m_r[r], m);
+        corr[r] = ex2(m_r[r] - m_new[r]);
+        m_r[r] = m_new[r];
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float p0 = ex2(sc[4 * j + 2 * r] - m_new[r]);
+          const float p1 = ex2(sc[4 * j + 2 * r + 1] - m_new[r]);
+          sc[4 * j + 2 * r] = p0;
+          sc[4 * j + 2 * r + 1] = p1;
+          sm[r][j % 4] += p0 + p1;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        l_r[r] = l_r[r] * corr[r] +
+                 ((sm[r][0] + sm[r][1]) + (sm[r][2] + sm[r][3]));
+    };
+    // once the previous P V is done: O rescaled, P_i into hi + lo
+    auto softmax_finish = [&]() {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[4 * j + e] *= corr[e >> 1];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          split_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], ph[kk][r],
+                     pl[kk][r]);
+    };
+
+    int gt = 0;                             // ring tiles consumed
+    for (int r = 0; item_of(r) < n_items; ++r) {
+      const Item it = decode(item_of(r));
+      q0 = it.q0;
+      kt_lo = it.kt_lo;
+      row0 = q0 + wg * 64 + warp * 16 + g;
+      const int n = it.n;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      m_r[0] = m_r[1] = NEG_INF;
+      l_r[0] = l_r[1] = 0.f;
+
+      hopper::mbar_wait(qbar, r & 1);
+      if (wg == 1) hopper::named_arrive(bar_other, 256);  // warpgroup 0 first
+      hopper::mbar_wait(&full[gt % S], (gt / S) & 1);
+      begin_issue();
+      issue_s(gt);
+      end_issue(false);
+      if (n == 1) release(qfree);           // Q is done with
+      softmax(0);
+      softmax_finish();
+      for (int i = 1; i < n; ++i) {
+        // S_i and P_{i-1} V_{i-1} as two groups: the softmax of S_i runs
+        // while the P V product is still on the tensor cores
+        const int gi = gt + i;
+        hopper::mbar_wait(&full[gi % S], (gi / S) & 1);
+        begin_issue();
+        issue_s(gi);
+        hopper::wgmma_commit();
+        issue_pv(gi - 1);
+        hopper::wgmma_commit();
+        hopper::named_arrive(bar_other, 256);
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs(sc);
+        if (i == n - 1) release(qfree);     // Q is done with
+        softmax(i);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(o);
+        release(&empty[(gi - 1) % S]);      // K and V of tile i - 1
+        softmax_finish();
+      }
+      begin_issue();
+      issue_pv(gt + n - 1);
+      end_issue(true);
+      release(&empty[(gt + n - 1) % S]);
+      gt += n;
+
+      using bf16 = __nv_bfloat16;
+      bf16* O = static_cast<bf16*>(p.o) + it.b * p.o_sb + (long long)it.h * D;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float l = l_r[rr];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        l = fmaxf(l, 1e-30f);
+        const int row = row0 + 8 * rr;
+        if (row >= p.Tq) continue;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(O + row * p.o_st + j * 8 +
+                                             2 * t) =
+              __floats2bfloat162_rn(o[4 * j + 2 * rr] / l,
+                                    o[4 * j + 2 * rr + 1] / l);
+      }
+    }
   }
 }
 
@@ -455,18 +622,46 @@ cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// q (B, Tq, H, D), k/v (B, Tk, KV, D) as 4-D tensor maps (D, heads, T, B);
+// boxes of 64 head-dim elements (128 bytes, swizzled) by one head by `rows`
 template <int D>
-cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<D>();
+cudaError_t launch_bf16(const Params& p, int B, int KV, cudaStream_t stream) {
+  using Cfg = Bf16Cfg<D>;
+  Bf16Maps maps;
+  const uint64_t row = D * sizeof(__nv_bfloat16);
+  const uint32_t q_box[4] = {64, 1, FQ, 1};
+  const uint32_t kv_box[4] = {64, 1, (uint32_t)Cfg::BK, 1};
+  const uint64_t q_dims[4] = {D, (uint64_t)p.H, (uint64_t)p.Tq, (uint64_t)B};
+  const uint64_t kv_dims[4] = {D, (uint64_t)KV, (uint64_t)p.Tk, (uint64_t)B};
+  const uint64_t q_str[3] = {row, 2ull * p.q_st, 2ull * p.q_sb};
+  const uint64_t k_str[3] = {row, 2ull * p.k_st, 2ull * p.k_sb};
+  const uint64_t v_str[3] = {row, 2ull * p.v_st, 2ull * p.v_sb};
+  const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!hopper_host::make_map(&maps.q, bf, 4, p.q, q_dims, q_str, q_box, sw) ||
+      !hopper_host::make_map(&maps.k, bf, 4, p.k, kv_dims, k_str, kv_box, sw) ||
+      !hopper_host::make_map(&maps.v, bf, 4, p.v, kv_dims, v_str, kv_box, sw))
+    return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      fa_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fa_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Cfg::SMEM);
   if (e != cudaSuccess) return e;
-  const dim3 grid(B * p.H, (p.Tq + MQ - 1) / MQ);
-  fa_fwd_bf16_kernel<D><<<grid, MT, smem, stream>>>(p);
+  static int sms = 0;                       // SMs of the card: one block each
+  if (sms == 0) {
+    int dev = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  const int items = B * p.H * ((p.Tq + FQ - 1) / FQ);
+  fa_fwd_bf16_kernel<D><<<items < sms ? items : sms, FT, Cfg::SMEM, stream>>>(
+      maps, p);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(const Params& p, int dtype, int B, int D, cudaStream_t s) {
+cudaError_t dispatch(const Params& p, int dtype, int B, int KV, int D,
+                     cudaStream_t s) {
   if (dtype == 0) {
     switch (D) {
       case 64: return launch_f32<64>(p, B, s);
@@ -475,9 +670,9 @@ cudaError_t dispatch(const Params& p, int dtype, int B, int D, cudaStream_t s) {
     }
   } else if (dtype == 1) {
     switch (D) {
-      case 64: return launch_bf16<64>(p, B, s);
-      case 128: return launch_bf16<128>(p, B, s);
-      case 256: return launch_bf16<256>(p, B, s);
+      case 64: return launch_bf16<64>(p, B, KV, s);
+      case 128: return launch_bf16<128>(p, B, KV, s);
+      case 256: return launch_bf16<256>(p, B, KV, s);
     }
   }
   return cudaErrorInvalidValue;
@@ -496,8 +691,9 @@ int fa_fwd(const void* q, const void* k, const void* v, void* o, int dtype,
   if (KV <= 0 || H % KV != 0 || B <= 0 || Tq <= 0 || Tk <= 0)
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, o, H, H / KV, Tq, Tk, q_sb, q_st, k_sb, k_st,
-           v_sb, v_st, o_sb, o_st, causal, window, softcap, scale};
-  return (int)dispatch(p, dtype, B, D, static_cast<cudaStream_t>(stream));
+           v_sb, v_st, o_sb, o_st, causal, window, softcap, scale, B};
+  return (int)dispatch(p, dtype, B, KV, D,
+                       static_cast<cudaStream_t>(stream));
 }
 
 const char* fa_error_string(int err) {

@@ -59,10 +59,10 @@ def _check(q, k, v, window, softcap):
                              f"head_dim); strides {t.stride()}")
         if t.dtype == torch.bfloat16 and (
                 t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8):
-            raise ValueError(f"{name}: bf16 rows are read as 16-byte "
-                             "vectors; need a 16-byte aligned pointer and "
-                             f"batch/time strides that are multiples of 8, "
-                             f"got strides {t.stride()}")
+            raise ValueError(f"{name}: bf16 tensors are read through TMA "
+                             "tensor maps, which need a 16-byte aligned "
+                             "pointer and batch/time strides that are "
+                             f"multiples of 8, got strides {t.stride()}")
     if window < 0 or softcap < 0:
         raise ValueError("window and softcap must be >= 0")
 

@@ -3,8 +3,8 @@
 Replaces ``repro/kernels/lut_matmul.py::lut_matmul`` (Pallas TPU).  The
 kernel is CUDA C++ in ``csrc/lut_matmul.cu``, built by ``_build`` and called
 through its C interface: ``Y = X @ dequant(codes, lut)`` with the weight
-tile rebuilt in shared memory and the products in float32 on the CUDA
-cores.  A tensor on the CPU goes to the plain ``ref.lut_matmul_ref``; a
+tile rebuilt in shared memory and the products on the tensor cores as
+3xTF32 (float32 accuracy from three TF32 products).  A tensor on the CPU goes to the plain ``ref.lut_matmul_ref``; a
 CUDA tensor goes to the kernel or the call raises.  ``lut_matmul.launches``
 counts kernel launches.  ``quantize_weights`` is the reference's plain
 quantizer, which makes the codes and codebooks.
@@ -58,8 +58,9 @@ def _check(x, codes, lut):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if x.data_ptr() % 16 or lut.data_ptr() % 16:
-        raise ValueError("x and lut are read as 16-byte vectors and need "
-                         "16-byte aligned pointers")
+        raise ValueError("x is read through a TMA tensor map and lut as "
+                         "16-byte vectors: both need 16-byte aligned "
+                         "pointers")
 
 
 def lut_matmul(x: torch.Tensor, codes: torch.Tensor, lut: torch.Tensor

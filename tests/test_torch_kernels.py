@@ -518,3 +518,266 @@ def test_cuda_lut_matmul_matches_plain_version(M, K, N, dtype):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+# ---- the build --------------------------------------------------------------
+
+def test_build_hash_covers_the_shared_headers(tmp_path):
+    """A library is named by its source, the ``csrc/*.cuh`` headers and the
+    flags: an edited header renames (so rebuilds) every library, and an
+    edited source renames only its own."""
+    import shutil
+    from repro_torch.kernels import _build
+    for f in _build.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            shutil.copy(f, tmp_path / f.name)
+    names = sorted(p.stem for p in tmp_path.glob("*.cu"))
+    assert {"flash_attention", "lut_matmul"} <= set(names)
+    assert (tmp_path / "hopper.cuh").exists()
+    before = {n: _build.digest(n, tmp_path) for n in names}
+    assert before == {n: _build.digest(n, tmp_path) for n in names}
+    header = tmp_path / "hopper.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {n: _build.digest(n, tmp_path) for n in names}
+    assert all(after[n] != before[n] for n in names)
+    src = tmp_path / "lut_matmul.cu"
+    src.write_bytes(src.read_bytes() + b"\n// edited\n")
+    again = {n: _build.digest(n, tmp_path) for n in names}
+    assert [n for n in names if again[n] != after[n]] == ["lut_matmul"]
+    assert "-I" in _build.NVCC_FLAGS
+
+
+# ---- the Hopper kernels' numerical designs, emulated on the CPU -------------
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32``: add half of the 13 dropped bits' range to
+    the bit pattern (sign-magnitude, so this rounds the magnitude), then
+    clear them."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """What the tensor cores do with a float32 operand: keep TF32's 10
+    mantissa bits, drop the other 13 (truncation)."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    u = 2.0 ** -10                          # one TF32 ulp at 1
+    x = torch.tensor([1 + u / 2, 1 + 1.5 * u, -(1 + 1.5 * u), 1 + u / 4,
+                      3.0, -2 - u / 2], dtype=torch.float32)
+    want = torch.tensor([1 + u, 1 + 2 * u, -(1 + 2 * u), 1.0, 3.0, -2.0],
+                        dtype=torch.float32)
+    assert torch.equal(_tf32(x), want)
+    y = torch.from_numpy(np.random.default_rng(1).normal(size=4096).astype(
+        np.float32))
+    assert not bool((_tf32(y).view(torch.int32) & 0x1FFF).any())
+    assert float(((_tf32(y) - y).abs() / y.abs()).max()) <= 2.0 ** -11
+
+
+def _lut_design_inputs(dtype, M=64, K=4096, N=256):
+    """``chip_smoke.py``'s LUT statistics: x ~ N(0, 1), weights N(0, 1/K)
+    through ``quantize_weights``; W dequantized on the CPU."""
+    rng = np.random.default_rng(K + N)
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32))
+    x = x.to(getattr(torch, dtype)).float()
+    w = torch.from_numpy((rng.normal(size=(K, N)) * K ** -0.5).astype(
+        np.float32))
+    codes, lut = ops.quantize_weights(w)
+    W = ref.lut_matmul_ref(torch.eye(K), codes, lut)
+    return x, W
+
+
+def _lut_err(got, want):
+    """Max error and whether each element is within the kernel's tolerance
+    1e-4 + 1e-5 |want|."""
+    d = (got - want).abs()
+    return float(d.max()), bool((d <= 1e-4 + 1e-5 * want.abs()).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lut_3xtf32_scheme_holds_the_kernel_tolerance(dtype):
+    """The LUT kernel's arithmetic: x and W split into a TF32 hi (rounded
+    to nearest) and the residual, which the tensor cores truncate to TF32;
+    the three products x_hi W_hi + x_hi W_lo + x_lo W_hi (exact on the
+    tensor cores, summed here in float64), at K = 4096 against the float64
+    product.  bf16 x is exact in TF32 (x_lo = 0), so two products do."""
+    x, W = _lut_design_inputs(dtype)
+    xh, Wh = _tf32(x), _tf32(W)
+    xl, Wl = _tf32_trunc(x - xh), _tf32_trunc(W - Wh)
+    if dtype == "bfloat16":
+        assert torch.equal(xh, x) and not bool(xl.any())
+    d = torch.float64
+    got = (xh.to(d) @ Wh.to(d) + xh.to(d) @ Wl.to(d) + xl.to(d) @ Wh.to(d))
+    err, ok = _lut_err(got.float().to(d), x.to(d) @ W.to(d))
+    assert ok, err
+    assert err < 1e-5
+
+
+def test_lut_single_tf32_product_misses_the_kernel_tolerance():
+    """Why the kernel splits: one TF32 product (10-bit operands) misses
+    1e-4 + 1e-5 |want| at K = 4096 by an order of magnitude."""
+    x, W = _lut_design_inputs("float32")
+    d = torch.float64
+    err, ok = _lut_err((_tf32(x).to(d) @ _tf32(W).to(d)).float().to(d),
+                       x.to(d) @ W.to(d))
+    assert not ok and err > 1e-4
+
+
+LOG2E = 1.4426950408889634
+
+
+def _flash_bf16_scheme(q, k, v, *, causal, window, softcap, bk, split=True):
+    """The bf16 flash kernel's arithmetic on one head: q (Tq, D), k/v
+    (Tk, D) holding bf16 values.  Scores q k^T in float32 (bf16 products are
+    exact), in log2 units, masked with the finite -1e30; online softmax over
+    key tiles of ``bk``; P split into hi (its top 16 bits) + lo (the rest,
+    rounded to bf16) and both multiplied by V in float32.  Returns the
+    float32 output before its cast to bf16."""
+    Tq, D = q.shape
+    scale = D ** -0.5
+    m = torch.full((Tq,), ref.NEG_INF)
+    l = torch.zeros(Tq)
+    o = torch.zeros(Tq, D)
+    qpos = torch.arange(Tq)[:, None]
+    for k0 in range(0, k.shape[0], bk):
+        kb, vb = k[k0:k0 + bk], v[k0:k0 + bk]
+        s = q @ kb.T
+        x = (softcap * LOG2E * torch.tanh(s * scale / softcap) if softcap
+             else s * (scale * LOG2E))
+        kpos = torch.arange(k0, k0 + kb.shape[0])[None]
+        ok = torch.ones_like(x, dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window:
+            ok &= (qpos - kpos) < window
+        x = torch.where(ok, x, torch.tensor(ref.NEG_INF))
+        m_new = torch.maximum(m, x.max(dim=1).values)
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new[:, None])
+        l = l * corr + p.sum(dim=1)
+        o = o * corr[:, None]
+        if split:
+            hi = (p.view(torch.int32) & -65536).view(torch.float32)
+            o = o + hi @ vb + (p - hi).bfloat16().float() @ vb
+        else:
+            o = o + p.bfloat16().float() @ vb
+        m = m_new
+    return o / l.clamp_min(1e-30)[:, None]
+
+
+def _attention_f64(q, k, v, *, causal, window, softcap):
+    out = ref.flash_attention_ref(q[None].double(), k[None].double(),
+                                  v[None].double(), causal=causal,
+                                  window=window, softcap=softcap)
+    return out[0]
+
+
+FLASH_DESIGN_CASES = [
+    # Tq, Tk, D, causal, window, softcap, key tile of the kernel at D
+    (130, 130, 64, True, 0, 0.0, 128),
+    (300, 300, 128, True, 100, 30.0, 128),
+    (200, 333, 256, False, 0, 50.0, 64),
+    (1100, 1100, 128, True, 0, 0.0, 128),
+]
+
+
+def _bf16_heads(Tq, Tk, D, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(T, D)).astype(np.float32))
+            .bfloat16().float() for T in (Tq, Tk, Tk)]
+
+
+@pytest.mark.parametrize("Tq,Tk,D,causal,window,softcap,bk",
+                         FLASH_DESIGN_CASES)
+def test_flash_bf16_scheme_matches_float64_attention(Tq, Tk, D, causal,
+                                                     window, softcap, bk):
+    """P as hi + lo keeps the output within 5e-5 of float64 attention on the
+    same bf16 inputs before the cast, and within the kernel's 2e-2 after."""
+    q, k, v = _bf16_heads(Tq, Tk, D, Tq + D)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = _flash_bf16_scheme(q, k, v, bk=bk, **kw)
+    want = _attention_f64(q, k, v, **kw)
+    assert float((got.double() - want).abs().max()) <= 5e-5
+    assert float((got.bfloat16().double() - want).abs().max()) <= 2e-2
+
+
+def test_flash_single_bf16_p_loses_the_f32_product():
+    """Why P is split: one bf16 P (8 significant bits) is off float64
+    attention by ~3e-3, where the reference multiplies p @ v in f32."""
+    q, k, v = _bf16_heads(300, 300, 128, 7)
+    kw = dict(causal=True, window=0, softcap=0.0)
+    got = _flash_bf16_scheme(q, k, v, bk=128, split=False, **kw)
+    assert float((got.double() - _attention_f64(q, k, v, **kw)).abs().max()) \
+        > 5e-4
+
+
+# ---- the Hopper kernels on the card -----------------------------------------
+
+def _bf16_gqa(rng, B, Tq, Tk, H, K, D):
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.bfloat16,
+                            device="cuda")
+    return t(B, Tq, H, D), t(B, Tk, K, D), t(B, Tk, K, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,K,D,window,softcap", [
+    (1, 130, 2, 2, 128, 0, 0.0),          # ragged: one full and one short tile
+    (4, 1100, 32, 2, 128, 0, 0.0),        # the serving prefill shape
+    (2, 300, 4, 2, 64, 100, 30.0),        # window + soft-cap
+    (2, 300, 4, 2, 256, 100, 30.0),
+    (1, 1000, 2, 1, 256, 64, 50.0),       # tiles skipped outside the window
+])
+def test_cuda_flash_bf16_against_plain_version(B, T, H, K, D, window,
+                                               softcap):
+    """The TMA/wgmma bf16 kernel at the 2e-2 of ``chip_smoke.py``."""
+    _cuda_or_skip()
+    q, k, v = _bf16_gqa(np.random.default_rng(T + D), B, T, T, H, K, D)
+    kw = dict(causal=True, window=window, softcap=softcap)
+    got = fa.flash_attention_gqa(q, k, v, **kw)
+    want = ref.flash_attention_gqa_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bf16_reads_a_cache_slice_in_place():
+    """Prefill passes ``cache[:, :T]``: batch and time strides of the longer
+    cache, read through the tensor maps without a copy."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(5)
+    q, ck, cv = _bf16_gqa(rng, 2, 300, 512, 8, 2, 128)
+    k, v = ck[:, :300], cv[:, :300]
+    assert not k.is_contiguous()
+    got = fa.flash_attention_gqa(q, k, v)
+    want = ref.flash_attention_gqa_ref(q, k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N", [(1, 64, 1), (257, 192, 129),
+                                   (100, 4096, 300), (130, 128, 260)])
+def test_cuda_lut_matmul_ragged_against_plain_version(M, K, N, dtype):
+    """The 3xTF32 kernel at ragged M and N (edges of its 128 x 128 tiles,
+    odd N for the scalar stores), ``chip_smoke.py``'s statistics and its
+    1e-4 + 1e-5 |want|."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(M + N)
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).cuda()
+    w = torch.from_numpy((rng.normal(size=(K, N)) * K ** -0.5).astype(
+        np.float32)).cuda()
+    codes, lut = ops.quantize_weights(w)
+    x = x.to(getattr(torch, dtype))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = lm.lut_matmul(x, codes, lut)
+        want = ref.lut_matmul_ref(x, codes, lut)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
