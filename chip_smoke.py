@@ -12,7 +12,8 @@ Phases, each printing what it found; any failure raises and exits non-zero:
    library call computing the same function where there is one (flash and
    LUT: kernel and library timed in turns, three times each, median and
    range printed), and the card's bound: flash attention, the selective
-   scan's two entry points (``mamba_scan``, ``selective_scan``) and the LUT
+   scan's two entry points (``mamba_scan``, ``selective_scan``, the latter
+   timed as device time from a CUDA graph of its launches) and the LUT
    matmul;
 4. for each served model, glm4-9b (40 layers) then falcon-mamba-7b (64
    Mamba-1 layers), at full width in bf16 with random weights from a seeded
@@ -132,6 +133,31 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time of one call: ``iters`` calls captured in one CUDA graph,
+    the graph replayed ``replays`` times between two events, so no host
+    work (the Python wrapper) sits between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def in_turns(kernel, library, rounds: int = 3, iters: int = 20):
@@ -354,7 +380,9 @@ def _selective_cost(B, T, D, N, itemsize):
 def phase_selective_scan(gen) -> dict:
     """``selective_scan``, the fused Mamba-1 form the model calls, against
     ``ref.selective_scan_ref``; timed at the serving prefill shape (B=4,
-    T=1100, d_inner 8192, n 16, bf16 x/b/c) and the decode step's (T=1)."""
+    T=1100, d_inner 8192, n 16, bf16 x/b/c) and the decode step's (T=1):
+    ``ms`` is device time (``graph_ms``), ``wrapper_ms`` the wrapper's calls
+    between two events (at T=1 the host's work, not the kernel's)."""
     for case in [(2, 37, 48, 12, torch.float32), (2, 300, 96, 16,
                                                   torch.bfloat16),
                  (3, 1, 64, 16, torch.bfloat16), (1, 70, 40, 5,
@@ -376,15 +404,22 @@ def phase_selective_scan(gen) -> dict:
                         wy, SCAN_TOL),
                   _held("selective_scan", (B, T, D, N, "bfloat16", "h_last"),
                         h, wh, SCAN_TOL))
-        ms_ = cuda_ms(lambda: ms.selective_scan(*args))
+        ms_ = graph_ms(lambda: ms.selective_scan(*args))
+        wrapper_ms = cuda_ms(lambda: ms.selective_scan(*args))
         plain_ms = cuda_ms(lambda: ref.selective_scan_ref(*args), iters=2,
                            warmup=1)
         exps, nbytes = _selective_cost(B, T, D, N, 2)
         t_ops = exps / PEAK_SFU_OPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
+        plan = ms.kernel_plan(*args, h)
+        if plan != ms.selective_plan(args[0], args[1], args[4], args[5], h):
+            raise AssertionError(f"the kernel's plan {plan} is not the "
+                                 "wrapper's mirror of it")
         log("kernel-time", name="selective_scan",
             shape=f"B{B}_T{T}_D{D}_N{N}_bf16", ms=f"{ms_:.4f}",
+            wrapper_ms=f"{wrapper_ms:.4f}",
             plain_ms=f"{plain_ms:.4f}", library_ms="none",
+            plan=",".join(map(str, plan.as_ints())),
             bound_ms=f"{max(t_ops, t_bytes):.4f}",
             sfu_bound_ms=f"{t_ops:.4f}", bytes_bound_ms=f"{t_bytes:.4f}",
             mexp=f"{exps / 1e6:.1f}", mbytes=f"{nbytes / 1e6:.2f}",

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels, in raw PTX:
-// mbarriers, TMA tensor loads, wgmma descriptors and products, setmaxnreg,
+// mbarriers, TMA tensor loads, ex2 on the special-function unit, wgmma
+// descriptors and products, setmaxnreg,
 // and, on the host, tensor maps made with cuTensorMapEncodeTiled reached
 // through the runtime's driver entry point (so the library does not link
 // libcuda).
@@ -54,6 +55,13 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
                :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
 
+// announces `bytes` of TMA traffic to wait for, without arriving (the
+// arrivals come later, e.g. after the same thread's shared-memory stores)
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
 // spins until the barrier's phase with parity `parity` has completed
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   asm volatile(
@@ -77,6 +85,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+         "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2, int c3) {
@@ -86,6 +105,14 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
          "r"(c2), "r"(c3)
       : "memory");
+}
+
+// 2^x on the special-function unit (one MUFU.EX2); subnormal results flush
+// to 0.  Within 2 ulp of 2^x.
+__device__ __forceinline__ float ex2(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
 }
 
 // ---- wgmma ------------------------------------------------------------------

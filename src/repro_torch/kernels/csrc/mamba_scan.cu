@@ -18,28 +18,55 @@
 // float32 rounding order: the TPU walks time blocks of bt steps on a
 // sequential grid axis and carries the (D, N) state in VMEM scratch.  Blocks
 // on Hopper run in parallel and in no order, so the time loop lives inside
-// the thread: P = next_pow2(ceil(N / S)) neighbouring lanes own one (b, d)
-// channel, each holding S of its N states in registers for the whole
-// sequence, and y_t is the lanes' partial sums reduced with warp shuffles.
-// There is no T % bt requirement.
+// the thread: P neighbouring lanes own one (b, d) channel, each holding S of
+// its N states in registers for the whole sequence, and y_t is the lanes'
+// partial sums reduced with warp shuffles.  There is no T % bt requirement.
 //
-// What bounds it on this card: mamba_scan_fwd moves 8 * B*T*D*N bytes of
-// decay and u and does 2 flops per byte pair: memory-bound (1.107 GB, 0.33 ms
-// at 3.35 TB/s for B=1, T=1024, D=8192, N=16).  It keeps S = 4, so that even
-// B=1 gives enough lanes to keep every SM loading, and each lane loads the
-// inputs of U steps ahead of their use (registers).  selective_scan_fwd reads
-// only ~10 bytes per (b, t, d) but evaluates B*T*D*N expf: the special-
-// function units bound it (577 M exp, ~0.14 ms at the serving prefill shape).
-// It keeps S = min(16, N): a channel's dt and x are loaded once, not once a
-// lane, and b, c, shared by every channel of a batch row, are staged in
-// shared memory once a block, a chunk of U steps ahead, and read as
-// broadcasts.  expf, not __expf, so the result meets the float32 tolerance.
-// Neither uses the tensor cores; the measured times are in PERF.md.
+// mamba_scan_fwd moves 8 * B*T*D*N bytes of decay and u and does 2 flops per
+// byte pair: memory-bound (1.107 GB, 0.33 ms at 3.35 TB/s for B=1, T=1024,
+// D=8192, N=16).  It keeps S = 4, so that even B=1 gives enough lanes to keep
+// every SM loading, and each lane loads the inputs of U steps ahead of their
+// use (registers).
+//
+// selective_scan_fwd reads only ~10 bytes per (b, t, d) but evaluates
+// B*T*D*N exponentials: the special-function units (16 a clock an SM) bound
+// it, 577 M exp or ~0.14 ms at the serving prefill shape (B=4, T=1100,
+// D=8192, N=16), with the bytes (~0.11 ms) close behind.  One lane a channel
+// (the earlier design) gave ~8 warps an SM, too few to hide the latency of
+// a step, and spent ~8 FMA-pipe instructions on each expf.  This design:
+//   * splits a channel's N = 16 states over P = 2 lanes of S = 8 (more
+//     generally S = 8 up to N = 16 and S = 16 above, P = next_pow2(N / S)),
+//     so the serving shape fills an SM with 16 consumer warps; y is reduced
+//     by log2(P) xor shuffles a step.  A sweep chose S = 8 over S = 4 (32
+//     warps, but more shuffles and loads a state-step) and S = 16 (8
+//     warps); PERF.md has its times;
+//   * spends one MUFU.EX2 and one FMUL on each state-step: log2(e) is folded
+//     into A once a channel and exp is ex2.approx.ftz (within 2 ulp);
+//   * streams dt and x through a ring of STAGES shared-memory stages of TS
+//     steps x CH channels, loaded by TMA (cp.async.bulk.tensor) under full /
+//     empty mbarriers by one producer warp a block, so the consumers keep
+//     no loads in registers and never meet at a block-wide barrier; a
+//     channel's dt and x are loaded once a block and read by its P lanes as
+//     broadcasts.  b and c (2N values a step, shared by every channel of a
+//     batch row) are loaded by the producer warp's lanes, widened to f32 and
+//     staged in the same stage, and read as 16-byte broadcasts.  An operand
+//     whose base or strides TMA cannot take (16-byte aligned base, batch and
+//     time strides multiples of 16 bytes) is loaded by the producer warp's
+//     lanes too, into the same place: b and c always, dt and x by alignment;
+//   * runs a short T (T <= DIRECT_T; decode is T = 1) without the ring: each
+//     lane reads its inputs straight from global memory, and h0 / h_last
+//     move as 16-byte vectors.
+// plan_selective below makes these choices; kernels/mamba_scan.py mirrors it
+// for the tests.  Neither kernel uses the tensor cores; the measured times
+// are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -140,10 +167,16 @@ mamba_scan_kernel(const float* __restrict__ decay,
 }
 
 // ---- selective_scan: the fused Mamba-1 form ---------------------------------
-// One lane holds S = min(16, N) states of its channel, so that the per-step
-// inputs dt and x of a channel are loaded once, and b, c (shared by all the
-// channels of a batch row) are staged in shared memory once per block and
-// read as broadcasts.  Each step evaluates S expf per lane.
+
+// The ring path's shape, chosen by benchmarks/selective_scan_sweep.py.
+constexpr int TS = 32;                    // steps a ring stage holds
+constexpr int STAGES = 3;
+constexpr int NC = 256;                   // consumer threads a block
+constexpr int SEL_NT = NC + 32;           // and one producer warp
+constexpr int S_SMALL = 8;                // states a lane for N <= 16
+constexpr int DIRECT_T = 8;               // the longest T run without the ring
+constexpr int DIRECT_NT = 128;            // threads a block, direct path
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct SelArgs {
   const float* dt;
@@ -154,116 +187,380 @@ struct SelArgs {
   const float* h0;
   float* y;
   float* h_last;
-  int B, T, D, N, P;
+  int B, T, D, N;
   long long dt_sb, dt_st, x_sb, x_st, b_sb, b_st, c_sb, c_st;
+  int vec, tma_dt, tma_x;                 // from the plan
 };
 
-constexpr int BC_PER_THREAD = (U * MAX_N + NT - 1) / NT;
+// How a call runs: S states a lane, P lanes a channel, CH channels a block
+// (ring path), the direct path or the ring, TMA or lane loads for dt and x,
+// 16-byte vectors for A, h0 and h_last, and the grid.
+struct SelPlan {
+  int S, P, CH, direct, tma_dt, tma_x, vec;
+  unsigned gx, gy;
+};
 
-template <typename TX, int S>
-__global__ void __launch_bounds__(NT) selective_scan_kernel(const SelArgs a) {
-  __shared__ float sb[2][U][MAX_N];
-  __shared__ float sc[2][U][MAX_N];
-  const int T = a.T, N = a.N, P = a.P;
-  const int bb = blockIdx.y;                       // batch row
-  const int gid = blockIdx.x * NT + threadIdx.x;
-  const int d = gid / P;
-  const bool live = d < a.D;
-  const int n0 = (gid % P) * S;
-  const bool lead = live && gid % P == 0;
-  const float* dtp = a.dt + bb * a.dt_sb + (live ? d : 0);
-  const TX* xp = static_cast<const TX*>(a.x) + bb * a.x_sb + (live ? d : 0);
-  const TX* bp = static_cast<const TX*>(a.b) + bb * a.b_sb;
-  const TX* cp = static_cast<const TX*>(a.c) + bb * a.c_sb;
-  const long long hoff = ((long long)bb * a.D + d) * N + n0;
-
-  float h[S], Aj[S];
-#pragma unroll
-  for (int j = 0; j < S; ++j) {
-    const bool okj = live && n0 + j < N;
-    h[j] = okj ? a.h0[hoff + j] : 0.f;
-    Aj[j] = okj ? __ldg(a.A + (long long)d * N + n0 + j) : 0.f;
-  }
-
-  // the inputs of steps t0 .. t0+U-1 into registers; a step past T, or a
-  // missing channel, gets dt = 0 and b = c = 0: decay 1, u 0, no output
-  float ndt[U], nx[U], nb[BC_PER_THREAD], nc[BC_PER_THREAD];
-  auto fetch = [&](int t0) {
-#pragma unroll
-    for (int s = 0; s < U; ++s) {
-      const bool ok = live && t0 + s < T;
-      ndt[s] = ok ? __ldg(dtp + (t0 + s) * a.dt_st) : 0.f;
-      nx[s] = ok ? load(xp + (t0 + s) * a.x_st) : 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < BC_PER_THREAD; ++e) {
-      const int i = threadIdx.x + e * NT;        // (step, state) of the chunk
-      const int s = i / N, n = i % N;
-      const bool ok = i < U * N && t0 + s < T;
-      nb[e] = ok ? load(bp + (t0 + s) * a.b_st + n) : 0.f;
-      nc[e] = ok ? load(cp + (t0 + s) * a.c_st + n) : 0.f;
-    }
-  };
-  auto stage = [&](int buf) {
-#pragma unroll
-    for (int e = 0; e < BC_PER_THREAD; ++e) {
-      const int i = threadIdx.x + e * NT;
-      if (i < U * N) {
-        sb[buf][i / N][i % N] = nb[e];
-        sc[buf][i / N][i % N] = nc[e];
-      }
-    }
-  };
-
-  float* yp = a.y + (long long)bb * T * a.D + d;
-  float cdt[U], cx[U];
-  fetch(0);
-  stage(0);
-  __syncthreads();
-  for (int t0 = 0, buf = 0; t0 < T; t0 += U, buf ^= 1) {
-#pragma unroll
-    for (int s = 0; s < U; ++s) {
-      cdt[s] = ndt[s];
-      cx[s] = nx[s];
-    }
-    const bool more = t0 + U < T;
-    if (more) fetch(t0 + U);
-#pragma unroll
-    for (int s = 0; s < U; ++s) {
-      const float dx = cdt[s] * cx[s];
-      float decay[S], uu[S], cc[S];
-#pragma unroll
-      for (int j = 0; j < S; ++j) {
-        const bool okj = n0 + j < N;
-        decay[j] = expf(cdt[s] * Aj[j]);
-        uu[j] = dx * (okj ? sb[buf][s][n0 + j] : 0.f);
-        cc[j] = okj ? sc[buf][s][n0 + j] : 0.f;
-      }
-      const float yv = recur<S>(h, decay, uu, cc, P);
-      if (lead && t0 + s < T) yp[(long long)(t0 + s) * a.D] = yv;
-    }
-    if (more) stage(buf ^ 1);  // that buffer's last reads ended at the sync
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < S; ++j)
-    if (live && n0 + j < N) a.h_last[hoff + j] = h[j];
+// a TMA tensor map takes a 16-byte aligned base and batch and time strides
+// that are positive multiples of 16 bytes (a size-1 batch's is not used)
+bool tma_ok(const void* p, long long sb, long long st, int itemsize, int B) {
+  return (uintptr_t)p % 16 == 0 && st > 0 && st * itemsize % 16 == 0 &&
+         (B == 1 || (sb > 0 && sb * itemsize % 16 == 0));
 }
 
-template <typename TX>
-cudaError_t launch_selective(const SelArgs& args, cudaStream_t s) {
-  SelArgs a = args;
-  const int S = a.N > 8 ? 16 : a.N > 4 ? 8 : 4;
-  a.P = lanes_for(a.N, S);
-  const dim3 grid((unsigned)((a.D * (long long)a.P + NT - 1) / NT),
-                  (unsigned)a.B);
-  if (S == 16)
-    selective_scan_kernel<TX, 16><<<grid, NT, 0, s>>>(a);
-  else if (S == 8)
-    selective_scan_kernel<TX, 8><<<grid, NT, 0, s>>>(a);
-  else
-    selective_scan_kernel<TX, 4><<<grid, NT, 0, s>>>(a);
+SelPlan plan_selective(const SelArgs& a, int itemsize) {
+  SelPlan pl{};
+  pl.S = a.N <= 16 ? S_SMALL : 16;
+  pl.P = lanes_for(a.N, pl.S);
+  pl.CH = NC / pl.P;
+  pl.direct = a.T <= DIRECT_T;
+  pl.tma_dt = !pl.direct && tma_ok(a.dt, a.dt_sb, a.dt_st, 4, a.B);
+  pl.tma_x = !pl.direct && tma_ok(a.x, a.x_sb, a.x_st, itemsize, a.B);
+  pl.vec = a.N % 4 == 0 &&
+           ((uintptr_t)a.A | (uintptr_t)a.h0 | (uintptr_t)a.h_last) % 16 == 0;
+  if (pl.direct) {
+    pl.gx = (unsigned)(((long long)a.B * a.D * pl.P + DIRECT_NT - 1) /
+                       DIRECT_NT);
+    pl.gy = 1;
+  } else {
+    pl.gx = (unsigned)((a.D + pl.CH - 1) / pl.CH);
+    pl.gy = (unsigned)a.B;
+  }
+  return pl;
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// S (a multiple of 4) states n0 .. n0+S-1 of a channel, N in all, from p
+// (the address of state n0); zeros past N or off a live channel.  `vec`:
+// N % 4 == 0 and 16-byte aligned bases, so four states are one float4.
+template <int S>
+__device__ __forceinline__ void load_states(float (&v)[S], const float* p,
+                                            int n0, int N, bool live,
+                                            bool vec) {
+#pragma unroll
+  for (int j = 0; j < S; j += 4) {
+    if (vec) {
+      const float4 w = live && n0 + j < N
+                           ? __ldg(reinterpret_cast<const float4*>(p + j))
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[j] = w.x; v[j + 1] = w.y; v[j + 2] = w.z; v[j + 3] = w.w;
+    } else {
+#pragma unroll
+      for (int i = j; i < j + 4; ++i)
+        v[i] = live && n0 + i < N ? __ldg(p + i) : 0.f;
+    }
+  }
+}
+
+template <int S>
+__device__ __forceinline__ void store_states(const float (&v)[S], float* p,
+                                             int n0, int N, bool live,
+                                             bool vec) {
+  if (!live) return;
+#pragma unroll
+  for (int j = 0; j < S; j += 4) {
+    if (vec) {
+      if (n0 + j < N)
+        *reinterpret_cast<float4*>(p + j) =
+            make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+    } else {
+#pragma unroll
+      for (int i = j; i < j + 4; ++i)
+        if (n0 + i < N) p[i] = v[i];
+    }
+  }
+}
+
+// One step of a lane: decay = 2^(dt * A log2 e), u = (dt * x) * b over its S
+// states, then the shared core.  b and c are the lane's S values of the step.
+template <int S, int P>
+__device__ __forceinline__ float sel_step(float (&h)[S], const float (&A2)[S],
+                                          float dt, float dx,
+                                          const float (&bv)[S],
+                                          const float (&cv)[S]) {
+  float decay[S], u[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    decay[j] = hopper::ex2(dt * A2[j]);
+    u[j] = dx * bv[j];
+  }
+  return recur<S>(h, decay, u, cv, P);
+}
+
+// ---- direct path: short T, no shared memory ----------------------------------
+// Lane q of channel (b, d) holds states q*S .. q*S+S-1 and reads each step's
+// dt, x, b, c from global memory; a lane off the end (ch >= B*D) runs with
+// zeros so that every lane of the warp takes part in the shuffles.
+
+template <typename TX, int S, int P>
+__global__ void __launch_bounds__(DIRECT_NT)
+selective_direct_kernel(const SelArgs a) {
+  const long long gid = (long long)blockIdx.x * DIRECT_NT + threadIdx.x;
+  const long long ch = gid / P;
+  const int N = a.N, q = (int)(gid % P), n0 = q * S;
+  const bool live = ch < (long long)a.B * a.D;
+  const int bb = live ? (int)(ch / a.D) : 0, d = live ? (int)(ch % a.D) : 0;
+  const long long hoff = ((long long)bb * a.D + d) * N + n0;
+  float h[S], A2[S];
+  load_states<S>(h, a.h0 + hoff, n0, N, live, a.vec);
+  load_states<S>(A2, a.A + (long long)d * N + n0, n0, N, live, a.vec);
+#pragma unroll
+  for (int j = 0; j < S; ++j) A2[j] *= LOG2E;
+  const float* dtp = a.dt + bb * a.dt_sb + d;
+  const TX* xp = static_cast<const TX*>(a.x) + bb * a.x_sb + d;
+  const TX* bp = static_cast<const TX*>(a.b) + bb * a.b_sb + n0;
+  const TX* cp = static_cast<const TX*>(a.c) + bb * a.c_sb + n0;
+  float* yp = a.y + (long long)bb * a.T * a.D + d;
+  for (int t = 0; t < a.T; ++t) {
+    const float dt = live ? __ldg(dtp + t * a.dt_st) : 0.f;
+    const float dx = dt * (live ? load(xp + t * a.x_st) : 0.f);
+    float bv[S], cv[S];
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const bool ok = live && n0 + j < N;
+      bv[j] = ok ? load(bp + t * a.b_st + j) : 0.f;
+      cv[j] = ok ? load(cp + t * a.c_st + j) : 0.f;
+    }
+    const float yv = sel_step<S, P>(h, A2, dt, dx, bv, cv);
+    if (live && q == 0) yp[(long long)t * a.D] = yv;
+  }
+  store_states<S>(h, a.h_last + hoff, n0, N, live, a.vec);
+}
+
+// ---- ring path ----------------------------------------------------------------
+// A block owns batch row blockIdx.y and CH = NC / P channels from
+// blockIdx.x * CH; NC consumer threads (P a channel) and one producer warp.
+// Each ring stage holds TS steps: dt [TS][CH] f32, x [TS][CH] in x's type,
+// and b, c [TS][2][NP] widened to f32 (NP = S * P, zeros past N), then the
+// full (producer -> consumers) and empty (consumers -> producer) barriers.
+// Steps past T and channels past D read zeros (dt = 0: decay 1, u 0), so the
+// state is left as it was and no branch enters the step.
+
+template <typename TX, int S, int P>
+struct Ring {
+  static constexpr int CH = NC / P;
+  static constexpr int NP = S * P;
+  static constexpr uint32_t DT_BYTES = TS * CH * 4;
+  static constexpr uint32_t X_BYTES = TS * CH * sizeof(TX);
+  static constexpr uint32_t STAGE = DT_BYTES + X_BYTES + TS * 2 * NP * 4;
+  static constexpr size_t SMEM =
+      1024 + (size_t)STAGES * STAGE + 2 * STAGES * sizeof(uint64_t);
+  // blocks an SM should hold for the registers: 4096 / (NC * S) (2 at
+  // S = 8: 16 consumer warps), or as many as its 228 KB of shared memory
+  // take (1 KB of it reserved a block), at least 1
+  static constexpr int FIT = (int)(233472 / (SMEM + 1024));
+  static constexpr int WANT = 4096 / (NC * S) < FIT ? 4096 / (NC * S) : FIT;
+  static constexpr int MIN_BLOCKS = WANT > 0 ? WANT : 1;
+  // steps unrolled in the consumer loop: all of a stage, 8 at S = 16 (whose
+  // 4 x 16 live values a lane leave no registers for more)
+  static constexpr int UNROLL = S >= 16 ? 8 : TS;
+  static_assert(STAGE % 128 == 0 && DT_BYTES % 128 == 0 &&
+                    X_BYTES % 128 == 0,
+                "TMA destinations must stay 128-byte aligned");
+  static_assert(TS % UNROLL == 0, "a stage is whole unrolled blocks");
+};
+
+struct SelMaps {
+  CUtensorMap dt, x;
+};
+
+// A [TS][CH] tile of a (T, D) operand (rows st elements apart) by the
+// producer warp's lanes, for an operand TMA cannot take; zeros off the edge.
+template <int CH, typename TV>
+__device__ __forceinline__ void fill_tile(TV* dst, const TV* src,
+                                          long long st, int t0, int d0, int T,
+                                          int D, int lane) {
+#pragma unroll 4
+  for (int i = lane; i < TS * CH; i += 32) {
+    const int s = i / CH, c = i % CH;
+    dst[i] = t0 + s < T && d0 + c < D ? src[(t0 + s) * st + d0 + c]
+                                      : TV(0.f);
+  }
+}
+
+template <typename TX, int S, int P>
+__global__ void __launch_bounds__(SEL_NT, Ring<TX, S, P>::MIN_BLOCKS)
+selective_ring_kernel(const __grid_constant__ SelMaps maps, const SelArgs a) {
+  using R = Ring<TX, S, P>;
+  constexpr int CH = R::CH, NP = R::NP;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * R::STAGE);
+  uint64_t* empty = full + STAGES;
+  auto dt_tile = [&](int k) {
+    return reinterpret_cast<float*>(smem + k * R::STAGE);
+  };
+  auto x_tile = [&](int k) {
+    return reinterpret_cast<TX*>(smem + k * R::STAGE + R::DT_BYTES);
+  };
+  auto bc_tile = [&](int k) {
+    return reinterpret_cast<float*>(smem + k * R::STAGE + R::DT_BYTES +
+                                    R::X_BYTES);
+  };
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int bb = blockIdx.y, d0 = blockIdx.x * CH;
+  const int T = a.T, N = a.N, stages = (T + TS - 1) / TS;
+  if (tid == 0) {
+    for (int k = 0; k < STAGES; ++k) {
+      hopper::mbar_init(&full[k], 32);         // the producer warp's lanes
+      hopper::mbar_init(&empty[k], NC / 32);   // one arrival a consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= NC) {  // the producer warp
+    const float* dtg = a.dt + bb * a.dt_sb;
+    const TX* xg = static_cast<const TX*>(a.x) + bb * a.x_sb;
+    const TX* bg = static_cast<const TX*>(a.b) + bb * a.b_sb;
+    const TX* cg = static_cast<const TX*>(a.c) + bb * a.c_sb;
+    const uint32_t tx = (a.tma_dt ? R::DT_BYTES : 0) +
+                        (a.tma_x ? R::X_BYTES : 0);
+    for (int k = 0; k < stages; ++k) {
+      const int slot = k % STAGES, t0 = k * TS;
+      if (k >= STAGES) hopper::mbar_wait(&empty[slot], (k / STAGES - 1) & 1);
+      if (lane == 0 && tx) {
+        hopper::mbar_expect_tx(&full[slot], tx);
+        if (a.tma_dt)
+          hopper::tma_load_3d(dt_tile(slot), &maps.dt, &full[slot], d0, t0,
+                              bb);
+        if (a.tma_x)
+          hopper::tma_load_3d(x_tile(slot), &maps.x, &full[slot], d0, t0, bb);
+      }
+      if (!a.tma_dt)
+        fill_tile<CH>(dt_tile(slot), dtg, a.dt_st, t0, d0, T, a.D, lane);
+      if (!a.tma_x)
+        fill_tile<CH>(x_tile(slot), xg, a.x_st, t0, d0, T, a.D, lane);
+      float* bc = bc_tile(slot);
+#pragma unroll 4
+      for (int i = lane; i < TS * NP; i += 32) {
+        const int s = i / NP, n = i % NP;
+        const bool ok = t0 + s < T && n < N;
+        bc[s * 2 * NP + n] = ok ? load(bg + (t0 + s) * a.b_st + n) : 0.f;
+        bc[s * 2 * NP + NP + n] = ok ? load(cg + (t0 + s) * a.c_st + n) : 0.f;
+      }
+      hopper::mbar_arrive(&full[slot]);
+    }
+    return;
+  }
+
+  // consumers: lane q of channel cl holds states q*S .. q*S+S-1
+  const int cl = tid / P, q = tid % P, n0 = q * S, d = d0 + cl;
+  const bool live = d < a.D;
+  const long long hoff = ((long long)bb * a.D + (live ? d : 0)) * N + n0;
+  float h[S], A2[S];
+  load_states<S>(h, a.h0 + hoff, n0, N, live, a.vec);
+  load_states<S>(A2, a.A + (long long)(live ? d : 0) * N + n0, n0, N, live,
+                 a.vec);
+#pragma unroll
+  for (int j = 0; j < S; ++j) A2[j] *= LOG2E;
+  float* yp = a.y + (long long)bb * T * a.D + (live ? d : 0);
+  const bool writer = live && q == 0;
+  for (int k = 0; k < stages; ++k) {
+    const int slot = k % STAGES, t0 = k * TS, left = T - t0;
+    hopper::mbar_wait(&full[slot], (k / STAGES) & 1);
+    const float* sd = dt_tile(slot) + cl;
+    const TX* sx = x_tile(slot) + cl;
+    const float* sbc = bc_tile(slot) + n0;
+#pragma unroll 1
+    for (int s0 = 0; s0 < TS; s0 += R::UNROLL)
+#pragma unroll
+    for (int s = s0; s < s0 + R::UNROLL; ++s) {
+      const float dt = sd[s * CH];
+      const float dx = dt * to_f(sx[s * CH]);
+      float bv[S], cv[S];
+#pragma unroll
+      for (int j = 0; j < S; j += 4) {
+        const float4 b4 =
+            *reinterpret_cast<const float4*>(sbc + s * 2 * NP + j);
+        const float4 c4 =
+            *reinterpret_cast<const float4*>(sbc + s * 2 * NP + NP + j);
+        bv[j] = b4.x; bv[j + 1] = b4.y; bv[j + 2] = b4.z; bv[j + 3] = b4.w;
+        cv[j] = c4.x; cv[j + 1] = c4.y; cv[j + 2] = c4.z; cv[j + 3] = c4.w;
+      }
+      const float yv = sel_step<S, P>(h, A2, dt, dx, bv, cv);
+      if (writer && s < left) yp[(long long)(t0 + s) * a.D] = yv;
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[slot]);
+  }
+  store_states<S>(h, a.h_last + hoff, n0, N, live, a.vec);
+}
+
+// A (B, T, D) operand as a 3-D tensor map (D, T, B), boxes of CH channels by
+// TS steps by one batch row, no swizzle.
+bool map_operand(CUtensorMap* map, CUtensorMapDataType type, int itemsize,
+                 const void* base, int B, int T, int D, long long sb,
+                 long long st, uint32_t ch) {
+  const uint64_t dims[3] = {(uint64_t)D, (uint64_t)T, (uint64_t)B};
+  const uint64_t bstride = B == 1 ? st * T : sb;   // unused when B == 1
+  const uint64_t strides[2] = {(uint64_t)(st * itemsize),
+                               bstride * itemsize};
+  const uint32_t box[3] = {ch, (uint32_t)TS, 1};
+  return hopper_host::make_map(map, type, 3, base, dims, strides, box,
+                               CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+template <typename TX, int S, int P>
+cudaError_t launch_sel(const SelArgs& a, const SelPlan& pl, cudaStream_t st) {
+  const dim3 grid(pl.gx, pl.gy);
+  if (pl.direct) {
+    selective_direct_kernel<TX, S, P><<<grid, DIRECT_NT, 0, st>>>(a);
+    return cudaGetLastError();
+  }
+  using R = Ring<TX, S, P>;
+  SelMaps maps;
+  memset(&maps, 0, sizeof maps);
+  const auto tx_type = sizeof(TX) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  if (pl.tma_dt &&
+      !map_operand(&maps.dt, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.dt, a.B,
+                   a.T, a.D, a.dt_sb, a.dt_st, R::CH))
+    return cudaErrorInvalidValue;
+  if (pl.tma_x && !map_operand(&maps.x, tx_type, (int)sizeof(TX), a.x, a.B,
+                               a.T, a.D, a.x_sb, a.x_st, R::CH))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      selective_ring_kernel<TX, S, P>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)R::SMEM);
+  if (e != cudaSuccess) return e;
+  selective_ring_kernel<TX, S, P><<<grid, SEL_NT, R::SMEM, st>>>(maps, a);
   return cudaGetLastError();
+}
+
+// the (S, P) pairs plan_selective picks
+template <typename TX>
+cudaError_t dispatch_sel(const SelArgs& a, const SelPlan& pl,
+                         cudaStream_t st) {
+#define SEL_CASE(S_, P_) \
+  if (pl.S == S_ && pl.P == P_) return launch_sel<TX, S_, P_>(a, pl, st);
+  SEL_CASE(S_SMALL, 1)
+  SEL_CASE(S_SMALL, 2)
+  if constexpr (S_SMALL * 2 < 16) SEL_CASE(S_SMALL, 4)
+  SEL_CASE(16, 2)
+  SEL_CASE(16, 4)
+  SEL_CASE(16, 8)
+#undef SEL_CASE
+  return cudaErrorInvalidValue;
+}
+
+// the arguments both C entry points take, checked; `itemsize` of x, b, c
+bool sel_args(SelArgs* a, const float* dt, const void* x, const void* b,
+              const void* c, const float* A, const float* h0, float* y,
+              float* h_last, int dtype, int B, int T, int D, int N,
+              long long dt_sb, long long dt_st, long long x_sb,
+              long long x_st, long long b_sb, long long b_st, long long c_sb,
+              long long c_st, int* itemsize) {
+  if (B <= 0 || T <= 0 || D <= 0 || N <= 0 || N > MAX_N || B > 65535 ||
+      (dtype != 0 && dtype != 1))
+    return false;
+  *a = SelArgs{dt, x, b, c, A, h0, y, h_last, B, T, D, N,
+               dt_sb, dt_st, x_sb, x_st, b_sb, b_st, c_sb, c_st, 0, 0, 0};
+  *itemsize = dtype == 1 ? 2 : 4;
+  return true;
 }
 
 }  // namespace
@@ -296,14 +593,39 @@ int selective_scan_fwd(const float* dt, const void* x, const void* b,
                        int N, long long dt_sb, long long dt_st, long long x_sb,
                        long long x_st, long long b_sb, long long b_st,
                        long long c_sb, long long c_st, void* stream) {
-  if (B <= 0 || T <= 0 || D <= 0 || N <= 0 || N > MAX_N || B > 65535)
+  SelArgs a;
+  int itemsize;
+  if (!sel_args(&a, dt, x, b, c, A, h0, y, h_last, dtype, B, T, D, N, dt_sb,
+                dt_st, x_sb, x_st, b_sb, b_st, c_sb, c_st, &itemsize))
     return (int)cudaErrorInvalidValue;
-  const SelArgs a{dt, x, b, c, A, h0, y, h_last, B, T, D, N, 0,
-                  dt_sb, dt_st, x_sb, x_st, b_sb, b_st, c_sb, c_st};
+  const SelPlan pl = plan_selective(a, itemsize);
+  a.vec = pl.vec;
+  a.tma_dt = pl.tma_dt;
+  a.tma_x = pl.tma_x;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_selective<float>(a, s);
-  if (dtype == 1) return (int)launch_selective<__nv_bfloat16>(a, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)(dtype == 0 ? dispatch_sel<float>(a, pl, s)
+                          : dispatch_sel<__nv_bfloat16>(a, pl, s));
+}
+
+// The plan selective_scan_fwd makes for these arguments, into out[0..8]:
+// S, P, CH, direct, tma_dt, tma_x, vec, grid x, grid y.  Launches nothing.
+int selective_scan_plan(const float* dt, const void* x, const void* b,
+                        const void* c, const float* A, const float* h0,
+                        float* y, float* h_last, int dtype, int B, int T,
+                        int D, int N, long long dt_sb, long long dt_st,
+                        long long x_sb, long long x_st, long long b_sb,
+                        long long b_st, long long c_sb, long long c_st,
+                        int* out) {
+  SelArgs a;
+  int itemsize;
+  if (!sel_args(&a, dt, x, b, c, A, h0, y, h_last, dtype, B, T, D, N, dt_sb,
+                dt_st, x_sb, x_st, b_sb, b_st, c_sb, c_st, &itemsize))
+    return (int)cudaErrorInvalidValue;
+  const SelPlan pl = plan_selective(a, itemsize);
+  const int v[9] = {pl.S, pl.P, pl.CH, pl.direct, pl.tma_dt, pl.tma_x,
+                    pl.vec, (int)pl.gx, (int)pl.gy};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return 0;
 }
 
 const char* ms_error_string(int err) {

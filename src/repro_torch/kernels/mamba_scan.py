@@ -11,12 +11,16 @@ through its C interface, with two entry points over one recurrence core:
 
 A tensor on the CPU goes to the plain versions in ``ref``; a CUDA tensor
 goes to the kernel or the call raises.  ``mamba_scan.launches`` and
-``selective_scan.launches`` count kernel launches.
+``selective_scan.launches`` count kernel launches.  ``selective_plan``
+mirrors how the kernel's host code runs a call (lanes a channel, direct or
+ring path, TMA or lane loads, grid), so that the choice can be tested
+without a card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -24,8 +28,13 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import mamba_scan_ref, selective_scan_ref
 
-MAX_STATE = 128                 # N: 32 lanes of 4 states each
+MAX_STATE = 128                 # N: 8 lanes of 16 states each
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# csrc/mamba_scan.cu's plan_selective and its constants
+RING_THREADS = 256              # NC: consumer threads a ring block
+DIRECT_T = 8                    # the longest T run without the ring
+DIRECT_THREADS = 128            # threads a direct-path block
 
 
 @functools.cache
@@ -36,6 +45,8 @@ def _lib() -> ctypes.CDLL:
     lib.mamba_scan_fwd.restype = i
     lib.selective_scan_fwd.argtypes = [p] * 8 + [i] * 5 + [ll] * 8 + [p]
     lib.selective_scan_fwd.restype = i
+    lib.selective_scan_plan.argtypes = [p] * 8 + [i] * 5 + [ll] * 8 + [p]
+    lib.selective_scan_plan.restype = i
     lib.ms_error_string.argtypes = [i]
     lib.ms_error_string.restype = ctypes.c_char_p
     return lib
@@ -129,6 +140,81 @@ def _check_selective(dt, x, b, c, A, h0):
             raise ValueError(f"{name} must be contiguous")
 
 
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How ``selective_scan_fwd`` runs a call."""
+    states: int          # S: states a lane holds
+    lanes: int           # P: lanes a channel
+    channels: int        # CH: channels a ring block
+    direct: bool         # T <= DIRECT_T: no ring, inputs read from global
+    tma_dt: bool         # dt through TMA (else the producer warp's lanes)
+    tma_x: bool          # x through TMA
+    vec: bool            # A, h0, h_last as 16-byte vectors
+    grid: tuple[int, int]
+
+    def as_ints(self) -> list[int]:
+        return [self.states, self.lanes, self.channels, int(self.direct),
+                int(self.tma_dt), int(self.tma_x), int(self.vec), *self.grid]
+
+
+def _tma_ok(t: torch.Tensor) -> bool:
+    """A TMA tensor map takes a 16-byte aligned base and batch and time
+    strides that are positive multiples of 16 bytes (a size-1 batch's is
+    not used)."""
+    e = t.element_size()
+    sb, st = t.stride(0), t.stride(1)
+    return (t.data_ptr() % 16 == 0 and st > 0 and st * e % 16 == 0
+            and (t.shape[0] == 1 or (sb > 0 and sb * e % 16 == 0)))
+
+
+def selective_plan(dt: torch.Tensor, x: torch.Tensor, A: torch.Tensor,
+                   h0: torch.Tensor, h_last: torch.Tensor) -> Plan:
+    """The plan ``csrc/mamba_scan.cu::plan_selective`` makes for these
+    operands (``h_last`` the output the wrapper allocates).
+
+    S = 8 states a lane up to N = 16 (16 above), P = next_pow2(N / S) lanes
+    a channel, RING_THREADS / P channels a ring block; T <= DIRECT_T takes
+    the direct path, one thread a (channel, lane) in blocks of
+    DIRECT_THREADS; the ring path loads dt and x by TMA where ``_tma_ok``.
+    """
+    B, T, D = dt.shape
+    N = A.shape[1]
+    S = 8 if N <= 16 else 16
+    P = 1
+    while S * P < N:
+        P *= 2
+    direct = T <= DIRECT_T
+    vec = N % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (A, h0, h_last))
+    if direct:
+        grid = (-(-B * D * P // DIRECT_THREADS), 1)
+    else:
+        grid = (-(-D // (RING_THREADS // P)), B)
+    return Plan(S, P, RING_THREADS // P, direct,
+                not direct and _tma_ok(dt), not direct and _tma_ok(x), vec,
+                grid)
+
+
+def _selective_args(dt, x, b, c, A, h0, y, h_last) -> list:
+    B, T, D = dt.shape
+    return [dt.data_ptr(), x.data_ptr(), b.data_ptr(), c.data_ptr(),
+            A.data_ptr(), h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+            _DTYPES[x.dtype], B, T, D, b.shape[2], dt.stride(0), dt.stride(1),
+            x.stride(0), x.stride(1), b.stride(0), b.stride(1), c.stride(0),
+            c.stride(1)]
+
+
+def kernel_plan(dt, x, b, c, A, h0, h_last) -> Plan:
+    """The plan the built kernel's host code makes (a card's library)."""
+    out = (ctypes.c_int * 9)()
+    y = h_last.new_empty(dt.shape)
+    _raise_on(_lib().selective_scan_plan(
+        *_selective_args(dt, x, b, c, A, h0, y, h_last), out),
+        "selective_scan_plan")
+    v = list(out)
+    return Plan(v[0], v[1], v[2], bool(v[3]), bool(v[4]), bool(v[5]),
+                bool(v[6]), (v[7], v[8]))
+
+
 def selective_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
                    c: torch.Tensor, A: torch.Tensor, h0: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -153,11 +239,7 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
     with torch.cuda.device(dt.device):
         stream = torch.cuda.current_stream(dt.device).cuda_stream
         err = _lib().selective_scan_fwd(
-            dt.data_ptr(), x.data_ptr(), b.data_ptr(), c.data_ptr(),
-            A.data_ptr(), h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-            _DTYPES[x.dtype], B, T, D, N, dt.stride(0), dt.stride(1),
-            x.stride(0), x.stride(1), b.stride(0), b.stride(1), c.stride(0),
-            c.stride(1), stream)
+            *_selective_args(dt, x, b, c, A, h0, y, h_last), stream)
     _raise_on(err, "selective_scan")
     selective_scan.launches += 1
     return y, h_last

@@ -495,6 +495,202 @@ def test_cuda_selective_scan_matches_plain_version(T, N, dtype):
     torch.testing.assert_close(h, wh, rtol=2e-4, atol=2e-4)
 
 
+# ---- the selective scan's launch plan (host code, mirrored in Python) ------
+
+def _plan_operands(B, T, D, N, dtype=torch.bfloat16, offset=256,
+                   x_pad=0, dt_shift=0):
+    """dt, x, b, c, A, h0, h_last as the model passes them: b and c slices
+    of one projection ``offset`` columns in; ``x_pad`` extra columns on x's
+    rows and ``dt_shift`` elements of storage offset on dt."""
+    dt = torch.zeros(B * T * D + dt_shift)[dt_shift:].view(B, T, D)
+    x = torch.zeros(B, T, D + x_pad, dtype=dtype)[..., :D]
+    proj = torch.zeros(B, T, offset + 2 * N, dtype=dtype)
+    return (dt, x, proj[..., offset:offset + N], proj[..., offset + N:],
+            torch.zeros(D, N), torch.zeros(B, D, N), torch.zeros(B, D, N))
+
+
+@pytest.mark.parametrize("N,S,P", [(1, 8, 1), (4, 8, 1), (8, 8, 1),
+                                   (9, 8, 2), (12, 8, 2), (16, 8, 2),
+                                   (17, 16, 2), (64, 16, 4), (100, 16, 8),
+                                   (128, 16, 8)])
+def test_selective_plan_states_and_lanes(N, S, P):
+    """S = 8 states a lane up to N = 16, 16 above; P, the fewest lanes that
+    hold N, a power of two; RING_THREADS / P channels a ring block."""
+    dt, x, _, _, A, h0, hl = _plan_operands(2, 40, 96, N)
+    plan = ms.selective_plan(dt, x, A, h0, hl)
+    assert (plan.states, plan.lanes) == (S, P)
+    assert S * P >= N and (P == 1 or S * P // 2 < N)
+    assert plan.channels == ms.RING_THREADS // P
+    assert plan.vec == (N % 4 == 0)
+
+
+@pytest.mark.parametrize("B,T,D,N,direct,grid", [
+    (4, 1, 8192, 16, True, (512, 1)),       # decode: 4*8192*2 lanes / 128
+    (4, 8, 8192, 16, True, (512, 1)),
+    (4, 9, 8192, 16, False, (64, 4)),       # 128 channels a block
+    (4, 1100, 8192, 16, False, (64, 4)),    # the serving prefill
+    (9, 33, 304, 5, False, (2, 9)),         # P = 1: 256 channels a block
+    (1, 7, 80, 128, True, (5, 1)),          # 80 * 8 lanes / 128
+    (1, 1100, 80, 128, False, (3, 1))])     # P = 8: 32 channels a block
+def test_selective_plan_path_and_grid(B, T, D, N, direct, grid):
+    dt, x, _, _, A, h0, hl = _plan_operands(B, T, D, N)
+    plan = ms.selective_plan(dt, x, A, h0, hl)
+    assert plan.direct == direct and plan.direct == (T <= ms.DIRECT_T)
+    assert plan.grid == grid
+    assert plan.tma_dt == plan.tma_x == (not direct)
+
+
+@pytest.mark.parametrize("case,tma_dt,tma_x", [
+    (dict(), True, True),                           # the model's operands
+    (dict(offset=7), True, True),                   # b, c never take TMA
+    (dict(x_pad=3), True, False),                   # x rows 2*(D+3) bytes
+    (dict(x_pad=8), True, True),                    # x rows 16 bytes longer
+    (dict(dt_shift=1), False, True),                # dt's base off 16 bytes
+    (dict(dtype=torch.float32, x_pad=1), True, False),
+    (dict(dtype=torch.float32, x_pad=4), True, True)])
+def test_selective_plan_tma_by_alignment(case, tma_dt, tma_x):
+    """TMA for dt and x where the base is 16-byte aligned and the batch and
+    time strides are multiples of 16 bytes; the producer warp's lanes load
+    the rest (and b and c always)."""
+    dt, x, _, _, A, h0, hl = _plan_operands(4, 100, 96, 16, **case)
+    plan = ms.selective_plan(dt, x, A, h0, hl)
+    assert (plan.tma_dt, plan.tma_x) == (tma_dt, tma_x)
+
+
+def test_selective_plan_tma_strides():
+    """A size-1 batch's stride is not used; a zero (broadcast) time stride
+    or a time stride of 4 bf16 elements (8 bytes) cannot be mapped."""
+    assert ms._tma_ok(torch.zeros(1, 10, 16)[:, :, :])
+    assert ms._tma_ok(torch.zeros(1, 10, 20)[:, :, :16])
+    assert not ms._tma_ok(torch.zeros(2, 10, 20)[:, :, :16][:, :, 1:])
+    assert not ms._tma_ok(torch.zeros(2, 1, 16).expand(2, 10, 16))
+    assert not ms._tma_ok(torch.zeros(2, 10, 4, dtype=torch.bfloat16))
+    assert ms._tma_ok(torch.zeros(2, 10, 8, dtype=torch.bfloat16))
+
+
+def test_selective_plan_vectors_need_alignment():
+    dt, x, _, _, A, h0, hl = _plan_operands(2, 40, 96, 16)
+    assert ms.selective_plan(dt, x, A, h0, hl).vec
+    A_off = torch.zeros(96 * 16 + 1)[1:].view(96, 16)
+    assert not ms.selective_plan(dt, x, A_off, h0, hl).vec
+
+
+def test_selective_folded_exp2_holds_the_scan_tolerance():
+    """The kernel's exponential: 2^(dt * (A log2 e)) with log2 e folded into
+    A once, in float32, through a whole serving-length scan from a nonzero
+    h0, against the plain version's exp(dt * A), at chip_smoke's SCAN_TOL
+    (1e-4 + 1e-4 |want|)."""
+    dt, x, b, c, A, h0 = (torch.from_numpy(a) for a in
+                          _selective_inputs(2, 1100, 16, 16, 11))
+    want_y, want_h = ref.selective_scan_ref(dt, x, b, c, A, h0)
+    A2 = A * 1.4426950408889634
+    h, ys = h0.clone(), []
+    for t in range(dt.shape[1]):
+        decay = torch.exp2(dt[:, t, :, None] * A2)
+        h = decay * h + (dt[:, t] * x[:, t])[..., None] * b[:, t, None, :]
+        ys.append((h * c[:, t, None, :]).sum(-1))
+    torch.testing.assert_close(torch.stack(ys, 1), want_y, rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-4)
+
+
+# the selective scan's design on the card: the direct path (T <= 8), the ring
+# at one stage (32 steps) -1, 0, +1, and the serving length
+SEL_T = [1, 7, 31, 32, 33, 1100]
+
+
+def _sel_case(B, T, D, N, dtype, offset, seed, x_pad=0):
+    """Inputs on the card: b, c slices ``offset`` columns into one
+    projection, x with ``x_pad`` extra columns a row, h0 nonzero."""
+    dt, x, b, c, A, h0 = (torch.from_numpy(a).cuda() for a in
+                          _selective_inputs(B, T, D, N, seed))
+    proj = torch.cat([torch.zeros_like(b[..., :1]).expand(B, T, offset), b,
+                      c], dim=-1).to(dtype)
+    xs = torch.zeros(B, T, D + x_pad, dtype=dtype, device="cuda")
+    xs[..., :D] = x.to(dtype)
+    return (dt, xs[..., :D], proj[..., offset:offset + N],
+            proj[..., offset + N:], A, h0)
+
+
+def _hold_selective(args):
+    y, h = ms.selective_scan(*args)
+    wy, wh = ref.selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, wy, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, wh, rtol=1e-4, atol=1e-4)
+    return y, h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset,dtype", [(256, "bfloat16"), (7, "float32")])
+@pytest.mark.parametrize("T", SEL_T)
+@pytest.mark.parametrize("N", [1, 5, 12, 16, 64, 128])
+def test_cuda_selective_scan_stress(N, T, offset, dtype):
+    """Every state path (S, P) and both paths in time, aligned (256) and
+    unaligned (7) b/c slices, B of 1, 4 and 9 in turn, D = 80 (no multiple
+    of a block's channels), h0 nonzero and held through h_last; at
+    chip_smoke's SCAN_TOL."""
+    B = (1, 4, 9)[(SEL_T.index(T) + N) % 3]
+    _cuda_or_skip()
+    _hold_selective(_sel_case(B, T, 80, N, getattr(torch, dtype), offset,
+                              N * 1000 + T))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [7, 33, 300])
+def test_cuda_selective_scan_strided_operands(T, dtype):
+    """x with 3 extra columns a row and dt off 16 bytes: the producer warp's
+    lanes load them (no TMA), as the plan says; the same results."""
+    _cuda_or_skip()
+    B, D, N = 4, 96, 16
+    dt, x, b, c, A, h0 = _sel_case(B, T, D, N, getattr(torch, dtype), 7,
+                                   T, x_pad=3)
+    dt = torch.cat([torch.zeros(1, device="cuda"), dt.flatten()])[1:].view(
+        B, T, D)
+    plan = ms.selective_plan(dt, x, A, h0, torch.empty_like(h0))
+    assert not plan.tma_dt and not plan.tma_x and plan.direct == (T <= 8)
+    _hold_selective((dt, x, b, c, A, h0))
+
+
+@pytest.mark.cuda
+def test_cuda_selective_scan_plan_matches_the_mirror():
+    """The kernel's host code makes the plan ``selective_plan`` says, over
+    states, paths, alignments and dtypes."""
+    _cuda_or_skip()
+    cases = [dict(B=4, T=1100, D=8192, N=16), dict(B=4, T=1, D=8192, N=16),
+             dict(B=9, T=33, D=80, N=5), dict(B=1, T=40, D=80, N=128),
+             dict(B=2, T=40, D=96, N=12, offset=7, x_pad=3),
+             dict(B=2, T=40, D=96, N=16, dt_shift=1),
+             dict(B=2, T=40, D=96, N=64, dtype=torch.float32, x_pad=1)]
+    for case in cases:
+        dt, x, b, c, A, h0, hl = (t.cuda() for t in _plan_operands(**case))
+        want = ms.selective_plan(dt, x, A, h0, hl)
+        assert ms.kernel_plan(dt, x, b, c, A, h0, hl) == want, case
+
+
+@pytest.mark.cuda
+def test_cuda_selective_scan_carries_state_across_calls():
+    """Prefill then decode steps, as the model runs them: the scan of T
+    steps from h0 equals the scan of the first T - 3 steps followed by three
+    T = 1 calls, each from the last's h_last."""
+    _cuda_or_skip()
+    args = _sel_case(4, 200, 96, 16, torch.bfloat16, 256, 5)
+    y, h = ms.selective_scan(*args)
+    dt, x, b, c, A, h0 = args
+    ys = []
+    y0, hc = ms.selective_scan(dt[:, :197], x[:, :197], b[:, :197],
+                               c[:, :197], A, h0)
+    for t in range(197, 200):
+        yt, hc = ms.selective_scan(dt[:, t:t + 1], x[:, t:t + 1],
+                                   b[:, t:t + 1], c[:, t:t + 1], A, hc)
+        ys.append(yt)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.cat([y0, *ys], 1), y, rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(hc, h, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("M,K,N", [(128, 128, 128), (384, 128, 128),
