@@ -31,7 +31,23 @@ Phases, each printing what it found; any failure raises and exits non-zero:
    c. profile: one prefill and one decode step under ``torch.profiler``;
 5. the entry points no model calls: ``ops.quantize_weights`` +
    ``ops.lut_matmul`` on falcon-mamba's layer-0 ``in_proj`` and
-   ``ops.mamba_scan`` on the decay and input it builds, counted the same way.
+   ``ops.mamba_scan`` on the decay and input it builds, counted the same way;
+6. flash_backward: the backward kernel against ``flash_attention_bwd_ref``
+   (float32 and bfloat16, D 64/128/256, GQA, ragged T, window, soft-cap),
+   the forward with LSE against the forward without it and its LSE against
+   the plain one; timed at granite-3-2b's training shape beside SDPA's
+   backward (SDPA forward + backward minus SDPA forward, in turns; a
+   yardstick only, it runs nowhere on the path);
+7. train: granite-3-2b at full width (40 layers, 2.53 B parameters, bf16,
+   remat "dots", AdamW 32-bit) through ``repro_torch.launch.train.main``
+   for 5 steps of batch 4 x 2048 tokens; counts zeroed just before and read
+   just after (per step: 40 flash forward launches + 40 in the recompute,
+   40 backward launches); loss finite, ms/step, tokens/s, peak memory; one
+   more step under ``torch.profiler``;
+8. train_grad_vs_plain: at full width and 2 layers (B=1, T=2048), every
+   gradient leaf against the same model with the attention backward on
+   ``flash_attention_bwd_ref`` (a check only: the plain version runs nowhere
+   on the training path).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -40,10 +56,12 @@ the repository beside it, the script fails before printing either.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -52,17 +70,22 @@ import time
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import tree  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticCorpus  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import lut_matmul as lm  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
+from repro_torch.train import train_step  # noqa: E402
 
 # H100 SXM published dense peaks (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
@@ -95,6 +118,22 @@ ARCHS = ("glm4-9b", "falcon-mamba-7b")
 PROMPT_LENS = (347, 611, 893, 1100)        # none a multiple of 128
 MAX_NEW = 16
 MAX_LEN = 2048
+# the flash backward kernel against its plain version, elementwise
+# |got - want| <= atol + rtol |want|: float32 differs by summation order and
+# exp2; bfloat16 rounds P and dS to bf16 before the tensor-core products and
+# dQ, dK, dV once on output (the bf16 scheme is held at half this on the
+# CPU, tests/test_torch_kernels.py)
+BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+           torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+LSE_TOL = dict(rtol=1e-4, atol=1e-4)        # natural-log units
+# granite-3-2b's training shape: B, T, H, K, D
+TRAIN_ATTN = (4, 2048, 32, 8, 64)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 4, 2048
+# every gradient leaf (2 layers, full width) against the plain backward:
+# the kernel's dQ, dK, dV are ~2.6e-3 off the plain ones in relative L2
+# (bf16 P and dS); this is ~8x that
+GRAD_REL_L2 = 2e-2
+
 # decode vs forward at full width in bf16: the two paths round differently
 # (kernel vs blockwise attention, different GEMM shapes) through 40 layers;
 # the same limits hold falcon-mamba-7b (64 layers)
@@ -108,6 +147,7 @@ def log(phase: str, **kv) -> None:
 
 
 COUNTED = {"flash_attention": fa.flash_attention_gqa,
+           "flash_attention_bwd": fa.flash_attention_bwd,
            "mamba_scan": ms.mamba_scan,
            "selective_scan": ms.selective_scan,
            "lut_matmul": lm.lut_matmul}
@@ -749,12 +789,251 @@ def phase_entry_points(model, params, prompts, gen) -> dict[str, int]:
         raise AssertionError(f"4-bit in_proj off the bf16 product: {rel}")
     _held("mamba_scan_vs_selective_scan", (B, T, D, N), y_tpu, y_fused,
           SCAN_TOL)
-    want_counts = {"flash_attention": 0, "mamba_scan": 1,
-                   "selective_scan": 1, "lut_matmul": 1}
+    want_counts = {"flash_attention": 0, "flash_attention_bwd": 0,
+                   "mamba_scan": 1, "selective_scan": 1, "lut_matmul": 1}
     if counts != want_counts:
         raise AssertionError(f"entry-point launches {counts} != "
                              f"{want_counts}")
     return counts
+
+
+def _bwd_cost(B, T, H, K, D, itemsize):
+    """The gradient's five T x T x D products over the causal pairs, and
+    the bytes of q, k, v, o, dO and the LSE read once and dQ, dK, dV
+    written once."""
+    pairs = T * (T + 1) // 2
+    flops = 5 * 2 * D * pairs * B * H
+    nbytes = itemsize * D * (4 * B * T * H + 4 * B * T * K) + 4 * B * H * T
+    return flops, nbytes
+
+
+def phase_flash_backward(gen) -> dict:
+    """The backward kernel and the forward's LSE against their plain
+    versions; timed at granite-3-2b's training shape."""
+    cases = []
+    for D in (64, 128, 256):
+        for dt in (torch.float32, torch.bfloat16):
+            cases += [(2, 300, 4, 2, D, dt, 0, 0.0),      # GQA, ragged
+                      (1, 130, 4, 1, D, dt, 100, 30.0),   # window + cap
+                      (1, 1000, 4, 2, D, dt, 64, 50.0)]   # tiles skipped
+    for (B, T, H, K, D, dt, window, softcap) in cases:
+        q, do = _rand(gen, (B, T, H, D), dt), _rand(gen, (B, T, H, D), dt)
+        k, v = _rand(gen, (B, T, K, D), dt), _rand(gen, (B, T, K, D), dt)
+        kw = dict(window=window, softcap=softcap)
+        o, lse = fa.flash_attention_lse(q, k, v, **kw)
+        o0 = fa.flash_attention_gqa(q, k, v, **kw)
+        _, want_lse = ref.flash_attention_gqa_ref(q, k, v, return_lse=True,
+                                                  **kw)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        case = (B, T, H, K, D, str(dt)[6:], window, softcap)
+        if not torch.equal(o, o0):
+            raise AssertionError(f"forward with LSE changed o at {case}")
+        _held("flash_attention_lse", case, lse, want_lse, LSE_TOL)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            _held("flash_attention_bwd", case + (name,), g, w, BWD_TOL[dt])
+
+    B, T, H, K, D = TRAIN_ATTN
+    q, do = (_rand(gen, (B, T, H, D), torch.bfloat16) for _ in range(2))
+    k, v = (_rand(gen, (B, T, K, D), torch.bfloat16) for _ in range(2))
+    o, lse = fa.flash_attention_lse(q, k, v)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    err = max(_held("flash_attention_bwd", (B, T, H, K, D, "bfloat16", n),
+                    g, w, BWD_TOL[torch.bfloat16])
+              for n, g, w in zip(("dq", "dk", "dv"), got, want))
+    del got, want
+    plain_ms = cuda_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse,
+                                                           do), iters=3)
+    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    doh = do.transpose(1, 2).contiguous()
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                              enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (qh, kh, vh), doh)
+
+    def kernel():
+        fa.flash_attention_bwd(q, k, v, o, lse, do)
+
+    ks, fbs, fs = [], [], []
+    for _ in range(3):                      # in turns
+        ks.append(cuda_ms(kernel))
+        fbs.append(cuda_ms(sdpa_fwd_bwd))
+        fs.append(cuda_ms(sdpa_fwd))
+    ms_ = statistics.median(ks)
+    library_ms = statistics.median(fbs) - statistics.median(fs)
+    # the forward at the same shape, with the LSE (training) and without
+    fwd_lse_ms, fwd_ms = in_turns(lambda: fa.flash_attention_lse(q, k, v),
+                                  lambda: fa.flash_attention_gqa(q, k, v))
+    flops, nbytes = _bwd_cost(B, T, H, K, D, 2)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    log("kernel-time", name="flash_attention_bwd",
+        shape=f"B{B}_T{T}_H{H}_K{K}_D{D}_bf16_causal", ms=f"{ms_:.4f}",
+        ms_range=f"[{min(ks):.4f},{max(ks):.4f}]", plain_ms=f"{plain_ms:.4f}",
+        library_ms=f"{library_ms:.4f}",
+        sdpa_fwd_bwd_ms=f"{statistics.median(fbs):.4f}",
+        sdpa_fwd_ms=f"{statistics.median(fs):.4f}",
+        bound_ms=f"{max(t_ops, t_bytes):.4f}", ops_bound_ms=f"{t_ops:.4f}",
+        bytes_bound_ms=f"{t_bytes:.4f}", gflop=f"{flops / 1e9:.2f}",
+        mbytes=f"{nbytes / 1e6:.2f}", tflops=f"{flops / ms_ / 1e9:.2f}",
+        max_abs_err=f"{err:.3e}")
+    log("kernel-time", name="flash_attention_fwd_train_shape",
+        shape=f"B{B}_T{T}_H{H}_K{K}_D{D}_bf16_causal",
+        with_lse_ms=f"{fwd_lse_ms[0]:.4f}", with_lse_range=_range(fwd_lse_ms),
+        without_lse_ms=f"{fwd_ms[0]:.4f}", without_lse_range=_range(fwd_ms))
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/layers.py:71",
+            "launches": None, "max_abs_err": err, "ms": ms_,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms}
+
+
+def _kernel_share(prof, wall_us, label) -> None:
+    """Busy share, the top kernels, and device time by kind (GEMMs, flash
+    forward and backward, the rest: elementwise, copies, reductions) of one
+    profiled region."""
+    kernels: dict[str, list] = {}
+    for ev in prof.events():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            rec = kernels.setdefault(ev.name, [0.0, 0])
+            rec[0] += ev.time_range.elapsed_us()
+            rec[1] += 1
+    dev_us = sum(us for us, _ in kernels.values())
+    fwd_us = sum(us for n, (us, _) in kernels.items() if "fa_fwd" in n)
+    bwd_us = sum(us for n, (us, _) in kernels.items()
+                 if "dkdv_" in n or "dq_bf16" in n or "dq_f32" in n
+                 or "delta_kernel" in n)
+    gemm_us = sum(us for n, (us, _) in kernels.items()
+                  if any(w in n for w in ("nvjet", "gemm", "xmma", "cutlass")))
+    log("profile", step=label, wall_ms=f"{wall_us / 1e3:.2f}",
+        device_ms=(f"{dev_us / 1e3:.2f}" if dev_us else "not_measured"),
+        busy_share=(f"{dev_us / wall_us:.3f}" if dev_us else "not_measured"),
+        device_events=sum(n for _, n in kernels.values()),
+        gemm_ms=f"{gemm_us / 1e3:.2f}",
+        other_ms=f"{(dev_us - gemm_us - fwd_us - bwd_us) / 1e3:.2f}",
+        flash_fwd_ms=f"{fwd_us / 1e3:.2f}", flash_bwd_ms=f"{bwd_us / 1e3:.2f}",
+        flash_fwd_share=(f"{fwd_us / dev_us:.3f}" if dev_us else "-"),
+        flash_bwd_share=(f"{bwd_us / dev_us:.3f}" if dev_us else "-"))
+    for kname, (us, n) in sorted(kernels.items(),
+                                 key=lambda kv: -kv[1][0])[:8]:
+        print(f"    {us / 1e3:9.3f} ms  x{n:<5d} {kname[:90]}", flush=True)
+
+
+def phase_train() -> dict[str, int]:
+    """granite-3-2b at full width through the port's launcher; then one more
+    step under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = registry.get("granite-3-2b")
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    out = train_launch.main([
+        "--arch", cfg.name, "--steps", str(TRAIN_STEPS),
+        "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+        "--ckpt-dir", str(ckpt_dir), "--ckpt-every", str(10 * TRAIN_STEPS)])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    trainer = out["trainer"]
+    n_params = sum(p.numel() for p in tree.leaves(trainer.state["params"]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for m in out["metrics"]:
+        log("train-step", step=m["step"], loss=f"{m['loss']:.4f}",
+            ms=f"{m['sec_per_step'] * 1e3:.1f}",
+            tokens_s=f"{tokens / m['sec_per_step']:.0f}")
+    steady = [m["sec_per_step"] for m in out["metrics"][1:]]
+    log("train", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        params_B=f"{n_params / 1e9:.3f}", dtype=cfg.dtype,
+        remat=cfg.remat_policy, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        steps=out["final_step"],
+        ms_per_step_median_after_first=f"{statistics.median(steady) * 1e3:.1f}",
+        tokens_s=f"{tokens / statistics.median(steady):.0f}",
+        peak_mem_GB=f"{peak / 1e9:.2f}",
+        launches=repr(counts).replace(" ", ""))
+    losses = [m["loss"] for m in out["metrics"]]
+    if len(losses) != TRAIN_STEPS or not all(
+            x == x and abs(x) < float("inf") for x in losses):
+        raise AssertionError(f"train losses {losses}")
+    want = dict.fromkeys(COUNTED, 0)
+    want["flash_attention"] = 2 * cfg.n_layers * TRAIN_STEPS   # + recompute
+    want["flash_attention_bwd"] = cfg.n_layers * TRAIN_STEPS
+    if counts != want:
+        raise AssertionError(f"train launches {counts} != {want}")
+    batch = trainer.corpus.batch_at(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.state, metrics = trainer.step_fn(trainer.state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    _kernel_share(prof, wall_us, "train")
+    del out, trainer, prof
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return counts
+
+
+@contextlib.contextmanager
+def _plain_backward():
+    """The differentiable flash op's backward on ``flash_attention_bwd_ref``
+    (a check only)."""
+    kernel = fa.flash_attention_bwd
+
+    def plain(q, k, v, o, lse, do, *, causal=True, window=0, softcap=0.0):
+        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                           window=window, softcap=softcap)
+
+    fa.flash_attention_bwd = plain
+    try:
+        yield
+    finally:
+        fa.flash_attention_bwd = kernel
+
+
+def phase_train_grad_vs_plain() -> None:
+    """Every gradient leaf of granite-3-2b at full width and 2 layers (B=1,
+    T=2048) with the backward kernel against the same with the plain
+    backward: worst per-leaf relative L2."""
+    cfg = dataclasses.replace(registry.get("granite-3-2b"), n_layers=2)
+    model = model_lib.build(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=TRAIN_SEQ, global_batch=1)
+                            ).batch_at(0)
+    tokens = {"tokens": torch.as_tensor(batch["tokens"], device="cuda")}
+    before = fa.flash_attention_bwd.launches
+    loss, grads = train_step._loss_and_grads(model, params, tokens, 1)
+    if fa.flash_attention_bwd.launches - before != cfg.n_layers:
+        raise AssertionError("the kernel run did not use the backward kernel")
+    with _plain_backward():
+        loss_p, plain = train_step._loss_and_grads(model, params, tokens, 1)
+    if fa.flash_attention_bwd.launches - before != cfg.n_layers:
+        raise AssertionError("the plain run launched the backward kernel")
+    worst, where = 0.0, ""
+    for (path, g), w in zip(tree.items(grads), tree.leaves(plain)):
+        if not bool(torch.isfinite(g.float()).all()):
+            raise AssertionError(f"non-finite gradient at {path}")
+        rel = ((g.float() - w.float()).norm() / w.float().norm()).item()
+        if rel > worst:
+            worst, where = rel, path
+    log("train-grad-vs-plain", arch=cfg.name, layers=cfg.n_layers, batch=1,
+        seq=TRAIN_SEQ, loss=f"{loss.item():.4f}",
+        plain_loss=f"{loss_p.item():.4f}", leaves=len(tree.leaves(grads)),
+        worst_rel_l2=f"{worst:.3e}", worst_leaf=where, tol=GRAD_REL_L2)
+    if not worst <= GRAD_REL_L2:
+        raise AssertionError(f"gradient {where} off the plain backward by "
+                             f"{worst} > {GRAD_REL_L2}")
 
 
 def run_arch(arch, gen) -> tuple:
@@ -774,8 +1053,9 @@ def main() -> None:
     smi = phase_card()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    records = [phase_flash(gen), phase_mamba_scan(gen),
-               phase_selective_scan(gen), phase_lut_matmul(gen)]
+    records = [phase_flash(gen), phase_flash_backward(gen),
+               phase_mamba_scan(gen), phase_selective_scan(gen),
+               phase_lut_matmul(gen)]
     by_name = {r["name"]: r for r in records}
     for arch in ARCHS:
         counts, entry, prompts, outs = run_arch(arch, gen)
@@ -791,6 +1071,14 @@ def main() -> None:
         for name, n in (entry or {}).items():
             if n and by_name[name]["launches"] is None:
                 by_name[name]["launches"] = n
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_counts = phase_train()
+    by_name["flash_attention_bwd"]["launches"] = train_counts[
+        "flash_attention_bwd"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_grad_vs_plain()
     missing = [r["name"] for r in records if not r["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on a path: {missing}")

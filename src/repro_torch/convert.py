@@ -8,6 +8,11 @@ the port's tree, leaf for leaf, each leaf in the dtype that the port's own
 model keeps in float32 whatever ``cfg.dtype`` (Mamba-1's ``dt_proj``,
 ``dt_bias``, ``A_log`` and ``D``).  bfloat16 leaves arrive as float32 numpy,
 and casting them back is exact.
+
+``train_state_from_numpy`` carries a whole train state of the reference
+(``repro.train.train_step.make_train_state``: params, AdamW moments as
+float32 or as 8-bit ``{"c", "s"}`` codes and scales, and the two step
+counters) into the port's, so that both packages can start from one state.
 """
 
 from __future__ import annotations
@@ -43,3 +48,32 @@ def params_from_numpy(tree: dict, cfg: ModelConfig,
         return out
 
     return walk(tree, dtypes, "")
+
+
+def train_state_from_numpy(state: dict, cfg: ModelConfig,
+                           device: str | torch.device = "cuda") -> dict:
+    """The reference's train state as nested dicts of numpy arrays -> the
+    port's: params as ``params_from_numpy``, moments in their own dtype
+    (float32, or int8 codes and float32 scales), steps as int32 scalars."""
+    dev = resolve(device)
+    if set(state) != {"params", "opt", "step"}:
+        raise KeyError(f"train state has keys {sorted(state)}; want opt, "
+                       "params, step (no pod-compression error state)")
+
+    def moments(t):
+        if isinstance(t, dict):
+            return {k: moments(v) for k, v in t.items()}
+        a = np.asarray(t)
+        if a.dtype not in (np.float32, np.int8):
+            raise TypeError(f"optimizer moment of dtype {a.dtype}")
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    def step(a):
+        return torch.tensor(int(np.asarray(a)), dtype=torch.int32,
+                            device=dev)
+
+    opt = state["opt"]
+    return {"params": params_from_numpy(state["params"], cfg, dev),
+            "opt": {"m": moments(opt["m"]), "v": moments(opt["v"]),
+                    "step": step(opt["step"])},
+            "step": step(state["step"])}

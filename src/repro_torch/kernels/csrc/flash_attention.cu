@@ -67,6 +67,8 @@ struct Params {
   int causal, window;
   float softcap, scale;
   int B;
+  float* lse;                 // (B, H, Tq) row log-sum-exp, or null
+  long long lse_sb, lse_sh;   // its batch and head strides (time: 1)
 };
 
 template <int D>
@@ -227,6 +229,10 @@ __global__ void __launch_bounds__(NT) fa_fwd_f32_kernel(const Params p) {
 #pragma unroll
     for (int j = 0; j < DJ; ++j) O[t * p.o_st + tx + 16 * j] = acc[i][j] / l;
   }
+  // the row log-sum-exp in natural-log units, for the backward
+  if (p.lse != nullptr && tid < BQ && q0 + tid < p.Tq)
+    p.lse[b * p.lse_sb + h * p.lse_sh + q0 + tid] =
+        sM[tid] + logf(fmaxf(sL[tid], 1e-30f));
 }
 
 
@@ -600,6 +606,10 @@ fa_fwd_bf16_kernel(const __grid_constant__ Bf16Maps maps, const Params p) {
         l = fmaxf(l, 1e-30f);
         const int row = row0 + 8 * rr;
         if (row >= p.Tq) continue;
+        // the row log-sum-exp: m and l are in log2 units
+        if (p.lse != nullptr && t == 0)
+          p.lse[it.b * p.lse_sb + it.h * p.lse_sh + row] =
+              (m_r[rr] + log2f(l)) / LOG2E;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
           *reinterpret_cast<__nv_bfloat162*>(O + row * p.o_st + j * 8 +
@@ -682,16 +692,21 @@ cudaError_t dispatch(const Params& p, int dtype, int B, int KV, int D,
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16.  Returns a cudaError_t (0 on success).
+// dtype: 0 float32, 1 bfloat16.  lse: null, or (B, H, Tq) float32 with
+// strides lse_sb, lse_sh, 1, written with the row log-sum-exp of the scaled,
+// soft-capped, masked scores in natural-log units (the backward recomputes
+// P = exp(S - lse)).  Returns a cudaError_t (0 on success).
 int fa_fwd(const void* q, const void* k, const void* v, void* o, int dtype,
            int B, int H, int KV, int Tq, int Tk, int D,
            long long q_sb, long long q_st, long long k_sb, long long k_st,
            long long v_sb, long long v_st, long long o_sb, long long o_st,
-           int causal, int window, float softcap, float scale, void* stream) {
+           int causal, int window, float softcap, float scale, float* lse,
+           long long lse_sb, long long lse_sh, void* stream) {
   if (KV <= 0 || H % KV != 0 || B <= 0 || Tq <= 0 || Tk <= 0)
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, o, H, H / KV, Tq, Tk, q_sb, q_st, k_sb, k_st,
-           v_sb, v_st, o_sb, o_st, causal, window, softcap, scale, B};
+           v_sb, v_st, o_sb, o_st, causal, window, softcap, scale, B,
+           lse, lse_sb, lse_sh};
   return (int)dispatch(p, dtype, B, KV, D,
                        static_cast<cudaStream_t>(stream));
 }

@@ -1,10 +1,22 @@
-"""Flash attention: the wrapper around the Hopper kernel.
+"""Flash attention: the wrappers around the Hopper kernels, forward and
+backward.
 
-Replaces ``repro/kernels/flash_attention.py::flash_attention`` (Pallas TPU).
-The kernel is CUDA C++ in ``csrc/flash_attention.cu``, built by ``_build``
-and called through its C interface.  A tensor on the CPU goes to the plain
-versions in ``ref``; a CUDA tensor goes to the kernel or the call raises.
-``flash_attention_gqa.launches`` counts kernel launches.
+Replaces ``repro/kernels/flash_attention.py::flash_attention`` (Pallas TPU)
+and, for training, ``jax.grad`` of the reference's attention scan
+(``repro/models/layers.py::attention``, which recomputes its score blocks in
+the VJP).  The kernels are CUDA C++ in ``csrc/flash_attention.cu`` (forward,
+optionally writing the row log-sum-exp) and ``csrc/flash_attention_bwd.cu``
+(dQ, dK, dV from q, k, v, o, the LSE and dO), built by ``_build`` and called
+through their C interfaces.  A tensor on the CPU goes to the plain versions
+in ``ref``; a CUDA tensor goes to the kernels or the call raises.
+
+Under grad mode with an input that requires grad, ``flash_attention_gqa``
+runs the ``repro_torch::flash_attn`` custom op, whose forward writes the LSE
+and saves q, k, v, o and the LSE, and whose autograd formula is the
+``repro_torch::flash_attn_bwd`` op.  Both are dispatcher ops, so selective
+activation checkpointing sees them.  Otherwise (serving) the forward writes
+no LSE and saves nothing.  ``flash_attention_gqa.launches`` and
+``flash_attention_bwd.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -15,7 +27,9 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import flash_attention_gqa_ref, flash_attention_ref
+from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                     flash_attention_gqa_ref,
+                                     flash_attention_ref)
 
 HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -27,10 +41,22 @@ def _lib() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.fa_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                            ll, ll, ll, ll, ll, ll, ll, ll,
-                           i, i, ctypes.c_float, ctypes.c_float, p]
+                           i, i, ctypes.c_float, ctypes.c_float,
+                           p, ll, ll, p]
     lib.fa_fwd.restype = i
     lib.fa_error_string.argtypes = [i]
     lib.fa_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd").lib
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fa_bwd.argtypes = [p] * 10 + [i] * 7 + [ctypes.c_float] * 2 + [p]
+    lib.fa_bwd.restype = i
+    lib.fa_bwd_error_string.argtypes = [i]
+    lib.fa_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -67,24 +93,15 @@ def _check(q, k, v, window, softcap):
         raise ValueError("window and softcap must be >= 0")
 
 
-def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: int = 0,
-                        softcap: float = 0.0) -> torch.Tensor:
-    """q: (B, Tq, H, D); k, v: (B, Tk, K, D) -> (B, Tq, H, D), q's dtype.
-
-    Head h attends to kv head h // (H // K).  Any Tq, Tk (ragged tails are
-    masked in the kernel).  Batch and time strides are free, so a slice of a
-    longer KV cache needs no copy.
-    """
-    if q.device.type == "cpu":
-        return flash_attention_gqa_ref(q, k, v, causal=causal, window=window,
-                                       softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+def _forward(q, k, v, causal: bool, window: int, softcap: float,
+             want_lse: bool):
+    """One launch of the forward kernel -> (o, lse or None)."""
     _check(q, k, v, window, softcap)
     B, Tq, H, D = q.shape
     Tk, K = k.shape[1], k.shape[2]
     o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -93,15 +110,157 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                          v.stride(0), v.stride(1), o.stride(0), o.stride(1),
                          int(causal), int(window), float(softcap),
-                         float(D ** -0.5), stream)
+                         float(D ** -0.5),
+                         lse.data_ptr() if want_lse else None,
+                         H * Tq, Tq, stream)
     if err != 0:
         raise RuntimeError(f"flash attention launch failed: cudaError {err} "
                            f"({lib.fa_error_string(err).decode()})")
     flash_attention_gqa.launches += 1
-    return o
+    return o, lse
+
+
+def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """q: (B, Tq, H, D); k, v: (B, Tk, K, D) -> (B, Tq, H, D), q's dtype.
+
+    Head h attends to kv head h // (H // K).  Any Tq, Tk (ragged tails are
+    masked in the kernel).  Batch and time strides are free, so a slice of a
+    longer KV cache needs no copy.  Differentiable: under grad mode with an
+    input that requires grad this is the ``repro_torch::flash_attn`` op.
+    """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return torch.ops.repro_torch.flash_attn(
+            q, k, v, bool(causal), int(window), float(softcap))[0]
+    if q.device.type == "cpu":
+        return flash_attention_gqa_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return _forward(q, k, v, causal, window, softcap, want_lse=False)[0]
 
 
 flash_attention_gqa.launches = 0
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        softcap: float = 0.0
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward with its row log-sum-exp: (o (B, Tq, H, D), lse (B, H,
+    Tq) float32, natural-log units of the scaled, soft-capped scores)."""
+    if q.device.type == "cpu":
+        return flash_attention_gqa_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap, return_lse=True)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return _forward(q, k, v, causal, window, softcap, want_lse=True)
+
+
+def _check_bwd(q, k, o, lse, do, causal):
+    B, Tq, H, D = q.shape
+    if not causal or k.shape[1] != Tq:
+        raise ValueError("the backward kernel takes causal attention with "
+                         f"Tq == Tk (training); got causal={causal}, "
+                         f"Tq={Tq}, Tk={k.shape[1]}")
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype:
+        raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do "
+                         f"{tuple(do.shape)} {do.dtype} must match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    if lse.shape != (B, H, Tq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be ({B}, {H}, {Tq}) float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if not all(t.device == q.device for t in (o, lse, do)):
+        raise ValueError("backward operands on different devices")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, on a 16-byte boundary (the kernel copies 16-byte rows
+    with cp.async)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dq (B, T, H, D), dk, dv (B, T, K, D) in the inputs' dtype, from the
+    forward's q, k, v, o, lse and the output gradient do.  Causal, Tq ==
+    Tk, any T, window, soft-cap, D in (64, 128, 256), float32 or bfloat16;
+    anything else raises.  Inputs are made contiguous and aligned."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       window=window, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    q, k, v, o, lse, do = (_aligned(t) for t in (q, k, v, o, lse, do))
+    _check(q, k, v, window, softcap)
+    _check_bwd(q, k, o, lse, do, causal)
+    B, T, H, D = q.shape
+    K = k.shape[2]
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.fa_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+                         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                         delta.data_ptr(), _DTYPES[q.dtype], B, H, K, T, D,
+                         int(window), float(softcap), float(D ** -0.5),
+                         stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention backward launch failed: "
+                           f"cudaError {err} "
+                           f"({lib.fa_bwd_error_string(err).decode()})")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+# --- the differentiable op ---------------------------------------------------
+
+@torch.library.custom_op("repro_torch::flash_attn", mutates_args=())
+def _flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, window: int, softcap: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    return flash_attention_lse(q, k, v, causal=causal, window=window,
+                               softcap=softcap)
+
+
+@torch.library.custom_op("repro_torch::flash_attn_bwd", mutates_args=())
+def _flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                    causal: bool, window: int, softcap: float
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                               window=window, softcap=softcap)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal, window, softcap = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.attrs = (causal, window, softcap)
+
+
+def _backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = torch.ops.repro_torch.flash_attn_bwd(
+        q, k, v, o, lse, do, *ctx.attrs)
+    return dq, dk, dv, None, None, None
+
+
+_flash_attn.register_autograd(_backward, setup_context=_setup_context)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -12,38 +12,47 @@ import torch
 NEG_INF = -1e30
 
 
+def _mask(Tq: int, Tk: int, causal: bool, window: int,
+          device: torch.device) -> torch.Tensor:
+    """(Tq, Tk) bool, True where query t may attend to key s."""
+    qpos = torch.arange(Tq, device=device)[:, None]
+    kpos = torch.arange(Tk, device=device)[None, :]
+    ok = torch.ones((Tq, Tk), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kpos <= qpos
+    if window > 0:
+        ok &= (qpos - kpos) < window
+    return ok
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
-                        softcap: float = 0.0) -> torch.Tensor:
+                        softcap: float = 0.0, return_lse: bool = False):
     """Materialized-scores attention oracle.
 
     q: (BH, Tq, D); k, v: (BH, Tk, D).  Scores in float32, masked entries
     filled with the finite ``NEG_INF`` (as ``repro/kernels/ref.py``), output
-    cast back to ``q.dtype``.
+    cast back to ``q.dtype``.  With ``return_lse`` also the row
+    log-sum-exp (BH, Tq), float32, in natural-log units of the scaled and
+    soft-capped scores: the softmax is ``exp(s - lse)``.
     """
     D = q.shape[-1]
     Tq, Tk = q.shape[1], k.shape[1]
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (D ** -0.5)
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
-    qpos = torch.arange(Tq, device=q.device)[:, None]
-    kpos = torch.arange(Tk, device=q.device)[None, :]
-    ok = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= kpos <= qpos
-    if window > 0:
-        ok &= (qpos - kpos) < window
+    ok = _mask(Tq, Tk, causal, window, q.device)
     s = torch.where(ok[None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+    o = torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1)
+    return o
 
 
-def flash_attention_gqa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                            *, causal: bool = True, window: int = 0,
-                            softcap: float = 0.0) -> torch.Tensor:
-    """q: (B, Tq, H, D); k, v: (B, Tk, K, D) -> (B, Tq, H, D), through
-    ``flash_attention_ref`` with the reference wrapper's G-fold K/V
-    broadcast (head h reads kv head h // G, ``repro/kernels/ops.py``)."""
+def _heads_major(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q (B, Tq, H, D), k/v (B, Tk, K, D) -> (B*H, T, D) each, K/V
+    broadcast G-fold (head h reads kv head h // G, ``repro/kernels/ops.py``)."""
     B, Tq, H, D = q.shape
     Tk, K = k.shape[1], k.shape[2]
     G = H // K
@@ -52,9 +61,67 @@ def flash_attention_gqa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         B * H, Tk, D)
     vf = v.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).reshape(
         B * H, Tk, D)
-    out = flash_attention_ref(qf, kf, vf, causal=causal, window=window,
-                              softcap=softcap)
-    return out.reshape(B, H, Tq, D).permute(0, 2, 1, 3)
+    return qf, kf, vf
+
+
+def flash_attention_gqa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            *, causal: bool = True, window: int = 0,
+                            softcap: float = 0.0, return_lse: bool = False):
+    """q: (B, Tq, H, D); k, v: (B, Tk, K, D) -> (B, Tq, H, D), through
+    ``flash_attention_ref`` with the reference wrapper's G-fold K/V
+    broadcast; with ``return_lse`` also the row LSE (B, H, Tq), float32."""
+    B, Tq, H, D = q.shape
+    out = flash_attention_ref(*_heads_major(q, k, v), causal=causal,
+                              window=window, softcap=softcap,
+                              return_lse=return_lse)
+    o, lse = out if return_lse else (out, None)
+    o = o.reshape(B, H, Tq, D).permute(0, 2, 1, 3)
+    return (o, lse.reshape(B, H, Tq)) if return_lse else o
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, lse: torch.Tensor,
+                            do: torch.Tensor, *, causal: bool = True,
+                            window: int = 0, softcap: float = 0.0):
+    """The gradient of ``flash_attention_gqa_ref``, step by step, with
+    materialized scores, all in float32.
+
+    q, o, do: (B, Tq, H, D); k, v: (B, Tk, K, D); lse: (B, H, Tq), the
+    forward's.  Returns dq, dk, dv in the dtypes of q, k, v:
+    Δ = rowsum(dO∘O); P = exp(S - lse); dV = Pᵀ dO; dP = dO Vᵀ;
+    dS = P∘(dP - Δ), times 1 - tanh²(s/cap) under a soft-cap;
+    dQ = scale·dS K, dK = scale·dSᵀ Q; dK and dV summed over the G query
+    heads of each kv head.
+    """
+    B, Tq, H, D = q.shape
+    Tk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = D ** -0.5
+    qf, kf, vf = (t.float() for t in _heads_major(q, k, v))
+    of, dof = (t.float().permute(0, 2, 1, 3).reshape(B * H, Tq, D)
+               for t in (o, do))
+    s = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
+    if softcap > 0.0:
+        th = torch.tanh(s / softcap)
+        s = softcap * th
+    ok = _mask(Tq, Tk, causal, window, q.device)[None]
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    delta = (dof * of).sum(dim=-1)                              # (BH, Tq)
+    p = torch.exp(s - lse.reshape(B * H, Tq, 1).float())
+    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    dp = torch.einsum("bqd,bkd->bqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    if softcap > 0.0:
+        ds = ds * (1.0 - th * th)
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
+
+    def kv_heads(t):          # (B*H, Tk, D) -> (B, Tk, K, D), summed over G
+        return t.reshape(B, K, G, Tk, D).sum(dim=2).permute(0, 2, 1, 3)
+
+    dq = dq.reshape(B, H, Tq, D).permute(0, 2, 1, 3)
+    return (dq.to(q.dtype), kv_heads(dk).to(k.dtype),
+            kv_heads(dv).to(v.dtype))
 
 
 def mamba_scan_ref(decay: torch.Tensor, u: torch.Tensor, c: torch.Tensor

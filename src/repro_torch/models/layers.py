@@ -15,10 +15,13 @@ masked at ``kv_len``) has no TPU kernel in the reference and stays on
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import functools
+from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels import ops
 
@@ -232,3 +235,47 @@ def mlp_block(params: Params, x: torch.Tensor, act: str,
     g = _act(x @ params["wi_gate"], act)
     u = x @ params["wi_up"]
     return (g * u) @ params["wo"]
+
+
+# --- remat policies ---------------------------------------------------------------
+
+# JAX's ``dots_with_no_batch_dims_saveable`` keeps the outputs of the
+# projections (dot products without batch dims) and recomputes the rest; in
+# the port those products dispatch as ``aten.mm`` / ``aten.addmm``.
+# Attention (a batched product in the reference, the flash op here) is
+# recomputed.
+_SAVED_DOTS = frozenset({torch.ops.aten.mm.default,
+                         torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    del ctx, args, kwargs
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_policy(name: str):
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a policy name:
+    None for "none" and "full" (plain checkpoint saves nothing), the
+    selective contexts that save the projections for "dots"."""
+    if name in ("none", "full"):
+        return None
+    if name == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _save_dots)
+    raise ValueError(f"unknown remat policy {name!r}")
+
+
+def maybe_remat(fn: Callable, policy_name: str) -> Callable:
+    """``fn`` under activation checkpointing: "none" -> ``fn`` itself;
+    "full" -> recompute everything in the backward; "dots" -> recompute
+    everything but the projections' outputs."""
+    context_fn = remat_policy(policy_name)
+    if policy_name == "none":
+        return fn
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+
+    def wrapped(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False, **kw, **kwargs)
+
+    return wrapped

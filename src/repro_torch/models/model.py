@@ -9,6 +9,7 @@
                                          state, and the position)
 * ``prefill(params, cache, tokens)``  -> (last-position logits, cache at T)
 * ``decode_step(params, cache, tok)`` -> (logits, cache)  [one-token serve step]
+* ``train_loss(params, batch)``       -> mean next-token cross-entropy
 
 The parameter tree is the reference's leaf for leaf (a dict with the layer
 stack on a leading ``L`` dim), so a JAX parameter tree converts by a tree
@@ -22,10 +23,11 @@ families (MoE, Mamba-2 hybrid, VLM, audio) are not ported yet and raise
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Callable
 
 import torch
 
+from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import layers, ssm
@@ -38,20 +40,13 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def tree_map(fn: Callable, tree: Any) -> Any:
-    """Apply ``fn`` to every leaf of a tree of nested dicts."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def _stack_init(fn: Callable[[], Params], n: int) -> Params:
     """Call a per-layer init n times -> params stacked on a leading n dim.
 
     The stack is allocated once and filled layer by layer, so the peak is
     one layer above the stack (not two stacks, as ``torch.stack`` would)."""
     first = fn()
-    out = tree_map(lambda a: a.new_empty((n, *a.shape)), first)
+    out = tree.map_leaves(lambda a: a.new_empty((n, *a.shape)), first)
 
     def put(dst, src, i):
         for key, val in src.items():
@@ -66,8 +61,16 @@ def _stack_init(fn: Callable[[], Params], n: int) -> Params:
     return out
 
 
-def _take(tree: Params, i: int) -> Params:
-    return tree_map(lambda a: a[i], tree)
+def _take(params: Params, i: int) -> Params:
+    return tree.map_leaves(lambda a: a[i], params)
+
+
+def _unstack(params: Params, n: int) -> list[Params]:
+    """The n layers of a stacked tree, through one ``unbind`` a leaf: its
+    backward stacks the n layer gradients once, where n ``a[i]`` selects
+    would each add a zero-filled gradient of the whole stack."""
+    parts = tree.map_leaves(lambda a: a.unbind(0), params)
+    return [tree.map_leaves(lambda t: t[i], parts) for i in range(n)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,7 +108,7 @@ class Model:
         reduced config's init on the CPU (``reduced()`` keeps the family and
         its flags, so the tree and the dtypes are the same)."""
         small = Model(self.cfg.reduced(), torch.device("cpu"))
-        return tree_map(lambda a: a.dtype,
+        return tree.map_leaves(lambda a: a.dtype,
                         small.init(torch.Generator().manual_seed(0)))
 
     def _attn_spec(self) -> AttnSpec:
@@ -188,7 +191,20 @@ class Model:
 
     def _run_decoder(self, params, x, positions, cache=None, cache_len=None):
         """All layers over x; with a cache, layer i reads and writes its
-        K/V rows ``cache["k"][i]``, ``cache["v"][i]`` in place."""
+        K/V rows ``cache["k"][i]``, ``cache["v"][i]`` in place.  Under grad
+        mode each layer runs under ``maybe_remat(cfg.remat_policy)``, as the
+        reference's scanned layer does, when anything requires grad."""
+        if cache is None and torch.is_grad_enabled() and (
+                x.requires_grad or any(
+                    p.requires_grad for p in tree.leaves(params["blocks"]))):
+            def layer(blk, x, is_global):
+                return self._decoder_layer(blk, x, positions, is_global)[0]
+
+            layer = layers.maybe_remat(layer, self.cfg.remat_policy)
+            blocks = _unstack(params["blocks"], self.cfg.n_layers)
+            for blk, is_global in zip(blocks, self._layer_is_global()):
+                x = layer(blk, x, is_global)
+            return x
         for i, is_global in enumerate(self._layer_is_global()):
             kv = None if cache is None else (cache["k"][i], cache["v"][i])
             x, _ = self._decoder_layer(_take(params["blocks"], i), x,
@@ -213,6 +229,18 @@ class Model:
                 cache["conv"][i].copy_(conv)
                 cache["h"][i].copy_(h)
         return x
+
+    # ---------------- loss ----------------
+
+    def train_loss(self, params: Params, batch: dict) -> torch.Tensor:
+        """Mean next-token cross-entropy over B x (T - 1), from float32
+        logits (the reference's sharding pins are no-ops on one card)."""
+        logits = self.forward(params, batch)
+        labels = batch["tokens"][:, 1:].long()
+        lg = logits[:, :-1].float()
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = torch.take_along_dim(lg, labels[..., None], dim=-1)[..., 0]
+        return torch.mean(logz - gold)
 
     # ---------------- prefill ----------------
 

@@ -977,3 +977,245 @@ def test_cuda_lut_matmul_ragged_against_plain_version(M, K, N, dtype):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+# ---- flash attention backward ----------------------------------------------
+
+# The backward kernel against its plain version: float32 differs by
+# summation order and exp2 (~1e-5 at these sizes); bfloat16 rounds P and dS
+# to bf16 before the tensor-core products and dQ, dK, dV once more on
+# output (1 ulp of |x| < 16 is <= 6.3e-2), which
+# test_flash_bwd_bf16_scheme_holds_the_kernel_tolerance bounds on the CPU
+BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+           torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+# (B, T, H, K, D, window, softcap): GQA, ragged T, window, soft-cap
+BWD_GRID = [(2, 37, 4, 2, 16, 0, 0.0), (1, 100, 6, 2, 32, 0, 0.0),
+            (2, 64, 2, 2, 16, 16, 0.0), (1, 73, 4, 1, 32, 20, 30.0),
+            (2, 50, 4, 4, 16, 0, 5.0)]
+
+
+def _bwd_inputs(B, T, H, K, D, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=dtype)
+    return t(B, T, H, D), t(B, T, K, D), t(B, T, K, D), t(B, T, H, D)
+
+
+@pytest.mark.parametrize("B,T,H,K,D,window,softcap", BWD_GRID)
+def test_bwd_ref_matches_autograd_of_the_forward(B, T, H, K, D, window,
+                                                 softcap):
+    q, k, v, do = _bwd_inputs(B, T, H, K, D, T + D, torch.float64)
+    kw = dict(window=window, softcap=softcap)
+    o, lse = ref.flash_attention_gqa_ref(q, k, v, return_lse=True, **kw)
+    got = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
+    want = torch.autograd.grad(ref.flash_attention_gqa_ref(q, k, v, **kw),
+                               (q, k, v), do)
+    for g, w in zip(got, want):       # the plain versions compute in f32
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,T,H,K,D,window,softcap", BWD_GRID)
+def test_bwd_ref_matches_jax_grad_of_model_attention(B, T, H, K, D, window,
+                                                     softcap):
+    """``jax.grad`` of ``layers.attention`` (the reference's training
+    attention, recomputed blocks and all) on the same inputs."""
+    jax_, jnp, jlayers = _jmods("jax", "jax.numpy", "repro.models.layers")
+    q, k, v, do = _bwd_inputs(B, T, H, K, D, 2 * T + D)
+    spec = jlayers.AttnSpec(H, K, D, window=window, softcap=softcap,
+                            kv_block=32)
+
+    def f(q, k, v):
+        o = jlayers.attention(q, k, v, spec, q_offset=0, is_global=False)
+        return jnp.sum(o * jnp.asarray(do.numpy()))
+
+    want = jax_.grad(f, argnums=(0, 1, 2))(
+        *(jnp.asarray(x.numpy()) for x in (q, k, v)))
+    kw = dict(window=window, softcap=softcap)
+    o, lse = ref.flash_attention_gqa_ref(q, k, v, return_lse=True, **kw)
+    got = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-4,
+                                   atol=2e-4)
+
+
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (7, 0.0), (0, 20.0)])
+def test_plain_lse_is_the_logsumexp_of_the_scores(window, softcap):
+    q, k, v, _ = _bwd_inputs(2, 45, 4, 2, 16, 11)
+    _, lse = ref.flash_attention_gqa_ref(q, k, v, return_lse=True,
+                                         window=window, softcap=softcap)
+    qd, kd = q.double().numpy(), k.double().numpy()
+    kd = np.repeat(kd, 2, axis=2)                       # G = 2
+    s = np.einsum("bqhd,bkhd->bhqk", qd, kd) * 16 ** -0.5
+    if softcap:
+        s = softcap * np.tanh(s / softcap)
+    qpos, kpos = np.arange(45)[:, None], np.arange(45)[None, :]
+    ok = (kpos <= qpos) & ((qpos - kpos < window) if window else True)
+    s = np.where(ok, s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    want = (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+    np.testing.assert_allclose(lse.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_differentiable_op_on_the_cpu_is_autograd_of_the_plain_version():
+    q, k, v, do = _bwd_inputs(1, 40, 4, 2, 16, 3)
+    qs = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = ops.gqa_flash_attention(*qs, window=9, softcap=15.0)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, qs, do)
+    rs = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(ref.flash_attention_gqa_ref(
+        *rs, window=9, softcap=15.0), rs, do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    with torch.no_grad():                # serving: no LSE, nothing saved
+        assert ops.gqa_flash_attention(*qs).grad_fn is None
+    assert ops.gqa_flash_attention(q, k, v).grad_fn is None
+
+
+@pytest.mark.parametrize("bad", ["not_causal", "tq_ne_tk", "lse_shape",
+                                 "do_dtype"])
+def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    B, T, H, K, D = 1, 8, 4, 2, 64
+    q, o, do = (torch.zeros(B, T, H, D) for _ in range(3))
+    k = torch.zeros(B, T, K, D)
+    lse = torch.zeros(B, H, T)
+    causal = True
+    if bad == "not_causal":
+        causal = False
+    elif bad == "tq_ne_tk":
+        k = torch.zeros(B, T + 1, K, D)
+    elif bad == "lse_shape":
+        lse = torch.zeros(B, T, H)
+    elif bad == "do_dtype":
+        do = do.bfloat16()
+    with pytest.raises(ValueError):
+        fa._check_bwd(q, k, o, lse, do, causal)
+
+
+def test_bwd_wrapper_never_falls_back_off_the_cpu():
+    q = torch.zeros(1, 8, 2, 64, device="meta")
+    lse = torch.zeros(1, 2, 8, device="meta")
+    before = fa.flash_attention_bwd.launches
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(q, q, q, q, lse, q)
+    assert fa.flash_attention_bwd.launches == before
+
+
+def _bwd_bf16_scheme(q, k, v, o, lse, do, *, window, softcap):
+    """The bf16 kernel's arithmetic in float64: P and dS rounded to bf16
+    before their products, f32-exact products of the bf16 inputs, outputs
+    rounded to bf16."""
+    def bf(x):
+        return x.to(torch.bfloat16).double()
+
+    B, T, H, D = q.shape
+    K = k.shape[2]
+    qf, kf, vf = (x.double() for x in ref._heads_major(q, k, v))
+    of, dof = (x.double().permute(0, 2, 1, 3).reshape(B * H, T, D)
+               for x in (o, do))
+    s = torch.einsum("bqd,bkd->bqk", qf, kf) * D ** -0.5
+    dcap = torch.ones_like(s)
+    if softcap:
+        th = torch.tanh(s / softcap)
+        s, dcap = softcap * th, 1 - th * th
+    ok = ref._mask(T, T, True, window, q.device)[None]
+    p = torch.where(ok, torch.exp(s - lse.reshape(B * H, T, 1).double()),
+                    torch.zeros_like(s))
+    dp = torch.einsum("bqd,bkd->bqk", dof, vf)
+    ds = p * (dp - (dof * of).sum(-1, keepdim=True)) * dcap
+    dv = torch.einsum("bqk,bqd->bkd", bf(p), dof)
+    dk = torch.einsum("bqk,bqd->bkd", bf(ds), qf) * D ** -0.5
+    dq = torch.einsum("bqk,bkd->bqd", bf(ds), kf) * D ** -0.5
+    G = H // K
+
+    def kv(x):
+        return x.reshape(B, K, G, T, D).sum(2).permute(0, 2, 1, 3)
+
+    return (dq.reshape(B, H, T, D).permute(0, 2, 1, 3).to(torch.bfloat16),
+            kv(dk).to(torch.bfloat16), kv(dv).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("T,H,K,D,window,softcap", [
+    (300, 4, 2, 64, 0, 0.0), (257, 2, 1, 128, 100, 30.0),
+    (1024, 2, 1, 64, 0, 0.0)])
+def test_flash_bwd_bf16_scheme_holds_the_kernel_tolerance(T, H, K, D,
+                                                          window, softcap):
+    """The bf16 roundings of the kernel's design keep dQ, dK, dV within
+    ``BWD_TOL`` of the plain version, with room to spare (half of it)."""
+    q, k, v, do = _bwd_inputs(1, T, H, K, D, T, torch.bfloat16)
+    kw = dict(window=window, softcap=softcap)
+    o, lse = ref.flash_attention_gqa_ref(q, k, v, return_lse=True, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    got = _bwd_bf16_scheme(q, k, v, o, lse, do, **kw)
+    half = {n: x / 2 for n, x in BWD_TOL[torch.bfloat16].items()}
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), **half)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("B,T,H,K,window,softcap", [
+    (2, 300, 4, 2, 0, 0.0),       # GQA, ragged last tile
+    (1, 130, 4, 1, 100, 30.0),    # window + soft-cap
+    (2, 64, 2, 2, 0, 0.0),        # one tile
+    (1, 1000, 4, 2, 64, 50.0)])   # tiles skipped outside the window
+def test_cuda_flash_bwd_matches_plain_version(B, T, H, K, D, window,
+                                              softcap, dtype):
+    _cuda_or_skip()
+    dt = getattr(torch, dtype)
+    q, k, v, do = (x.cuda() for x in _bwd_inputs(B, T, H, K, D, T + D, dt))
+    kw = dict(window=window, softcap=softcap)
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == dt
+        torch.testing.assert_close(g.float(), w.float(), **BWD_TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_cuda_forward_with_lse_equals_forward_without(D, dtype):
+    """Writing the LSE leaves ``o`` bit for bit as it was; the LSE is the
+    plain version's within 1e-4 (natural-log units)."""
+    _cuda_or_skip()
+    dt = getattr(torch, dtype)
+    q, k, v, _ = (x.cuda() for x in _bwd_inputs(2, 333, 4, 2, D, D, dt))
+    for kw in (dict(), dict(window=50, softcap=20.0)):
+        o, lse = fa.flash_attention_lse(q, k, v, **kw)
+        o0 = fa.flash_attention_gqa(q, k, v, **kw)
+        _, want = ref.flash_attention_gqa_ref(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o0)
+        torch.testing.assert_close(lse, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_launch_counters_under_grad_and_serving():
+    """Under grad: one forward launch (with LSE) and one backward launch a
+    call; without grad (serving): one forward launch and no backward."""
+    _cuda_or_skip()
+    q, k, v, do = (x.cuda() for x in _bwd_inputs(2, 200, 4, 2, 64, 1,
+                                                  torch.bfloat16))
+    f0, b0 = fa.flash_attention_gqa.launches, fa.flash_attention_bwd.launches
+    qs = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = ops.gqa_flash_attention(*qs)
+    got = torch.autograd.grad(out, qs, do)
+    assert (fa.flash_attention_gqa.launches - f0,
+            fa.flash_attention_bwd.launches - b0) == (1, 1)
+    o, lse = ref.flash_attention_gqa_ref(q, k, v, return_lse=True)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(),
+                                   **BWD_TOL[torch.bfloat16])
+    with torch.no_grad():
+        ops.gqa_flash_attention(*qs)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_gqa.launches - f0,
+            fa.flash_attention_bwd.launches - b0) == (2, 1)

@@ -129,6 +129,11 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    port = ROOT / "src" / "repro_torch"
+    for mod in ("core/overlap/compression", "optim/adamw", "data/pipeline",
+                "train/train_step", "train/trainer",
+                "checkpoint/checkpointer", "launch/train", "tree"):
+        assert port / f"{mod}.py" in files, mod
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
