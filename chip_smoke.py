@@ -33,11 +33,13 @@ Phases, each printing what it found; any failure raises and exits non-zero:
    ``ops.lut_matmul`` on falcon-mamba's layer-0 ``in_proj`` and
    ``ops.mamba_scan`` on the decay and input it builds, counted the same way;
 6. flash_backward: the backward kernel against ``flash_attention_bwd_ref``
-   (float32 and bfloat16, D 64/128/256, GQA, ragged T, window, soft-cap),
-   the forward with LSE against the forward without it and its LSE against
-   the plain one; timed at granite-3-2b's training shape beside SDPA's
-   backward (SDPA forward + backward minus SDPA forward, in turns; a
-   yardstick only, it runs nowhere on the path);
+   (float32 and bfloat16, D 64/128/256, ``BWD_CASES``: GQA up to G = 8,
+   T below, at and one past a tile, windows, soft-cap), the forward with
+   LSE against the forward without it and its LSE against the plain one;
+   two calls at granite-3-2b's training shape must be bit-identical; timed
+   there beside SDPA's backward (SDPA forward + backward minus SDPA
+   forward, in turns; a yardstick only, it runs nowhere on the path), with
+   the five-product bound and the design's seven-product bound;
 7. train: granite-3-2b at full width (40 layers, 2.53 B parameters, bf16,
    remat "dots", AdamW 32-bit) through ``repro_torch.launch.train.main``
    for 5 steps of batch 4 x 2048 tokens; counts zeroed just before and read
@@ -126,6 +128,18 @@ MAX_LEN = 2048
 BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
            torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 LSE_TOL = dict(rtol=1e-4, atol=1e-4)        # natural-log units
+# the backward's cases (B, T, H, K, D, dtype, window, softcap) at each D and
+# dtype: GQA with a ragged last tile, window + soft-cap, tiles skipped
+# outside the window, G = 8, T < 64, T one past a tile, a window of one
+# tile and one shorter than a tile
+BWD_CASES = [(B, T, H, K, D, dt, window, softcap)
+             for D in (64, 128, 256)
+             for dt in (torch.float32, torch.bfloat16)
+             for (B, T, H, K, window, softcap) in (
+                 (2, 300, 4, 2, 0, 0.0), (1, 130, 4, 1, 100, 30.0),
+                 (1, 1000, 4, 2, 64, 50.0), (1, 200, 8, 1, 0, 0.0),
+                 (2, 37, 4, 2, 0, 0.0), (1, 129, 4, 2, 0, 0.0),
+                 (1, 300, 4, 2, 64, 0.0), (1, 300, 4, 2, 20, 0.0))]
 # granite-3-2b's training shape: B, T, H, K, D
 TRAIN_ATTN = (4, 2048, 32, 8, 64)
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 4, 2048
@@ -810,13 +824,7 @@ def _bwd_cost(B, T, H, K, D, itemsize):
 def phase_flash_backward(gen) -> dict:
     """The backward kernel and the forward's LSE against their plain
     versions; timed at granite-3-2b's training shape."""
-    cases = []
-    for D in (64, 128, 256):
-        for dt in (torch.float32, torch.bfloat16):
-            cases += [(2, 300, 4, 2, D, dt, 0, 0.0),      # GQA, ragged
-                      (1, 130, 4, 1, D, dt, 100, 30.0),   # window + cap
-                      (1, 1000, 4, 2, D, dt, 64, 50.0)]   # tiles skipped
-    for (B, T, H, K, D, dt, window, softcap) in cases:
+    for (B, T, H, K, D, dt, window, softcap) in BWD_CASES:
         q, do = _rand(gen, (B, T, H, D), dt), _rand(gen, (B, T, H, D), dt)
         k, v = _rand(gen, (B, T, K, D), dt), _rand(gen, (B, T, K, D), dt)
         kw = dict(window=window, softcap=softcap)
@@ -843,7 +851,15 @@ def phase_flash_backward(gen) -> dict:
     err = max(_held("flash_attention_bwd", (B, T, H, K, D, "bfloat16", n),
                     g, w, BWD_TOL[torch.bfloat16])
               for n, g, w in zip(("dq", "dk", "dv"), got, want))
-    del got, want
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log("flash_attention_bwd", check="two calls bit-identical",
+        shape=f"B{B}_T{T}_H{H}_K{K}_D{D}_bf16", ok=same)
+    if not same:
+        raise AssertionError("two backward calls differ: the kernel must be "
+                             "deterministic")
+    del got, want, again
     plain_ms = cuda_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse,
                                                            do), iters=3)
     qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
@@ -873,6 +889,8 @@ def phase_flash_backward(gen) -> dict:
     flops, nbytes = _bwd_cost(B, T, H, K, D, 2)
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
+    # the kernel forms S and dP twice (dK/dV and dQ kernels, no atomics):
+    # seven T^2 D products where the bound counts five
     log("kernel-time", name="flash_attention_bwd",
         shape=f"B{B}_T{T}_H{H}_K{K}_D{D}_bf16_causal", ms=f"{ms_:.4f}",
         ms_range=f"[{min(ks):.4f},{max(ks):.4f}]", plain_ms=f"{plain_ms:.4f}",
@@ -880,6 +898,7 @@ def phase_flash_backward(gen) -> dict:
         sdpa_fwd_bwd_ms=f"{statistics.median(fbs):.4f}",
         sdpa_fwd_ms=f"{statistics.median(fs):.4f}",
         bound_ms=f"{max(t_ops, t_bytes):.4f}", ops_bound_ms=f"{t_ops:.4f}",
+        design_bound_ms=f"{max(1.4 * t_ops, t_bytes):.4f}",
         bytes_bound_ms=f"{t_bytes:.4f}", gflop=f"{flops / 1e9:.2f}",
         mbytes=f"{nbytes / 1e6:.2f}", tflops=f"{flops / ms_ / 1e9:.2f}",
         max_abs_err=f"{err:.3e}")

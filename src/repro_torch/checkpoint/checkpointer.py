@@ -10,8 +10,10 @@ Layout:  <dir>/step_<k>/{manifest.json, arr_<i>.npy...}, the reference's:
   reference does; ``restore`` casts back to the target's dtype;
 * **atomic**: writes land in ``step_<k>.tmp`` and are renamed only after the
   manifest is fsync'd;
-* **async**: ``save_async`` copies to host memory synchronously and writes
-  in a background thread.
+* **async**: ``save_async`` copies every leaf to host memory before it
+  returns (a copy of its own, also for a leaf already on the host), so the
+  in-place optimizer update of the next step cannot reach the snapshot;
+  a background thread writes it.
 
 One card holds the whole state, so there is no re-sharding on restore.
 """
@@ -32,9 +34,14 @@ from repro_torch import tree
 
 
 def _host(leaf: torch.Tensor) -> np.ndarray:
+    """A host copy of ``leaf`` that no later in-place update reaches: the
+    numpy view of a tensor already on the host shares its memory, so it is
+    copied."""
     t = leaf.detach()
     if t.dtype == torch.bfloat16:
-        t = t.float()
+        return t.float().cpu().numpy()      # .float() is a new tensor
+    if t.device.type == "cpu":
+        return t.numpy().copy()
     return t.cpu().numpy()
 
 

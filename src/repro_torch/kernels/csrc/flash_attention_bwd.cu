@@ -20,43 +20,61 @@
 // 256}, float32 or bfloat16.  All tensors contiguous: q, o, dO, dQ
 // (B, T, H, D); k, v, dK, dV (B, T, H/G, D); lse, delta (B, H, T) float32.
 //
-// Design (FA2-style, deterministic, no atomics): three kernels.
-//   1. delta: one warp a row, rowsum(dO * O) in float32.
-//   2. dK/dV: one block per (batch, kv head, 64-key tile[, 128-column
-//      chunk]).  It loops over the G query heads of its kv head and over the
-//      query tiles from the diagonal on (bounded by the window), recomputes
-//      S^T and dP^T for its keys and accumulates dV and dK in registers, so
-//      the GQA sum needs no atomics.  Key tile 0 has the most query tiles
-//      and is launched first.
-//   3. dQ: one block per (batch, q head, 64-query tile[, column chunk]),
-//      looping over the key tiles up to the diagonal; the last query tile
-//      (the longest) is launched first.
-// bf16: four warps a block, each owning 16 rows of the block's tile; the
-// products run on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
-// accumulation), their operands loaded from shared memory by ldmatrix (the
-// .trans form for the operands read along the row dimension: Q and dO in
-// dK/dV, K in dQ).  The accumulator fragment of S^T (or S) is the A-operand
-// fragment of the next product, so P and dS go from registers to the tensor
-// cores after one bf16 rounding each.  The streamed tiles (Q, dO, lse, delta
-// in dK/dV; K, V in dQ) come in by cp.async into two stages, the next
-// tile's loads in flight under this tile's products.  At D = 256 a block
-// accumulates 128 of the 256 columns (two blocks per tile, each recomputing
-// S and dP) to keep dK + dV at 128 registers a thread.
-// float32: CUDA cores, 32 x 32 tiles, 256 threads a block, same loop
-// structure, P and dS staged in shared memory.
-//
 // What bounds it on this card: at granite-3-2b's training shape (B=4, T=2048,
 // H=32, K=8, D=64, bf16, causal) the five T^2 D products of the gradient
-// (S, dP, dV, dK, dQ) are 171.8 GFLOP, 0.174 ms at 989 TFLOP/s, against
-// ~168 MB of q, k, v, o, dO, lse in and dQ, dK, dV out (0.05 ms at 3.35
-// TB/s): compute-bound.  This design recomputes S and dP in both the dK/dV
-// and the dQ kernel (seven products, not five) and uses mma.sync, not
-// wgmma; TMA and wgmma are for a later change.  Times are in PERF.md.
+// (S, dP, dV, dK, dQ) are 171.9 GFLOP, 0.174 ms at 989 TFLOP/s, against
+// ~169 MB of q, k, v, o, dO, lse in and dQ, dK, dV out (0.05 ms at 3.35
+// TB/s): compute-bound.  This design runs seven products, not five (S and
+// dP are formed again in the dQ kernel, which keeps dQ free of atomics and
+// the result deterministic), so its own bound is 7/5 of that, 0.243 ms.
+// Times are in PERF.md.
+//
+// Three kernels, no atomics, each output written once by one block:
+//   1. delta: one warp a row, rowsum(dO * O) in float32.
+//   2. dK/dV: one block a (batch, kv head, key tile); it loops over the G
+//      query heads of its kv head and the query tiles from the diagonal on
+//      (bounded by the window), so the GQA sum stays in registers.  Key tile
+//      0 has the most query tiles and is launched first.
+//   3. dQ: one block a (batch, query head, query tile), looping over the key
+//      tiles up to the diagonal; the last query tile is launched first.
+// bfloat16 (the training path), on the tensor cores with wgmma fed by TMA:
+//   * warp specialisation: a producer warp (its warpgroup gives up its
+//     registers with setmaxnreg) loads the fixed tiles once (K, V in dK/dV;
+//     Q, dO in dQ) and keeps TMA loads of the streamed tiles in flight
+//     through a ring of 2-4 stages with mbarriers; no __syncthreads in the
+//     loop.  Two consumer warpgroups (setmaxnreg to 240) own 64 rows each;
+//   * S^T = K Q^T and dP^T = V dO^T (dQ: S = Q K^T, dP = dO V^T) are wgmma
+//     products with both operands from shared memory, on 64 x 128 score
+//     tiles at D = 64 (m64n128k16; 64 x 64 at D >= 128, where the registers
+//     allow no more).  P^T and dS^T are rounded to bf16 in registers, where
+//     the accumulator layout is the A-fragment layout of the next product,
+//     and dV += P^T dO, dK += dS^T Q (dQ += dS K) are wgmma m64nDCk16 with A
+//     from registers and B read MN-major from the same swizzled tiles
+//     (hopper.cuh);
+//   * the exponentials of P run while dP is still on the tensor cores, and
+//     dQ's product stays in flight into the next tile;
+//   * masking only where a tile crosses the diagonal, the window's edge or
+//     the end of the sequence: interior tiles run an unmasked body; both
+//     bodies sit between the products, never around one (a wgmma under a
+//     runtime branch serializes all of them);
+//   * P = 2^(s scale log2(e) - lse2) with one ex2 on the special-function
+//     unit a score: the LSE is scaled by log2(e) once a row (by the
+//     producer lanes in dK/dV, which store it beside delta in the stage; by
+//     each consumer thread for its two rows in dQ);
+//   * D = 256: dK and dV of 64 keys by 256 columns would need 256 registers
+//     a thread, so a block accumulates 128 of the columns (two blocks a
+//     tile, each forming S and dP) with one consumer warpgroup, whose K, V
+//     and two-stage ring fill ~194 KB of shared memory; dQ likewise.
+// float32: CUDA cores, 32 x 32 tiles, 256 threads a block, same loop
+// structure, P and dS staged in shared memory (a tensor-core product would
+// round the f32 inputs).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -122,82 +140,69 @@ __global__ void __launch_bounds__(256) delta_kernel(const Params p) {
   }
 }
 
-// ---- bfloat16: mma.sync on the tensor cores --------------------------------
+// ---- bfloat16: TMA ring + wgmma, warp-specialised --------------------------
+//
+// Both kernels cut the scores into tiles of 64 rows by BN columns (BN =
+// 128 at D = 64, else 64).  A consumer warpgroup owns 64 rows of them (keys
+// in dK/dV, queries in dQ) and walks the column tiles that one producer
+// warp streams through a ring of S shared-memory stages: a "full" barrier a
+// stage (TMA bytes landed, and in dK/dV the producer lanes' stores of the
+// stage's row statistics) and an "empty" one (every consumer warp done with
+// it).  A tile of n rows of D bf16 is stored as D / 64 chunks of n rows of
+// 128 bytes in the 128-byte swizzled layout of a TMA load, so it is a wgmma
+// operand as it lands: K-major for S^T = K Q^T (S = Q K^T in dQ), MN-major
+// for dV += P^T dO and dK += dS^T Q (dQ += dS K), from the same bytes.
 
-constexpr int BT = 64;         // rows of a block's tile and of the inner tile
-constexpr int NT16 = 128;      // four warps
+constexpr int BR = 64;              // rows and columns of a score tile
+constexpr int CHUNK = BR * 128;     // one 64-column chunk of a 64-row tile
 
 template <int D>
-struct Cfg16 {
-  static constexpr int DC = D > 128 ? 128 : D;  // accumulated columns a block
-  static constexpr int NC = D / DC;             // column chunks
-  static constexpr int LD = D + 8;    // row pitch: ldmatrix is conflict-free
-  // two fixed tiles, two stages of two streamed tiles; lse and delta for two
-  // stages
-  static constexpr size_t SMEM =
-      sizeof(bf16) * 6 * BT * LD + sizeof(float) * 4 * BT;
+struct Bf16Cfg {
+  // consumer warpgroups a block: two at D <= 128 (the producer warpgroup
+  // hands them its registers); one at D = 256, where two would not fit
+  // their K, V and ring in 227 KB
+  static constexpr int NW = D == 256 ? 1 : 2;
+  static constexpr int NT = 128 * (NW + 1);
+  // gradient columns a block accumulates: at D = 256 two blocks a row tile
+  // take 128 columns each, each recomputing S and dP, so that dK + dV stay
+  // at 128 registers a thread
+  static constexpr int DC = D == 256 ? 128 : D;
+  static constexpr int NC = D / DC;
+  static constexpr int CH = D / 64;                 // 128-byte chunks a row
+  static constexpr uint32_t TILE = CH * CHUNK;      // 64 rows of D bf16
+  static constexpr int S = D == 64 ? 4 : D == 128 ? 3 : 2;   // ring stages
+  // columns of a score tile (queries in dK/dV, keys in dQ): 128 at D = 64
+  // (wider products, half the waits a column); at D >= 128 the registers
+  // allow 64
+  static constexpr int BN = D == 64 ? 128 : 64;
+  static constexpr uint32_t CTILE = CH * BN * 128;  // BN rows of D bf16
+  // dK/dV: K, V of the block; a stage is a column tile of Q and of dO and
+  // their (lse2, delta)
+  static constexpr size_t SMEM_KV = 1024 + 2 * NW * TILE +
+                                    S * (2 * CTILE + BN * sizeof(float2)) +
+                                    (2 * S + 1) * sizeof(uint64_t);
+  // dQ: Q, dO of the block; a stage is a column tile of K and of V
+  static constexpr size_t SMEM_Q = 1024 + 2 * NW * TILE + 2 * S * CTILE +
+                                   (2 * S + 1) * sizeof(uint64_t);
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+struct Maps {
+  CUtensorMap q, k, v, dout;    // (D, heads, T, B), boxes 64 x 1 x 64 x 1
+};
 
-// 16 (or 4) bytes global -> shared, asynchronously; zeros when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+// The constants of P and dS in log2 units: P = 2^(s scale log2(e) - lse2),
+// or under a soft-cap P = 2^(cap log2(e) tanh(s scale / cap) - lse2)
+struct Consts {
+  float scale2, cap2, inv;
+};
 
-// four 8 x 8 bf16 matrices, one row address a thread (lane / 8 picks the
-// matrix); .trans hands each thread a column pair instead of a row pair
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// Fragment addresses in a [row][col] tile X of pitch LD, for lane
-// (m = lane / 8, r = lane % 8):
-//   A, rows r0..r0+15, cols k0..k0+15:           a_frag(X, r0, k0)
-//   B of two n-tiles from X[n][k] (n r0..r0+15): bn_frag(X, r0, k0)
-//   B of two n-tiles from X[k][n] (k r0..r0+15, n c0..c0+15, transposed):
-//                                                 bk_frag(X, r0, c0)
-template <int LD>
-__device__ __forceinline__ const bf16* a_frag(const bf16* X, int r0, int k0) {
-  const int lane = threadIdx.x % 32, m = lane / 8, r = lane % 8;
-  return X + (r0 + r + 8 * (m & 1)) * LD + k0 + 8 * (m >> 1);
-}
-template <int LD>
-__device__ __forceinline__ const bf16* bn_frag(const bf16* X, int r0,
-                                               int k0) {
-  const int lane = threadIdx.x % 32, m = lane / 8, r = lane % 8;
-  return X + (r0 + r + 8 * (m >> 1)) * LD + k0 + 8 * (m & 1);
-}
-template <int LD>
-__device__ __forceinline__ const bf16* bk_frag(const bf16* X, int r0,
-                                               int c0) {
-  return a_frag<LD>(X, r0, c0);
+// a tile of queries [q0, q0 + nq) and keys [k0, k0 + nk) needs no mask when
+// every key is at or before every query, within the window, and every row
+// is before T
+__device__ __forceinline__ bool interior(int q0, int nq, int k0, int nk,
+                                         const Params& p) {
+  return k0 + nk - 1 <= q0 && q0 + nq <= p.T &&
+         (p.window <= 0 || q0 + nq - 1 - k0 < p.window);
 }
 
 // (x, y) -> bf16x2, x in the low half
@@ -206,297 +211,487 @@ __device__ __forceinline__ uint32_t pack(float x, float y) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// c += A B, A 16 x 16 (fragment a), B 16 x 8 (fragment b0, b1)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// rows [r0, r0 + BT) of X (row stride ld) into s[BT][D + 8], asynchronously;
-// rows >= T are zero
-template <int D>
-__device__ __forceinline__ void copy_rows(bf16* s, const bf16* X,
-                                          long long ld, int r0, int T) {
-  constexpr int V = D / 8;                // 16-byte vectors a row
-  for (int i = threadIdx.x; i < BT * V; i += NT16) {
-    const int r = i / V, c = (i % V) * 8, row = r0 + r;
-    cp_async16(s + r * (D + 8) + c, X + min(row, T - 1) * ld + c, row < T);
+// P and dS = P (dP - delta) (times 1 - tanh^2 under a soft-cap) of a
+// warpgroup's 64 x N tile from the accumulators s (raw dot products q.k)
+// and dp (dO.v), in one pass, as the bf16 A fragments pf and sf of the
+// next products: fragment kq holds columns 16 kq .. 16 kq + 15, the
+// accumulator layout of n8 blocks 2 kq and 2 kq + 1 (hopper.cuh).  s and
+// dp die as the fragments grow, so that a 64 x 128 tile fits beside dK and
+// dV.  Element e of block j is row r0 + 8 (e >> 1), column c0 + 8 j +
+// (e & 1) (r0 = the tile's row + 16 warp + lane / 4, c0 = its column +
+// 2 (lane % 4)); KEYROWS: rows are keys (dK/dV), else queries (dQ).
+// stat(j, e) -> (lse2, delta) of the element's query.  MASK: causal,
+// window and ragged end, else none.
+template <bool MASK, bool CAP, bool KEYROWS, int N, typename Stat>
+__device__ __forceinline__ void tile_p_ds(const float (&s)[N / 2],
+                                          const float (&dp)[N / 2],
+                                          uint32_t (&pf)[N / 16][4],
+                                          uint32_t (&sf)[N / 16][4], int r0,
+                                          int c0, Stat stat, const Params& p,
+                                          const Consts& k) {
+#pragma unroll
+  for (int kq = 0; kq < N / 16; ++kq) {
+    float pr[8], ds[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int j = 2 * kq + i / 4, e = i % 4, x = 4 * j + e;
+      const float2 st = stat(j, e);
+      if (CAP) {
+        const float th = tanhf(s[x] * k.inv);
+        pr[i] = hopper::ex2(fmaf(k.cap2, th, -st.x));
+        ds[i] = pr[i] * (dp[x] - st.y) * (1.f - th * th);
+      } else {
+        pr[i] = hopper::ex2(fmaf(s[x], k.scale2, -st.x));
+        ds[i] = pr[i] * (dp[x] - st.y);
+      }
+      if (MASK) {
+        const int r = r0 + 8 * (e >> 1), c = c0 + 8 * j + (e & 1);
+        const int qpos = KEYROWS ? c : r, kpos = KEYROWS ? r : c;
+        const bool ok = kpos <= qpos && qpos < p.T &&
+                        (p.window <= 0 || qpos - kpos < p.window);
+        if (!ok) pr[i] = ds[i] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      pf[kq][r] = pack(pr[2 * r], pr[2 * r + 1]);
+      sf[kq][r] = pack(ds[2 * r], ds[2 * r + 1]);
+    }
   }
 }
 
-// lse and delta of rows [r0, r0 + BT) into sL, sD, asynchronously
-__device__ __forceinline__ void copy_stats(float* sL, float* sD,
-                                           const float* L, const float* Dl,
-                                           int r0, int T) {
-  if (threadIdx.x < BT) {
-    const int row = r0 + threadIdx.x, src = min(row, T - 1);
-    cp_async4(sL + threadIdx.x, L + src, row < T);
-    cp_async4(sD + threadIdx.x, Dl + src, row < T);
+// Without a soft-cap the pass splits in two, so that the exponentials run
+// while dP^T is still on the tensor cores: tile_p_inplace turns s into P
+// (masked to 0), tile_pack_ds then forms the fragments of P and of
+// dS = P (dP - delta).
+template <bool MASK, bool KEYROWS, int N, typename Stat>
+__device__ __forceinline__ void tile_p_inplace(float (&s)[N / 2], int r0,
+                                               int c0, Stat stat,
+                                               const Params& p,
+                                               const Consts& k) {
+#pragma unroll
+  for (int x = 0; x < N / 2; ++x) {
+    const int j = x / 4, e = x % 4;
+    float pr = hopper::ex2(fmaf(s[x], k.scale2, -stat(j, e).x));
+    if (MASK) {
+      const int r = r0 + 8 * (e >> 1), c = c0 + 8 * j + (e & 1);
+      const int qpos = KEYROWS ? c : r, kpos = KEYROWS ? r : c;
+      const bool ok = kpos <= qpos && qpos < p.T &&
+                      (p.window <= 0 || qpos - kpos < p.window);
+      if (!ok) pr = 0.f;
+    }
+    s[x] = pr;
   }
 }
 
-// the A fragment of 16 rows by 16 columns (n-tiles 2 j, 2 j + 1) of an
-// accumulator, rounded to bf16
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         const float (&c)[8][4], int j) {
-  a[0] = pack(c[2 * j][0], c[2 * j][1]);
-  a[1] = pack(c[2 * j][2], c[2 * j][3]);
-  a[2] = pack(c[2 * j + 1][0], c[2 * j + 1][1]);
-  a[3] = pack(c[2 * j + 1][2], c[2 * j + 1][3]);
+template <int N, typename Stat>
+__device__ __forceinline__ void tile_pack_ds(const float (&s)[N / 2],
+                                             const float (&dp)[N / 2],
+                                             uint32_t (&pf)[N / 16][4],
+                                             uint32_t (&sf)[N / 16][4],
+                                             Stat stat) {
+#pragma unroll
+  for (int kq = 0; kq < N / 16; ++kq) {
+    float ds[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int j = 2 * kq + i / 4, e = i % 4, x = 4 * j + e;
+      ds[i] = s[x] * (dp[x] - stat(j, e).y);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      pf[kq][r] = pack(s[8 * kq + 2 * r], s[8 * kq + 2 * r + 1]);
+      sf[kq][r] = pack(ds[2 * r], ds[2 * r + 1]);
+    }
+  }
 }
 
-// store a warp's 16 x DC accumulator (rows row0 + g, row0 + g + 8) times f
+// P and dS of a 64 x N tile around the wait for dP^T: before() while dP^T
+// is in flight, after() once it has landed; the four bodies (masked or not,
+// soft-cap or not) are chosen by warp-uniform branches, and no wgmma is
+// issued under them (ptxas would serialize every wgmma)
+template <bool KEYROWS, int N, typename Stat>
+struct PdS {
+  float (&s)[N / 2];
+  const float (&dp)[N / 2];
+  bool masked;
+  int r0, c0;
+  Stat stat;
+  const Params& p;
+  const Consts& k;
+
+  __device__ __forceinline__ void before() {
+    if (p.softcap > 0.f) return;
+    if (masked)
+      tile_p_inplace<true, KEYROWS, N>(s, r0, c0, stat, p, k);
+    else
+      tile_p_inplace<false, KEYROWS, N>(s, r0, c0, stat, p, k);
+  }
+  __device__ __forceinline__ void after(uint32_t (&pf)[N / 16][4],
+                                        uint32_t (&sf)[N / 16][4]) {
+    if (p.softcap > 0.f) {
+      if (masked)
+        tile_p_ds<true, true, KEYROWS, N>(s, dp, pf, sf, r0, c0, stat, p, k);
+      else
+        tile_p_ds<false, true, KEYROWS, N>(s, dp, pf, sf, r0, c0, stat, p,
+                                           k);
+    } else {
+      tile_pack_ds<N>(s, dp, pf, sf, stat);
+    }
+  }
+};
+
+// X = A B^T over D for a warpgroup's 64 x N tile: A (64 rows) and B (N
+// rows) K-major at shared addresses a and b, their 64-column chunks
+// 64 x 128 and N x 128 bytes apart
+template <int D, int N>
+__device__ __forceinline__ void issue_scores(float (&x)[N / 2], uint32_t a,
+                                             uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    hopper::Wgmma<N>::ss_bf16(
+        x, hopper::desc_sw128(a + (kk / 4) * CHUNK + off, 16),
+        hopper::desc_sw128(b + (kk / 4) * N * 128 + off, 16), kk > 0);
+  }
+}
+
+// acc += F B over K rows of B: F the bf16 A fragments (K / 16 of them), B
+// MN-major at b (K rows, 64-column chunks K x 128 bytes apart), DC of its
+// columns from column c0
+template <int DC, int K>
+__device__ __forceinline__ void issue_grad(float (&acc)[DC / 2],
+                                           const uint32_t (&f)[K / 16][4],
+                                           uint32_t b, int c0) {
+#pragma unroll
+  for (int kq = 0; kq < K / 16; ++kq)
+    hopper::Wgmma<DC>::rs_bf16_tb(
+        acc, f[kq],
+        hopper::desc_sw128(b + (c0 / 64) * K * 128 + kq * 16 * 128, K * 128),
+        1);
+}
+
+template <int K>
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[K][4]) {
+#pragma unroll
+  for (int kq = 0; kq < K; ++kq) hopper::fence_regs(f[kq]);
+}
+
+// a warpgroup's 64 x DC accumulator (rows row0 + 16 warp + lane / 4 (+ 8))
+// times f into X (row stride ld) from column c0; rows >= T are left out
 template <int DC>
-__device__ __forceinline__ void store_acc(bf16* X, long long ld, int row0,
-                                          int T, int c0,
-                                          const float (&acc)[DC / 8][4],
-                                          float f) {
+__device__ __forceinline__ void store_rows(bf16* X, long long ld, int row0,
+                                           int T, int c0,
+                                           const float (&acc)[DC / 2],
+                                           float f) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int warp = (threadIdx.x % 128) / 32;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
+    const int row = row0 + 16 * warp + g + 8 * r;
     if (row >= T) continue;
 #pragma unroll
     for (int n = 0; n < DC / 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(X + row * ld + c0 + 8 * n + 2 * t) =
-          __floats2bfloat162_rn(acc[n][2 * r] * f, acc[n][2 * r + 1] * f);
+          __floats2bfloat162_rn(acc[4 * n + 2 * r] * f,
+                                acc[4 * n + 2 * r + 1] * f);
   }
 }
 
-// S = A B^T and dP = E F^T for a warp's 16 rows by 64 columns: A, E the
-// row tiles (rows r0..r0+15), B, F the column tiles, all [row][d]
-template <int D>
-__device__ __forceinline__ void scores(float (&s)[8][4], float (&dp)[8][4],
-                                       const bf16* A, const bf16* E, int r0,
-                                       const bf16* B, const bf16* F) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4], e[4];
-    ldsm(a, a_frag<LD>(A, r0, 16 * kk));
-    ldsm(e, a_frag<LD>(E, r0, 16 * kk));
-#pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {
-      uint32_t b[4], f[4];
-      ldsm(b, bn_frag<LD>(B, 16 * jp, 16 * kk));
-      ldsm(f, bn_frag<LD>(F, 16 * jp, 16 * kk));
-      mma(s[2 * jp], a, b[0], b[1]);
-      mma(s[2 * jp + 1], a, b[2], b[3]);
-      mma(dp[2 * jp], e, f[0], f[1]);
-      mma(dp[2 * jp + 1], e, f[2], f[3]);
-    }
-  }
+__device__ __forceinline__ void release(uint64_t* bar) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) hopper::mbar_arrive(bar);
 }
 
+// dK, dV: one block a (kv head, column chunk, batch; blockIdx.x) and key
+// tile of NW x 64 keys (blockIdx.y, key tile 0, the longest, first).  The
+// producer loads K and V once and streams Q, dO and (lse2, delta) of every
+// query tile (BN queries each) that sees one of the block's keys, for each
+// of the G query heads of the kv head in turn, so the GQA sum stays in
+// registers.
 template <int D>
-__global__ void __launch_bounds__(NT16) dkdv_bf16_kernel(const Params p) {
-  using C = Cfg16<D>;
-  constexpr int DC = C::DC, LD = C::LD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + BT * LD;
-  bf16* sQ = sV + BT * LD;              // two stages
-  bf16* sO = sQ + 2 * BT * LD;          // dO, two stages
-  float* sL = reinterpret_cast<float*>(sO + 2 * BT * LD);   // two stages
-  float* sD = sL + 2 * BT;
+__global__ void __launch_bounds__(Bf16Cfg<D>::NT, 1)
+dkdv_bf16_kernel(const __grid_constant__ Maps maps, const Params p) {
+  using C = Bf16Cfg<D>;
+  constexpr int NW = C::NW, DC = C::DC, CH = C::CH, S = C::S, BN = C::BN;
+  constexpr uint32_t TILE = C::TILE, CTILE = C::CTILE;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sK = hopper::align1024(smem_raw);    // NW tiles
+  unsigned char* sV = sK + NW * TILE;                 // NW tiles
+  unsigned char* sQ = sV + NW * TILE;                 // ring: S query tiles
+  unsigned char* sO = sQ + S * CTILE;                 // ring: S tiles of dO
+  float2* sStat = reinterpret_cast<float2*>(sO + S * CTILE);  // S x BN
+  uint64_t* full = reinterpret_cast<uint64_t*>(sStat + S * BN);
+  uint64_t* empty = full + S;
+  uint64_t* kvbar = empty + S;
 
   const int KV = p.H / p.G;
-  const int nt = (p.T + BT - 1) / BT;
-  const int kt = blockIdx.x, k0 = kt * BT;
-  const int kh = blockIdx.y / C::NC, c0 = (blockIdx.y % C::NC) * DC;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const long long ldq = (long long)p.H * D, ldk = (long long)KV * D;
-
-  // query tiles that see a key of this tile: from the diagonal on, up to the
-  // last query in the window of the tile's last key; iteration it is query
-  // tile kt + it % nq of query head kh G + it / nq
+  const int kh = blockIdx.x % KV, cc = (blockIdx.x / KV) % C::NC;
+  const int b = blockIdx.x / (KV * C::NC);
+  const int bk0 = blockIdx.y * NW * BR;
+  const int nt = (p.T + BN - 1) / BN;
+  // query tiles that see a key of the block: from the diagonal on, up to
+  // the last query in the window of its last key; iteration it is query
+  // tile qt_lo + it % nq of query head kh G + it / nq
+  const int qt_lo = bk0 / BN;
   int qt_hi = nt;
-  if (p.window > 0) qt_hi = min(nt, (k0 + BT - 1 + p.window - 1) / BT + 1);
-  const int nq = qt_hi - kt, n_it = p.G * nq;
-  auto prefetch = [&](int it) {     // Q, dO, lse, delta of iteration it
-    const int st = it & 1, h = kh * p.G + it / nq;
-    const int q0 = (kt + it % nq) * BT;
-    const long long q_off = ((long long)b * p.T * p.H + h) * D;
-    const long long r_off = ((long long)b * p.H + h) * p.T;
-    copy_rows<D>(sQ + st * BT * LD, static_cast<const bf16*>(p.q) + q_off,
-                 ldq, q0, p.T);
-    copy_rows<D>(sO + st * BT * LD, static_cast<const bf16*>(p.dout) + q_off,
-                 ldq, q0, p.T);
-    copy_stats(sL + st * BT, sD + st * BT, p.lse + r_off, p.delta + r_off,
-               q0, p.T);
-    cp_commit();
-  };
+  if (p.window > 0)
+    qt_hi = min(nt, (bk0 + NW * BR - 1 + p.window - 1) / BN + 1);
+  const int nq = qt_hi - qt_lo, n_it = p.G * nq;
 
-  const long long kv_off = ((long long)b * p.T * KV + kh) * D;
-  copy_rows<D>(sK, static_cast<const bf16*>(p.k) + kv_off, ldk, k0, p.T);
-  copy_rows<D>(sV, static_cast<const bf16*>(p.v) + kv_off, ldk, k0, p.T);
-  prefetch(0);
-
-  float dv[DC / 8][4], dk[DC / 8][4];
-#pragma unroll
-  for (int n = 0; n < DC / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dv[n][e] = dk[n][e] = 0.f;
-
-  for (int it = 0; it < n_it; ++it) {
-    if (it + 1 < n_it)
-      prefetch(it + 1);                 // loads under this tile's products
-    else
-      cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    const int st = it & 1, q0 = (kt + it % nq) * BT;
-    const bf16* cQ = sQ + st * BT * LD;
-    const bf16* cO = sO + st * BT * LD;
-    const float* cL = sL + st * BT;
-    const float* cD = sD + st * BT;
-
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys by 64 queries
-    float st_[8][4], dpt[8][4];
-    scores<D>(st_, dpt, sK, sV, 16 * warp, cQ, cO);
-    // element (e) of n-tile j: key row 16 warp + g + 8 (e >> 1), query
-    // column 8 j + 2 t + (e & 1)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kl = 16 * warp + g + 8 * (e >> 1);
-        const int ql = 8 * j + 2 * t + (e & 1);
-        float pr, ds;
-        p_ds(st_[j][e], dpt[j][e], q0 + ql, k0 + kl, cL[ql] * LOG2E, cD[ql],
-             p, pr, ds);
-        st_[j][e] = pr;
-        dpt[j][e] = ds;
-      }
-    // dV += P^T dO and dK += dS^T Q over the tile's 64 queries, 16 at a
-    // time: n-tiles 2 kq and 2 kq + 1 of the accumulator are the A
-    // fragment of queries 16 kq .. 16 kq + 15
-#pragma unroll
-    for (int kq = 0; kq < BT / 16; ++kq) {
-      uint32_t pa[4], sa[4];
-      acc_to_a(pa, st_, kq);
-      acc_to_a(sa, dpt, kq);
-#pragma unroll
-      for (int np = 0; np < DC / 16; ++np) {
-        uint32_t bo[4], bq[4];
-        ldsm_t(bo, bk_frag<LD>(cO, 16 * kq, c0 + 16 * np));
-        ldsm_t(bq, bk_frag<LD>(cQ, 16 * kq, c0 + 16 * np));
-        mma(dv[2 * np], pa, bo[0], bo[1]);
-        mma(dv[2 * np + 1], pa, bo[2], bo[3]);
-        mma(dk[2 * np], sa, bq[0], bq[1]);
-        mma(dk[2 * np + 1], sa, bq[2], bq[3]);
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 32);          // the producer warp's lanes
+      hopper::mbar_init(&empty[s], 4 * NW);     // one arrival a consumer warp
     }
-    __syncthreads();                    // before the next prefetch reuses it
+    hopper::mbar_init(kvbar, 1);
+    hopper::mbar_fence_init();
   }
-  store_acc<DC>(static_cast<bf16*>(p.dk) + kv_off, ldk, k0 + 16 * warp, p.T,
-                c0, dk, p.scale);
-  store_acc<DC>(static_cast<bf16*>(p.dv) + kv_off, ldk, k0 + 16 * warp, p.T,
-                c0, dv, 1.f);
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  if (wg == NW) {
+    // ---- producer: K, V once; Q, dO, lse2, delta through the ring ----
+    if constexpr (NW > 1) hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x / 32 != 4 * NW) return;
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(kvbar, 2 * NW * TILE);
+      for (int w = 0; w < NW; ++w)
+        for (int c = 0; c < CH; ++c) {
+          hopper::tma_load_4d(sK + w * TILE + c * CHUNK, &maps.k, kvbar,
+                              c * 64, kh, bk0 + w * BR, b);
+          hopper::tma_load_4d(sV + w * TILE + c * CHUNK, &maps.v, kvbar,
+                              c * 64, kh, bk0 + w * BR, b);
+        }
+    }
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % S, h = kh * p.G + it / nq;
+      const int q0 = (qt_lo + it % nq) * BN;
+      if (it >= S) hopper::mbar_wait(&empty[s], ((it / S) - 1) & 1);
+      if (lane == 0) {
+        hopper::mbar_expect_tx(&full[s], 2 * CTILE);
+        // chunk c of a query tile holds its BN rows, 64 a box
+        for (int c = 0; c < CH; ++c)
+          for (int r = 0; r < BN; r += BR) {
+            const uint32_t off = s * CTILE + c * BN * 128 + r * 128;
+            hopper::tma_load_4d(sQ + off, &maps.q, &full[s], c * 64, h,
+                                q0 + r, b);
+            hopper::tma_load_4d(sO + off, &maps.dout, &full[s], c * 64, h,
+                                q0 + r, b);
+          }
+      }
+      // the LSE in log2 units, once a query; rows past T are masked
+      const long long r_off = ((long long)b * p.H + h) * p.T;
+      for (int r = lane; r < BN; r += 32) {
+        const int q = q0 + r;
+        sStat[s * BN + r] =
+            q < p.T ? make_float2(p.lse[r_off + q] * LOG2E, p.delta[r_off + q])
+                    : make_float2(0.f, 0.f);
+      }
+      hopper::mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  // ---- consumers: 64 keys a warpgroup ----
+  if constexpr (NW > 1) hopper::setmaxnreg_inc<240>();
+  const int warp = (threadIdx.x % 128) / 32, g = lane / 4, t = lane % 4;
+  const int k0 = bk0 + wg * BR;
+  const uint32_t k_addr = hopper::smem_u32(sK + wg * TILE);
+  const uint32_t v_addr = hopper::smem_u32(sV + wg * TILE);
+  const Consts kc{p.scale * LOG2E, p.softcap * LOG2E,
+                  p.softcap > 0.f ? p.scale / p.softcap : 0.f};
+  float dk[DC / 2], dv[DC / 2], s[BN / 2], dp[BN / 2];
+  uint32_t pf[BN / 16][4], sf[BN / 16][4];
+#pragma unroll
+  for (int i = 0; i < DC / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  // S^T, dP^T and dV + dK go out as three groups, all retired within the
+  // tile (groups left in flight across the loop's back edge made ptxas
+  // serialize every wgmma, for want of registers at a 64 x 128 tile)
+  hopper::mbar_wait(kvbar, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % S, q0 = (qt_lo + it % nq) * BN;
+    const uint32_t q_addr = hopper::smem_u32(sQ + st * CTILE);
+    const uint32_t o_addr = hopper::smem_u32(sO + st * CTILE);
+    // query 8 j + 2 t + {0, 1} of the tile: one 16-byte load for the pair
+    const float2* stat = sStat + st * BN + 2 * t;
+    auto col_stat = [&](int j, int e) {
+      const float4 v = *reinterpret_cast<const float4*>(stat + 8 * j);
+      return (e & 1) ? make_float2(v.z, v.w) : make_float2(v.x, v.y);
+    };
+    hopper::mbar_wait(&full[st], (it / S) & 1);
+    // S^T = K Q^T, dP^T = V dO^T
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    hopper::wgmma_fence();
+    issue_scores<D, BN>(s, k_addr, q_addr);
+    hopper::wgmma_commit();
+    issue_scores<D, BN>(dp, v_addr, o_addr);
+    hopper::wgmma_commit();
+    PdS<true, BN, decltype(col_stat)> pds{s, dp, !interior(q0, BN, k0, BR, p),
+                                          k0 + 16 * warp + g, q0 + 2 * t,
+                                          col_stat, p, kc};
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(s);
+    pds.before();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dp);
+    pds.after(pf, sf);
+    // dV += P^T dO, dK += dS^T Q
+    fence_frags(pf);
+    fence_frags(sf);
+    hopper::fence_regs(dk);
+    hopper::fence_regs(dv);
+    hopper::wgmma_fence();
+    issue_grad<DC, BN>(dv, pf, o_addr, cc * DC);
+    issue_grad<DC, BN>(dk, sf, q_addr, cc * DC);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dk);
+    hopper::fence_regs(dv);
+    release(&empty[st]);
+  }
+  const long long ldk = (long long)KV * D;
+  const long long kv_off = ((long long)b * p.T * KV + kh) * D;
+  store_rows<DC>(static_cast<bf16*>(p.dk) + kv_off, ldk, k0, p.T, cc * DC,
+                 dk, p.scale);
+  store_rows<DC>(static_cast<bf16*>(p.dv) + kv_off, ldk, k0, p.T, cc * DC,
+                 dv, 1.f);
 }
 
+// dQ: one block a (query head, column chunk, batch; blockIdx.x) and query
+// tile of NW x 64 queries (blockIdx.y, the last tile, the longest, first).
+// The producer loads Q and dO once and streams K and V of the key tiles
+// (BN keys each) from the first in the window of the block's first query
+// up to the diagonal of its last.
 template <int D>
-__global__ void __launch_bounds__(NT16) dq_bf16_kernel(const Params p) {
-  using C = Cfg16<D>;
-  constexpr int DC = C::DC, LD = C::LD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sO = sQ + BT * LD;              // dO
-  bf16* sK = sO + BT * LD;              // two stages
-  bf16* sV = sK + 2 * BT * LD;          // two stages
-  float* sL = reinterpret_cast<float*>(sV + 2 * BT * LD);
-  float* sD = sL + BT;
+__global__ void __launch_bounds__(Bf16Cfg<D>::NT, 1)
+dq_bf16_kernel(const __grid_constant__ Maps maps, const Params p) {
+  using C = Bf16Cfg<D>;
+  constexpr int NW = C::NW, DC = C::DC, CH = C::CH, S = C::S, BN = C::BN;
+  constexpr uint32_t TILE = C::TILE, CTILE = C::CTILE;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = hopper::align1024(smem_raw);    // NW tiles
+  unsigned char* sO = sQ + NW * TILE;                 // NW tiles of dO
+  unsigned char* sK = sO + NW * TILE;                 // ring: S key tiles
+  unsigned char* sV = sK + S * CTILE;                 // ring: S key tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(sV + S * CTILE);
+  uint64_t* empty = full + S;
+  uint64_t* qbar = empty + S;
 
-  const int KV = p.H / p.G;
-  const int nt = (p.T + BT - 1) / BT;
-  const int qt = nt - 1 - (int)blockIdx.x, q0 = qt * BT;
-  const int h = blockIdx.y / C::NC, c0 = (blockIdx.y % C::NC) * DC;
-  const int kh = h / p.G, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const long long ldq = (long long)p.H * D, ldk = (long long)KV * D;
+  const int h = blockIdx.x % p.H, cc = (blockIdx.x / p.H) % C::NC;
+  const int b = blockIdx.x / (p.H * C::NC), kh = h / p.G;
+  const int bq0 = (gridDim.y - 1 - blockIdx.y) * NW * BR;
+  const int nt = (p.T + BN - 1) / BN;
+  const int kt_lo = p.window > 0 ? max(0, bq0 - p.window + 1) / BN : 0;
+  const int kt_hi = min(nt, (bq0 + NW * BR - 1) / BN + 1);
+  const int n_it = kt_hi - kt_lo;
 
-  // key tiles up to the diagonal, from the first key in the window of the
-  // tile's first query
-  const int kt_lo = p.window > 0 ? max(0, q0 - p.window + 1) / BT : 0;
-  const int n_it = qt - kt_lo + 1;
-  const long long kv_off = ((long long)b * p.T * KV + kh) * D;
-  auto prefetch = [&](int it) {     // K, V of key tile kt_lo + it
-    const int st = it & 1, k0 = (kt_lo + it) * BT;
-    copy_rows<D>(sK + st * BT * LD, static_cast<const bf16*>(p.k) + kv_off,
-                 ldk, k0, p.T);
-    copy_rows<D>(sV + st * BT * LD, static_cast<const bf16*>(p.v) + kv_off,
-                 ldk, k0, p.T);
-    cp_commit();
-  };
-
-  const long long q_off = ((long long)b * p.T * p.H + h) * D;
-  const long long r_off = ((long long)b * p.H + h) * p.T;
-  copy_rows<D>(sQ, static_cast<const bf16*>(p.q) + q_off, ldq, q0, p.T);
-  copy_rows<D>(sO, static_cast<const bf16*>(p.dout) + q_off, ldq, q0, p.T);
-  copy_stats(sL, sD, p.lse + r_off, p.delta + r_off, q0, p.T);
-  prefetch(0);
-
-  float dq[DC / 8][4];
-#pragma unroll
-  for (int n = 0; n < DC / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-
-  for (int it = 0; it < n_it; ++it) {
-    if (it + 1 < n_it)
-      prefetch(it + 1);                 // loads under this tile's products
-    else
-      cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    const int st = it & 1, k0 = (kt_lo + it) * BT;
-    const bf16* cK = sK + st * BT * LD;
-    const bf16* cV = sV + st * BT * LD;
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 queries by 64 keys
-    float s[8][4], dp[8][4];
-    scores<D>(s, dp, sQ, sO, 16 * warp, cK, cV);
-    // element (e) of n-tile j: query row 16 warp + g + 8 (e >> 1), key
-    // column 8 j + 2 t + (e & 1)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = 16 * warp + g + 8 * (e >> 1);
-        const int kl = 8 * j + 2 * t + (e & 1);
-        float pr, ds;
-        p_ds(s[j][e], dp[j][e], q0 + ql, k0 + kl, sL[ql] * LOG2E, sD[ql], p,
-             pr, ds);
-        dp[j][e] = ds;
-      }
-    // dQ += dS K over the tile's 64 keys, 16 at a time
-#pragma unroll
-    for (int kk = 0; kk < BT / 16; ++kk) {
-      uint32_t sa[4];
-      acc_to_a(sa, dp, kk);
-#pragma unroll
-      for (int np = 0; np < DC / 16; ++np) {
-        uint32_t bk[4];
-        ldsm_t(bk, bk_frag<LD>(cK, 16 * kk, c0 + 16 * np));
-        mma(dq[2 * np], sa, bk[0], bk[1]);
-        mma(dq[2 * np + 1], sa, bk[2], bk[3]);
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4 * NW);     // one arrival a consumer warp
     }
-    __syncthreads();                    // before the next prefetch reuses it
+    hopper::mbar_init(qbar, 1);
+    hopper::mbar_fence_init();
   }
-  store_acc<DC>(static_cast<bf16*>(p.dq) + q_off, ldq, q0 + 16 * warp, p.T,
-                c0, dq, p.scale);
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  if (wg == NW) {
+    // ---- producer: Q, dO once; K, V through the ring ----
+    if constexpr (NW > 1) hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x != 128 * NW) return;
+    hopper::mbar_arrive_expect_tx(qbar, 2 * NW * TILE);
+    for (int w = 0; w < NW; ++w)
+      for (int c = 0; c < CH; ++c) {
+        hopper::tma_load_4d(sQ + w * TILE + c * CHUNK, &maps.q, qbar, c * 64,
+                            h, bq0 + w * BR, b);
+        hopper::tma_load_4d(sO + w * TILE + c * CHUNK, &maps.dout, qbar,
+                            c * 64, h, bq0 + w * BR, b);
+      }
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % S, k0 = (kt_lo + it) * BN;
+      if (it >= S) hopper::mbar_wait(&empty[s], ((it / S) - 1) & 1);
+      hopper::mbar_arrive_expect_tx(&full[s], 2 * CTILE);
+      // chunk c of a key tile holds its BN rows, 64 a box
+      for (int c = 0; c < CH; ++c)
+        for (int r = 0; r < BN; r += BR) {
+          const uint32_t off = s * CTILE + c * BN * 128 + r * 128;
+          hopper::tma_load_4d(sK + off, &maps.k, &full[s], c * 64, kh,
+                              k0 + r, b);
+          hopper::tma_load_4d(sV + off, &maps.v, &full[s], c * 64, kh,
+                              k0 + r, b);
+        }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 queries a warpgroup ----
+  if constexpr (NW > 1) hopper::setmaxnreg_inc<240>();
+  const int warp = (threadIdx.x % 128) / 32, g = lane / 4, t = lane % 4;
+  const int q0 = bq0 + wg * BR, row0 = q0 + 16 * warp + g;
+  const uint32_t q_addr = hopper::smem_u32(sQ + wg * TILE);
+  const uint32_t o_addr = hopper::smem_u32(sO + wg * TILE);
+  const Consts kc{p.scale * LOG2E, p.softcap * LOG2E,
+                  p.softcap > 0.f ? p.scale / p.softcap : 0.f};
+  // (lse2, delta) of rows row0, row0 + 8: the LSE in log2 units once a row
+  float2 rs[2];
+  const long long r_off = ((long long)b * p.H + h) * p.T;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    rs[r] = row < p.T
+                ? make_float2(p.lse[r_off + row] * LOG2E, p.delta[r_off + row])
+                : make_float2(0.f, 0.f);
+  }
+  float dq[DC / 2], s[BN / 2], dp[BN / 2];
+  uint32_t pf[BN / 16][4], sf[BN / 16][4];
+#pragma unroll
+  for (int i = 0; i < DC / 2; ++i) dq[i] = 0.f;
+
+  // as in dK/dV, P is formed while dP is on the tensor cores; the dQ product
+  // stays in flight into the next tile, under its S and dP (nothing else
+  // touches its accumulators in the loop, so ptxas keeps the wgmmas
+  // asynchronous)
+  auto row_stat = [&](int, int e) { return rs[e >> 1]; };
+  hopper::mbar_wait(qbar, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % S, k0 = (kt_lo + it) * BN;
+    const uint32_t k_addr = hopper::smem_u32(sK + st * CTILE);
+    hopper::mbar_wait(&full[st], (it / S) & 1);
+    // S = Q K^T, dP = dO V^T
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    hopper::wgmma_fence();
+    issue_scores<D, BN>(s, q_addr, k_addr);
+    hopper::wgmma_commit();
+    issue_scores<D, BN>(dp, o_addr, hopper::smem_u32(sV + st * CTILE));
+    hopper::wgmma_commit();
+    PdS<false, BN, decltype(row_stat)> pds{s, dp, !interior(q0, BR, k0, BN, p),
+                                           row0, k0 + 2 * t, row_stat, p, kc};
+    hopper::wgmma_wait<1>();            // S, and tile it - 1's dQ
+    hopper::fence_regs(s);
+    if (it > 0) release(&empty[(it - 1) % S]);
+    pds.before();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dp);
+    pds.after(pf, sf);
+    // dQ += dS K
+    fence_frags(sf);
+    hopper::fence_regs(dq);
+    hopper::wgmma_fence();
+    issue_grad<DC, BN>(dq, sf, k_addr, cc * DC);
+    hopper::wgmma_commit();
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(dq);
+  release(&empty[(n_it - 1) % S]);
+  const long long ldq = (long long)p.H * D;
+  const long long q_off = ((long long)b * p.T * p.H + h) * D;
+  store_rows<DC>(static_cast<bf16*>(p.dq) + q_off, ldq, q0, p.T, cc * DC, dq,
+                 p.scale);
 }
 
 // ---- float32: CUDA cores ---------------------------------------------------
@@ -742,35 +937,56 @@ __global__ void __launch_bounds__(NT32) dq_f32_kernel(const Params p) {
 
 // ---- launch ---------------------------------------------------------------
 
-template <typename Kernel>
+template <typename Kernel, typename... Args>
 cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
-                   const Params& p, cudaStream_t stream) {
+                   cudaStream_t stream, const Args&... args) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, threads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
+// q, dO (B, T, H, D) and k, v (B, T, KV, D) as 4-D tensor maps (D, heads,
+// T, B), boxes of 64 head-dim elements (128 bytes, swizzled) by one head by
+// 64 rows
 template <int D>
 cudaError_t run_bf16(const Params& p, cudaStream_t s) {
-  using C = Cfg16<D>;
-  const int nt = (p.T + BT - 1) / BT, KV = p.H / p.G;
-  cudaError_t e = launch(dkdv_bf16_kernel<D>, dim3(nt, KV * C::NC, p.B),
-                         NT16, C::SMEM, p, s);
+  using C = Bf16Cfg<D>;
+  const int KV = p.H / p.G;
+  Maps maps;
+  const uint64_t row = D * sizeof(bf16);
+  const uint32_t box[4] = {64, 1, BR, 1};
+  const uint64_t q_dims[4] = {D, (uint64_t)p.H, (uint64_t)p.T,
+                              (uint64_t)p.B};
+  const uint64_t kv_dims[4] = {D, (uint64_t)KV, (uint64_t)p.T,
+                               (uint64_t)p.B};
+  const uint64_t q_str[3] = {row, row * p.H, row * p.H * p.T};
+  const uint64_t kv_str[3] = {row, row * KV, row * KV * p.T};
+  const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!hopper_host::make_map(&maps.q, bf, 4, p.q, q_dims, q_str, box, sw) ||
+      !hopper_host::make_map(&maps.dout, bf, 4, p.dout, q_dims, q_str, box,
+                             sw) ||
+      !hopper_host::make_map(&maps.k, bf, 4, p.k, kv_dims, kv_str, box, sw) ||
+      !hopper_host::make_map(&maps.v, bf, 4, p.v, kv_dims, kv_str, box, sw))
+    return cudaErrorInvalidValue;
+  const unsigned tiles = (unsigned)((p.T + C::NW * BR - 1) / (C::NW * BR));
+  cudaError_t e = launch(dkdv_bf16_kernel<D>, dim3(KV * C::NC * p.B, tiles),
+                         C::NT, C::SMEM_KV, s, maps, p);
   if (e != cudaSuccess) return e;
-  return launch(dq_bf16_kernel<D>, dim3(nt, p.H * C::NC, p.B), NT16,
-                C::SMEM, p, s);
+  return launch(dq_bf16_kernel<D>, dim3(p.H * C::NC * p.B, tiles), C::NT,
+                C::SMEM_Q, s, maps, p);
 }
 
 template <int D>
 cudaError_t run_f32(const Params& p, cudaStream_t s) {
   const int nt = (p.T + FT - 1) / FT, KV = p.H / p.G;
   cudaError_t e = launch(dkdv_f32_kernel<D>, dim3(nt, KV, p.B), NT32,
-                         smem32<D>(), p, s);
+                         smem32<D>(), s, p);
   if (e != cudaSuccess) return e;
-  return launch(dq_f32_kernel<D>, dim3(nt, p.H, p.B), NT32, smem32<D>(), p,
-                s);
+  return launch(dq_f32_kernel<D>, dim3(nt, p.H, p.B), NT32, smem32<D>(), s,
+                p);
 }
 
 template <int D>
@@ -792,7 +1008,7 @@ cudaError_t run(const Params& p, int dtype, cudaStream_t s) {
 extern "C" {
 
 // dtype: 0 float32, 1 bfloat16; all tensors contiguous and 16-byte
-// aligned.  q, o, dout, dq: (B, T, H, D); k, v, dk, dv: (B, T, KV, D); lse:
+// aligned (the bf16 path reads q, k, v and dout through TMA tensor maps).  q, o, dout, dq: (B, T, H, D); k, v, dk, dv: (B, T, KV, D); lse:
 // (B, H, T) float32 from the forward; delta: (B, H, T) float32 scratch.
 // Causal.  Returns a cudaError_t (0 on success).
 int fa_bwd(const void* q, const void* k, const void* v, const void* o,

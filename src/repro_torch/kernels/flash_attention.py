@@ -80,17 +80,23 @@ def _check(q, k, v, window, softcap):
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D}: the kernel takes {HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or t.stride(2) != D:
-            raise ValueError(f"{name} must be contiguous over (heads, "
-                             f"head_dim); strides {t.stride()}")
-        if t.dtype == torch.bfloat16 and (
-                t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8):
-            raise ValueError(f"{name}: bf16 tensors are read through TMA "
-                             "tensor maps, which need a 16-byte aligned "
-                             "pointer and batch/time strides that are "
-                             f"multiples of 8, got strides {t.stride()}")
+        _check_tma(name, t, D)
     if window < 0 or softcap < 0:
         raise ValueError("window and softcap must be >= 0")
+
+
+def _check_tma(name: str, t: torch.Tensor, D: int) -> None:
+    """(B, T, heads, D) contiguous over (heads, head_dim); in bf16 also what
+    a TMA tensor map needs."""
+    if t.stride(3) != 1 or t.stride(2) != D:
+        raise ValueError(f"{name} must be contiguous over (heads, "
+                         f"head_dim); strides {t.stride()}")
+    if t.dtype == torch.bfloat16 and (
+            t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8):
+        raise ValueError(f"{name}: bf16 tensors are read through TMA "
+                         "tensor maps, which need a 16-byte aligned "
+                         "pointer and batch/time strides that are "
+                         f"multiples of 8, got strides {t.stride()}")
 
 
 def _forward(q, k, v, causal: bool, window: int, softcap: float,
@@ -175,11 +181,13 @@ def _check_bwd(q, k, o, lse, do, causal):
                          f"{tuple(lse.shape)} {lse.dtype}")
     if not all(t.device == q.device for t in (o, lse, do)):
         raise ValueError("backward operands on different devices")
+    for name, t in (("o", o), ("do", do)):
+        _check_tma(name, t, D)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, on a 16-byte boundary (the kernel copies 16-byte rows
-    with cp.async)."""
+    """Contiguous, on a 16-byte boundary (the bf16 kernels read q, k, v and
+    dO through TMA tensor maps)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 

@@ -10,7 +10,10 @@ Unlike the reference's functional update, ``apply_updates`` writes the
 parameters and the moments **in place**, leaf by leaf, and each leaf in
 chunks over its leading dim: at full width a functional update would hold
 two copies of params + m + v (2 x ~25 GB for granite-3-2b), and one float32
-temporary of its largest stacked leaf (40 x 2048 x 8192) is 2.7 GB.
+temporary of its largest stacked leaf (40 x 2048 x 8192) is 2.7 GB.  So a
+failure once the writes have begun leaves a state that mixes two steps:
+``apply_updates`` then raises ``PartialUpdateError``, which must not be
+retried on that state.
 """
 
 from __future__ import annotations
@@ -27,6 +30,11 @@ from repro_torch.core.overlap import compression
 Params = Any
 
 CHUNK = 1 << 26          # elements of a leaf updated at once (256 MB in f32)
+
+
+class PartialUpdateError(RuntimeError):
+    """``apply_updates`` failed in its in-place update: the state may hold
+    some leaves of the new step and some of the old one."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,7 +122,9 @@ def _store_q(q: dict, start: int, x: torch.Tensor) -> None:
 def apply_updates(cfg: AdamWConfig, params: Params, grads: Params,
                   state: dict) -> tuple[Params, dict, dict]:
     """One AdamW step, in place.  Returns (params, state, metrics): the
-    same parameter and moment tensors, updated, and a new step counter."""
+    same parameter and moment tensors, updated, and a new step counter.
+    A failure in the gradient norm leaves the state as it was; one in the
+    leaf-by-leaf update raises ``PartialUpdateError``."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0) \
@@ -146,10 +156,16 @@ def apply_updates(cfg: AdamWConfig, params: Params, grads: Params,
                 v[sl].copy_(vf)
 
     flat_p = tree.leaves(params)
-    for p, g, m, v in zip(flat_p, tree.leaves(grads),
-                          _moment_leaves(state["m"], len(flat_p), eight),
-                          _moment_leaves(state["v"], len(flat_p), eight)):
-        upd(p, g, m, v)
+    moments = list(zip(_moment_leaves(state["m"], len(flat_p), eight),
+                       _moment_leaves(state["v"], len(flat_p), eight)))
+    for i, (p, g, (m, v)) in enumerate(zip(flat_p, tree.leaves(grads),
+                                           moments)):
+        try:
+            upd(p, g, m, v)
+        except Exception as e:
+            raise PartialUpdateError(
+                f"AdamW failed at leaf {i} of {len(flat_p)}: the leaves "
+                "before it, and part of it, may hold the new step") from e
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, {"m": state["m"], "v": state["v"], "step": step}, metrics
 

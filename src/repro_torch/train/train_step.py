@@ -76,7 +76,9 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     gradients are computed before anything is written, so a failure in the
     forward or the backward leaves ``state`` as it was (the trainer's retry
     relies on that).  The optimizer update itself is in place: the returned
-    state holds the same parameter and moment tensors, updated.
+    state holds the same parameter and moment tensors, updated, and a
+    failure once it began writing raises ``adamw.PartialUpdateError``,
+    which the trainer does not retry.
     """
     if settings.compress_pod_grads:
         raise ValueError("compress_pod_grads requires a mesh with a 'pod' "

@@ -12,8 +12,12 @@ Production behaviours implemented (and covered by tests):
 * **failure retry**: transient step failures (injectable for tests) retry up
   to ``max_retries`` from the last good state — the port's step computes
   the loss and every gradient before it writes anything, so a failure in
-  the forward or backward leaves the state as it was (the optimizer update
-  that follows is in place; see ``train_step.make_train_step``).
+  the forward or backward leaves the state as it was.  The optimizer
+  update that follows is in place (``train_step.make_train_step``): a
+  failure after it began writing raises ``adamw.PartialUpdateError``,
+  which is never retried, since the state then mixes two steps (the
+  reference's functional update has no such case); restart from the last
+  checkpoint.
 
 One card holds the whole state: there is no elastic re-sharding.
 """
@@ -28,6 +32,7 @@ from typing import Callable
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.data.pipeline import (DataConfig, PrefetchIterator,
                                        SyntheticCorpus)
+from repro_torch.optim.adamw import PartialUpdateError
 
 
 @dataclasses.dataclass
@@ -94,6 +99,8 @@ class Trainer:
                         new_state, metrics = self.step_fn(self.state, batch)
                         loss = float(metrics["loss"])   # waits for the step
                         break
+                    except PartialUpdateError:
+                        raise       # the state mixes two steps: no retry
                     except Exception:
                         if attempt == self.cfg.max_retries:
                             raise

@@ -1076,7 +1076,7 @@ def test_differentiable_op_on_the_cpu_is_autograd_of_the_plain_version():
 
 
 @pytest.mark.parametrize("bad", ["not_causal", "tq_ne_tk", "lse_shape",
-                                 "do_dtype"])
+                                 "do_dtype", "do_layout", "o_layout"])
 def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(bad):
     B, T, H, K, D = 1, 8, 4, 2, 64
     q, o, do = (torch.zeros(B, T, H, D) for _ in range(3))
@@ -1091,6 +1091,10 @@ def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(bad):
         lse = torch.zeros(B, T, H)
     elif bad == "do_dtype":
         do = do.bfloat16()
+    elif bad == "do_layout":            # heads and head_dim not contiguous
+        do = torch.zeros(B, T, D, H).transpose(2, 3)
+    elif bad == "o_layout":
+        o = torch.zeros(B, H, T, D).transpose(1, 2)
     with pytest.raises(ValueError):
         fa._check_bwd(q, k, o, lse, do, causal)
 
@@ -1162,7 +1166,12 @@ def test_flash_bwd_bf16_scheme_holds_the_kernel_tolerance(T, H, K, D,
     (2, 300, 4, 2, 0, 0.0),       # GQA, ragged last tile
     (1, 130, 4, 1, 100, 30.0),    # window + soft-cap
     (2, 64, 2, 2, 0, 0.0),        # one tile
-    (1, 1000, 4, 2, 64, 50.0)])   # tiles skipped outside the window
+    (1, 1000, 4, 2, 64, 50.0),    # tiles skipped outside the window
+    (1, 200, 8, 1, 0, 0.0),       # G = 8: eight query heads a kv head
+    (2, 37, 4, 2, 0, 0.0),        # T < 64: one ragged tile
+    (1, 129, 4, 2, 0, 0.0),       # T one past two tiles
+    (1, 300, 4, 2, 64, 0.0),      # a window of one tile
+    (1, 300, 4, 2, 20, 0.0)])     # a window shorter than a tile
 def test_cuda_flash_bwd_matches_plain_version(B, T, H, K, D, window,
                                               softcap, dtype):
     _cuda_or_skip()
@@ -1176,6 +1185,23 @@ def test_cuda_flash_bwd_matches_plain_version(B, T, H, K, D, window,
     for g, w in zip(got, want):
         assert g.dtype == dt
         torch.testing.assert_close(g.float(), w.float(), **BWD_TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_cuda_flash_bwd_is_deterministic(D, dtype):
+    """No atomics: two calls give dQ, dK, dV bit for bit alike (GQA, a
+    ragged tail, a window)."""
+    _cuda_or_skip()
+    dt = getattr(torch, dtype)
+    q, k, v, do = (x.cuda() for x in _bwd_inputs(2, 333, 8, 2, D, D, dt))
+    o, lse = fa.flash_attention_lse(q, k, v, window=100)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do, window=100)
+    second = fa.flash_attention_bwd(q, k, v, o, lse, do, window=100)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

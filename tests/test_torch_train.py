@@ -10,6 +10,7 @@ tolerance and the launcher.  Reduced granite-3-2b throughout.
 """
 
 import dataclasses
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -394,6 +395,39 @@ def test_checkpoint_rejects_another_structure(tmp_path):
     assert ck.latest_step() == 4
 
 
+@pytest.mark.parametrize("state_bits", [32, 8])
+def test_save_async_snapshots_the_state_at_call_time(tmp_path, monkeypatch,
+                                                     state_bits):
+    """A float32 state (32-bit moments) and one with int8 moment codes:
+    every leaf is written in place after ``save_async`` returns and before
+    its thread writes, as the next step's update does; the checkpoint holds
+    the state as it was at the call."""
+    _, _, _, tstate, _, _ = _states("float32", state_bits)
+    leaves = tree.leaves(tstate)
+    assert {x.dtype for x in leaves} >= ({torch.float32, torch.int8}
+                                         if state_bits == 8
+                                         else {torch.float32})
+    before = [x.clone() for x in leaves]
+    ck = Checkpointer(tmp_path)
+    go = threading.Event()
+    write = ck._write
+
+    def held(*args):
+        assert go.wait(30)
+        return write(*args)
+
+    monkeypatch.setattr(ck, "_write", held)
+    ck.save_async(tstate, 2)
+    for x in leaves:
+        x.add_(1)                                 # in place, every leaf
+    go.set()
+    ck.wait()
+    restored, step = ck.restore(tstate)
+    assert step == 2
+    for (path, got), want in zip(tree.items(restored), before):
+        assert torch.equal(got, want), path
+
+
 # --- trainer (tests/test_train_infra.py::TestTrainerFaultTolerance) -----------
 
 @pytest.fixture(scope="module")
@@ -463,6 +497,57 @@ def test_trainer_permanent_failure_raises(tiny, tmp_path):
     tr = _trainer(tiny, tmp_path, fail_hook=hook)
     with pytest.raises(RuntimeError):
         tr.run()
+
+
+def test_trainer_does_not_retry_a_partial_update(tiny, tmp_path,
+                                                 monkeypatch):
+    """AdamW fails at step 3 after it has written two leaves in place: the
+    state then mixes steps 3 and 4, so the trainer raises
+    ``PartialUpdateError`` instead of retrying the step on it, and reports
+    no step past the last whole one."""
+    n_leaves = len(tree.leaves(_trainer(tiny, tmp_path / "n").state["params"]))
+    chunks = adamw._chunks
+    armed = {"calls": None}
+
+    def hook(step):
+        if step == 3 and armed["calls"] is None:
+            armed["calls"] = 0
+
+    def failing(p, align=1):
+        # global_norm takes one call a leaf, then the update one a leaf
+        if armed["calls"] is not None:
+            armed["calls"] += 1
+            if armed["calls"] == n_leaves + 3:
+                raise RuntimeError("injected failure inside the update")
+        yield from chunks(p, align)
+
+    monkeypatch.setattr(adamw, "_chunks", failing)
+    tr = _trainer(tiny, tmp_path, fail_hook=hook)
+    with pytest.raises(adamw.PartialUpdateError):
+        tr.run()
+    assert armed["calls"] == n_leaves + 3       # one attempt, no retry
+    assert int(tr.state["step"]) == 3
+    assert tr.metrics_log == []                 # step 4 was never logged
+    assert tr.ckpt.latest_step() is None
+
+
+def test_adamw_failure_before_any_write_is_not_partial(tiny, monkeypatch):
+    """A failure in the gradient norm, before the first in-place write,
+    raises as it is: the state is the last good one and may be retried."""
+    model, opt, _, _ = tiny
+    state = ts.make_train_state(model, opt, torch.Generator().manual_seed(1))
+    before = [t.clone() for t in tree.leaves(state)]
+    grads = tree.map_leaves(torch.ones_like, state["params"])
+
+    def norm_fails(_):
+        raise RuntimeError("injected failure in the gradient norm")
+
+    monkeypatch.setattr(adamw, "global_norm", norm_fails)
+    with pytest.raises(RuntimeError) as err:
+        adamw.apply_updates(opt, state["params"], grads, state["opt"])
+    assert not isinstance(err.value, adamw.PartialUpdateError)
+    for a, b in zip(tree.leaves(state), before):
+        assert torch.equal(a, b)
 
 
 def test_trainer_resumes_from_checkpoint(tiny, tmp_path):
