@@ -11,13 +11,21 @@ Phases, each printing what it found; any failure raises and exits non-zero:
    tolerances, timed with CUDA events beside the plain version, a PyTorch
    library call computing the same function where there is one (flash and
    LUT: kernel and library timed in turns, three times each, median and
-   range printed), and the card's bound: flash attention, the selective
-   scan's two entry points (``mamba_scan``, ``selective_scan``, the latter
-   timed as device time from a CUDA graph of its launches) and the LUT
-   matmul;
-4. for each served model, glm4-9b (40 layers) then falcon-mamba-7b (64
-   Mamba-1 layers), at full width in bf16 with random weights from a seeded
-   generator on the card, the previous model's weights freed first:
+   range printed), and the card's bound: flash attention (timed at glm4-9b's
+   and at qwen2-moe-a2.7b's prefill shape, the latter one query head a kv
+   head, G = 1), the flash backward (phase 7 below, run here), the
+   selective scan's two entry points (``mamba_scan``, ``selective_scan``,
+   the latter timed as device time from a CUDA graph of its launches) and
+   the LUT matmul;
+4. moe-layer: ``moe.moe_block`` at qwen2-moe-a2.7b's layer width (N = 4400
+   tokens, 60 experts, top-4, shared expert) in bf16 against a plain
+   float32 loop over the experts with the same capacity rule, at the served
+   capacity factor 1.25 and at 1.0, where experts overflow; equal routing
+   and kept assignments, timed beside the loop;
+5. for each served model, glm4-9b (40 layers), falcon-mamba-7b (64 Mamba-1
+   layers) then qwen2-moe-a2.7b (24 MoE layers), at full width in bf16 with
+   random weights from a seeded generator on the card, the previous
+   model's weights freed first:
    a. serving: 4 requests of several hundred to 1100 tokens through
       ``Engine.generate``; launch counts are zeroed just before and read
       just after, and every kernel of the model's path must have run (flash
@@ -27,29 +35,48 @@ Phases, each printing what it found; any failure raises and exits non-zero:
       generated positions against the logits decode produced (for the
       Mamba model, whose state carries each step's bf16 rounding, the
       served run is held at its prefill step and every step is held on
-      the same model in float32, teacher-forced);
-   c. profile: one prefill and one decode step under ``torch.profiler``;
-5. the entry points no model calls: ``ops.quantize_weights`` +
+      the same model in float32, teacher-forced).  For the MoE model the
+      capacity rule makes the cached path (4 tokens a decode step, one
+      slot an expert) and the forward different functions: it runs a
+      second ``generate`` that must give identical tokens and
+      bit-identical step logits, then holds the teacher-forced cached path
+      against the forward with ``moe_block``'s capacity factor bound to
+      E / k (no assignment dropped; a check only), counting the (token,
+      layer) top-k sets the two paths route differently; held in a
+      float32 build when bf16's rounding and routing flips push a step
+      past the limits;
+   c. profile: one prefill and one decode step under ``torch.profiler``,
+      device time split into GEMMs (``aten::mm``), batched products
+      (``aten::bmm``: the experts' grouped FFN, and decode attention),
+      index ops (sort, top-k, gathers and scatters), flash and the rest;
+6. the entry points no model calls: ``ops.quantize_weights`` +
    ``ops.lut_matmul`` on falcon-mamba's layer-0 ``in_proj`` and
    ``ops.mamba_scan`` on the decay and input it builds, counted the same way;
-6. flash_backward: the backward kernel against ``flash_attention_bwd_ref``
+7. flash_backward: the backward kernel against ``flash_attention_bwd_ref``
    (float32 and bfloat16, D 64/128/256, ``BWD_CASES``: GQA up to G = 8,
-   T below, at and one past a tile, windows, soft-cap), the forward with
-   LSE against the forward without it and its LSE against the plain one;
-   two calls at granite-3-2b's training shape must be bit-identical; timed
-   there beside SDPA's backward (SDPA forward + backward minus SDPA
-   forward, in turns; a yardstick only, it runs nowhere on the path), with
-   the five-product bound and the design's seven-product bound;
-7. train: granite-3-2b at full width (40 layers, 2.53 B parameters, bf16,
+   T below, at and one past a tile, windows, soft-cap, and qwen2-moe's
+   training shape, G = 1 at D = 128), the forward with LSE against the
+   forward without it and its LSE against the plain one; two calls at
+   granite-3-2b's training shape must be bit-identical; timed there and at
+   qwen2-moe's training shape beside SDPA's backward (SDPA forward +
+   backward minus SDPA forward, in turns; a yardstick only, it runs nowhere
+   on the path), with the five-product bound and the design's
+   seven-product bound;
+8. train: granite-3-2b at full width (40 layers, 2.53 B parameters, bf16,
    remat "dots", AdamW 32-bit) through ``repro_torch.launch.train.main``
    for 5 steps of batch 4 x 2048 tokens; counts zeroed just before and read
    just after (per step: 40 flash forward launches + 40 in the recompute,
    40 backward launches); loss finite, ms/step, tokens/s, peak memory; one
    more step under ``torch.profiler``;
-8. train_grad_vs_plain: at full width and 2 layers (B=1, T=2048), every
+9. train_grad_vs_plain: at full width and 2 layers (B=1, T=2048), every
    gradient leaf against the same model with the attention backward on
    ``flash_attention_bwd_ref`` (a check only: the plain version runs nowhere
-   on the training path).
+   on the training path);
+10. train-moe: qwen2-moe-a2.7b at full width and 4 of its 24 layers (its
+    full-depth state does not fit one card), the same 5 steps through
+    ``make_train_step`` and the ``Trainer``, counted the same way (per
+    step: 4 + 4 flash forward launches, 4 backward launches);
+11. train_grad_vs_plain for qwen2-moe-a2.7b at full width and 2 layers.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -84,10 +111,12 @@ from repro_torch.kernels import lut_matmul as lm  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
-from repro_torch.models import layers  # noqa: E402
+from repro_torch.models import layers, moe  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 from repro_torch.train import train_step  # noqa: E402
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 # H100 SXM published dense peaks (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
@@ -116,7 +145,7 @@ LUT_TOL = dict(rtol=1e-5, atol=1e-4)
 # rms; relative L2 above this is a wrong product, not quantization
 LUT_QUANT_REL_L2 = 0.15
 
-ARCHS = ("glm4-9b", "falcon-mamba-7b")
+ARCHS = ("glm4-9b", "falcon-mamba-7b", "qwen2-moe-a2.7b")
 PROMPT_LENS = (347, 611, 893, 1100)        # none a multiple of 128
 MAX_NEW = 16
 MAX_LEN = 2048
@@ -140,9 +169,23 @@ BWD_CASES = [(B, T, H, K, D, dt, window, softcap)
                  (1, 1000, 4, 2, 64, 50.0), (1, 200, 8, 1, 0, 0.0),
                  (2, 37, 4, 2, 0, 0.0), (1, 129, 4, 2, 0, 0.0),
                  (1, 300, 4, 2, 64, 0.0), (1, 300, 4, 2, 20, 0.0))]
-# granite-3-2b's training shape: B, T, H, K, D
+# qwen2-moe-a2.7b's training shape: one query head a kv head (G = 1)
+BWD_CASES.append((4, 2048, 16, 16, 128, torch.bfloat16, 0, 0.0))
+# the training shapes (B, T, H, K, D) of granite-3-2b and qwen2-moe-a2.7b
 TRAIN_ATTN = (4, 2048, 32, 8, 64)
+MOE_TRAIN_ATTN = (4, 2048, 16, 16, 128)
+# qwen2-moe-a2.7b's serving prefill shape: B, T, H, K, D
+MOE_PREFILL_ATTN = (4, 1100, 16, 16, 128)
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 4, 2048
+# qwen2-moe-a2.7b is trained at full width and this cut depth: its 24
+# layers' bf16 params and grads and f32 AdamW moments come to ~172 GB; 4
+# layers (2.90 B parameters) hold ~35 GB of state
+MOE_TRAIN_LAYERS = 4
+# the card's bf16 moe_block against the plain float32 loop over experts:
+# bf16 rounds the gate and up products, their product, each expert's
+# output and the weighted sum once each (2^-9 relative a rounding, ~4e-3
+# in relative L2 together); this is ~2.5x that
+MOE_LAYER_REL_L2 = 1e-2
 # every gradient leaf (2 layers, full width) against the plain backward:
 # the kernel's dQ, dK, dV are ~2.6e-3 off the plain ones in relative L2
 # (bf16 P and dS); this is ~8x that
@@ -280,6 +323,9 @@ def phase_flash(gen) -> dict:
         cases.append(dict(B=4, Tq=T, Tk=T, H=32, K=2, D=128,
                           dtype=torch.bfloat16, causal=True, window=0,
                           softcap=0.0))
+    B, T, H, K, D = MOE_PREFILL_ATTN             # qwen2-moe's, G = 1
+    cases.append(dict(B=B, Tq=T, Tk=T, H=H, K=K, D=D, dtype=torch.bfloat16,
+                      causal=True, window=0, softcap=0.0))
     for D in (64, 128, 256):
         for dt in (torch.float32, torch.bfloat16):
             cases.append(dict(B=2, Tq=300, Tk=300, H=4, K=2, D=D, dtype=dt,
@@ -316,8 +362,16 @@ def phase_flash(gen) -> dict:
     if not err <= TOL[torch.float32]:
         raise AssertionError(f"flash_attention (BH layout) off by {err}")
 
-    # timing at the main path's shape: the serving prefill
-    B, T, H, K, D = 4, max(PROMPT_LENS), 32, 2, 128
+    # timing at the main paths' shapes: the serving prefills of glm4-9b
+    # (the record) and qwen2-moe-a2.7b
+    rec = _time_flash(gen, 4, max(PROMPT_LENS), 32, 2, 128)
+    _time_flash(gen, *MOE_PREFILL_ATTN)
+    return rec
+
+
+def _time_flash(gen, B, T, H, K, D) -> dict:
+    """The forward at one bf16 causal shape against its plain version,
+    timed in turns with SDPA; logged, and returned as a kernels record."""
     q = _rand(gen, (B, T, H, D), torch.bfloat16)
     k = _rand(gen, (B, T, K, D), torch.bfloat16)
     v = _rand(gen, (B, T, K, D), torch.bfloat16)
@@ -544,6 +598,96 @@ def phase_lut_matmul(gen) -> dict:
             "library_ms": library_ms}
 
 
+def moe_loop_ref(p, x, cfg, capacity_factor: float = 1.25):
+    """Plain float32 version of ``moe.moe_block``: top-k of the softmax of
+    the float32 router logits, renormalised; then a loop over the experts,
+    each taking the first C of its assignments in (token, rank) order (the
+    reference's stable sort) through its FFN.  Returns the output, the
+    expert ids (N, k) and which assignments were kept (N, k)."""
+    B, T, d = x.shape
+    E, k = cfg.n_experts, cfg.n_experts_active
+    N = B * T
+    xf = x.reshape(N, d).float()
+    probs = torch.softmax(xf @ p["router"], dim=-1)
+    w, ex = torch.topk(probs, k, dim=-1)
+    w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+    C = max(1, int(capacity_factor * k * N / E))
+    out = torch.zeros((N, d), dtype=torch.float32, device=x.device)
+    keep = torch.zeros((N, k), dtype=torch.bool, device=x.device)
+    for e in range(E):
+        tok, rank = (ex == e).nonzero(as_tuple=True)     # token-major order
+        tok, rank = tok[:C], rank[:C]
+        keep[tok, rank] = True
+        h = xf[tok]
+        y = (layers._act(h @ p["wi_gate"][e].float(), cfg.act)
+             * (h @ p["wi_up"][e].float())) @ p["wo"][e].float()
+        out.index_add_(0, tok, y * w[tok, rank][:, None])
+    if "shared" in p:
+        shared = tree.map_leaves(lambda a: a.float(), p["shared"])
+        out = out + layers.mlp_block(shared, xf, cfg.act)
+    return out.view(B, T, d), ex, keep
+
+
+def _moe_layer_cost(cfg, N, C, itemsize):
+    """FLOPs of the router, the grouped FFN over all E x C slots and the
+    shared MLP; bytes of x, the weights and the output, each once."""
+    d, E, f, fs = cfg.d_model, cfg.n_experts, cfg.moe_d_ff, \
+        cfg.shared_expert_d_ff
+    flops = 2 * N * d * E + 6 * E * C * d * f + 6 * N * d * fs
+    nbytes = (4 * d * E + itemsize * (3 * E * d * f + 3 * d * fs)
+              + 2 * itemsize * N * d)
+    return flops, nbytes
+
+
+def phase_moe_layer(gen) -> None:
+    """``moe.moe_block`` at qwen2-moe-a2.7b's layer width in bf16 (4 x 1100
+    tokens of the serving prefill) against ``moe_loop_ref`` on the same
+    inputs: equal expert ids and kept assignments, output within
+    ``MOE_LAYER_REL_L2``; at the served capacity factor 1.25 (random
+    routing fills no expert there) and at 1.0, where about half the experts
+    overflow and drop; timed beside the loop at 1.25."""
+    cfg = registry.get("qwen2-moe-a2.7b")
+    B, T = 4, max(PROMPT_LENS)
+    N, E, k = B * T, cfg.n_experts, cfg.n_experts_active
+    p = moe.init_moe_params(gen, cfg.d_model, cfg, torch.bfloat16)
+    x = _rand(gen, (B, T, cfg.d_model), torch.bfloat16)
+    for cf in (1.25, 1.0):
+        got = moe.moe_block(p, x, cfg, capacity_factor=cf)
+        want, want_ex, want_keep = moe_loop_ref(p, x, cfg, cf)
+        C = moe.capacity(cf, k, N, E)
+        _, ex = moe.route(p, x.reshape(N, -1), k)
+        order, keep, _ = moe.dispatch(ex, E, C)
+        kept = torch.empty_like(keep).scatter_(0, order, keep).view(N, k)
+        rel = ((got.float() - want).norm() / want.norm()).item()
+        same_route = torch.equal(ex, want_ex) and torch.equal(kept, want_keep)
+        timing = {}
+        if cf == 1.25:
+            ms_ = cuda_ms(lambda: moe.moe_block(p, x, cfg))
+            plain_ms = cuda_ms(lambda: moe_loop_ref(p, x, cfg), iters=3,
+                               warmup=1)
+            flops, nbytes = _moe_layer_cost(cfg, N, C, 2)
+            t_ops = flops / PEAK_BF16_FLOPS * 1e3
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            timing = dict(
+                ms=f"{ms_:.4f}", plain_ms=f"{plain_ms:.4f}",
+                bound_ms=f"{max(t_ops, t_bytes):.4f}",
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                gflop=f"{flops / 1e9:.2f}", mbytes=f"{nbytes / 1e6:.2f}",
+                tflops=f"{flops / ms_ / 1e9:.2f}")
+        log("moe-layer", shape=f"N{N}_E{E}_k{k}_C{C}_d{cfg.d_model}"
+            f"_f{cfg.moe_d_ff}_shared{cfg.shared_expert_d_ff}_bf16",
+            capacity_factor=cf, rel_l2=f"{rel:.3e}",
+            tol_rel_l2=MOE_LAYER_REL_L2, same_routing=same_route,
+            dropped=int((~want_keep).sum()), assignments=N * k, **timing)
+        if not same_route:
+            raise AssertionError("moe_block routes or keeps otherwise than "
+                                 f"the plain loop at capacity factor {cf}")
+        if not (bool(torch.isfinite(got.float()).all())
+                and rel <= MOE_LAYER_REL_L2):
+            raise AssertionError(f"moe_block off the plain loop by {rel} at "
+                                 f"capacity factor {cf}")
+
+
 def _prompts(gen, vocab):
     return [torch.randint(2, vocab, (n,), generator=gen, device="cuda")
             .tolist() for n in PROMPT_LENS]
@@ -711,10 +855,16 @@ def phase_decode_vs_forward_f32(arch, prompts, outs) -> None:
     """The cached path's function at full width without bf16's noise: the
     same model in float32 (weights from the same seed), the served tokens
     teacher-forced through prefill and decode, against its forward, held
-    at every step under the same limits."""
+    at every step under the same limits (an MoE model by
+    ``_moe_against_forward``)."""
     cfg = dataclasses.replace(registry.get(arch), dtype="float32")
     model = model_lib.build(cfg, "cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    if cfg.family == "moe":
+        if not _moe_against_forward(model, params, prompts, outs, cfg.dtype):
+            raise AssertionError("float32 decode logits disagree with "
+                                 "forward")
+        return
     steps = _teacher_forced(model, params, prompts, outs)
     rels, fracs, agree = _against_forward(model, params, prompts, outs,
                                           steps)
@@ -725,6 +875,123 @@ def phase_decode_vs_forward_f32(arch, prompts, outs) -> None:
         per_step_rel_l2=_fmt(rels))
     if not (max(rels) <= DECODE_REL_L2 and max(fracs) <= DECODE_MAX_ABS_FRAC):
         raise AssertionError("float32 decode logits disagree with forward")
+
+
+@contextlib.contextmanager
+def _moe_capacity(capacity_factor: float, record: list | None = None):
+    """``moe.moe_block`` with its capacity factor bound (a check only: the
+    served path keeps the reference's 1.25); with ``record``, the expert ids
+    each call routes to, (B, T, k), are appended to it."""
+    block = moe.moe_block
+
+    def bound(params, x, cfg, *, capacity_factor=capacity_factor):
+        if record is not None:
+            _, ex = moe.route(params, x.reshape(-1, x.shape[-1]),
+                              cfg.n_experts_active)
+            record.append(ex.view(*x.shape[:2], -1))
+        return block(params, x, cfg, capacity_factor=capacity_factor)
+
+    moe.moe_block = bound
+    try:
+        yield
+    finally:
+        moe.moe_block = block
+
+
+def _routing_flips(cached, full, n_layers) -> tuple[int, int]:
+    """(differing, compared) (token, layer) top-k sets: the cached path's
+    records (prefill, then one decode step at a time, ``n_layers`` records
+    each) against the forward's at the same positions."""
+    flips = pairs = 0
+    for layer in range(n_layers):
+        steps = cached[layer::n_layers]
+        got = torch.cat(steps, dim=1).sort(-1).values
+        want = full[layer][:, :got.shape[1]].sort(-1).values
+        flips += int((got != want).any(-1).sum())
+        pairs += got.shape[0] * got.shape[1]
+    return flips, pairs
+
+
+def phase_determinism(engine, prompts, outs) -> None:
+    """A second ``generate`` of the same prompts: identical tokens and
+    bit-identical step logits."""
+    first = [lg.clone() for lg in engine.step_logits]
+    again = engine.generate(prompts, max_new=MAX_NEW)
+    same_logits = len(first) == len(engine.step_logits) and all(
+        torch.equal(a, b) for a, b in zip(first, engine.step_logits))
+    log("determinism", arch=engine.model.cfg.name,
+        same_tokens=again == outs, same_step_logits=same_logits,
+        steps=len(first))
+    if not (again == outs and same_logits):
+        raise AssertionError("two generate calls differ")
+
+
+def _moe_against_forward(model, params, prompts, outs, dtype) -> bool:
+    """The cached path, teacher-forced, against the forward, both with no
+    assignment dropped (capacity factor E / k, so C = N); logs the limits
+    and the routing flips between the two paths; returns whether every
+    step is within the limits."""
+    cfg = model.cfg
+    no_drop = cfg.n_experts / cfg.n_experts_active
+    cached, full = [], []
+    with _moe_capacity(no_drop, cached):
+        steps = _teacher_forced(model, params, prompts, outs)
+    with _moe_capacity(no_drop, full):
+        rels, fracs, agree = _against_forward(model, params, prompts, outs,
+                                              steps)
+    flips, pairs = _routing_flips(cached, full, cfg.n_layers)
+    with _moe_capacity(no_drop):
+        noise = _rounding_sensitivity(model, params, prompts)
+    ok = max(rels) <= DECODE_REL_L2 and max(fracs) <= DECODE_MAX_ABS_FRAC
+    log("decode-vs-forward", arch=cfg.name, dtype=dtype, steps=MAX_NEW,
+        capacity_factor=no_drop, held_steps=len(rels),
+        worst_rel_l2=f"{max(rels):.3e}", tol_rel_l2=DECODE_REL_L2,
+        worst_max_abs_frac=f"{max(fracs):.3e}",
+        tol_max_abs_frac=DECODE_MAX_ABS_FRAC, within=ok,
+        greedy_agreement=agree, routing_flips=f"{flips}/{pairs}",
+        per_step_rel_l2=_fmt(rels), rounding_sensitivity=f"{noise:.3e}")
+    return ok
+
+
+# the ATen ops whose own device time the profiles split out: cuBLAS GEMMs,
+# batched products (the experts' grouped FFN; in decode also the plain
+# attention's two einsums) and the index ops of MoE dispatch (and of the
+# embedding lookup)
+_GEMM_OPS = {"aten::mm", "aten::addmm"}
+_BMM_OPS = {"aten::bmm", "aten::baddbmm"}
+_INDEX_OPS = {"aten::sort", "aten::topk", "aten::searchsorted",
+              "aten::index", "aten::index_put_", "aten::_index_put_impl_",
+              "aten::scatter_", "aten::scatter", "aten::gather",
+              "aten::index_select", "aten::index_add_", "aten::scatter_add_",
+              "aten::nonzero", "aten::embedding_dense_backward"}
+
+
+def _self_device_ms(prof) -> dict[str, float]:
+    """Each ATen op's own device time (its kernels, not its children's),
+    ms, by op name."""
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if ev.key.startswith("aten::") and us:
+            out[ev.key] = us / 1e3
+    return out
+
+
+def _op_split(prof) -> dict[str, str]:
+    """Device time (ms) of the GEMMs, the batched products and the index
+    ops, summed by kind from ``_self_device_ms``."""
+    own = _self_device_ms(prof)
+    return {name: f"{sum(own.get(op, 0.0) for op in ops_):.2f}"
+            for name, ops_ in (("gemm_ms", _GEMM_OPS), ("bmm_ms", _BMM_OPS),
+                               ("index_ms", _INDEX_OPS))}
+
+
+def _top_ops(prof, n: int = 8) -> None:
+    own = sorted(_self_device_ms(prof).items(), key=lambda kv: -kv[1])
+    for key, ms_ in own[:n]:
+        print(f"    {ms_:9.3f} ms  {key}", flush=True)
 
 
 def phase_profile(model, params, prompts) -> None:
@@ -757,15 +1024,18 @@ def phase_profile(model, params, prompts) -> None:
                 rec[0] += ev.time_range.elapsed_us()
                 rec[1] += 1
         dev_us = sum(us for us, _ in kernels.values())
+        flash_us = sum(us for n, (us, _) in kernels.items() if "fa_fwd" in n)
         log("profile", arch=model.cfg.name, step=name,
             wall_ms=f"{wall_us / 1e3:.2f}",
             device_ms=(f"{dev_us / 1e3:.2f}" if dev_us else "not_measured"),
             busy_share=(f"{dev_us / wall_us:.3f}" if dev_us else
                         "not_measured"),
-            device_events=sum(n for _, n in kernels.values()))
+            device_events=sum(n for _, n in kernels.values()),
+            flash_ms=f"{flash_us / 1e3:.2f}", **_op_split(prof))
         for kname, (us, n) in sorted(kernels.items(),
                                      key=lambda kv: -kv[1][0])[:6]:
             print(f"    {us / 1e3:9.3f} ms  x{n:<5d} {kname[:90]}", flush=True)
+        _top_ops(prof, 6)
 
 
 def phase_entry_points(model, params, prompts, gen) -> dict[str, int]:
@@ -823,7 +1093,8 @@ def _bwd_cost(B, T, H, K, D, itemsize):
 
 def phase_flash_backward(gen) -> dict:
     """The backward kernel and the forward's LSE against their plain
-    versions; timed at granite-3-2b's training shape."""
+    versions; timed at granite-3-2b's and qwen2-moe-a2.7b's training
+    shapes."""
     for (B, T, H, K, D, dt, window, softcap) in BWD_CASES:
         q, do = _rand(gen, (B, T, H, D), dt), _rand(gen, (B, T, H, D), dt)
         k, v = _rand(gen, (B, T, K, D), dt), _rand(gen, (B, T, K, D), dt)
@@ -841,8 +1112,17 @@ def phase_flash_backward(gen) -> dict:
         _held("flash_attention_lse", case, lse, want_lse, LSE_TOL)
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
             _held("flash_attention_bwd", case + (name,), g, w, BWD_TOL[dt])
+    # timed at the training shapes of granite-3-2b (the record) and
+    # qwen2-moe-a2.7b
+    rec = _time_flash_bwd(gen, *TRAIN_ATTN)
+    _time_flash_bwd(gen, *MOE_TRAIN_ATTN)
+    return rec
 
-    B, T, H, K, D = TRAIN_ATTN
+
+def _time_flash_bwd(gen, B, T, H, K, D) -> dict:
+    """The backward at one bf16 causal shape against its plain version;
+    two calls must be bit-identical; timed beside SDPA's backward and the
+    forward with and without the LSE; returned as a kernels record."""
     q, do = (_rand(gen, (B, T, H, D), torch.bfloat16) for _ in range(2))
     k, v = (_rand(gen, (B, T, K, D), torch.bfloat16) for _ in range(2))
     o, lse = fa.flash_attention_lse(q, k, v)
@@ -937,6 +1217,7 @@ def _kernel_share(prof, wall_us, label) -> None:
         busy_share=(f"{dev_us / wall_us:.3f}" if dev_us else "not_measured"),
         device_events=sum(n for _, n in kernels.values()),
         gemm_ms=f"{gemm_us / 1e3:.2f}",
+        ops=repr(_op_split(prof)).replace(" ", ""),
         other_ms=f"{(dev_us - gemm_us - fwd_us - bwd_us) / 1e3:.2f}",
         flash_fwd_ms=f"{fwd_us / 1e3:.2f}", flash_bwd_ms=f"{bwd_us / 1e3:.2f}",
         flash_fwd_share=(f"{fwd_us / dev_us:.3f}" if dev_us else "-"),
@@ -944,22 +1225,57 @@ def _kernel_share(prof, wall_us, label) -> None:
     for kname, (us, n) in sorted(kernels.items(),
                                  key=lambda kv: -kv[1][0])[:8]:
         print(f"    {us / 1e3:9.3f} ms  x{n:<5d} {kname[:90]}", flush=True)
+    _top_ops(prof)
 
 
 def phase_train() -> dict[str, int]:
-    """granite-3-2b at full width through the port's launcher; then one more
-    step under the profiler."""
-    from torch.profiler import ProfilerActivity, profile
+    """granite-3-2b at full width through the port's launcher."""
     cfg = registry.get("granite-3-2b")
     ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    return _train(cfg, ckpt_dir, lambda: train_launch.main([
+        "--arch", cfg.name, "--steps", str(TRAIN_STEPS),
+        "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+        "--ckpt-dir", str(ckpt_dir), "--ckpt-every", str(10 * TRAIN_STEPS)]),
+        "train")
+
+
+def phase_train_moe() -> dict[str, int]:
+    """qwen2-moe-a2.7b at full width and ``MOE_TRAIN_LAYERS`` layers through
+    ``make_train_step`` and the ``Trainer``, with the launcher's settings
+    (the launcher has no depth option, as the reference's has none)."""
+    cfg = dataclasses.replace(registry.get("qwen2-moe-a2.7b"),
+                              n_layers=MOE_TRAIN_LAYERS)
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+
+    def run() -> dict:
+        model = model_lib.build(cfg, "cuda")
+        opt_cfg = adamw.AdamWConfig(lr=3e-4, total_steps=TRAIN_STEPS,
+                                    warmup_steps=max(1, TRAIN_STEPS // 10))
+        state = train_step.make_train_state(
+            model, opt_cfg, torch.Generator(device="cuda").manual_seed(0))
+        trainer = Trainer(train_step.make_train_step(model, opt_cfg), state,
+                          DataConfig(vocab_size=cfg.vocab_size,
+                                     seq_len=TRAIN_SEQ,
+                                     global_batch=TRAIN_BATCH),
+                          str(ckpt_dir),
+                          TrainerConfig(total_steps=TRAIN_STEPS,
+                                        checkpoint_every=10 * TRAIN_STEPS,
+                                        log_every=1))
+        return {**trainer.run(), "trainer": trainer}
+
+    return _train(cfg, ckpt_dir, run, "train-moe")
+
+
+def _train(cfg, ckpt_dir, run, label) -> dict[str, int]:
+    """``run()`` (5 steps of 4 x 2048 tokens, returning the trainer's result
+    and the trainer) with the counts zeroed just before and read just
+    after; then one more step under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    out = train_launch.main([
-        "--arch", cfg.name, "--steps", str(TRAIN_STEPS),
-        "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
-        "--ckpt-dir", str(ckpt_dir), "--ckpt-every", str(10 * TRAIN_STEPS)])
+    out = run()
     torch.cuda.synchronize()
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -997,7 +1313,7 @@ def phase_train() -> dict[str, int]:
         float(metrics["loss"])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    _kernel_share(prof, wall_us, "train")
+    _kernel_share(prof, wall_us, label)
     del out, trainer, prof
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     return counts
@@ -1020,11 +1336,11 @@ def _plain_backward():
         fa.flash_attention_bwd = kernel
 
 
-def phase_train_grad_vs_plain() -> None:
-    """Every gradient leaf of granite-3-2b at full width and 2 layers (B=1,
+def phase_train_grad_vs_plain(arch: str) -> None:
+    """Every gradient leaf of ``arch`` at full width and 2 layers (B=1,
     T=2048) with the backward kernel against the same with the plain
     backward: worst per-leaf relative L2."""
-    cfg = dataclasses.replace(registry.get("granite-3-2b"), n_layers=2)
+    cfg = dataclasses.replace(registry.get(arch), n_layers=2)
     model = model_lib.build(cfg, "cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     batch = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size,
@@ -1058,13 +1374,21 @@ def phase_train_grad_vs_plain() -> None:
 def run_arch(arch, gen) -> tuple:
     """Serve, decode against forward and profile one model (and, for the
     Mamba model, drive the entry points no model calls); its weights are
-    freed when this returns."""
+    freed when this returns.  The last item says whether the cached path
+    is still to be held in a float32 build."""
     model, params, engine, prompts, outs, counts = phase_serve(arch, gen)
-    phase_decode_vs_forward(model, params, engine, prompts, outs)
+    family = model.cfg.family
+    if family == "moe":
+        phase_determinism(engine, prompts, outs)
+        need_f32 = not _moe_against_forward(model, params, prompts, outs,
+                                            model.cfg.dtype)
+    else:
+        phase_decode_vs_forward(model, params, engine, prompts, outs)
+        need_f32 = family == "ssm"
     phase_profile(model, params, prompts)
     entry = (phase_entry_points(model, params, prompts, gen)
-             if model.cfg.family == "ssm" else None)
-    return counts, entry, prompts, outs
+             if family == "ssm" else None)
+    return counts, entry, prompts, outs, need_f32
 
 
 def main() -> None:
@@ -1075,17 +1399,19 @@ def main() -> None:
     records = [phase_flash(gen), phase_flash_backward(gen),
                phase_mamba_scan(gen), phase_selective_scan(gen),
                phase_lut_matmul(gen)]
+    phase_moe_layer(gen)
     by_name = {r["name"]: r for r in records}
     for arch in ARCHS:
-        counts, entry, prompts, outs = run_arch(arch, gen)
+        counts, entry, prompts, outs, need_f32 = run_arch(arch, gen)
         gc.collect()
         torch.cuda.empty_cache()
-        if registry.get(arch).family == "ssm":
+        if need_f32:
             phase_decode_vs_forward_f32(arch, prompts, outs)
             gc.collect()
             torch.cuda.empty_cache()
-        for name, n in counts.items():     # the model path of each kernel
-            if n:
+        # the first served path of each kernel gives its record's count
+        for name, n in counts.items():
+            if n and by_name[name]["launches"] is None:
                 by_name[name]["launches"] = n
         for name, n in (entry or {}).items():
             if n and by_name[name]["launches"] is None:
@@ -1097,7 +1423,13 @@ def main() -> None:
         "flash_attention_bwd"]
     gc.collect()
     torch.cuda.empty_cache()
-    phase_train_grad_vs_plain()
+    phase_train_grad_vs_plain("granite-3-2b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_moe()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_grad_vs_plain("qwen2-moe-a2.7b")
     missing = [r["name"] for r in records if not r["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on a path: {missing}")

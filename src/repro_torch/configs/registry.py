@@ -1,9 +1,9 @@
 """Architecture registry: ``get("glm4-9b")`` -> ModelConfig.
 
-The port covers the dense family and the Mamba-1 member of the SSM family.
-The other five archs of the reference registry are known by name and raise
-``NotImplementedError`` naming the ROADMAP item (Queue 1) that will add
-them.
+The port covers the dense and MoE families and the Mamba-1 member of the
+SSM family.  The other three archs of the reference registry (Mamba-2
+hybrid, VLM, audio) are known by name and raise ``NotImplementedError``
+naming the ROADMAP item (Queue 1) that will add them.
 """
 
 from __future__ import annotations
@@ -18,12 +18,11 @@ _MODULES = {
     "gemma2-9b": "gemma2_9b",
     "glm4-9b": "glm4_9b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
 }
 
 _NOT_PORTED = {
-    "qwen2-moe-a2.7b": "ROADMAP Queue 1 item 6 (models/moe.py, MoE family)",
-    "llama4-maverick-400b-a17b":
-        "ROADMAP Queue 1 item 6 (models/moe.py, moe_every interleave)",
     "zamba2-2.7b": "ROADMAP Queue 1 item 7b (models/ssm.py, Mamba-2 hybrid)",
     "llama-3.2-vision-11b": "ROADMAP Queue 1 item 8 (VLM cross blocks)",
     "musicgen-medium": "ROADMAP Queue 1 item 8 (audio family)",

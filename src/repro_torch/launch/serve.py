@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a card the

@@ -1,4 +1,4 @@
-"""Model assembly, dense and SSM families (PyTorch port of
+"""Model assembly, dense, MoE and SSM families (PyTorch port of
 ``repro/models/model.py``).
 
 ``build(cfg, device)`` returns a ``Model`` with:
@@ -15,8 +15,16 @@ The parameter tree is the reference's leaf for leaf (a dict with the layer
 stack on a leading ``L`` dim), so a JAX parameter tree converts by a tree
 map (``repro_torch.convert``).  The reference scans the layer stack; the
 port runs a Python loop over it, and its per-layer local/global flag is a
-Python bool.  The SSM family covers Mamba-1 (falcon-mamba); the other
-families (MoE, Mamba-2 hybrid, VLM, audio) are not ported yet and raise
+Python bool.
+
+The MoE family puts a ``moe`` sub-tree (``models/moe.py``) in place of each
+layer's ``mlp``.  With ``moe_every > 1`` (llama4) the tree holds
+``moe_every - 1`` dense layers for every MoE layer in ``blocks`` and the MoE
+layers in ``moe_blocks``; they run a group at a time (the dense layers of a
+group, then its MoE layer), and the decode cache holds the dense layers'
+rows first, in run order, then the MoE layers' (the reference's
+``_moe_grouped_pass``).  The SSM family covers Mamba-1 (falcon-mamba); the
+other families (Mamba-2 hybrid, VLM, audio) are not ported yet and raise
 ``NotImplementedError``.
 """
 
@@ -30,7 +38,7 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
-from repro_torch.models import layers, ssm
+from repro_torch.models import layers, moe, ssm
 from repro_torch.models.layers import AttnSpec, Params
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -97,10 +105,19 @@ class Model:
         if not cfg.tie_embeddings:
             p["unembed"] = layers.dense_init(gen, cfg.d_model,
                                              (cfg.vocab_size,), dtype)
-        init_block = (self._init_ssm_block if cfg.family == "ssm"
-                      else self._init_block)
-        p["blocks"] = _stack_init(lambda: init_block(gen, dtype),
-                                  cfg.n_layers)
+        if cfg.family == "ssm":
+            p["blocks"] = _stack_init(lambda: self._init_ssm_block(gen, dtype),
+                                      cfg.n_layers)
+        elif cfg.family == "moe" and cfg.moe_every > 1:
+            n_moe = cfg.n_layers // cfg.moe_every
+            p["blocks"] = _stack_init(
+                lambda: self._init_block(gen, dtype, kind="dense"),
+                cfg.n_layers - n_moe)
+            p["moe_blocks"] = _stack_init(
+                lambda: self._init_block(gen, dtype, kind="moe"), n_moe)
+        else:
+            p["blocks"] = _stack_init(lambda: self._init_block(gen, dtype),
+                                      cfg.n_layers)
         return p
 
     def param_dtypes(self) -> Params:
@@ -117,17 +134,27 @@ class Model:
                         window=cfg.sliding_window,
                         softcap=cfg.attn_logit_softcap)
 
-    def _init_block(self, gen: torch.Generator, dtype: torch.dtype) -> Params:
+    def _init_block(self, gen: torch.Generator, dtype: torch.dtype,
+                    kind: str | None = None) -> Params:
+        """A decoder layer; ``kind`` "moe" (the MoE family's default) puts
+        a ``moe`` sub-tree in place of the ``mlp``."""
         cfg = self.cfg
         dev = gen.device
-        return {
+        if kind is None:
+            kind = "moe" if cfg.family == "moe" else "dense"
+        p = {
             "ln1": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
             "attn": layers.init_attn_params(gen, cfg.d_model,
                                             self._attn_spec(), dtype,
                                             qk_norm=cfg.qk_norm),
             "ln2": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
-            "mlp": layers.init_mlp_params(gen, cfg.d_model, cfg.d_ff, dtype),
         }
+        if kind == "moe":
+            p["moe"] = moe.init_moe_params(gen, cfg.d_model, cfg, dtype)
+        else:
+            p["mlp"] = layers.init_mlp_params(gen, cfg.d_model, cfg.d_ff,
+                                              dtype)
+        return p
 
     def _init_ssm_block(self, gen: torch.Generator, dtype: torch.dtype
                         ) -> Params:
@@ -186,30 +213,62 @@ class Model:
             kv_cache=kv_cache, cache_len=cache_len)
         x = x + a
         h = layers.rms_norm(x, blk["ln2"], cfg.norm_eps)
-        x = x + layers.mlp_block(blk["mlp"], h, cfg.act)
+        if "moe" in blk:
+            x = x + moe.moe_block(blk["moe"], h, cfg)
+        else:
+            x = x + layers.mlp_block(blk["mlp"], h, cfg.act)
         return x, kv
 
+    def _layer_groups(self, params, grad: bool) -> list[list[tuple]]:
+        """The decoder layers in run order, as groups of (layer params,
+        is_global, cache row): one layer a group, or with ``moe_blocks``
+        the ``moe_every - 1`` dense layers and then the MoE layer of each
+        group, every layer global, the dense layers' cache rows first.
+        Under ``grad`` the stacks are split by ``_unstack``."""
+        cfg = self.cfg
+
+        def split(name, n):
+            if grad:
+                return _unstack(params[name], n)
+            return [_take(params[name], i) for i in range(n)]
+
+        if "moe_blocks" in params:
+            k = cfg.moe_every - 1
+            n_groups = cfg.n_layers // cfg.moe_every
+            n_dense = n_groups * k
+            dense = split("blocks", n_dense)
+            moes = split("moe_blocks", n_groups)
+            return [[(dense[g * k + j], True, g * k + j) for j in range(k)]
+                    + [(moes[g], True, n_dense + g)] for g in range(n_groups)]
+        blocks = split("blocks", cfg.n_layers)
+        return [[(blk, is_global, i)] for i, (blk, is_global) in
+                enumerate(zip(blocks, self._layer_is_global()))]
+
     def _run_decoder(self, params, x, positions, cache=None, cache_len=None):
-        """All layers over x; with a cache, layer i reads and writes its
-        K/V rows ``cache["k"][i]``, ``cache["v"][i]`` in place.  Under grad
-        mode each layer runs under ``maybe_remat(cfg.remat_policy)``, as the
-        reference's scanned layer does, when anything requires grad."""
+        """All layers over x; with a cache, each layer reads and writes its
+        K/V rows ``cache["k"][row]``, ``cache["v"][row]`` in place.  Under
+        grad mode, when anything requires grad, each group of
+        ``_layer_groups`` runs under ``maybe_remat(cfg.remat_policy)``, as
+        the reference's scanned layer or group does."""
         if cache is None and torch.is_grad_enabled() and (
                 x.requires_grad or any(
-                    p.requires_grad for p in tree.leaves(params["blocks"]))):
-            def layer(blk, x, is_global):
-                return self._decoder_layer(blk, x, positions, is_global)[0]
+                    p.requires_grad for p in tree.leaves(params))):
+            def group(blks, x, flags):
+                for blk, is_global in zip(blks, flags):
+                    x = self._decoder_layer(blk, x, positions, is_global)[0]
+                return x
 
-            layer = layers.maybe_remat(layer, self.cfg.remat_policy)
-            blocks = _unstack(params["blocks"], self.cfg.n_layers)
-            for blk, is_global in zip(blocks, self._layer_is_global()):
-                x = layer(blk, x, is_global)
+            group = layers.maybe_remat(group, self.cfg.remat_policy)
+            for grp in self._layer_groups(params, grad=True):
+                x = group([blk for blk, _, _ in grp], x,
+                          [is_global for _, is_global, _ in grp])
             return x
-        for i, is_global in enumerate(self._layer_is_global()):
-            kv = None if cache is None else (cache["k"][i], cache["v"][i])
-            x, _ = self._decoder_layer(_take(params["blocks"], i), x,
-                                       positions, is_global, kv_cache=kv,
-                                       cache_len=cache_len)
+        for grp in self._layer_groups(params, grad=False):
+            for blk, is_global, row in grp:
+                kv = (None if cache is None
+                      else (cache["k"][row], cache["v"][row]))
+                x, _ = self._decoder_layer(blk, x, positions, is_global,
+                                           kv_cache=kv, cache_len=cache_len)
         return x
 
     def _ssm_layer(self, blk: Params, x, state=None):
@@ -303,10 +362,18 @@ class Model:
         return self._unembed(params, x), {**cache, "pos": pos + 1}
 
 
+# the families not ported yet, each with the ROADMAP item that adds it
+_NOT_PORTED = {"ssm": "Queue 1 item 7b (Mamba-2)",
+               "hybrid": "Queue 1 item 7b (Mamba-2 hybrid)",
+               "vlm": "Queue 1 item 8 (VLM cross blocks)",
+               "audio": "Queue 1 item 8 (audio family)"}
+
+
 def build(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
-    if not (cfg.family == "dense" or
+    if not (cfg.family in ("dense", "moe") or
             cfg.family == "ssm" and cfg.mamba_version == 1):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet; the port "
-            "covers the dense family and Mamba-1 (see ROADMAP.md Queue 1)")
+            "covers the dense and MoE families and Mamba-1 (see ROADMAP.md "
+            f"{_NOT_PORTED[cfg.family]})")
     return Model(cfg, resolve(device))

@@ -79,15 +79,22 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     state holds the same parameter and moment tensors, updated, and a
     failure once it began writing raises ``adamw.PartialUpdateError``,
     which the trainer does not retry.
+
+    The dense and MoE families train; under remat "dots" each layer (or
+    llama4's group of layers) saves the outputs of its ``aten.mm`` /
+    ``aten.addmm`` products (the projections, the MoE router and shared
+    MLP) and recomputes the rest in the backward: attention (the flash
+    op), the experts' grouped ``aten.bmm`` products, the dispatch and the
+    elementwise work.
     """
     if settings.compress_pod_grads:
         raise ValueError("compress_pod_grads requires a mesh with a 'pod' "
                          "axis")
-    if model.cfg.family != "dense":
+    if model.cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"training covers the dense family; {model.cfg.name} "
+            f"training covers the dense and MoE families; {model.cfg.name} "
             f"({model.cfg.family}) needs a backward for its scan kernel, "
-            "which is not ported yet (ROADMAP.md Queue 1)")
+            "which is not ported yet (ROADMAP.md Queue 1 item 5b)")
 
     def step(state, batch):
         batch = {k: torch.as_tensor(v, device=model.device)

@@ -922,6 +922,7 @@ def _bf16_gqa(rng, B, Tq, Tk, H, K, D):
 @pytest.mark.parametrize("B,T,H,K,D,window,softcap", [
     (1, 130, 2, 2, 128, 0, 0.0),          # ragged: one full and one short tile
     (4, 1100, 32, 2, 128, 0, 0.0),        # the serving prefill shape
+    (4, 1100, 16, 16, 128, 0, 0.0),       # qwen2-moe's prefill, G = 1
     (2, 300, 4, 2, 64, 100, 30.0),        # window + soft-cap
     (2, 300, 4, 2, 256, 100, 30.0),
     (1, 1000, 2, 1, 256, 64, 50.0),       # tiles skipped outside the window
@@ -1171,7 +1172,8 @@ def test_flash_bwd_bf16_scheme_holds_the_kernel_tolerance(T, H, K, D,
     (2, 37, 4, 2, 0, 0.0),        # T < 64: one ragged tile
     (1, 129, 4, 2, 0, 0.0),       # T one past two tiles
     (1, 300, 4, 2, 64, 0.0),      # a window of one tile
-    (1, 300, 4, 2, 20, 0.0)])     # a window shorter than a tile
+    (1, 300, 4, 2, 20, 0.0),      # a window shorter than a tile
+    (2, 300, 4, 4, 0, 0.0)])      # G = 1: one query head a kv head
 def test_cuda_flash_bwd_matches_plain_version(B, T, H, K, D, window,
                                               softcap, dtype):
     _cuda_or_skip()
@@ -1184,6 +1186,22 @@ def test_cuda_flash_bwd_matches_plain_version(B, T, H, K, D, window,
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.dtype == dt
+        torch.testing.assert_close(g.float(), w.float(), **BWD_TOL[dt])
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_at_qwen2_moe_training_shape():
+    """qwen2-moe-a2.7b's training attention (B=4, T=2048, 16 query heads
+    over 16 kv heads of 128, bf16 causal) within ``BWD_TOL``."""
+    _cuda_or_skip()
+    dt = torch.bfloat16
+    q, k, v, do = (x.cuda() for x in _bwd_inputs(4, 2048, 16, 16, 128, 17,
+                                                  dt))
+    o, lse = fa.flash_attention_lse(q, k, v)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
         torch.testing.assert_close(g.float(), w.float(), **BWD_TOL[dt])
 
 

@@ -48,7 +48,7 @@ def _prompts(cfg, seed=0):
 
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "glm4-9b",
-                                  "falcon-mamba-7b"])
+                                  "falcon-mamba-7b", "qwen2-moe-a2.7b"])
 def test_greedy_matches_jax_engine(arch):
     cfg, jeng, teng = _engines(arch)
     prompts = _prompts(cfg)
@@ -105,6 +105,15 @@ def test_launcher_smoke_on_cpu():
 def test_launcher_smoke_on_cpu_serves_falcon_mamba():
     outs = tlaunch.main(["--arch", "falcon-mamba-7b", "--smoke", "--device",
                          "cpu", "--max-new", "4"])
+    assert len(outs) == 4
+    assert all(0 <= t < 256 for o in outs for t in o)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b",
+                                  "llama4-maverick-400b-a17b"])
+def test_launcher_smoke_on_cpu_serves_moe(arch):
+    outs = tlaunch.main(["--arch", arch, "--smoke", "--device", "cpu",
+                         "--max-new", "4"])
     assert len(outs) == 4
     assert all(0 <= t < 256 for o in outs for t in o)
 
