@@ -11,9 +11,12 @@ Phases, each printing what it found; any failure raises and exits non-zero:
    tolerances, timed with CUDA events beside the plain version, a PyTorch
    library call computing the same function where there is one (flash and
    LUT: kernel and library timed in turns, three times each, median and
-   range printed), and the card's bound: flash attention (timed at glm4-9b's
-   and at qwen2-moe-a2.7b's prefill shape, the latter one query head a kv
-   head, G = 1), the flash backward (phase 7 below, run here), the
+   range printed), and the card's bound: flash attention (timed at glm4-9b's,
+   qwen2-moe-a2.7b's and musicgen-medium's prefill shapes, the last two
+   one query head a kv head, G = 1, and at the VLM's non-causal
+   cross-attention over 1601 media tokens in prefill, Tq = 1100, and in a
+   decode step, Tq = 1, from a CUDA graph), the flash backward (phase 7
+   below, run here), the
    selective scan's two entry points (``mamba_scan``, ``selective_scan``,
    the latter timed as device time from a CUDA graph of its launches) and
    the LUT matmul;
@@ -23,14 +26,19 @@ Phases, each printing what it found; any failure raises and exits non-zero:
    capacity factor 1.25 and at 1.0, where experts overflow; equal routing
    and kept assignments, timed beside the loop;
 5. for each served model, glm4-9b (40 layers), falcon-mamba-7b (64 Mamba-1
-   layers) then qwen2-moe-a2.7b (24 MoE layers), at full width in bf16 with
-   random weights from a seeded generator on the card, the previous
-   model's weights freed first:
-   a. serving: 4 requests of several hundred to 1100 tokens through
-      ``Engine.generate``; launch counts are zeroed just before and read
-      just after, and every kernel of the model's path must have run (flash
-      once per layer in prefill; the selective scan once per layer in
-      prefill and in every decode step);
+   layers), qwen2-moe-a2.7b (24 MoE layers), musicgen-medium (48 layers
+   after 64 conditioning frames) then llama-3.2-vision-11b (40 layers and
+   8 gated cross blocks over 1601 media tokens, every gate set to
+   ``VLM_GATE``), at full width and depth in bf16 with random weights from
+   a seeded generator on the card, the previous model's weights freed
+   first:
+   a. serving: 4 requests of several hundred to 1100 tokens (the VLM and
+      audio models with random N(0, 1) media) through ``Engine.generate``;
+      launch counts are zeroed just before and read just after, and every
+      kernel of the model's path must have run (flash once per layer in
+      prefill, and once per VLM cross block in prefill and in every decode
+      step; the selective scan once per layer in prefill and in every
+      decode step);
    b. decode against forward: the teacher-forced forward logits at the
       generated positions against the logits decode produced (for the
       Mamba model, whose state carries each step's bf16 rounding, the
@@ -44,24 +52,29 @@ Phases, each printing what it found; any failure raises and exits non-zero:
       E / k (no assignment dropped; a check only), counting the (token,
       layer) top-k sets the two paths route differently; held in a
       float32 build when bf16's rounding and routing flips push a step
-      past the limits;
+      past the limits.  The VLM also runs the second ``generate``; the VLM
+      and audio models are held at every step in bf16, with the served
+      media;
    c. profile: one prefill and one decode step under ``torch.profiler``,
       device time split into GEMMs (``aten::mm``), batched products
       (``aten::bmm``: the experts' grouped FFN, and decode attention),
       index ops (sort, top-k, gathers and scatters), flash and the rest;
+      for the VLM also its cross blocks' device time (CUDA events);
 6. the entry points no model calls: ``ops.quantize_weights`` +
    ``ops.lut_matmul`` on falcon-mamba's layer-0 ``in_proj`` and
    ``ops.mamba_scan`` on the decay and input it builds, counted the same way;
 7. flash_backward: the backward kernel against ``flash_attention_bwd_ref``
-   (float32 and bfloat16, D 64/128/256, ``BWD_CASES``: GQA up to G = 8,
-   T below, at and one past a tile, windows, soft-cap, and qwen2-moe's
-   training shape, G = 1 at D = 128), the forward with LSE against the
-   forward without it and its LSE against the plain one; two calls at
-   granite-3-2b's training shape must be bit-identical; timed there and at
-   qwen2-moe's training shape beside SDPA's backward (SDPA forward +
-   backward minus SDPA forward, in turns; a yardstick only, it runs nowhere
-   on the path), with the five-product bound and the design's
-   seven-product bound;
+   (float32 and bfloat16, D 64/128/256, ``BWD_CASES``: causal GQA up to
+   G = 8, T below, at and one past a tile, windows, soft-cap, and
+   qwen2-moe's training shape, G = 1 at D = 128; non-causal Tq < Tk and
+   Tq > Tk, ragged on both sides, 37 queries over 1601 keys, and the VLM's
+   cross-attention training shape, Tq = 2048 over Tk = 1601), the forward
+   with LSE against the forward without it and its LSE against the plain
+   one; two calls at each timed shape must be bit-identical; timed at
+   granite-3-2b's, qwen2-moe's and the VLM cross-attention's training
+   shapes beside SDPA's backward (SDPA forward + backward minus SDPA
+   forward, in turns; a yardstick only, it runs nowhere on the path), with
+   the five-product bound and the design's seven-product bound;
 8. train: granite-3-2b at full width (40 layers, 2.53 B parameters, bf16,
    remat "dots", AdamW 32-bit) through ``repro_torch.launch.train.main``
    for 5 steps of batch 4 x 2048 tokens; counts zeroed just before and read
@@ -76,7 +89,21 @@ Phases, each printing what it found; any failure raises and exits non-zero:
     full-depth state does not fit one card), the same 5 steps through
     ``make_train_step`` and the ``Trainer``, counted the same way (per
     step: 4 + 4 flash forward launches, 4 backward launches);
-11. train_grad_vs_plain for qwen2-moe-a2.7b at full width and 2 layers.
+11. train_grad_vs_plain for qwen2-moe-a2.7b at full width and 2 layers;
+12. train-audio: musicgen-medium at full width and depth (48 layers,
+    1.82 B parameters), the same 5 steps of 4 x 2048 tokens after 64
+    random conditioning frames each (sequence 2112), counted the same way
+    (per step 48 + 48 flash forward launches, 48 backward launches);
+13. train_grad_vs_plain for musicgen-medium at full width and 2 layers,
+    with random media;
+14. train-vlm: llama-3.2-vision-11b at full width and 10 of its 40 layers
+    (two groups of 5 self layers and a cross block; its full-depth state
+    does not fit one card), gates at ``VLM_GATE``, random media, the same
+    5 steps (per step (10 + 2) x 2 flash forward launches and 10 + 2
+    backward launches, the cross blocks' non-causal);
+15. train_grad_vs_plain for the VLM at full width and 5 layers (one group:
+    5 self layers and a cross block), gates and ``media_proj`` among the
+    leaves.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -145,7 +172,12 @@ LUT_TOL = dict(rtol=1e-5, atol=1e-4)
 # rms; relative L2 above this is a wrong product, not quantization
 LUT_QUANT_REL_L2 = 0.15
 
-ARCHS = ("glm4-9b", "falcon-mamba-7b", "qwen2-moe-a2.7b")
+ARCHS = ("glm4-9b", "falcon-mamba-7b", "qwen2-moe-a2.7b", "musicgen-medium",
+         "llama-3.2-vision-11b")
+# every VLM cross gate is set to this after init: the reference initialises
+# them to 0, where a cross block adds tanh(0) a = 0 and a wrong cross path
+# would show nothing
+VLM_GATE = 0.5
 PROMPT_LENS = (347, 611, 893, 1100)        # none a multiple of 128
 MAX_NEW = 16
 MAX_LEN = 2048
@@ -157,11 +189,14 @@ MAX_LEN = 2048
 BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
            torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 LSE_TOL = dict(rtol=1e-4, atol=1e-4)        # natural-log units
-# the backward's cases (B, T, H, K, D, dtype, window, softcap) at each D and
-# dtype: GQA with a ragged last tile, window + soft-cap, tiles skipped
-# outside the window, G = 8, T < 64, T one past a tile, a window of one
-# tile and one shorter than a tile
-BWD_CASES = [(B, T, H, K, D, dt, window, softcap)
+# the backward's cases (B, Tq, Tk, H, K, D, dtype, window, softcap, causal)
+# at each D and dtype: causal (Tq == Tk) GQA with a ragged last tile,
+# window + soft-cap, tiles skipped outside the window, G = 8, T < 64, T one
+# past a tile, a window of one tile and one shorter than a tile; then
+# non-causal (cross-attention) with Tq < Tk and Tq > Tk, ragged on both
+# sides, and 37 queries over 1601 keys (the VLM's media tokens) with a
+# soft-cap
+BWD_CASES = [(B, T, T, H, K, D, dt, window, softcap, True)
              for D in (64, 128, 256)
              for dt in (torch.float32, torch.bfloat16)
              for (B, T, H, K, window, softcap) in (
@@ -170,17 +205,42 @@ BWD_CASES = [(B, T, H, K, D, dt, window, softcap)
                  (2, 37, 4, 2, 0, 0.0), (1, 129, 4, 2, 0, 0.0),
                  (1, 300, 4, 2, 64, 0.0), (1, 300, 4, 2, 20, 0.0))]
 # qwen2-moe-a2.7b's training shape: one query head a kv head (G = 1)
-BWD_CASES.append((4, 2048, 16, 16, 128, torch.bfloat16, 0, 0.0))
+BWD_CASES.append((4, 2048, 2048, 16, 16, 128, torch.bfloat16, 0, 0.0, True))
+BWD_CASES += [(B, Tq, Tk, H, K, D, dt, 0, softcap, False)
+              for D in (64, 128, 256)
+              for dt in (torch.float32, torch.bfloat16)
+              for (B, Tq, Tk, H, K, softcap) in (
+                  (2, 300, 333, 4, 2, 0.0), (1, 333, 130, 4, 1, 0.0),
+                  (1, 37, 1601, 4, 2, 30.0))]
+# llama-3.2-vision-11b's cross-attention in training: 2048 text positions
+# over 1601 media tokens, non-causal (B, Tq, Tk, H, K, D)
+VLM_CROSS_TRAIN_ATTN = (4, 2048, 1601, 32, 8, 128)
+BWD_CASES.append(VLM_CROSS_TRAIN_ATTN[:6] + (torch.bfloat16, 0, 0.0, False))
 # the training shapes (B, T, H, K, D) of granite-3-2b and qwen2-moe-a2.7b
 TRAIN_ATTN = (4, 2048, 32, 8, 64)
 MOE_TRAIN_ATTN = (4, 2048, 16, 16, 128)
 # qwen2-moe-a2.7b's serving prefill shape: B, T, H, K, D
 MOE_PREFILL_ATTN = (4, 1100, 16, 16, 128)
+# musicgen-medium's prefill (1100 prompt tokens after 64 conditioning
+# frames; 24 heads of 64 over 24 kv heads, G = 1): B, T, H, K, D
+MUSICGEN_PREFILL_ATTN = (4, 1164, 24, 24, 64)
+# llama-3.2-vision-11b's cross-attention in serving, B, Tq, Tk, H, K, D:
+# prefill (the 1100-token prompt) and a decode step, over 1601 media tokens
+VLM_CROSS_PREFILL_ATTN = (4, 1100, 1601, 32, 8, 128)
+VLM_CROSS_DECODE_ATTN = (4, 1, 1601, 32, 8, 128)
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 4, 2048
 # qwen2-moe-a2.7b is trained at full width and this cut depth: its 24
 # layers' bf16 params and grads and f32 AdamW moments come to ~172 GB; 4
 # layers (2.90 B parameters) hold ~35 GB of state
 MOE_TRAIN_LAYERS = 4
+# llama-3.2-vision-11b likewise: 40 layers (10.13 B parameters) hold ~122
+# GB of state; 10 layers (two groups, so the cross stack holds two blocks;
+# 3.33 B parameters) ~40 GB.  musicgen-medium (1.82 B) trains whole.
+VLM_TRAIN_LAYERS = 10
+# the gradient check's depths: every gradient leaf at full width; the VLM
+# needs one whole group (5 self layers and a cross block)
+GRAD_LAYERS = {"granite-3-2b": 2, "qwen2-moe-a2.7b": 2, "musicgen-medium": 2,
+               "llama-3.2-vision-11b": 5}
 # the card's bf16 moe_block against the plain float32 loop over experts:
 # bf16 rounds the gate and up products, their product, each expert's
 # output and the weighted sum once each (2^-9 relative a rounding, ~4e-3
@@ -323,9 +383,17 @@ def phase_flash(gen) -> dict:
         cases.append(dict(B=4, Tq=T, Tk=T, H=32, K=2, D=128,
                           dtype=torch.bfloat16, causal=True, window=0,
                           softcap=0.0))
-    B, T, H, K, D = MOE_PREFILL_ATTN             # qwen2-moe's, G = 1
-    cases.append(dict(B=B, Tq=T, Tk=T, H=H, K=K, D=D, dtype=torch.bfloat16,
-                      causal=True, window=0, softcap=0.0))
+    for (B, T, H, K, D) in (MOE_PREFILL_ATTN,         # qwen2-moe's, G = 1
+                            MUSICGEN_PREFILL_ATTN):  # musicgen's, G = 1
+        cases.append(dict(B=B, Tq=T, Tk=T, H=H, K=K, D=D,
+                          dtype=torch.bfloat16, causal=True, window=0,
+                          softcap=0.0))
+    # the VLM's cross-attention: prefill and a decode step over 1601 keys
+    for (B, Tq, Tk, H, K, D) in (VLM_CROSS_PREFILL_ATTN,
+                                 VLM_CROSS_DECODE_ATTN):
+        cases.append(dict(B=B, Tq=Tq, Tk=Tk, H=H, K=K, D=D,
+                          dtype=torch.bfloat16, causal=False, window=0,
+                          softcap=0.0))
     for D in (64, 128, 256):
         for dt in (torch.float32, torch.bfloat16):
             cases.append(dict(B=2, Tq=300, Tk=300, H=4, K=2, D=D, dtype=dt,
@@ -363,39 +431,65 @@ def phase_flash(gen) -> dict:
         raise AssertionError(f"flash_attention (BH layout) off by {err}")
 
     # timing at the main paths' shapes: the serving prefills of glm4-9b
-    # (the record) and qwen2-moe-a2.7b
+    # (the record), qwen2-moe-a2.7b and musicgen-medium, and the VLM's
+    # cross-attention in prefill and in a decode step (a launch shorter
+    # than its wrapper: device time from a CUDA graph of launches)
     rec = _time_flash(gen, 4, max(PROMPT_LENS), 32, 2, 128)
     _time_flash(gen, *MOE_PREFILL_ATTN)
+    _time_flash(gen, *MUSICGEN_PREFILL_ATTN)
+    for shape, graph in ((VLM_CROSS_PREFILL_ATTN, False),
+                         (VLM_CROSS_DECODE_ATTN, True)):
+        B, Tq, Tk, H, K, D = shape
+        _time_flash(gen, B, Tq, H, K, D, Tk=Tk, causal=False, graph=graph)
     return rec
 
 
-def _time_flash(gen, B, T, H, K, D) -> dict:
-    """The forward at one bf16 causal shape against its plain version,
-    timed in turns with SDPA; logged, and returned as a kernels record."""
+def _time_flash(gen, B, T, H, K, D, Tk=None, causal=True,
+                graph=False) -> dict:
+    """The forward at one bf16 shape (T queries over ``Tk``, default T,
+    keys) against its plain version, timed in turns with SDPA (with
+    ``graph``, each as device time from a CUDA graph of launches); logged,
+    and returned as a kernels record."""
+    Tk = T if Tk is None else Tk
     q = _rand(gen, (B, T, H, D), torch.bfloat16)
-    k = _rand(gen, (B, T, K, D), torch.bfloat16)
-    v = _rand(gen, (B, T, K, D), torch.bfloat16)
-    got = fa.flash_attention_gqa(q, k, v)
-    want = ref.flash_attention_gqa_ref(q, k, v)
+    k = _rand(gen, (B, Tk, K, D), torch.bfloat16)
+    v = _rand(gen, (B, Tk, K, D), torch.bfloat16)
+    got = fa.flash_attention_gqa(q, k, v, causal=causal)
+    want = ref.flash_attention_gqa_ref(q, k, v, causal=causal)
     err = (got.float() - want.float()).abs().max().item()
-    plain_ms = cuda_ms(lambda: ref.flash_attention_gqa_ref(q, k, v), iters=5)
+    plain_ms = cuda_ms(lambda: ref.flash_attention_gqa_ref(q, k, v,
+                                                           causal=causal),
+                       iters=5)
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
-                                             enable_gqa=True)
-    lib_err = (lib_out.transpose(1, 2).float() - want.float()).abs().max()
-    kern, lib = in_turns(
-        lambda: fa.flash_attention_gqa(q, k, v),
-        lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
-                                               enable_gqa=True))
+
+    def kernel():
+        return fa.flash_attention_gqa(q, k, v, causal=causal)
+
+    def library():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal,
+                                              enable_gqa=True)
+
+    lib_err = (library().transpose(1, 2).float() - want.float()).abs().max()
+    if graph:
+        before = fa.flash_attention_gqa.launches
+        kern = [graph_ms(kernel) for _ in range(3)]
+        lib = [graph_ms(library) for _ in range(3)]
+        fa.flash_attention_gqa.launches = before   # captures, not launches
+        kern, lib = ((statistics.median(x), min(x), max(x))
+                     for x in (kern, lib))
+    else:
+        kern, lib = in_turns(kernel, library)
     ms, library_ms = kern[0], lib[0]
-    flops, nbytes = attn_cost(B, T, T, H, K, D, 2, True)
+    flops, nbytes = attn_cost(B, T, Tk, H, K, D, 2, causal)
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     bound_ms = max(t_ops, t_bytes)
     # the design multiplies P V twice (P as bf16 hi + lo): 1.5x the work
     design_ms = max(1.5 * t_ops, t_bytes)
-    log("kernel-time", name="flash_attention",
-        shape=f"B{B}_T{T}_H{H}_K{K}_D{D}_bf16_causal",
+    shape = (f"B{B}_T{T}_H{H}_K{K}_D{D}_bf16_causal" if causal else
+             f"B{B}_Tq{T}_Tk{Tk}_H{H}_K{K}_D{D}_bf16_noncausal")
+    log("kernel-time", name="flash_attention", shape=shape,
+        timing="cuda_graph_device_time" if graph else "events_in_turns",
         ms=f"{ms:.4f}", ms_range=_range(kern), plain_ms=f"{plain_ms:.4f}",
         library_ms=f"{library_ms:.4f}", library_range=_range(lib),
         library_err=f"{lib_err.item():.3e}",
@@ -695,21 +789,44 @@ def _prompts(gen, vocab):
 
 def _expected_counts(cfg, decode_steps: int) -> dict[str, int]:
     """Launches of the model's serving path: flash once per layer in
-    prefill (decode attention is plain PyTorch); the selective scan once per
-    layer in prefill and in every decode step."""
+    prefill (decode self-attention is plain PyTorch), and for the VLM once
+    per cross block in prefill and in every decode step (over the cached
+    media K/V); the selective scan once per layer in prefill and in every
+    decode step."""
     want = dict.fromkeys(COUNTED, 0)
     if cfg.family == "ssm":
         want["selective_scan"] = cfg.n_layers * (1 + decode_steps)
     else:
         want["flash_attention"] = cfg.n_layers
+    if cfg.family == "vlm":
+        n_cross = cfg.n_layers // cfg.cross_attn_every
+        want["flash_attention"] += n_cross * (1 + decode_steps)
     return want
+
+
+def _init_params(model, seed=0):
+    """Random weights from a seeded generator on the card; the VLM's cross
+    gates set to ``VLM_GATE``."""
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    if "cross_blocks" in params:
+        params["cross_blocks"]["gate"].fill_(VLM_GATE)
+    return params
+
+
+def _random_media(cfg, gen, batch=4):
+    """N(0, 1) float32 stub-frontend output for the VLM and audio families
+    (None for the others)."""
+    if not cfg.n_media_tokens:
+        return None
+    return torch.randn((batch, cfg.n_media_tokens, cfg.media_embed_dim),
+                       generator=gen, device="cuda")
 
 
 def phase_serve(arch, gen) -> tuple:
     cfg = registry.get(arch)
     model = model_lib.build(cfg, "cuda")
     t0 = time.perf_counter()
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    params = _init_params(model)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in _leaves(params))
     log("serve-init", arch=cfg.name, layers=cfg.n_layers,
@@ -721,10 +838,11 @@ def phase_serve(arch, gen) -> tuple:
     # eos -1: no slot stops early, so every slot decodes MAX_NEW steps
     engine.generate([[5, 6, 7]] * 4, max_new=2)          # warm-up
     prompts = _prompts(gen, cfg.vocab_size)
+    media = _random_media(cfg, gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    outs = engine.generate(prompts, max_new=MAX_NEW)
+    outs = engine.generate(prompts, max_new=MAX_NEW, media=media)
     torch.cuda.synchronize()
     counts = read_counts()
     tm = engine.timing
@@ -748,7 +866,7 @@ def phase_serve(arch, gen) -> tuple:
     want = _expected_counts(cfg, tm["decode_steps"])
     if counts != want:
         raise AssertionError(f"{cfg.name} launches {counts} != {want}")
-    return model, params, engine, prompts, outs, counts
+    return model, params, engine, prompts, outs, counts, media
 
 
 def _leaves(tree):
@@ -765,14 +883,15 @@ def _padded(prompts, outs):
     return plen, torch.tensor(rows, device="cuda")
 
 
-def _teacher_forced(model, params, prompts, outs) -> list:
+def _teacher_forced(model, params, prompts, outs, media=None) -> list:
     """The logits ``Engine.generate`` produces for these tokens: prefill of
-    the left-padded prompts, then one decode step per generated token."""
+    the left-padded prompts (and the media), then one decode step per
+    generated token."""
     plen, toks = _padded(prompts, outs)
     with torch.no_grad():
         lg, cache = model.prefill(params, model.init_cache(len(prompts),
                                                            MAX_LEN),
-                                  toks[:, :plen])
+                                  toks[:, :plen], media)
         steps = [lg[:, -1]]
         for j in range(MAX_NEW - 1):
             lg, cache = model.decode_step(params, cache,
@@ -781,13 +900,18 @@ def _teacher_forced(model, params, prompts, outs) -> list:
     return steps
 
 
-def _against_forward(model, params, prompts, outs, step_logits):
+def _against_forward(model, params, prompts, outs, step_logits,
+                     media=None):
     """Per-step relative L2 and max-abs fraction of the step logits against
-    the teacher-forced forward at the same positions, and the greedy
-    agreement."""
+    the teacher-forced forward at the same positions (audio's forward
+    strips its conditioning frames, so the positions are the tokens'), and
+    the greedy agreement."""
     plen, toks = _padded(prompts, outs)
+    batch = {"tokens": toks}
+    if media is not None:
+        batch["media"] = media
     with torch.no_grad():
-        full = model.forward(params, {"tokens": toks})
+        full = model.forward(params, batch)
     rels, fracs, agree, n = [], [], 0, 0
     for j, lg in enumerate(step_logits[:MAX_NEW]):
         want = full[:, plen - 1 + j].float()
@@ -799,7 +923,7 @@ def _against_forward(model, params, prompts, outs, step_logits):
     return rels, fracs, f"{agree}/{n}"
 
 
-def _rounding_sensitivity(model, params, prompts) -> float:
+def _rounding_sensitivity(model, params, prompts, media=None) -> float:
     """Relative change of the last logits when the last position's input
     embedding is scaled by 1 + 2^-8 (at most one bf16 ulp): how far the
     model's own rounding noise reaches its output."""
@@ -807,18 +931,24 @@ def _rounding_sensitivity(model, params, prompts) -> float:
     toks = torch.tensor([[0] * (plen - len(p)) + p for p in prompts],
                         device="cuda")
     cfg = model.cfg
+    batch = {"tokens": toks}
+    if media is not None:
+        batch["media"] = media
 
     def last_logits(x):
         if cfg.family == "ssm":
             h = model._run_ssm(params, x)
         else:
-            pos = torch.arange(plen, device="cuda")[None].expand(len(x), plen)
-            h = model._run_decoder(params, x, pos)
+            T = x.shape[1]                   # audio: the frames and tokens
+            pos = torch.arange(T, device="cuda")[None].expand(len(x), T)
+            mtok = (model._media_tokens(params, media, x.dtype)
+                    if cfg.family == "vlm" else None)
+            h = model._run_decoder(params, x, pos, mtok=mtok)
         h = layers.rms_norm(h[:, -1:], params["final_norm"], cfg.norm_eps)
         return model._unembed(params, h).float()
 
     with torch.no_grad():
-        x = model.embed_inputs(params, {"tokens": toks})
+        x = model.embed_inputs(params, batch)
         xp = x.clone()
         xp[:, -1] = (xp[:, -1].float() * (1 + 2 ** -8)).to(x.dtype)
         a, b = last_logits(x), last_logits(xp)
@@ -829,18 +959,19 @@ def _fmt(xs) -> str:
     return "[" + ",".join(f"{x:.2e}" for x in xs) + "]"
 
 
-def phase_decode_vs_forward(model, params, engine, prompts, outs) -> None:
-    """The served bf16 logits against the forward's.  A dense model is held
-    at every step.  A Mamba model carries each decode step's bf16 rounding
-    in its state, so only its prefill step (no carried state yet) is held
-    here; ``phase_decode_vs_forward_f32`` holds every step of its cached
-    path."""
+def phase_decode_vs_forward(model, params, engine, prompts, outs,
+                            media=None) -> None:
+    """The served bf16 logits against the forward's (with the served
+    media).  A dense, VLM or audio model is held at every step.  A Mamba
+    model carries each decode step's bf16 rounding in its state, so only its
+    prefill step (no carried state yet) is held here;
+    ``phase_decode_vs_forward_f32`` holds every step of its cached path."""
     cfg = model.cfg
     rels, fracs, agree = _against_forward(model, params, prompts, outs,
-                                          engine.step_logits)
+                                          engine.step_logits, media)
     held = len(rels) if cfg.family != "ssm" else 1
     worst_rel, worst_frac = max(rels[:held]), max(fracs[:held])
-    noise = _rounding_sensitivity(model, params, prompts)
+    noise = _rounding_sensitivity(model, params, prompts, media)
     log("decode-vs-forward", arch=cfg.name, dtype=cfg.dtype, steps=MAX_NEW,
         held_steps=held, worst_rel_l2=f"{worst_rel:.3e}",
         tol_rel_l2=DECODE_REL_L2, worst_max_abs_frac=f"{worst_frac:.3e}",
@@ -912,11 +1043,11 @@ def _routing_flips(cached, full, n_layers) -> tuple[int, int]:
     return flips, pairs
 
 
-def phase_determinism(engine, prompts, outs) -> None:
-    """A second ``generate`` of the same prompts: identical tokens and
-    bit-identical step logits."""
+def phase_determinism(engine, prompts, outs, media=None) -> None:
+    """A second ``generate`` of the same prompts (and media): identical
+    tokens and bit-identical step logits."""
     first = [lg.clone() for lg in engine.step_logits]
-    again = engine.generate(prompts, max_new=MAX_NEW)
+    again = engine.generate(prompts, max_new=MAX_NEW, media=media)
     same_logits = len(first) == len(engine.step_logits) and all(
         torch.equal(a, b) for a, b in zip(first, engine.step_logits))
     log("determinism", arch=engine.model.cfg.name,
@@ -994,11 +1125,37 @@ def _top_ops(prof, n: int = 8) -> None:
         print(f"    {ms_:9.3f} ms  {key}", flush=True)
 
 
-def phase_profile(model, params, prompts) -> None:
+@contextlib.contextmanager
+def _timed_cross_blocks(spans: list):
+    """``Model._cross_layer`` with a pair of CUDA events around each call,
+    appended to ``spans``: the device time of the VLM's cross blocks (norm,
+    q and o projections, the cross flash launch, the gate), read after a
+    synchronize."""
+    cross = model_lib.Model._cross_layer
+
+    def timed(self, *args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = cross(self, *args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    model_lib.Model._cross_layer = timed
+    try:
+        yield
+    finally:
+        model_lib.Model._cross_layer = cross
+
+
+def phase_profile(model, params, prompts, media=None) -> None:
     """Where the time goes: one prefill and one decode step under
     torch.profiler; device busy share = kernel time / host wall time (the
     profiler's own overhead lengthens the wall time, so the share is a
-    lower bound)."""
+    lower bound).  For the VLM also the cross blocks' device time
+    (``_timed_cross_blocks``; its flash launches are within ``flash_ms``
+    too)."""
     from torch.profiler import ProfilerActivity, profile
     plen = max(len(p) for p in prompts)
     toks = torch.tensor([[0] * (plen - len(p)) + p for p in prompts],
@@ -1006,17 +1163,22 @@ def phase_profile(model, params, prompts) -> None:
     for name in ("prefill", "decode"):
         cache = model.init_cache(len(prompts), MAX_LEN)
         if name == "decode":
-            _, cache = model.prefill(params, cache, toks)
+            _, cache = model.prefill(params, cache, toks, media)
         torch.cuda.synchronize()
+        spans: list = []
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA]) as prof, \
+                _timed_cross_blocks(spans):
             t0 = time.perf_counter()
             if name == "prefill":
-                model.prefill(params, cache, toks)
+                model.prefill(params, cache, toks, media)
             else:
-                model.decode_step(params, cache, toks[:, -1:])
+                model.decode_step(params, cache, toks[:, -1:], media)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+        cross_ms = sum(a.elapsed_time(b) for a, b in spans)
+        cross = ({"cross_block_ms": f"{cross_ms:.2f}",
+                  "cross_blocks": len(spans)} if spans else {})
         kernels: dict[str, list] = {}
         for ev in prof.events():
             if str(getattr(ev, "device_type", "")).endswith("CUDA"):
@@ -1031,7 +1193,7 @@ def phase_profile(model, params, prompts) -> None:
             busy_share=(f"{dev_us / wall_us:.3f}" if dev_us else
                         "not_measured"),
             device_events=sum(n for _, n in kernels.values()),
-            flash_ms=f"{flash_us / 1e3:.2f}", **_op_split(prof))
+            flash_ms=f"{flash_us / 1e3:.2f}", **_op_split(prof), **cross)
         for kname, (us, n) in sorted(kernels.items(),
                                      key=lambda kv: -kv[1][0])[:6]:
             print(f"    {us / 1e3:9.3f} ms  x{n:<5d} {kname[:90]}", flush=True)
@@ -1081,24 +1243,25 @@ def phase_entry_points(model, params, prompts, gen) -> dict[str, int]:
     return counts
 
 
-def _bwd_cost(B, T, H, K, D, itemsize):
-    """The gradient's five T x T x D products over the causal pairs, and
-    the bytes of q, k, v, o, dO and the LSE read once and dQ, dK, dV
-    written once."""
-    pairs = T * (T + 1) // 2
+def _bwd_cost(B, Tq, Tk, H, K, D, itemsize, causal=True):
+    """The gradient's five Tq x Tk x D products over the pairs a query
+    sees (the causal ones, or all), and the bytes of q, k, v, o, dO and
+    the LSE read once and dQ, dK, dV written once."""
+    pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
     flops = 5 * 2 * D * pairs * B * H
-    nbytes = itemsize * D * (4 * B * T * H + 4 * B * T * K) + 4 * B * H * T
+    nbytes = (itemsize * D * (4 * B * Tq * H + 4 * B * Tk * K)
+              + 4 * B * H * Tq)
     return flops, nbytes
 
 
 def phase_flash_backward(gen) -> dict:
     """The backward kernel and the forward's LSE against their plain
-    versions; timed at granite-3-2b's and qwen2-moe-a2.7b's training
-    shapes."""
-    for (B, T, H, K, D, dt, window, softcap) in BWD_CASES:
-        q, do = _rand(gen, (B, T, H, D), dt), _rand(gen, (B, T, H, D), dt)
-        k, v = _rand(gen, (B, T, K, D), dt), _rand(gen, (B, T, K, D), dt)
-        kw = dict(window=window, softcap=softcap)
+    versions; timed at granite-3-2b's, qwen2-moe-a2.7b's and the VLM's
+    cross-attention training shapes."""
+    for (B, Tq, Tk, H, K, D, dt, window, softcap, causal) in BWD_CASES:
+        q, do = _rand(gen, (B, Tq, H, D), dt), _rand(gen, (B, Tq, H, D), dt)
+        k, v = _rand(gen, (B, Tk, K, D), dt), _rand(gen, (B, Tk, K, D), dt)
+        kw = dict(window=window, softcap=softcap, causal=causal)
         o, lse = fa.flash_attention_lse(q, k, v, **kw)
         o0 = fa.flash_attention_gqa(q, k, v, **kw)
         _, want_lse = ref.flash_attention_gqa_ref(q, k, v, return_lse=True,
@@ -1106,55 +1269,62 @@ def phase_flash_backward(gen) -> dict:
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
-        case = (B, T, H, K, D, str(dt)[6:], window, softcap)
+        case = (B, Tq, Tk, H, K, D, str(dt)[6:], window, softcap, causal)
         if not torch.equal(o, o0):
             raise AssertionError(f"forward with LSE changed o at {case}")
         _held("flash_attention_lse", case, lse, want_lse, LSE_TOL)
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
             _held("flash_attention_bwd", case + (name,), g, w, BWD_TOL[dt])
-    # timed at the training shapes of granite-3-2b (the record) and
-    # qwen2-moe-a2.7b
+    # timed at the training shapes of granite-3-2b (the record),
+    # qwen2-moe-a2.7b and the VLM's cross-attention
     rec = _time_flash_bwd(gen, *TRAIN_ATTN)
     _time_flash_bwd(gen, *MOE_TRAIN_ATTN)
+    B, Tq, Tk, H, K, D = VLM_CROSS_TRAIN_ATTN
+    _time_flash_bwd(gen, B, Tq, H, K, D, Tk=Tk, causal=False)
     return rec
 
 
-def _time_flash_bwd(gen, B, T, H, K, D) -> dict:
-    """The backward at one bf16 causal shape against its plain version;
-    two calls must be bit-identical; timed beside SDPA's backward and the
-    forward with and without the LSE; returned as a kernels record."""
+def _time_flash_bwd(gen, B, T, H, K, D, Tk=None, causal=True) -> dict:
+    """The backward at one bf16 shape (T queries over ``Tk``, default T,
+    keys) against its plain version; two calls must be bit-identical; timed
+    beside SDPA's backward and the forward with and without the LSE;
+    returned as a kernels record."""
+    Tk = T if Tk is None else Tk
+    kw = dict(causal=causal)
     q, do = (_rand(gen, (B, T, H, D), torch.bfloat16) for _ in range(2))
-    k, v = (_rand(gen, (B, T, K, D), torch.bfloat16) for _ in range(2))
-    o, lse = fa.flash_attention_lse(q, k, v)
-    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
-    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
-    err = max(_held("flash_attention_bwd", (B, T, H, K, D, "bfloat16", n),
-                    g, w, BWD_TOL[torch.bfloat16])
+    k, v = (_rand(gen, (B, Tk, K, D), torch.bfloat16) for _ in range(2))
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    shape = (f"B{B}_T{T}_H{H}_K{K}_D{D}_bf16_causal" if causal else
+             f"B{B}_Tq{T}_Tk{Tk}_H{H}_K{K}_D{D}_bf16_noncausal")
+    err = max(_held("flash_attention_bwd", (shape, n), g, w,
+                    BWD_TOL[torch.bfloat16])
               for n, g, w in zip(("dq", "dk", "dv"), got, want))
-    again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     log("flash_attention_bwd", check="two calls bit-identical",
-        shape=f"B{B}_T{T}_H{H}_K{K}_D{D}_bf16", ok=same)
+        shape=shape, ok=same)
     if not same:
         raise AssertionError("two backward calls differ: the kernel must be "
                              "deterministic")
     del got, want, again
     plain_ms = cuda_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse,
-                                                           do), iters=3)
+                                                           do, **kw), iters=3)
     qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     doh = do.transpose(1, 2).contiguous()
 
     def sdpa_fwd():
-        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal,
                                               enable_gqa=True)
 
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa_fwd(), (qh, kh, vh), doh)
 
     def kernel():
-        fa.flash_attention_bwd(q, k, v, o, lse, do)
+        fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
 
     ks, fbs, fs = [], [], []
     for _ in range(3):                      # in turns
@@ -1164,15 +1334,16 @@ def _time_flash_bwd(gen, B, T, H, K, D) -> dict:
     ms_ = statistics.median(ks)
     library_ms = statistics.median(fbs) - statistics.median(fs)
     # the forward at the same shape, with the LSE (training) and without
-    fwd_lse_ms, fwd_ms = in_turns(lambda: fa.flash_attention_lse(q, k, v),
-                                  lambda: fa.flash_attention_gqa(q, k, v))
-    flops, nbytes = _bwd_cost(B, T, H, K, D, 2)
+    fwd_lse_ms, fwd_ms = in_turns(
+        lambda: fa.flash_attention_lse(q, k, v, **kw),
+        lambda: fa.flash_attention_gqa(q, k, v, **kw))
+    flops, nbytes = _bwd_cost(B, T, Tk, H, K, D, 2, causal)
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     # the kernel forms S and dP twice (dK/dV and dQ kernels, no atomics):
     # seven T^2 D products where the bound counts five
-    log("kernel-time", name="flash_attention_bwd",
-        shape=f"B{B}_T{T}_H{H}_K{K}_D{D}_bf16_causal", ms=f"{ms_:.4f}",
+    log("kernel-time", name="flash_attention_bwd", shape=shape,
+        ms=f"{ms_:.4f}",
         ms_range=f"[{min(ks):.4f},{max(ks):.4f}]", plain_ms=f"{plain_ms:.4f}",
         library_ms=f"{library_ms:.4f}",
         sdpa_fwd_bwd_ms=f"{statistics.median(fbs):.4f}",
@@ -1182,8 +1353,7 @@ def _time_flash_bwd(gen, B, T, H, K, D) -> dict:
         bytes_bound_ms=f"{t_bytes:.4f}", gflop=f"{flops / 1e9:.2f}",
         mbytes=f"{nbytes / 1e6:.2f}", tflops=f"{flops / ms_ / 1e9:.2f}",
         max_abs_err=f"{err:.3e}")
-    log("kernel-time", name="flash_attention_fwd_train_shape",
-        shape=f"B{B}_T{T}_H{H}_K{K}_D{D}_bf16_causal",
+    log("kernel-time", name="flash_attention_fwd_train_shape", shape=shape,
         with_lse_ms=f"{fwd_lse_ms[0]:.4f}", with_lse_range=_range(fwd_lse_ms),
         without_lse_ms=f"{fwd_ms[0]:.4f}", without_lse_range=_range(fwd_ms))
     return {"name": "flash_attention_bwd", "route": "cuda",
@@ -1239,12 +1409,23 @@ def phase_train() -> dict[str, int]:
         "train")
 
 
-def phase_train_moe() -> dict[str, int]:
-    """qwen2-moe-a2.7b at full width and ``MOE_TRAIN_LAYERS`` layers through
-    ``make_train_step`` and the ``Trainer``, with the launcher's settings
-    (the launcher has no depth option, as the reference's has none)."""
-    cfg = dataclasses.replace(registry.get("qwen2-moe-a2.7b"),
-                              n_layers=MOE_TRAIN_LAYERS)
+def _data_cfg(cfg, batch: int) -> DataConfig:
+    """The corpus at ``TRAIN_SEQ`` tokens a row, with the family's media."""
+    return DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=batch, n_media_tokens=cfg.n_media_tokens,
+                      media_embed_dim=cfg.media_embed_dim)
+
+
+def phase_train_with_trainer(arch: str, n_layers: int | None,
+                             label: str) -> dict[str, int]:
+    """``arch`` at full width (and ``n_layers`` layers, where its full-depth
+    state does not fit one card) through ``make_train_step`` and the
+    ``Trainer``, with the launcher's settings (the launcher has no depth
+    option, as the reference's has none); the VLM's cross gates set to
+    ``VLM_GATE``, so that its cross blocks' gradients are not zero."""
+    cfg = registry.get(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
 
     def run() -> dict:
@@ -1253,17 +1434,25 @@ def phase_train_moe() -> dict[str, int]:
                                     warmup_steps=max(1, TRAIN_STEPS // 10))
         state = train_step.make_train_state(
             model, opt_cfg, torch.Generator(device="cuda").manual_seed(0))
+        if "cross_blocks" in state["params"]:
+            state["params"]["cross_blocks"]["gate"].fill_(VLM_GATE)
         trainer = Trainer(train_step.make_train_step(model, opt_cfg), state,
-                          DataConfig(vocab_size=cfg.vocab_size,
-                                     seq_len=TRAIN_SEQ,
-                                     global_batch=TRAIN_BATCH),
-                          str(ckpt_dir),
+                          _data_cfg(cfg, TRAIN_BATCH), str(ckpt_dir),
                           TrainerConfig(total_steps=TRAIN_STEPS,
                                         checkpoint_every=10 * TRAIN_STEPS,
                                         log_every=1))
         return {**trainer.run(), "trainer": trainer}
 
-    return _train(cfg, ckpt_dir, run, "train-moe")
+    return _train(cfg, ckpt_dir, run, label)
+
+
+def _attention_layers(cfg) -> int:
+    """Flash attention launches of one forward: one a layer, and one a VLM
+    cross block."""
+    n = cfg.n_layers
+    if cfg.family == "vlm":
+        n += cfg.n_layers // cfg.cross_attn_every
+    return n
 
 
 def _train(cfg, ckpt_dir, run, label) -> dict[str, int]:
@@ -1281,7 +1470,7 @@ def _train(cfg, ckpt_dir, run, label) -> dict[str, int]:
     peak = torch.cuda.max_memory_allocated()
     trainer = out["trainer"]
     n_params = sum(p.numel() for p in tree.leaves(trainer.state["params"]))
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = TRAIN_BATCH * TRAIN_SEQ         # text tokens (media not counted)
     for m in out["metrics"]:
         log("train-step", step=m["step"], loss=f"{m['loss']:.4f}",
             ms=f"{m['sec_per_step'] * 1e3:.1f}",
@@ -1290,6 +1479,7 @@ def _train(cfg, ckpt_dir, run, label) -> dict[str, int]:
     log("train", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
         params_B=f"{n_params / 1e9:.3f}", dtype=cfg.dtype,
         remat=cfg.remat_policy, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        media_tokens=cfg.n_media_tokens,
         steps=out["final_step"],
         ms_per_step_median_after_first=f"{statistics.median(steady) * 1e3:.1f}",
         tokens_s=f"{tokens / statistics.median(steady):.0f}",
@@ -1300,8 +1490,9 @@ def _train(cfg, ckpt_dir, run, label) -> dict[str, int]:
             x == x and abs(x) < float("inf") for x in losses):
         raise AssertionError(f"train losses {losses}")
     want = dict.fromkeys(COUNTED, 0)
-    want["flash_attention"] = 2 * cfg.n_layers * TRAIN_STEPS   # + recompute
-    want["flash_attention_bwd"] = cfg.n_layers * TRAIN_STEPS
+    attn = _attention_layers(cfg)
+    want["flash_attention"] = 2 * attn * TRAIN_STEPS     # + recompute
+    want["flash_attention_bwd"] = attn * TRAIN_STEPS
     if counts != want:
         raise AssertionError(f"train launches {counts} != {want}")
     batch = trainer.corpus.batch_at(TRAIN_STEPS)
@@ -1337,23 +1528,23 @@ def _plain_backward():
 
 
 def phase_train_grad_vs_plain(arch: str) -> None:
-    """Every gradient leaf of ``arch`` at full width and 2 layers (B=1,
-    T=2048) with the backward kernel against the same with the plain
+    """Every gradient leaf of ``arch`` at full width and ``GRAD_LAYERS``
+    layers (B=1, T=2048, the family's random media, the VLM's gates at
+    ``VLM_GATE``) with the backward kernel against the same with the plain
     backward: worst per-leaf relative L2."""
-    cfg = dataclasses.replace(registry.get(arch), n_layers=2)
+    cfg = dataclasses.replace(registry.get(arch), n_layers=GRAD_LAYERS[arch])
     model = model_lib.build(cfg, "cuda")
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    batch = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size,
-                                       seq_len=TRAIN_SEQ, global_batch=1)
-                            ).batch_at(0)
-    tokens = {"tokens": torch.as_tensor(batch["tokens"], device="cuda")}
+    params = _init_params(model)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+             SyntheticCorpus(_data_cfg(cfg, 1)).batch_at(0).items()}
+    attn = _attention_layers(cfg)
     before = fa.flash_attention_bwd.launches
-    loss, grads = train_step._loss_and_grads(model, params, tokens, 1)
-    if fa.flash_attention_bwd.launches - before != cfg.n_layers:
+    loss, grads = train_step._loss_and_grads(model, params, batch, 1)
+    if fa.flash_attention_bwd.launches - before != attn:
         raise AssertionError("the kernel run did not use the backward kernel")
     with _plain_backward():
-        loss_p, plain = train_step._loss_and_grads(model, params, tokens, 1)
-    if fa.flash_attention_bwd.launches - before != cfg.n_layers:
+        loss_p, plain = train_step._loss_and_grads(model, params, batch, 1)
+    if fa.flash_attention_bwd.launches - before != attn:
         raise AssertionError("the plain run launched the backward kernel")
     worst, where = 0.0, ""
     for (path, g), w in zip(tree.items(grads), tree.leaves(plain)):
@@ -1374,18 +1565,21 @@ def phase_train_grad_vs_plain(arch: str) -> None:
 def run_arch(arch, gen) -> tuple:
     """Serve, decode against forward and profile one model (and, for the
     Mamba model, drive the entry points no model calls); its weights are
-    freed when this returns.  The last item says whether the cached path
-    is still to be held in a float32 build."""
-    model, params, engine, prompts, outs, counts = phase_serve(arch, gen)
+    freed when this returns.  ``need_f32`` says whether the cached path is
+    still to be held in a float32 build: always for the Mamba model; for
+    the MoE model when bf16 misses the limits."""
+    model, params, engine, prompts, outs, counts, media = phase_serve(arch,
+                                                                      gen)
     family = model.cfg.family
+    if family in ("moe", "vlm"):
+        phase_determinism(engine, prompts, outs, media)
     if family == "moe":
-        phase_determinism(engine, prompts, outs)
         need_f32 = not _moe_against_forward(model, params, prompts, outs,
                                             model.cfg.dtype)
     else:
-        phase_decode_vs_forward(model, params, engine, prompts, outs)
+        phase_decode_vs_forward(model, params, engine, prompts, outs, media)
         need_f32 = family == "ssm"
-    phase_profile(model, params, prompts)
+    phase_profile(model, params, prompts, media)
     entry = (phase_entry_points(model, params, prompts, gen)
              if family == "ssm" else None)
     return counts, entry, prompts, outs, need_f32
@@ -1426,10 +1620,16 @@ def main() -> None:
     phase_train_grad_vs_plain("granite-3-2b")
     gc.collect()
     torch.cuda.empty_cache()
-    phase_train_moe()
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_train_grad_vs_plain("qwen2-moe-a2.7b")
+    for arch, n_layers, label in (
+            ("qwen2-moe-a2.7b", MOE_TRAIN_LAYERS, "train-moe"),
+            ("musicgen-medium", None, "train-audio"),
+            ("llama-3.2-vision-11b", VLM_TRAIN_LAYERS, "train-vlm")):
+        phase_train_with_trainer(arch, n_layers, label)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_train_grad_vs_plain(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
     missing = [r["name"] for r in records if not r["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on a path: {missing}")

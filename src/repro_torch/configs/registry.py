@@ -1,9 +1,10 @@
 """Architecture registry: ``get("glm4-9b")`` -> ModelConfig.
 
-The port covers the dense and MoE families and the Mamba-1 member of the
-SSM family.  The other three archs of the reference registry (Mamba-2
-hybrid, VLM, audio) are known by name and raise ``NotImplementedError``
-naming the ROADMAP item (Queue 1) that will add them.
+The port covers the dense, MoE, VLM and audio families and the Mamba-1
+member of the SSM family.  The one other arch of the reference registry
+(zamba2, the Mamba-2 hybrid) is known by name and raises
+``NotImplementedError`` naming the ROADMAP item (Queue 1 item 7b) that
+will add it.
 """
 
 from __future__ import annotations
@@ -20,12 +21,12 @@ _MODULES = {
     "falcon-mamba-7b": "falcon_mamba_7b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
+    "musicgen-medium": "musicgen_medium",
 }
 
 _NOT_PORTED = {
     "zamba2-2.7b": "ROADMAP Queue 1 item 7b (models/ssm.py, Mamba-2 hybrid)",
-    "llama-3.2-vision-11b": "ROADMAP Queue 1 item 8 (VLM cross blocks)",
-    "musicgen-medium": "ROADMAP Queue 1 item 8 (audio family)",
 }
 
 ARCHS = tuple(_MODULES)

@@ -15,10 +15,13 @@
 // dK and dV summed over the G query heads of each kv head.
 //
 // It takes what training reaches through the forward: causal attention with
-// Tq == Tk, any T (ragged tails masked: rows and keys past T get P = 0), a
-// sliding window (qpos - kpos < window), a tanh soft-cap, D in {64, 128,
+// Tq == Tk (self-attention; a sliding window, qpos - kpos < window), or
+// non-causal attention with any Tq, Tk >= 1 and no window (the VLM's cross
+// blocks: Tq text positions over Tk media tokens); ragged tails masked
+// (query rows past Tq and keys past Tk get P = 0: a zero-filled row past Tq
+// reads an LSE of 0 and would get P = 1), a tanh soft-cap, D in {64, 128,
 // 256}, float32 or bfloat16.  All tensors contiguous: q, o, dO, dQ
-// (B, T, H, D); k, v, dK, dV (B, T, H/G, D); lse, delta (B, H, T) float32.
+// (B, Tq, H, D); k, v, dK, dV (B, Tk, H/G, D); lse, delta (B, H, Tq) float32.
 //
 // What bounds it on this card: at granite-3-2b's training shape (B=4, T=2048,
 // H=32, K=8, D=64, bf16, causal) the five T^2 D products of the gradient
@@ -33,10 +36,12 @@
 //   1. delta: one warp a row, rowsum(dO * O) in float32.
 //   2. dK/dV: one block a (batch, kv head, key tile); it loops over the G
 //      query heads of its kv head and the query tiles from the diagonal on
-//      (bounded by the window), so the GQA sum stays in registers.  Key tile
-//      0 has the most query tiles and is launched first.
+//      (bounded by the window; all of them when not causal), so the GQA sum
+//      stays in registers.  Key tile 0 has the most query tiles and is
+//      launched first.
 //   3. dQ: one block a (batch, query head, query tile), looping over the key
-//      tiles up to the diagonal; the last query tile is launched first.
+//      tiles up to the diagonal (all of them when not causal); the last
+//      query tile is launched first.
 // bfloat16 (the training path), on the tensor cores with wgmma fed by TMA:
 //   * warp specialisation: a producer warp (its warpgroup gives up its
 //     registers with setmaxnreg) loads the fixed tiles once (K, V in dK/dV;
@@ -93,13 +98,21 @@ struct Params {
   void* dq;
   void* dk;
   void* dv;
-  int B, H, G, T;
-  int window;
+  int B, H, G, Tq, Tk;
+  int causal, window;
   float softcap, scale;
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+// whether query qpos sees key kpos: causal (kpos <= qpos, which keeps kpos
+// below Tk = Tq) or, not causal, every key below Tk; within the window; and
+// a query row below Tq
+__device__ __forceinline__ bool visible(int qpos, int kpos, const Params& p) {
+  return (p.causal ? kpos <= qpos : kpos < p.Tk) && qpos < p.Tq &&
+         (p.window <= 0 || qpos - kpos < p.window);
+}
 
 // P and dS of one score: s is the raw dot product q.k, lse2 the row's
 // log-sum-exp times log2(e), delta the row's rowsum(dO * O)
@@ -112,9 +125,7 @@ __device__ __forceinline__ void p_ds(float s, float dp, int qpos, int kpos,
     x = p.softcap * th;
     dcap = 1.f - th * th;
   }
-  const bool ok = kpos <= qpos && qpos < p.T &&
-                  (p.window <= 0 || qpos - kpos < p.window);
-  pr = ok ? exp2f(fmaf(x, LOG2E, -lse2)) : 0.f;
+  pr = visible(qpos, kpos, p) ? exp2f(fmaf(x, LOG2E, -lse2)) : 0.f;
   ds = pr * (dp - delta) * dcap;
 }
 
@@ -124,7 +135,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(256) delta_kernel(const Params p) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long long row = (long long)blockIdx.x * 8 + warp;
-  if (row >= (long long)p.B * p.T * p.H) return;
+  if (row >= (long long)p.B * p.Tq * p.H) return;
   const T* O = static_cast<const T*>(p.o) + row * D;
   const T* dO = static_cast<const T*>(p.dout) + row * D;
   float s = 0.f;
@@ -135,8 +146,8 @@ __global__ void __launch_bounds__(256) delta_kernel(const Params p) {
   if (lane == 0) {
     const int h = (int)(row % p.H);
     const long long bt = row / p.H;
-    const int t = (int)(bt % p.T), b = (int)(bt / p.T);
-    p.delta[((long long)b * p.H + h) * p.T + t] = s;
+    const int t = (int)(bt % p.Tq), b = (int)(bt / p.Tq);
+    p.delta[((long long)b * p.H + h) * p.Tq + t] = s;
   }
 }
 
@@ -197,12 +208,12 @@ struct Consts {
 };
 
 // a tile of queries [q0, q0 + nq) and keys [k0, k0 + nk) needs no mask when
-// every key is at or before every query, within the window, and every row
-// is before T
+// every key is at or before every query (causal) or before Tk (not causal),
+// within the window, and every row is before Tq
 __device__ __forceinline__ bool interior(int q0, int nq, int k0, int nk,
                                          const Params& p) {
-  return k0 + nk - 1 <= q0 && q0 + nq <= p.T &&
-         (p.window <= 0 || q0 + nq - 1 - k0 < p.window);
+  return (p.causal ? k0 + nk - 1 <= q0 : k0 + nk <= p.Tk) &&
+         q0 + nq <= p.Tq && (p.window <= 0 || q0 + nq - 1 - k0 < p.window);
 }
 
 // (x, y) -> bf16x2, x in the low half
@@ -220,8 +231,8 @@ __device__ __forceinline__ uint32_t pack(float x, float y) {
 // dV.  Element e of block j is row r0 + 8 (e >> 1), column c0 + 8 j +
 // (e & 1) (r0 = the tile's row + 16 warp + lane / 4, c0 = its column +
 // 2 (lane % 4)); KEYROWS: rows are keys (dK/dV), else queries (dQ).
-// stat(j, e) -> (lse2, delta) of the element's query.  MASK: causal,
-// window and ragged end, else none.
+// stat(j, e) -> (lse2, delta) of the element's query.  MASK: ``visible``,
+// else none.
 template <bool MASK, bool CAP, bool KEYROWS, int N, typename Stat>
 __device__ __forceinline__ void tile_p_ds(const float (&s)[N / 2],
                                           const float (&dp)[N / 2],
@@ -247,9 +258,7 @@ __device__ __forceinline__ void tile_p_ds(const float (&s)[N / 2],
       if (MASK) {
         const int r = r0 + 8 * (e >> 1), c = c0 + 8 * j + (e & 1);
         const int qpos = KEYROWS ? c : r, kpos = KEYROWS ? r : c;
-        const bool ok = kpos <= qpos && qpos < p.T &&
-                        (p.window <= 0 || qpos - kpos < p.window);
-        if (!ok) pr[i] = ds[i] = 0.f;
+        if (!visible(qpos, kpos, p)) pr[i] = ds[i] = 0.f;
       }
     }
 #pragma unroll
@@ -276,9 +285,7 @@ __device__ __forceinline__ void tile_p_inplace(float (&s)[N / 2], int r0,
     if (MASK) {
       const int r = r0 + 8 * (e >> 1), c = c0 + 8 * j + (e & 1);
       const int qpos = KEYROWS ? c : r, kpos = KEYROWS ? r : c;
-      const bool ok = kpos <= qpos && qpos < p.T &&
-                      (p.window <= 0 || qpos - kpos < p.window);
-      if (!ok) pr = 0.f;
+      if (!visible(qpos, kpos, p)) pr = 0.f;
     }
     s[x] = pr;
   }
@@ -378,10 +385,10 @@ __device__ __forceinline__ void fence_frags(uint32_t (&f)[K][4]) {
 }
 
 // a warpgroup's 64 x DC accumulator (rows row0 + 16 warp + lane / 4 (+ 8))
-// times f into X (row stride ld) from column c0; rows >= T are left out
+// times f into X (row stride ld) from column c0; rows >= n are left out
 template <int DC>
 __device__ __forceinline__ void store_rows(bf16* X, long long ld, int row0,
-                                           int T, int c0,
+                                           int n, int c0,
                                            const float (&acc)[DC / 2],
                                            float f) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
@@ -389,12 +396,12 @@ __device__ __forceinline__ void store_rows(bf16* X, long long ld, int row0,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 16 * warp + g + 8 * r;
-    if (row >= T) continue;
+    if (row >= n) continue;
 #pragma unroll
-    for (int n = 0; n < DC / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(X + row * ld + c0 + 8 * n + 2 * t) =
-          __floats2bfloat162_rn(acc[4 * n + 2 * r] * f,
-                                acc[4 * n + 2 * r + 1] * f);
+    for (int j = 0; j < DC / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(X + row * ld + c0 + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * f,
+                                acc[4 * j + 2 * r + 1] * f);
   }
 }
 
@@ -406,9 +413,9 @@ __device__ __forceinline__ void release(uint64_t* bar) {
 // dK, dV: one block a (kv head, column chunk, batch; blockIdx.x) and key
 // tile of NW x 64 keys (blockIdx.y, key tile 0, the longest, first).  The
 // producer loads K and V once and streams Q, dO and (lse2, delta) of every
-// query tile (BN queries each) that sees one of the block's keys, for each
-// of the G query heads of the kv head in turn, so the GQA sum stays in
-// registers.
+// query tile (BN queries each) that sees one of the block's keys (every
+// query tile when not causal), for each of the G query heads of the kv head
+// in turn, so the GQA sum stays in registers.
 template <int D>
 __global__ void __launch_bounds__(Bf16Cfg<D>::NT, 1)
 dkdv_bf16_kernel(const __grid_constant__ Maps maps, const Params p) {
@@ -429,11 +436,11 @@ dkdv_bf16_kernel(const __grid_constant__ Maps maps, const Params p) {
   const int kh = blockIdx.x % KV, cc = (blockIdx.x / KV) % C::NC;
   const int b = blockIdx.x / (KV * C::NC);
   const int bk0 = blockIdx.y * NW * BR;
-  const int nt = (p.T + BN - 1) / BN;
-  // query tiles that see a key of the block: from the diagonal on, up to
-  // the last query in the window of its last key; iteration it is query
-  // tile qt_lo + it % nq of query head kh G + it / nq
-  const int qt_lo = bk0 / BN;
+  const int nt = (p.Tq + BN - 1) / BN;
+  // query tiles that see a key of the block: from the diagonal on (from 0
+  // when not causal), up to the last query in the window of its last key;
+  // iteration it is query tile qt_lo + it % nq of query head kh G + it / nq
+  const int qt_lo = p.causal ? bk0 / BN : 0;
   int qt_hi = nt;
   if (p.window > 0)
     qt_hi = min(nt, (bk0 + NW * BR - 1 + p.window - 1) / BN + 1);
@@ -480,13 +487,14 @@ dkdv_bf16_kernel(const __grid_constant__ Maps maps, const Params p) {
                                 q0 + r, b);
           }
       }
-      // the LSE in log2 units, once a query; rows past T are masked
-      const long long r_off = ((long long)b * p.H + h) * p.T;
+      // the LSE in log2 units, once a query; rows past Tq are masked
+      const long long r_off = ((long long)b * p.H + h) * p.Tq;
       for (int r = lane; r < BN; r += 32) {
         const int q = q0 + r;
         sStat[s * BN + r] =
-            q < p.T ? make_float2(p.lse[r_off + q] * LOG2E, p.delta[r_off + q])
-                    : make_float2(0.f, 0.f);
+            q < p.Tq ? make_float2(p.lse[r_off + q] * LOG2E,
+                                   p.delta[r_off + q])
+                     : make_float2(0.f, 0.f);
       }
       hopper::mbar_arrive(&full[s]);
     }
@@ -553,10 +561,10 @@ dkdv_bf16_kernel(const __grid_constant__ Maps maps, const Params p) {
     release(&empty[st]);
   }
   const long long ldk = (long long)KV * D;
-  const long long kv_off = ((long long)b * p.T * KV + kh) * D;
-  store_rows<DC>(static_cast<bf16*>(p.dk) + kv_off, ldk, k0, p.T, cc * DC,
+  const long long kv_off = ((long long)b * p.Tk * KV + kh) * D;
+  store_rows<DC>(static_cast<bf16*>(p.dk) + kv_off, ldk, k0, p.Tk, cc * DC,
                  dk, p.scale);
-  store_rows<DC>(static_cast<bf16*>(p.dv) + kv_off, ldk, k0, p.T, cc * DC,
+  store_rows<DC>(static_cast<bf16*>(p.dv) + kv_off, ldk, k0, p.Tk, cc * DC,
                  dv, 1.f);
 }
 
@@ -564,7 +572,7 @@ dkdv_bf16_kernel(const __grid_constant__ Maps maps, const Params p) {
 // tile of NW x 64 queries (blockIdx.y, the last tile, the longest, first).
 // The producer loads Q and dO once and streams K and V of the key tiles
 // (BN keys each) from the first in the window of the block's first query
-// up to the diagonal of its last.
+// up to the diagonal of its last (every key tile when not causal).
 template <int D>
 __global__ void __launch_bounds__(Bf16Cfg<D>::NT, 1)
 dq_bf16_kernel(const __grid_constant__ Maps maps, const Params p) {
@@ -583,9 +591,9 @@ dq_bf16_kernel(const __grid_constant__ Maps maps, const Params p) {
   const int h = blockIdx.x % p.H, cc = (blockIdx.x / p.H) % C::NC;
   const int b = blockIdx.x / (p.H * C::NC), kh = h / p.G;
   const int bq0 = (gridDim.y - 1 - blockIdx.y) * NW * BR;
-  const int nt = (p.T + BN - 1) / BN;
+  const int nt = (p.Tk + BN - 1) / BN;
   const int kt_lo = p.window > 0 ? max(0, bq0 - p.window + 1) / BN : 0;
-  const int kt_hi = min(nt, (bq0 + NW * BR - 1) / BN + 1);
+  const int kt_hi = p.causal ? min(nt, (bq0 + NW * BR - 1) / BN + 1) : nt;
   const int n_it = kt_hi - kt_lo;
 
   if (threadIdx.x == 0) {
@@ -638,11 +646,11 @@ dq_bf16_kernel(const __grid_constant__ Maps maps, const Params p) {
                   p.softcap > 0.f ? p.scale / p.softcap : 0.f};
   // (lse2, delta) of rows row0, row0 + 8: the LSE in log2 units once a row
   float2 rs[2];
-  const long long r_off = ((long long)b * p.H + h) * p.T;
+  const long long r_off = ((long long)b * p.H + h) * p.Tq;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
-    rs[r] = row < p.T
+    rs[r] = row < p.Tq
                 ? make_float2(p.lse[r_off + row] * LOG2E, p.delta[r_off + row])
                 : make_float2(0.f, 0.f);
   }
@@ -689,9 +697,9 @@ dq_bf16_kernel(const __grid_constant__ Maps maps, const Params p) {
   hopper::fence_regs(dq);
   release(&empty[(n_it - 1) % S]);
   const long long ldq = (long long)p.H * D;
-  const long long q_off = ((long long)b * p.T * p.H + h) * D;
-  store_rows<DC>(static_cast<bf16*>(p.dq) + q_off, ldq, q0, p.T, cc * DC, dq,
-                 p.scale);
+  const long long q_off = ((long long)b * p.Tq * p.H + h) * D;
+  store_rows<DC>(static_cast<bf16*>(p.dq) + q_off, ldq, q0, p.Tq, cc * DC,
+                 dq, p.scale);
 }
 
 // ---- float32: CUDA cores ---------------------------------------------------
@@ -706,23 +714,26 @@ constexpr size_t smem32() {
          (size_t)(4 * FT * (D + 1) + 2 * FT * (FT + 1) + 2 * FT);
 }
 
+// FT rows from row r0 of X (row stride ld); rows >= n read as zeros
 template <int D>
 __device__ __forceinline__ void load_rows32(float* s, const float* X,
-                                            long long ld, int r0, int T) {
+                                            long long ld, int r0, int n) {
   for (int i = threadIdx.x; i < FT * D; i += NT32) {
     const int r = i / D, d = i % D;
-    s[r * (D + 1) + d] = r0 + r < T ? X[(r0 + r) * ld + d] : 0.f;
+    s[r * (D + 1) + d] = r0 + r < n ? X[(r0 + r) * ld + d] : 0.f;
   }
 }
 
+// (lse2, delta) of query rows r0 .. r0 + FT - 1; rows >= Tq read as zeros
+// (``visible`` masks them)
 __device__ __forceinline__ void load_row_stats32(float* sL, float* sD,
                                                  const float* L,
                                                  const float* Dl, int r0,
-                                                 int T) {
+                                                 int Tq) {
   if (threadIdx.x < FT) {
     const int r = r0 + threadIdx.x;
-    sL[threadIdx.x] = r < T ? L[r] * LOG2E : 0.f;
-    sD[threadIdx.x] = r < T ? Dl[r] : 0.f;
+    sL[threadIdx.x] = r < Tq ? L[r] * LOG2E : 0.f;
+    sD[threadIdx.x] = r < Tq ? Dl[r] : 0.f;
   }
 }
 
@@ -740,13 +751,13 @@ __global__ void __launch_bounds__(NT32) dkdv_f32_kernel(const Params p) {
   float* sD = sL + FT;
 
   const int KV = p.H / p.G;
-  const int nt = (p.T + FT - 1) / FT;
+  const int nt = (p.Tq + FT - 1) / FT;
   const int kt = blockIdx.x, k0 = kt * FT, kh = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const long long ldq = (long long)p.H * D, ldk = (long long)KV * D;
-  const long long kv_off = ((long long)b * p.T * KV + kh) * D;
-  load_rows32<D>(sK, static_cast<const float*>(p.k) + kv_off, ldk, k0, p.T);
-  load_rows32<D>(sV, static_cast<const float*>(p.v) + kv_off, ldk, k0, p.T);
+  const long long kv_off = ((long long)b * p.Tk * KV + kh) * D;
+  load_rows32<D>(sK, static_cast<const float*>(p.k) + kv_off, ldk, k0, p.Tk);
+  load_rows32<D>(sV, static_cast<const float*>(p.v) + kv_off, ldk, k0, p.Tk);
 
   float dv[2][DJ], dk[2][DJ];
 #pragma unroll
@@ -758,17 +769,17 @@ __global__ void __launch_bounds__(NT32) dkdv_f32_kernel(const Params p) {
   if (p.window > 0) qt_hi = min(nt, (k0 + FT - 1 + p.window - 1) / FT + 1);
   for (int hg = 0; hg < p.G; ++hg) {
     const int h = kh * p.G + hg;
-    const long long q_off = ((long long)b * p.T * p.H + h) * D;
-    const float* L = p.lse + ((long long)b * p.H + h) * p.T;
-    const float* Dl = p.delta + ((long long)b * p.H + h) * p.T;
-    for (int qt = kt; qt < qt_hi; ++qt) {
+    const long long q_off = ((long long)b * p.Tq * p.H + h) * D;
+    const float* L = p.lse + ((long long)b * p.H + h) * p.Tq;
+    const float* Dl = p.delta + ((long long)b * p.H + h) * p.Tq;
+    for (int qt = p.causal ? kt : 0; qt < qt_hi; ++qt) {
       const int q0 = qt * FT;
       __syncthreads();
       load_rows32<D>(sQ, static_cast<const float*>(p.q) + q_off, ldq, q0,
-                     p.T);
+                     p.Tq);
       load_rows32<D>(sO, static_cast<const float*>(p.dout) + q_off, ldq, q0,
-                     p.T);
-      load_row_stats32(sL, sD, L, Dl, q0, p.T);
+                     p.Tq);
+      load_row_stats32(sL, sD, L, Dl, q0, p.Tq);
       __syncthreads();
       // S^T and dP^T: thread owns keys ty + 16 i, queries tx + 16 j
       float s[2][2] = {}, dp[2][2] = {};
@@ -830,7 +841,7 @@ __global__ void __launch_bounds__(NT32) dkdv_f32_kernel(const Params p) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int key = k0 + ty + 16 * i;
-    if (key >= p.T) continue;
+    if (key >= p.Tk) continue;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       dK[key * ldk + tx + 16 * j] = dk[i][j] * p.scale;
@@ -852,20 +863,20 @@ __global__ void __launch_bounds__(NT32) dq_f32_kernel(const Params p) {
   float* sD = sL + FT;
 
   const int KV = p.H / p.G;
-  const int nt = (p.T + FT - 1) / FT;
-  const int qt = nt - 1 - (int)blockIdx.x, q0 = qt * FT;
+  const int nq = (p.Tq + FT - 1) / FT, nk = (p.Tk + FT - 1) / FT;
+  const int qt = nq - 1 - (int)blockIdx.x, q0 = qt * FT;
   const int h = blockIdx.y, kh = h / p.G, b = blockIdx.z;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const long long ldq = (long long)p.H * D, ldk = (long long)KV * D;
-  const long long q_off = ((long long)b * p.T * p.H + h) * D;
-  const long long kv_off = ((long long)b * p.T * KV + kh) * D;
+  const long long q_off = ((long long)b * p.Tq * p.H + h) * D;
+  const long long kv_off = ((long long)b * p.Tk * KV + kh) * D;
   const float* K = static_cast<const float*>(p.k) + kv_off;
   const float* V = static_cast<const float*>(p.v) + kv_off;
-  load_rows32<D>(sQ, static_cast<const float*>(p.q) + q_off, ldq, q0, p.T);
+  load_rows32<D>(sQ, static_cast<const float*>(p.q) + q_off, ldq, q0, p.Tq);
   load_rows32<D>(sO, static_cast<const float*>(p.dout) + q_off, ldq, q0,
-                 p.T);
-  load_row_stats32(sL, sD, p.lse + ((long long)b * p.H + h) * p.T,
-                   p.delta + ((long long)b * p.H + h) * p.T, q0, p.T);
+                 p.Tq);
+  load_row_stats32(sL, sD, p.lse + ((long long)b * p.H + h) * p.Tq,
+                   p.delta + ((long long)b * p.H + h) * p.Tq, q0, p.Tq);
 
   float dq[2][DJ];
 #pragma unroll
@@ -874,11 +885,12 @@ __global__ void __launch_bounds__(NT32) dq_f32_kernel(const Params p) {
     for (int j = 0; j < DJ; ++j) dq[i][j] = 0.f;
 
   const int kt_lo = p.window > 0 ? max(0, q0 - p.window + 1) / FT : 0;
-  for (int kt = kt_lo; kt <= qt; ++kt) {
+  const int kt_hi = p.causal ? qt : nk - 1;
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int k0 = kt * FT;
     __syncthreads();
-    load_rows32<D>(sK, K, ldk, k0, p.T);
-    load_rows32<D>(sV, V, ldk, k0, p.T);
+    load_rows32<D>(sK, K, ldk, k0, p.Tk);
+    load_rows32<D>(sV, V, ldk, k0, p.Tk);
     __syncthreads();
     // S and dP: thread owns queries ty + 16 i, keys tx + 16 j
     float s[2][2] = {}, dp[2][2] = {};
@@ -928,7 +940,7 @@ __global__ void __launch_bounds__(NT32) dq_f32_kernel(const Params p) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + ty + 16 * i;
-    if (row >= p.T) continue;
+    if (row >= p.Tq) continue;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
       dQ[row * ldq + tx + 16 * j] = dq[i][j] * p.scale;
@@ -947,9 +959,9 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-// q, dO (B, T, H, D) and k, v (B, T, KV, D) as 4-D tensor maps (D, heads,
-// T, B), boxes of 64 head-dim elements (128 bytes, swizzled) by one head by
-// 64 rows
+// q, dO (B, Tq, H, D) and k, v (B, Tk, KV, D) as 4-D tensor maps (D,
+// heads, time, B), boxes of 64 head-dim elements (128 bytes, swizzled) by
+// one head by 64 rows
 template <int D>
 cudaError_t run_bf16(const Params& p, cudaStream_t s) {
   using C = Bf16Cfg<D>;
@@ -957,12 +969,12 @@ cudaError_t run_bf16(const Params& p, cudaStream_t s) {
   Maps maps;
   const uint64_t row = D * sizeof(bf16);
   const uint32_t box[4] = {64, 1, BR, 1};
-  const uint64_t q_dims[4] = {D, (uint64_t)p.H, (uint64_t)p.T,
+  const uint64_t q_dims[4] = {D, (uint64_t)p.H, (uint64_t)p.Tq,
                               (uint64_t)p.B};
-  const uint64_t kv_dims[4] = {D, (uint64_t)KV, (uint64_t)p.T,
+  const uint64_t kv_dims[4] = {D, (uint64_t)KV, (uint64_t)p.Tk,
                                (uint64_t)p.B};
-  const uint64_t q_str[3] = {row, row * p.H, row * p.H * p.T};
-  const uint64_t kv_str[3] = {row, row * KV, row * KV * p.T};
+  const uint64_t q_str[3] = {row, row * p.H, row * p.H * p.Tq};
+  const uint64_t kv_str[3] = {row, row * KV, row * KV * p.Tk};
   const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
   if (!hopper_host::make_map(&maps.q, bf, 4, p.q, q_dims, q_str, box, sw) ||
@@ -971,27 +983,30 @@ cudaError_t run_bf16(const Params& p, cudaStream_t s) {
       !hopper_host::make_map(&maps.k, bf, 4, p.k, kv_dims, kv_str, box, sw) ||
       !hopper_host::make_map(&maps.v, bf, 4, p.v, kv_dims, kv_str, box, sw))
     return cudaErrorInvalidValue;
-  const unsigned tiles = (unsigned)((p.T + C::NW * BR - 1) / (C::NW * BR));
-  cudaError_t e = launch(dkdv_bf16_kernel<D>, dim3(KV * C::NC * p.B, tiles),
+  constexpr int ROWS = C::NW * BR;          // rows of a block's tile
+  const unsigned k_tiles = (unsigned)((p.Tk + ROWS - 1) / ROWS);
+  const unsigned q_tiles = (unsigned)((p.Tq + ROWS - 1) / ROWS);
+  cudaError_t e = launch(dkdv_bf16_kernel<D>, dim3(KV * C::NC * p.B, k_tiles),
                          C::NT, C::SMEM_KV, s, maps, p);
   if (e != cudaSuccess) return e;
-  return launch(dq_bf16_kernel<D>, dim3(p.H * C::NC * p.B, tiles), C::NT,
+  return launch(dq_bf16_kernel<D>, dim3(p.H * C::NC * p.B, q_tiles), C::NT,
                 C::SMEM_Q, s, maps, p);
 }
 
 template <int D>
 cudaError_t run_f32(const Params& p, cudaStream_t s) {
-  const int nt = (p.T + FT - 1) / FT, KV = p.H / p.G;
-  cudaError_t e = launch(dkdv_f32_kernel<D>, dim3(nt, KV, p.B), NT32,
+  const int nq = (p.Tq + FT - 1) / FT, nk = (p.Tk + FT - 1) / FT;
+  const int KV = p.H / p.G;
+  cudaError_t e = launch(dkdv_f32_kernel<D>, dim3(nk, KV, p.B), NT32,
                          smem32<D>(), s, p);
   if (e != cudaSuccess) return e;
-  return launch(dq_f32_kernel<D>, dim3(nt, p.H, p.B), NT32, smem32<D>(), s,
+  return launch(dq_f32_kernel<D>, dim3(nq, p.H, p.B), NT32, smem32<D>(), s,
                 p);
 }
 
 template <int D>
 cudaError_t run(const Params& p, int dtype, cudaStream_t s) {
-  const long long rows = (long long)p.B * p.T * p.H;
+  const long long rows = (long long)p.B * p.Tq * p.H;
   const dim3 grid((unsigned)((rows + 7) / 8));
   if (dtype == 0) {
     delta_kernel<float, D><<<grid, 256, 0, s>>>(p);
@@ -1008,17 +1023,22 @@ cudaError_t run(const Params& p, int dtype, cudaStream_t s) {
 extern "C" {
 
 // dtype: 0 float32, 1 bfloat16; all tensors contiguous and 16-byte
-// aligned (the bf16 path reads q, k, v and dout through TMA tensor maps).  q, o, dout, dq: (B, T, H, D); k, v, dk, dv: (B, T, KV, D); lse:
-// (B, H, T) float32 from the forward; delta: (B, H, T) float32 scratch.
-// Causal.  Returns a cudaError_t (0 on success).
+// aligned (the bf16 path reads q, k, v and dout through TMA tensor maps).
+// q, o, dout, dq: (B, Tq, H, D); k, v, dk, dv: (B, Tk, KV, D); lse:
+// (B, H, Tq) float32 from the forward; delta: (B, H, Tq) float32 scratch.
+// Causal with Tq == Tk, or not causal with no window.  Returns a
+// cudaError_t (0 on success).
 int fa_bwd(const void* q, const void* k, const void* v, const void* o,
            const float* lse, const void* dout, void* dq, void* dk, void* dv,
-           float* delta, int dtype, int B, int H, int KV, int T, int D,
-           int window, float softcap, float scale, void* stream) {
-  if (KV <= 0 || H % KV != 0 || B <= 0 || T <= 0 || (dtype != 0 && dtype != 1))
+           float* delta, int dtype, int B, int H, int KV, int Tq, int Tk,
+           int D, int causal, int window, float softcap, float scale,
+           void* stream) {
+  if (KV <= 0 || H % KV != 0 || B <= 0 || Tq <= 0 || Tk <= 0 ||
+      (causal && Tq != Tk) || (!causal && window > 0) ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  const Params p{q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, H / KV, T,
-                 window, softcap, scale};
+  const Params p{q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, H / KV,
+                 Tq, Tk, causal != 0, window, softcap, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return (int)run<64>(p, dtype, s);

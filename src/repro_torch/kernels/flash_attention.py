@@ -53,7 +53,7 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd").lib
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fa_bwd.argtypes = [p] * 10 + [i] * 7 + [ctypes.c_float] * 2 + [p]
+    lib.fa_bwd.argtypes = [p] * 10 + [i] * 9 + [ctypes.c_float] * 2 + [p]
     lib.fa_bwd.restype = i
     lib.fa_bwd_error_string.argtypes = [i]
     lib.fa_bwd_error_string.restype = ctypes.c_char_p
@@ -165,12 +165,16 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _forward(q, k, v, causal, window, softcap, want_lse=True)
 
 
-def _check_bwd(q, k, o, lse, do, causal):
+def _check_bwd(q, k, o, lse, do, causal, window=0):
     B, Tq, H, D = q.shape
-    if not causal or k.shape[1] != Tq:
+    Tk = k.shape[1]
+    if causal and Tk != Tq:
         raise ValueError("the backward kernel takes causal attention with "
-                         f"Tq == Tk (training); got causal={causal}, "
-                         f"Tq={Tq}, Tk={k.shape[1]}")
+                         "Tq == Tk (self-attention) or non-causal attention "
+                         f"with any Tq, Tk; got causal, Tq={Tq}, Tk={Tk}")
+    if not causal and window:
+        raise ValueError("the backward kernel takes a window only under "
+                         f"causal attention; got window={window}")
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
             or do.dtype != q.dtype:
         raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do "
@@ -197,10 +201,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         softcap: float = 0.0
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """dq (B, T, H, D), dk, dv (B, T, K, D) in the inputs' dtype, from the
-    forward's q, k, v, o, lse and the output gradient do.  Causal, Tq ==
-    Tk, any T, window, soft-cap, D in (64, 128, 256), float32 or bfloat16;
-    anything else raises.  Inputs are made contiguous and aligned."""
+    """dq (B, Tq, H, D), dk, dv (B, Tk, K, D) in the inputs' dtype, from
+    the forward's q, k, v, o, lse and the output gradient do.  Causal with
+    Tq == Tk (any T, a window), or non-causal with any Tq, Tk >= 1 (no
+    window; cross-attention); soft-cap, D in (64, 128, 256), float32 or
+    bfloat16; anything else raises.  Inputs are made contiguous and
+    aligned."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                        window=window, softcap=softcap)
@@ -208,22 +214,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"unsupported device {q.device}")
     q, k, v, o, lse, do = (_aligned(t) for t in (q, k, v, o, lse, do))
     _check(q, k, v, window, softcap)
-    _check_bwd(q, k, o, lse, do, causal)
-    B, T, H, D = q.shape
-    K = k.shape[2]
+    _check_bwd(q, k, o, lse, do, causal, window)
+    B, Tq, H, D = q.shape
+    Tk, K = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.fa_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          o.data_ptr(), lse.data_ptr(), do.data_ptr(),
                          dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                         delta.data_ptr(), _DTYPES[q.dtype], B, H, K, T, D,
-                         int(window), float(softcap), float(D ** -0.5),
-                         stream)
+                         delta.data_ptr(), _DTYPES[q.dtype], B, H, K, Tq, Tk,
+                         D, int(causal), int(window), float(softcap),
+                         float(D ** -0.5), stream)
     if err != 0:
         raise RuntimeError(f"flash attention backward launch failed: "
                            f"cudaError {err} "

@@ -3,10 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-medium
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a card the
-default raises.
+default raises.  The VLM and audio archs are served with the engine's
+default media (zeros of the stub frontends' output shape).
 """
 
 from __future__ import annotations

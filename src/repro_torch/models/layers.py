@@ -5,8 +5,9 @@ sliding-window, logit soft-cap) and the (Sw/Ge)GLU MLP, on the reference's
 parameter layout: ``wq (d,H,Dh)``, ``wk/wv (d,K,Dh)``, ``wo (H,Dh,d)``,
 ``wi_gate/wi_up (d,F)``, ``wo (F,d)``.
 
-Attention that the flash kernel covers (no offset: training/forward and
-prefill from an empty cache) goes to ``kernels.ops.gqa_flash_attention``;
+Attention that the flash kernel covers (no offset: training/forward,
+prefill from an empty cache, and cross-attention over a whole source
+sequence) goes to ``kernels.ops.gqa_flash_attention``;
 decode (``Tq`` new tokens at ``q_offset = pos > 0`` against the cache,
 masked at ``kv_len``) has no TPU kernel in the reference and stays on
 ``attention`` below, the plain translation of the reference's scan.
@@ -152,7 +153,8 @@ def attn_block(params: Params, x: torch.Tensor, spec: AttnSpec, *,
                rope_theta: float, norm_eps: float, positions: torch.Tensor,
                is_global: bool = True,
                kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,
-               cache_len: int | None = None, use_rope: bool = True,
+               cache_len: int | None = None,
+               xkv: torch.Tensor | None = None, use_rope: bool = True,
                constrain_dp: bool = False,
                ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Projections + (cached) attention.  Returns (out, (k_all, v_all)).
@@ -166,17 +168,22 @@ def attn_block(params: Params, x: torch.Tensor, spec: AttnSpec, *,
       reference's causal mask over the whole cache leaves; otherwise
       (decode) ``attention`` runs over the whole cache masked at
       ``cache_len + T``.
+    * cross-attention (the VLM's cross blocks): ``xkv`` (B, S, d) is the
+      key/value source; every query attends to all S keys through the
+      kernel, non-causally, which is what the reference's
+      ``q_offset=S`` leaves of its causal test.  Returns (k, v) of xkv.
     * ``constrain_dp`` pins sharding in the reference; serving on one card
-      has none, so it is accepted and ignored.  Cross-attention (``xkv``)
-      belongs to the VLM family and is not ported yet.
+      has none, so it is accepted and ignored.
     """
     del norm_eps, constrain_dp
     B, T, _ = x.shape
     H, K, Dh = spec.n_heads, spec.n_kv_heads, spec.head_dim
     d = x.shape[-1]
+    src = x if xkv is None else xkv
+    S = src.shape[1]
     q = (x @ params["wq"].reshape(d, H * Dh)).view(B, T, H, Dh)
-    k = (x @ params["wk"].reshape(d, K * Dh)).view(B, T, K, Dh)
-    v = (x @ params["wv"].reshape(d, K * Dh)).view(B, T, K, Dh)
+    k = (src @ params["wk"].reshape(d, K * Dh)).view(B, S, K, Dh)
+    v = (src @ params["wv"].reshape(d, K * Dh)).view(B, S, K, Dh)
     if "q_norm" in params:
         q = rms_norm(q, params["q_norm"], 1e-6)
         k = rms_norm(k, params["k_norm"], 1e-6)
@@ -197,6 +204,10 @@ def attn_block(params: Params, x: torch.Tensor, spec: AttnSpec, *,
             out = attention(q, ck, cv, spec, q_offset=pos, is_global=is_global,
                             kv_len=pos + T)
         k_all, v_all = ck, cv
+    elif xkv is not None:
+        out = ops.gqa_flash_attention(q, k, v, causal=False,
+                                      softcap=spec.softcap)
+        k_all, v_all = k, v
     else:
         out = ops.gqa_flash_attention(q, k, v, causal=True, window=window,
                                       softcap=spec.softcap)

@@ -1,5 +1,5 @@
-"""Model assembly, dense, MoE and SSM families (PyTorch port of
-``repro/models/model.py``).
+"""Model assembly, dense, MoE, VLM, audio and SSM families (PyTorch port
+of ``repro/models/model.py``).
 
 ``build(cfg, device)`` returns a ``Model`` with:
 
@@ -7,7 +7,9 @@
 * ``forward(params, batch)``          -> logits (training / prefill path)
 * ``init_cache(B, max_len)``          -> decode cache (K/V or conv/SSM
                                          state, and the position)
-* ``prefill(params, cache, tokens)``  -> (last-position logits, cache at T)
+* ``prefill(params, cache, tokens, media)`` -> (last-position logits,
+                                         cache at T, or T + n_media_tokens
+                                         for audio)
 * ``decode_step(params, cache, tok)`` -> (logits, cache)  [one-token serve step]
 * ``train_loss(params, batch)``       -> mean next-token cross-entropy
 
@@ -23,9 +25,20 @@ layer's ``mlp``.  With ``moe_every > 1`` (llama4) the tree holds
 layers in ``moe_blocks``; they run a group at a time (the dense layers of a
 group, then its MoE layer), and the decode cache holds the dense layers'
 rows first, in run order, then the MoE layers' (the reference's
-``_moe_grouped_pass``).  The SSM family covers Mamba-1 (falcon-mamba); the
-other families (Mamba-2 hybrid, VLM, audio) are not ported yet and raise
-``NotImplementedError``.
+``_moe_grouped_pass``).
+
+The audio family (musicgen) prefixes ``media @ media_proj`` (stub
+conditioning frames) to the scaled token embeddings, runs without rope and
+strips the prefix before the unembedding; its prefill caches the prefix's
+K/V too.  The VLM family (llama-3.2-vision) follows every
+``cross_attn_every`` self layers with a gated cross block, ``x +
+tanh(gate) * attention(rms_norm(x))`` over ``media @ media_proj`` (stub
+vision tokens), non-causal and without rope; a group is those self layers
+and their cross block (the reference's ``_run_vlm``).  Prefill fills the
+media K/V ``media_k`` / ``media_v`` once from every cross block's
+``wk`` / ``wv``, and the cross blocks of prefill and decode attend over
+them.  The SSM family covers Mamba-1 (falcon-mamba); Mamba-2 and the
+hybrid are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.kernels import ops
 from repro_torch.models import layers, moe, ssm
 from repro_torch.models.layers import AttnSpec, Params
 
@@ -118,7 +132,16 @@ class Model:
         else:
             p["blocks"] = _stack_init(lambda: self._init_block(gen, dtype),
                                       cfg.n_layers)
+        if cfg.family == "vlm":
+            p["cross_blocks"] = _stack_init(
+                lambda: self._init_cross_block(gen, dtype), self._n_cross())
+        if cfg.family in ("vlm", "audio"):
+            p["media_proj"] = layers.dense_init(gen, cfg.media_embed_dim,
+                                                (cfg.d_model,), dtype)
         return p
+
+    def _n_cross(self) -> int:
+        return self.cfg.n_layers // self.cfg.cross_attn_every
 
     def param_dtypes(self) -> Params:
         """The dtype of every leaf that ``init`` makes, as a tree: the
@@ -156,6 +179,17 @@ class Model:
                                               dtype)
         return p
 
+    def _init_cross_block(self, gen: torch.Generator, dtype: torch.dtype
+                          ) -> Params:
+        """A VLM cross block; its ``gate`` is a float32 scalar, 0 at init
+        (so the block adds nothing until trained), whatever ``dtype``."""
+        cfg = self.cfg
+        dev = gen.device
+        return {"ln": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+                "attn": layers.init_attn_params(gen, cfg.d_model,
+                                                self._attn_spec(), dtype),
+                "gate": torch.zeros((), dtype=torch.float32, device=dev)}
+
     def _init_ssm_block(self, gen: torch.Generator, dtype: torch.dtype
                         ) -> Params:
         cfg = self.cfg
@@ -174,12 +208,28 @@ class Model:
 
     # ---------------- forward (train / prefill) ----------------
 
-    def embed_inputs(self, params: Params, batch: dict) -> torch.Tensor:
+    def _embed_tokens(self, params: Params, tokens: torch.Tensor
+                      ) -> torch.Tensor:
         cfg = self.cfg
-        x = params["embed"][batch["tokens"]]
-        # the reference's `dense and tied or audio`, for the ported families
-        if cfg.family == "dense" and cfg.tie_embeddings:
+        x = params["embed"][tokens]
+        if cfg.family == "dense" and cfg.tie_embeddings or \
+                cfg.family == "audio":
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+        return x
+
+    def _media_tokens(self, params: Params, media: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+        """(B, n_media_tokens, media_embed_dim) stub frontend output ->
+        (B, n_media_tokens, d_model) in the model dtype."""
+        return media.to(dtype) @ params["media_proj"]
+
+    def embed_inputs(self, params: Params, batch: dict) -> torch.Tensor:
+        """Token embeddings (scaled by sqrt(d) for tied dense and audio);
+        for audio, prefixed with the projected ``batch["media"]``."""
+        x = self._embed_tokens(params, batch["tokens"])
+        if self.cfg.family == "audio":
+            media = self._media_tokens(params, batch["media"], x.dtype)
+            x = torch.cat([media, x], dim=1)
         return x
 
     def forward(self, params: Params, batch: dict) -> torch.Tensor:
@@ -190,8 +240,12 @@ class Model:
             x = self._run_ssm(params, x)
         else:
             positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
-            x = self._run_decoder(params, x, positions)
+            mtok = (self._media_tokens(params, batch["media"], x.dtype)
+                    if cfg.family == "vlm" else None)
+            x = self._run_decoder(params, x, positions, mtok=mtok)
         x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if cfg.family == "audio":
+            x = x[:, cfg.n_media_tokens:]          # strip the conditioning
         return self._unembed(params, x)
 
     def _unembed(self, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -210,7 +264,8 @@ class Model:
         a, kv = layers.attn_block(
             blk["attn"], h, self._attn_spec(), rope_theta=cfg.rope_theta,
             norm_eps=cfg.norm_eps, positions=positions, is_global=is_global,
-            kv_cache=kv_cache, cache_len=cache_len)
+            kv_cache=kv_cache, cache_len=cache_len,
+            use_rope=cfg.family != "audio")
         x = x + a
         h = layers.rms_norm(x, blk["ln2"], cfg.norm_eps)
         if "moe" in blk:
@@ -219,11 +274,37 @@ class Model:
             x = x + layers.mlp_block(blk["mlp"], h, cfg.act)
         return x, kv
 
+    def _cross_layer(self, blk: Params, x, mtok=None, media_kv=None):
+        """The gated cross block: ``x + tanh(gate) * a``, ``a`` the
+        non-causal attention of ``rms_norm(x)`` over the media tokens,
+        without rope: over ``mtok``'s keys and values (forward), or over the
+        cached ``media_kv`` = (media_k, media_v), (B, M, K, Dh) each (prefill
+        and decode)."""
+        cfg = self.cfg
+        spec = self._attn_spec()
+        h = layers.rms_norm(x, blk["ln"], cfg.norm_eps)
+        if media_kv is None:
+            a, _ = layers.attn_block(
+                blk["attn"], h, spec, rope_theta=cfg.rope_theta,
+                norm_eps=cfg.norm_eps, positions=None, xkv=mtok,
+                use_rope=False)
+        else:
+            B, T, d = h.shape
+            H, Dh = spec.n_heads, spec.head_dim
+            q = (h @ blk["attn"]["wq"].reshape(d, H * Dh)).view(B, T, H, Dh)
+            out = ops.gqa_flash_attention(q, *media_kv, causal=False,
+                                          softcap=spec.softcap)
+            a = out.reshape(B, T, H * Dh) @ blk["attn"]["wo"].reshape(
+                H * Dh, d)
+        return x + torch.tanh(blk["gate"]).to(x.dtype) * a
+
     def _layer_groups(self, params, grad: bool) -> list[list[tuple]]:
         """The decoder layers in run order, as groups of (layer params,
-        is_global, cache row): one layer a group, or with ``moe_blocks``
-        the ``moe_every - 1`` dense layers and then the MoE layer of each
-        group, every layer global, the dense layers' cache rows first.
+        is_global, cache row): one layer a group; with ``moe_blocks`` the
+        ``moe_every - 1`` dense layers and then the MoE layer of each
+        group, every layer global, the dense layers' cache rows first;
+        with ``cross_blocks`` (VLM) ``cross_attn_every`` self layers and
+        then the group's cross block, whose row is its media K/V row.
         Under ``grad`` the stacks are split by ``_unstack``."""
         cfg = self.cfg
 
@@ -241,34 +322,49 @@ class Model:
             return [[(dense[g * k + j], True, g * k + j) for j in range(k)]
                     + [(moes[g], True, n_dense + g)] for g in range(n_groups)]
         blocks = split("blocks", cfg.n_layers)
+        flags = self._layer_is_global()
+        if "cross_blocks" in params:
+            k = cfg.cross_attn_every
+            cross = split("cross_blocks", self._n_cross())
+            return [[(blocks[i], flags[i], i) for i in range(g * k, g * k + k)]
+                    + [(cb, True, g)] for g, cb in enumerate(cross)]
         return [[(blk, is_global, i)] for i, (blk, is_global) in
-                enumerate(zip(blocks, self._layer_is_global()))]
+                enumerate(zip(blocks, flags))]
 
-    def _run_decoder(self, params, x, positions, cache=None, cache_len=None):
+    def _run_decoder(self, params, x, positions, cache=None, cache_len=None,
+                     mtok=None):
         """All layers over x; with a cache, each layer reads and writes its
-        K/V rows ``cache["k"][row]``, ``cache["v"][row]`` in place.  Under
-        grad mode, when anything requires grad, each group of
-        ``_layer_groups`` runs under ``maybe_remat(cfg.remat_policy)``, as
-        the reference's scanned layer or group does."""
+        K/V rows ``cache["k"][row]``, ``cache["v"][row]`` in place, and a
+        VLM cross block reads ``cache["media_k"][row]``, ``["media_v"]``
+        (without a cache it attends over ``mtok``).  Under grad mode, when
+        anything requires grad, each group of ``_layer_groups`` runs under
+        ``maybe_remat(cfg.remat_policy)``, as the reference's scanned layer
+        or group does."""
+        def layer(blk, x, is_global, row, mtok):
+            if "gate" in blk:
+                media_kv = (None if cache is None else
+                            (cache["media_k"][row], cache["media_v"][row]))
+                return self._cross_layer(blk, x, mtok, media_kv)
+            kv = None if cache is None else (cache["k"][row], cache["v"][row])
+            return self._decoder_layer(blk, x, positions, is_global,
+                                       kv_cache=kv, cache_len=cache_len)[0]
+
         if cache is None and torch.is_grad_enabled() and (
                 x.requires_grad or any(
                     p.requires_grad for p in tree.leaves(params))):
-            def group(blks, x, flags):
+            def group(blks, x, flags, mtok):
                 for blk, is_global in zip(blks, flags):
-                    x = self._decoder_layer(blk, x, positions, is_global)[0]
+                    x = layer(blk, x, is_global, None, mtok)
                 return x
 
             group = layers.maybe_remat(group, self.cfg.remat_policy)
             for grp in self._layer_groups(params, grad=True):
                 x = group([blk for blk, _, _ in grp], x,
-                          [is_global for _, is_global, _ in grp])
+                          [is_global for _, is_global, _ in grp], mtok)
             return x
         for grp in self._layer_groups(params, grad=False):
             for blk, is_global, row in grp:
-                kv = (None if cache is None
-                      else (cache["k"][row], cache["v"][row]))
-                x, _ = self._decoder_layer(blk, x, positions, is_global,
-                                           kv_cache=kv, cache_len=cache_len)
+                x = layer(blk, x, is_global, row, mtok)
         return x
 
     def _ssm_layer(self, blk: Params, x, state=None):
@@ -304,22 +400,46 @@ class Model:
     # ---------------- prefill ----------------
 
     @torch.no_grad()
-    def prefill(self, params: Params, cache: dict, tokens: torch.Tensor
+    def prefill(self, params: Params, cache: dict, tokens: torch.Tensor,
+                media: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, dict]:
-        """Fill the decode cache from a (B, T) prompt; returns last-position
-        logits and the cache positioned at T.  The cache's tensors (K/V, or
-        conv and SSM state) are written in place."""
+        """Fill the decode cache from a (B, T) prompt (and, for the VLM and
+        audio families, the (B, n_media_tokens, media_embed_dim) ``media``);
+        returns last-position logits and the cache positioned after the
+        prompt: at T, or T + n_media_tokens for audio, whose conditioning
+        frames are cached as the prompt's first positions.  The cache's
+        tensors (K/V, media K/V, or conv and SSM state) are written in
+        place."""
         cfg = self.cfg
-        x = self.embed_inputs(params, {"tokens": tokens})
+        batch = {"tokens": tokens}
+        if media is not None:
+            batch["media"] = media
+        x = self.embed_inputs(params, batch)
         B, T, _ = x.shape
         if cfg.family == "ssm":
             x = self._run_ssm(params, x, cache=cache)
         else:
+            if cfg.family == "vlm":
+                self._fill_media_kv(params, cache, batch["media"], x.dtype)
             positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
             x = self._run_decoder(params, x, positions, cache=cache,
                                   cache_len=0)
         x = layers.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
         return self._unembed(params, x), {**cache, "pos": T}
+
+    def _fill_media_kv(self, params: Params, cache: dict,
+                       media: torch.Tensor, dtype: torch.dtype) -> None:
+        """``cache["media_k"][g]``, ``["media_v"][g]`` = the projected media
+        tokens through cross block g's ``wk``, ``wv``, written in place."""
+        mtok = self._media_tokens(params, media, dtype)
+        B, M, d = mtok.shape
+        K, Dh = self.cfg.n_kv_heads, self.cfg.head_dim
+        attn = params["cross_blocks"]["attn"]
+        for g in range(self._n_cross()):
+            for name, w in (("media_k", attn["wk"][g]),
+                            ("media_v", attn["wv"][g])):
+                cache[name][g].copy_(
+                    (mtok @ w.reshape(d, K * Dh)).view(B, M, K, Dh))
 
     # ---------------- decode ----------------
 
@@ -328,7 +448,8 @@ class Model:
         K/V ``(L, B, max_len, K, Dh)`` in the model dtype; for Mamba-1,
         ``conv`` ``(L, B, ssm_conv - 1, d_inner)`` in the model dtype and
         ``h`` ``(L, B, d_inner, ssm_state)`` in float32, whatever
-        ``max_len``."""
+        ``max_len``; for the VLM also ``media_k`` / ``media_v``
+        ``(n_cross, B, n_media_tokens, K, Dh)`` in the model dtype."""
         cfg = self.cfg
         dtype = torch_dtype(cfg.dtype)
         L, dev = cfg.n_layers, self.device
@@ -340,16 +461,27 @@ class Model:
                     "h": torch.zeros((L, batch_size, di, cfg.ssm_state),
                                      dtype=torch.float32, device=dev)}
         shape = (L, batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
-        return {"pos": 0,
-                "k": torch.zeros(shape, dtype=dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+        cache = {"pos": 0,
+                 "k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        if cfg.family == "vlm":
+            shape = (self._n_cross(), batch_size, cfg.n_media_tokens,
+                     cfg.n_kv_heads, cfg.head_dim)
+            cache["media_k"] = torch.zeros(shape, dtype=dtype, device=dev)
+            cache["media_v"] = torch.zeros(shape, dtype=dtype, device=dev)
+        return cache
 
     @torch.no_grad()
-    def decode_step(self, params: Params, cache: dict, tokens: torch.Tensor
+    def decode_step(self, params: Params, cache: dict, tokens: torch.Tensor,
+                    media: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, dict]:
-        """One serve step: tokens (B, 1) -> logits (B, 1, V), updated cache."""
+        """One serve step: tokens (B, 1) -> logits (B, 1, V), updated cache.
+        ``media`` is accepted and unused, as in the reference: the VLM's
+        cross blocks read the media K/V that prefill cached, and audio's
+        conditioning is in the K/V cache."""
+        del media
         cfg = self.cfg
-        x = self.embed_inputs(params, {"tokens": tokens})
+        x = self._embed_tokens(params, tokens)
         pos = int(cache["pos"])
         if cfg.family == "ssm":
             x = self._run_ssm(params, x, cache=cache)
@@ -364,16 +496,14 @@ class Model:
 
 # the families not ported yet, each with the ROADMAP item that adds it
 _NOT_PORTED = {"ssm": "Queue 1 item 7b (Mamba-2)",
-               "hybrid": "Queue 1 item 7b (Mamba-2 hybrid)",
-               "vlm": "Queue 1 item 8 (VLM cross blocks)",
-               "audio": "Queue 1 item 8 (audio family)"}
+               "hybrid": "Queue 1 item 7b (Mamba-2 hybrid)"}
 
 
 def build(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
-    if not (cfg.family in ("dense", "moe") or
+    if not (cfg.family in ("dense", "moe", "vlm", "audio") or
             cfg.family == "ssm" and cfg.mamba_version == 1):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet; the port "
-            "covers the dense and MoE families and Mamba-1 (see ROADMAP.md "
-            f"{_NOT_PORTED[cfg.family]})")
+            "covers the dense, MoE, VLM and audio families and Mamba-1 (see "
+            f"ROADMAP.md {_NOT_PORTED[cfg.family]})")
     return Model(cfg, resolve(device))

@@ -4,7 +4,9 @@ Static max-batch slots, one batched prefill of left-padded prompts into the
 decode cache (K/V, or a Mamba model's conv and SSM state), then lockstep
 decode with greedy or temperature sampling and per-slot EOS.  As in the
 reference, pads are token 0 and are not masked (a Mamba model runs them
-through its state), and all slots share one position.
+through its state), and all slots share one position.  The VLM and audio
+families take one media array a batch (the stub frontends' output), float32
+zeros unless the caller gives one.
 """
 
 from __future__ import annotations
@@ -40,13 +42,15 @@ class Engine:
         self.step_logits: list[torch.Tensor] = []
 
     @torch.no_grad()
-    def generate(self, prompts: list[list[int]], max_new: int = 32
-                 ) -> list[list[int]]:
+    def generate(self, prompts: list[list[int]], max_new: int = 32,
+                 media=None) -> list[list[int]]:
         """Generate continuations for a batch of prompts (one static batch).
 
         Prompts are left-padded to a common length so a single batched
         prefill fills every slot's cache; decode then proceeds lockstep with
-        per-slot EOS masking.
+        per-slot EOS masking.  ``media`` (numpy or torch, (B,
+        n_media_tokens, media_embed_dim)) goes to prefill and to every
+        decode step, as in the reference.
         """
         cfg = self.cfg
         B = len(prompts)
@@ -57,12 +61,18 @@ class Engine:
         toks = np.zeros((B, plen), np.int64)
         for i, p in enumerate(prompts):
             toks[i, plen - len(p):] = p          # left-pad
+        mcfg = self.model.cfg
+        if media is not None:
+            media = torch.as_tensor(media, device=dev)
+        elif mcfg.n_media_tokens:
+            media = torch.zeros((B, mcfg.n_media_tokens, mcfg.media_embed_dim),
+                                dtype=torch.float32, device=dev)
         gen = torch.Generator(device=dev).manual_seed(cfg.seed)
         self.step_logits = []
         t0 = time.perf_counter()
         cache = self.model.init_cache(B, cfg.max_len)
         logits, cache = self.model.prefill(
-            self.params, cache, torch.as_tensor(toks, device=dev))
+            self.params, cache, torch.as_tensor(toks, device=dev), media)
         cur = self._sample(logits, gen)
         cur_host = cur[:, 0].tolist()
         t1 = time.perf_counter()
@@ -76,7 +86,8 @@ class Engine:
                     done[i] |= cur_host[i] == cfg.eos_token
             if done.all() or cache["pos"] >= cfg.max_len - 1:
                 break
-            logits, cache = self.model.decode_step(self.params, cache, cur)
+            logits, cache = self.model.decode_step(self.params, cache, cur,
+                                                   media)
             cur = self._sample(logits, gen)
             cur_host = cur[:, 0].tolist()
             steps += 1

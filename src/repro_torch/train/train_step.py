@@ -80,21 +80,27 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     failure once it began writing raises ``adamw.PartialUpdateError``,
     which the trainer does not retry.
 
-    The dense and MoE families train; under remat "dots" each layer (or
-    llama4's group of layers) saves the outputs of its ``aten.mm`` /
-    ``aten.addmm`` products (the projections, the MoE router and shared
-    MLP) and recomputes the rest in the backward: attention (the flash
-    op), the experts' grouped ``aten.bmm`` products, the dispatch and the
-    elementwise work.
+    The dense, MoE, VLM and audio families train; ``batch`` then also
+    holds their ``media`` (B, n_media_tokens, media_embed_dim), which goes
+    to the device with the tokens.  Under remat "dots" each layer (or
+    group: llama4's dense layers and their MoE layer, the VLM's self layers
+    and their cross block) saves the outputs of its ``aten.mm`` /
+    ``aten.addmm`` products (the projections, the cross blocks' q/k/v/o
+    projections, the MoE router and shared MLP) and recomputes the rest in
+    the backward: attention (the flash op, self and cross), the experts'
+    grouped ``aten.bmm`` products, the dispatch and the elementwise work.
+    ``media @ media_proj`` runs once a step outside the groups and, an
+    ``mm``, is kept.
     """
     if settings.compress_pod_grads:
         raise ValueError("compress_pod_grads requires a mesh with a 'pod' "
                          "axis")
-    if model.cfg.family not in ("dense", "moe"):
+    if model.cfg.family not in ("dense", "moe", "vlm", "audio"):
         raise NotImplementedError(
-            f"training covers the dense and MoE families; {model.cfg.name} "
-            f"({model.cfg.family}) needs a backward for its scan kernel, "
-            "which is not ported yet (ROADMAP.md Queue 1 item 5b)")
+            f"training covers the dense, MoE, VLM and audio families; "
+            f"{model.cfg.name} ({model.cfg.family}) needs a backward for its "
+            "scan kernel, which is not ported yet (ROADMAP.md Queue 1 item "
+            "5b)")
 
     def step(state, batch):
         batch = {k: torch.as_tensor(v, device=model.device)

@@ -996,12 +996,20 @@ BWD_GRID = [(2, 37, 4, 2, 16, 0, 0.0), (1, 100, 6, 2, 32, 0, 0.0),
             (2, 50, 4, 4, 16, 0, 5.0)]
 
 
-def _bwd_inputs(B, T, H, K, D, seed, dtype=torch.float32):
+def _bwd_inputs(B, T, H, K, D, seed, dtype=torch.float32, Tk=None):
+    """q, k, v, do; T query rows, ``Tk`` (default T) keys."""
     rng = np.random.default_rng(seed)
+    Tk = T if Tk is None else Tk
 
     def t(*shape):
         return torch.tensor(rng.normal(size=shape), dtype=dtype)
-    return t(B, T, H, D), t(B, T, K, D), t(B, T, K, D), t(B, T, H, D)
+    return t(B, T, H, D), t(B, Tk, K, D), t(B, Tk, K, D), t(B, T, H, D)
+
+
+# non-causal (cross-attention) backward cases (B, Tq, Tk, H, K, D, softcap):
+# Tq < Tk, Tq > Tk, one query (Tq = 1), ragged on both sides with a soft-cap
+XBWD_GRID = [(2, 37, 100, 4, 2, 16, 0.0), (1, 100, 37, 4, 1, 32, 0.0),
+             (2, 1, 73, 4, 2, 16, 0.0), (1, 65, 129, 6, 2, 32, 5.0)]
 
 
 @pytest.mark.parametrize("B,T,H,K,D,window,softcap", BWD_GRID)
@@ -1035,6 +1043,45 @@ def test_bwd_ref_matches_jax_grad_of_model_attention(B, T, H, K, D, window,
     want = jax_.grad(f, argnums=(0, 1, 2))(
         *(jnp.asarray(x.numpy()) for x in (q, k, v)))
     kw = dict(window=window, softcap=softcap)
+    o, lse = ref.flash_attention_gqa_ref(q, k, v, return_lse=True, **kw)
+    got = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-4,
+                                   atol=2e-4)
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,K,D,softcap", XBWD_GRID)
+def test_bwd_ref_non_causal_matches_autograd_of_the_forward(B, Tq, Tk, H, K,
+                                                            D, softcap):
+    q, k, v, do = _bwd_inputs(B, Tq, H, K, D, Tq + Tk, torch.float64, Tk=Tk)
+    kw = dict(causal=False, softcap=softcap)
+    o, lse = ref.flash_attention_gqa_ref(q, k, v, return_lse=True, **kw)
+    got = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
+    want = torch.autograd.grad(ref.flash_attention_gqa_ref(q, k, v, **kw),
+                               (q, k, v), do)
+    assert [tuple(g.shape) for g in got] == [(B, Tq, H, D), (B, Tk, K, D),
+                                             (B, Tk, K, D)]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,K,D,softcap", XBWD_GRID)
+def test_bwd_ref_non_causal_matches_jax_grad_of_model_attention(
+        B, Tq, Tk, H, K, D, softcap):
+    """``jax.grad`` of the reference's cross-attention, ``layers.attention``
+    at ``q_offset=Tk`` (every key passes its causal test)."""
+    jax_, jnp, jlayers = _jmods("jax", "jax.numpy", "repro.models.layers")
+    q, k, v, do = _bwd_inputs(B, Tq, H, K, D, 2 * Tq + Tk, Tk=Tk)
+    spec = jlayers.AttnSpec(H, K, D, softcap=softcap, kv_block=32)
+
+    def f(q, k, v):
+        o = jlayers.attention(q, k, v, spec, q_offset=Tk, is_global=True)
+        return jnp.sum(o * jnp.asarray(do.numpy()))
+
+    want = jax_.grad(f, argnums=(0, 1, 2))(
+        *(jnp.asarray(x.numpy()) for x in (q, k, v)))
+    kw = dict(causal=False, softcap=softcap)
     o, lse = ref.flash_attention_gqa_ref(q, k, v, return_lse=True, **kw)
     got = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
     for g, w in zip(got, want):
@@ -1076,17 +1123,18 @@ def test_differentiable_op_on_the_cpu_is_autograd_of_the_plain_version():
     assert ops.gqa_flash_attention(q, k, v).grad_fn is None
 
 
-@pytest.mark.parametrize("bad", ["not_causal", "tq_ne_tk", "lse_shape",
-                                 "do_dtype", "do_layout", "o_layout"])
+@pytest.mark.parametrize("bad", ["window_not_causal", "tq_ne_tk",
+                                 "lse_shape", "do_dtype", "do_layout",
+                                 "o_layout"])
 def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(bad):
     B, T, H, K, D = 1, 8, 4, 2, 64
     q, o, do = (torch.zeros(B, T, H, D) for _ in range(3))
     k = torch.zeros(B, T, K, D)
     lse = torch.zeros(B, H, T)
-    causal = True
-    if bad == "not_causal":
-        causal = False
-    elif bad == "tq_ne_tk":
+    causal, window = True, 0
+    if bad == "window_not_causal":
+        causal, window = False, 4
+    elif bad == "tq_ne_tk":            # causal attention with Tq != Tk
         k = torch.zeros(B, T + 1, K, D)
     elif bad == "lse_shape":
         lse = torch.zeros(B, T, H)
@@ -1097,7 +1145,19 @@ def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "o_layout":
         o = torch.zeros(B, H, T, D).transpose(1, 2)
     with pytest.raises(ValueError):
-        fa._check_bwd(q, k, o, lse, do, causal)
+        fa._check_bwd(q, k, o, lse, do, causal, window)
+
+
+@pytest.mark.parametrize("Tq,Tk", [(8, 8), (8, 33), (33, 8), (1, 1601)])
+def test_bwd_wrapper_takes_non_causal_tq_ne_tk(Tq, Tk):
+    """Non-causal attention with any Tq, Tk (the VLM's cross blocks) passes
+    the wrapper's checks; so does causal attention with Tq == Tk."""
+    B, H, K, D = 1, 4, 2, 64
+    q, o, do = (torch.zeros(B, Tq, H, D) for _ in range(3))
+    k = torch.zeros(B, Tk, K, D)
+    fa._check_bwd(q, k, o, torch.zeros(B, H, Tq), do, False)
+    fa._check_bwd(q, torch.zeros(B, Tq, K, D), o, torch.zeros(B, H, Tq), do,
+                  True)
 
 
 def test_bwd_wrapper_never_falls_back_off_the_cpu():
@@ -1109,7 +1169,7 @@ def test_bwd_wrapper_never_falls_back_off_the_cpu():
     assert fa.flash_attention_bwd.launches == before
 
 
-def _bwd_bf16_scheme(q, k, v, o, lse, do, *, window, softcap):
+def _bwd_bf16_scheme(q, k, v, o, lse, do, *, window, softcap, causal=True):
     """The bf16 kernel's arithmetic in float64: P and dS rounded to bf16
     before their products, f32-exact products of the bf16 inputs, outputs
     rounded to bf16."""
@@ -1117,7 +1177,7 @@ def _bwd_bf16_scheme(q, k, v, o, lse, do, *, window, softcap):
         return x.to(torch.bfloat16).double()
 
     B, T, H, D = q.shape
-    K = k.shape[2]
+    Tk, K = k.shape[1], k.shape[2]
     qf, kf, vf = (x.double() for x in ref._heads_major(q, k, v))
     of, dof = (x.double().permute(0, 2, 1, 3).reshape(B * H, T, D)
                for x in (o, do))
@@ -1126,7 +1186,7 @@ def _bwd_bf16_scheme(q, k, v, o, lse, do, *, window, softcap):
     if softcap:
         th = torch.tanh(s / softcap)
         s, dcap = softcap * th, 1 - th * th
-    ok = ref._mask(T, T, True, window, q.device)[None]
+    ok = ref._mask(T, Tk, causal, window, q.device)[None]
     p = torch.where(ok, torch.exp(s - lse.reshape(B * H, T, 1).double()),
                     torch.zeros_like(s))
     dp = torch.einsum("bqd,bkd->bqk", dof, vf)
@@ -1137,7 +1197,7 @@ def _bwd_bf16_scheme(q, k, v, o, lse, do, *, window, softcap):
     G = H // K
 
     def kv(x):
-        return x.reshape(B, K, G, T, D).sum(2).permute(0, 2, 1, 3)
+        return x.reshape(B, K, G, Tk, D).sum(2).permute(0, 2, 1, 3)
 
     return (dq.reshape(B, H, T, D).permute(0, 2, 1, 3).to(torch.bfloat16),
             kv(dk).to(torch.bfloat16), kv(dv).to(torch.bfloat16))
@@ -1152,6 +1212,23 @@ def test_flash_bwd_bf16_scheme_holds_the_kernel_tolerance(T, H, K, D,
     ``BWD_TOL`` of the plain version, with room to spare (half of it)."""
     q, k, v, do = _bwd_inputs(1, T, H, K, D, T, torch.bfloat16)
     kw = dict(window=window, softcap=softcap)
+    o, lse = ref.flash_attention_gqa_ref(q, k, v, return_lse=True, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    got = _bwd_bf16_scheme(q, k, v, o, lse, do, **kw)
+    half = {n: x / 2 for n, x in BWD_TOL[torch.bfloat16].items()}
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), **half)
+
+
+@pytest.mark.parametrize("Tq,Tk,H,K,D", [(300, 1601, 4, 1, 128),
+                                         (1, 1601, 4, 1, 128),
+                                         (257, 65, 2, 1, 64)])
+def test_flash_bwd_bf16_scheme_non_causal_holds_the_kernel_tolerance(
+        Tq, Tk, H, K, D):
+    """The same for cross-attention, up to the VLM's 1601 media keys a
+    query: half of ``BWD_TOL`` too."""
+    q, k, v, do = _bwd_inputs(1, Tq, H, K, D, Tq + Tk, torch.bfloat16, Tk=Tk)
+    kw = dict(causal=False, window=0, softcap=0.0)
     o, lse = ref.flash_attention_gqa_ref(q, k, v, return_lse=True, **kw)
     want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
     got = _bwd_bf16_scheme(q, k, v, o, lse, do, **kw)
@@ -1203,6 +1280,82 @@ def test_cuda_flash_bwd_at_qwen2_moe_training_shape():
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         torch.testing.assert_close(g.float(), w.float(), **BWD_TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("B,Tq,Tk,H,K,softcap", [
+    (2, 300, 333, 4, 2, 0.0),     # Tq < Tk, both ragged
+    (1, 333, 130, 4, 1, 0.0),     # Tq > Tk
+    (2, 1, 200, 8, 2, 0.0),       # one query
+    (1, 37, 1601, 4, 2, 30.0),    # the VLM's 1601 media keys, soft-cap
+    (2, 129, 64, 4, 4, 0.0)])     # G = 1, Tq one past two tiles
+def test_cuda_flash_bwd_non_causal_matches_plain_version(B, Tq, Tk, H, K, D,
+                                                         softcap, dtype):
+    _cuda_or_skip()
+    dt = getattr(torch, dtype)
+    q, k, v, do = (x.cuda() for x in _bwd_inputs(B, Tq, H, K, D, Tq + Tk + D,
+                                                  dt, Tk=Tk))
+    kw = dict(causal=False, softcap=softcap)
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == dt
+        torch.testing.assert_close(g.float(), w.float(), **BWD_TOL[dt])
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_at_vlm_cross_training_shape():
+    """llama-3.2-vision-11b's cross-attention in training (B=4, 2048 text
+    positions over 1601 media tokens, 32 query heads over 8 kv heads of
+    128, bf16, non-causal) within ``BWD_TOL``; two calls bit-identical."""
+    _cuda_or_skip()
+    dt = torch.bfloat16
+    q, k, v, do = (x.cuda() for x in _bwd_inputs(4, 2048, 32, 8, 128, 23, dt,
+                                                  Tk=1601))
+    o, lse = fa.flash_attention_lse(q, k, v, causal=False)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=False)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    torch.cuda.synchronize()
+    for g, w, a in zip(got, want, again):
+        torch.testing.assert_close(g.float(), w.float(), **BWD_TOL[dt])
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Tq,Tk,H,K,D,causal", [
+    (4, 1100, 1601, 32, 8, 128, False),   # VLM cross-attention, prefill
+    (4, 1, 1601, 32, 8, 128, False),      # VLM cross-attention, decode
+    (4, 1164, 1164, 24, 24, 64, True)])   # musicgen prefill, G = 1, D = 64
+def test_cuda_flash_bf16_model_shapes_against_plain_version(B, Tq, Tk, H, K,
+                                                            D, causal):
+    """The forward at the VLM's and musicgen's serving shapes, at the 2e-2
+    of ``chip_smoke.py``."""
+    _cuda_or_skip()
+    q, k, v = _bf16_gqa(np.random.default_rng(Tq + Tk), B, Tq, Tk, H, K, D)
+    got = fa.flash_attention_gqa(q, k, v, causal=causal)
+    want = ref.flash_attention_gqa_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_cuda_forward_lse_at_vlm_cross_training_shape():
+    """The LSE the backward reads, non-causal at Tq=2048, Tk=1601: the plain
+    version's within 1e-4 (natural-log units), ``o`` unchanged by it."""
+    _cuda_or_skip()
+    q, k, v = _bf16_gqa(np.random.default_rng(9), 4, 2048, 1601, 32, 8, 128)
+    o, lse = fa.flash_attention_lse(q, k, v, causal=False)
+    o0 = fa.flash_attention_gqa(q, k, v, causal=False)
+    _, want = ref.flash_attention_gqa_ref(q, k, v, causal=False,
+                                          return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o0)
+    torch.testing.assert_close(lse, want, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda

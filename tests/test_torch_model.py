@@ -4,8 +4,9 @@ Reduced granite, glm4, gemma2 and gemma3 in float32: the JAX parameter tree
 goes through ``convert.params_from_numpy`` and both packages run the same
 tokens.  ``init`` is held by shapes, dtypes and per-leaf std (the two RNGs
 differ), decode against forward inside the port at the reference's 2e-2.
-The config copies and ``init`` are held for the MoE archs too; their
-forward, cache and gradients are in ``test_torch_moe.py``.
+The config copies and ``init`` are held for the MoE, VLM and audio archs
+too; their forward, cache and gradients are in ``test_torch_moe.py`` and
+``test_torch_multimodal.py``.
 """
 
 import dataclasses
@@ -25,6 +26,7 @@ from repro_torch.models import model as tmodel
 
 ARCHS = ["granite-3-2b", "glm4-9b", "gemma2-9b", "gemma3-1b"]
 MOE_ARCHS = ["qwen2-moe-a2.7b", "llama4-maverick-400b-a17b"]
+MULTIMODAL_ARCHS = ["llama-3.2-vision-11b", "musicgen-medium"]
 TOL = 2e-4
 
 
@@ -56,7 +58,7 @@ def _close(t, j, tol=TOL):
                                rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS + MULTIMODAL_ARCHS)
 def test_config_copy_matches_reference(arch):
     assert dataclasses.asdict(treg.get(arch)) == dataclasses.asdict(
         jreg.get(arch))
@@ -64,14 +66,13 @@ def test_config_copy_matches_reference(arch):
         jreg.get(arch).reduced())
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "llama-3.2-vision-11b",
-                                  "musicgen-medium"])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b"])
 def test_other_families_not_ported(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         treg.get(arch)
 
 
-@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS + MULTIMODAL_ARCHS)
 def test_init_shapes_dtypes_std(arch):
     jcfg, tcfg = jreg.get(arch).reduced(), treg.get(arch).reduced()
     shapes = jax.eval_shape(jmodel.build(jcfg).init, jax.random.key(0))

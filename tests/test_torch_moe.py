@@ -442,9 +442,7 @@ def test_build_and_train_step_accept_the_moe_family():
                            adamw.AdamWConfig())
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("zamba2-2.7b", "7b"), ("llama-3.2-vision-11b", "item 8"),
-    ("musicgen-medium", "item 8")])
+@pytest.mark.parametrize("arch,item", [("zamba2-2.7b", "7b")])
 def test_build_still_refuses_the_other_families(arch, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         tmodel.build(_port_cfg(jreg.get(arch).reduced()), "cpu")

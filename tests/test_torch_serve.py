@@ -30,13 +30,21 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def _engines(arch, **kw):
+    """Both engines on one float32 parameter tree; a VLM's cross gates are
+    set to nonzero values first (at init they are 0 and a cross block adds
+    nothing)."""
     jcfg = dataclasses.replace(jreg.get(arch).reduced(), dtype="float32")
     tcfg = dataclasses.replace(treg.get(arch).reduced(), dtype="float32")
     jm = jmodel.build(jcfg)
-    jp = jm.init(jax.random.key(0))
+    np_tree = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                           jm.init(jax.random.key(0)))
+    if "cross_blocks" in np_tree:
+        np_tree["cross_blocks"]["gate"] = np.linspace(
+            0.5, -0.5, tcfg.n_layers // tcfg.cross_attn_every,
+            dtype=np.float32)
+    jp = jax.tree.map(jax.numpy.asarray, np_tree)
     tm = tmodel.build(tcfg, "cpu")
-    tp = convert.params_from_numpy(
-        jax.tree.map(lambda a: np.asarray(a, np.float32), jp), tcfg, "cpu")
+    tp = convert.params_from_numpy(np_tree, tcfg, "cpu")
     return (tcfg, JEngine(jm, jp, JServeConfig(max_batch=4, max_len=96, **kw)),
             Engine(tm, tp, ServeConfig(max_batch=4, max_len=96, **kw)))
 
@@ -47,13 +55,25 @@ def _prompts(cfg, seed=0):
             for n in (3, 7, 5, 9)]
 
 
+def _media(cfg, seed=0):
+    """Random media for the VLM and audio archs (the same array to both
+    engines), None for the others."""
+    if not cfg.n_media_tokens:
+        return None
+    rng = np.random.default_rng(seed + 50)
+    return rng.normal(size=(4, cfg.n_media_tokens, cfg.media_embed_dim)
+                      ).astype(np.float32)
+
+
 @pytest.mark.parametrize("arch", ["granite-3-2b", "glm4-9b",
-                                  "falcon-mamba-7b", "qwen2-moe-a2.7b"])
+                                  "falcon-mamba-7b", "qwen2-moe-a2.7b",
+                                  "llama-3.2-vision-11b", "musicgen-medium"])
 def test_greedy_matches_jax_engine(arch):
     cfg, jeng, teng = _engines(arch)
     prompts = _prompts(cfg)
-    want = jeng.generate(prompts, max_new=8)
-    got = teng.generate(prompts, max_new=8)
+    media = _media(cfg)
+    want = jeng.generate(prompts, max_new=8, media=media)
+    got = teng.generate(prompts, max_new=8, media=media)
     assert got == want
     # as in the reference, the step after the last kept token still decodes
     assert teng.timing["decode_steps"] == 8
@@ -109,9 +129,29 @@ def test_launcher_smoke_on_cpu_serves_falcon_mamba():
     assert all(0 <= t < 256 for o in outs for t in o)
 
 
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "musicgen-medium"])
+def test_engine_default_media_is_zeros(arch):
+    """Without media the engine gives both the reference's float32 zeros."""
+    cfg, jeng, teng = _engines(arch)
+    prompts = _prompts(cfg, seed=5)
+    zeros = np.zeros((4, cfg.n_media_tokens, cfg.media_embed_dim),
+                     np.float32)
+    got = teng.generate(prompts, max_new=4)
+    assert got == teng.generate(prompts, max_new=4, media=zeros)
+    assert got == jeng.generate(prompts, max_new=4)
+
+
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b",
                                   "llama4-maverick-400b-a17b"])
 def test_launcher_smoke_on_cpu_serves_moe(arch):
+    outs = tlaunch.main(["--arch", arch, "--smoke", "--device", "cpu",
+                         "--max-new", "4"])
+    assert len(outs) == 4
+    assert all(0 <= t < 256 for o in outs for t in o)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "musicgen-medium"])
+def test_launcher_smoke_on_cpu_serves_multimodal(arch):
     outs = tlaunch.main(["--arch", arch, "--smoke", "--device", "cpu",
                          "--max-new", "4"])
     assert len(outs) == 4

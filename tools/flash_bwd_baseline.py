@@ -5,9 +5,11 @@
 
 Builds ``src/repro_torch/kernels/csrc/flash_attention_bwd.cu`` (through
 ``repro_torch.kernels._build``, as the port does) and each ``--baseline``,
-an older source with the same C interface ``fa_bwd`` (e.g. ``git show
+an older source of ``fa_bwd`` (e.g. ``git show
 <commit>:src/repro_torch/kernels/csrc/flash_attention_bwd.cu``, written
-into the git-ignored ``build/``; a baseline is named by its directory), one
+into the git-ignored ``build/``; a baseline is named by its directory; a
+source whose ``fa_bwd`` takes one ``T``, causal only, is called through
+that interface), one
 ``nvcc`` each, started together, and prints each library's ptxas lines
 (registers, spills, serialized wgmma).  Each library is held against
 ``ref.flash_attention_bwd_ref`` under ``chip_smoke.BWD_TOL`` on
@@ -62,41 +64,54 @@ def build_baseline(src: pathlib.Path, out_dir: pathlib.Path):
     if proc.returncode != 0:
         raise RuntimeError(f"{src}: nvcc failed\n{proc.stderr[-3000:]}")
     lib = ctypes.CDLL(str(out))
+    # fa_bwd(..., B, H, KV, Tq, Tk, D, causal, window, ...) since the
+    # non-causal form; fa_bwd(..., B, H, KV, T, D, window, ...) before it
+    lib.two_lengths = "int Tk" in src.read_text()
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fa_bwd.argtypes = [p] * 10 + [i] * 7 + [ctypes.c_float] * 2 + [p]
+    lib.fa_bwd.argtypes = ([p] * 10 + [i] * (9 if lib.two_lengths else 7)
+                           + [ctypes.c_float] * 2 + [p])
     lib.fa_bwd.restype = i
     return lib, _ptxas(proc.stdout + proc.stderr)
 
 
-def baseline_call(lib, q, k, v, o, lse, do, window=0, softcap=0.0):
+def baseline_call(lib, q, k, v, o, lse, do, window=0, softcap=0.0,
+                  causal=True):
     """The baseline's ``fa_bwd`` with the wrapper's outputs and scratch."""
     B, T, H, D = q.shape
     K = k.shape[2]
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    if lib.two_lengths:
+        shape = (B, H, K, T, k.shape[1], D, int(causal), int(window))
+    elif causal and k.shape[1] == T:
+        shape = (B, H, K, T, D, int(window))
+    else:
+        raise ValueError("this baseline takes causal Tq == Tk only")
     err = lib.fa_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                      lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
                      dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-                     fa._DTYPES[q.dtype], B, H, K, T, D, int(window),
-                     float(softcap), float(D ** -0.5),
+                     fa._DTYPES[q.dtype], *shape, float(softcap),
+                     float(D ** -0.5),
                      torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"baseline launch failed: cudaError {err}")
     return dq, dk, dv
 
 
-def _inputs(gen, B, T, H, K, D, dt):
+def _inputs(gen, B, T, H, K, D, dt, Tk=None):
+    Tk = T if Tk is None else Tk
     q, do = (chip_smoke._rand(gen, (B, T, H, D), dt) for _ in range(2))
-    k, v = (chip_smoke._rand(gen, (B, T, K, D), dt) for _ in range(2))
+    k, v = (chip_smoke._rand(gen, (B, Tk, K, D), dt) for _ in range(2))
     return q, k, v, do
 
 
 def hold(name, fn, case, gen, records) -> None:
-    """``fn`` against the plain version at ``case``; the worst error and
-    whether every output is within ``BWD_TOL``."""
-    B, T, H, K, D, dt, window, softcap = case
-    q, k, v, do = _inputs(gen, B, T, H, K, D, dt)
-    kw = dict(window=window, softcap=softcap)
+    """``fn`` against the plain version at ``case`` (a ``BWD_CASES``
+    tuple); the worst error and whether every output is within
+    ``BWD_TOL``."""
+    B, Tq, Tk, H, K, D, dt, window, softcap, causal = case
+    q, k, v, do = _inputs(gen, B, Tq, H, K, D, dt, Tk=Tk)
+    kw = dict(window=window, softcap=softcap, causal=causal)
     o, lse = fa.flash_attention_lse(q, k, v, **kw)
     got = fn(q, k, v, o, lse, do, **kw)
     want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
@@ -104,7 +119,8 @@ def hold(name, fn, case, gen, records) -> None:
     res = [chip_smoke._close(g, w, **chip_smoke.BWD_TOL[dt])
            for g, w in zip(got, want)]
     rec = records[name].setdefault("cases", [])
-    rec.append({"case": [B, T, H, K, D, str(dt)[6:], window, softcap],
+    rec.append({"case": [B, Tq, Tk, H, K, D, str(dt)[6:], window, softcap,
+                         causal],
                 "max_abs_err": max(e for e, _ in res),
                 "ok": all(ok for _, ok in res)})
 
@@ -163,7 +179,8 @@ def main(argv=None) -> None:
     gen = torch.Generator(device="cuda").manual_seed(4321)
     for case in chip_smoke.BWD_CASES:
         hold("current", fa.flash_attention_bwd, case, gen, records)
-    train = (*chip_smoke.TRAIN_ATTN[:5], torch.bfloat16, 0, 0.0)
+    B, T, H, K, D = chip_smoke.TRAIN_ATTN
+    train = (B, T, T, H, K, D, torch.bfloat16, 0, 0.0, True)
     for name in records:
         hold(name, caller(name), train, gen, records)
     q, k, v, do = _inputs(gen, *chip_smoke.TRAIN_ATTN, torch.bfloat16)
@@ -197,7 +214,7 @@ def main(argv=None) -> None:
             fb.append(chip_smoke.cuda_ms(lambda: torch.autograd.grad(
                 sdpa_fwd(), (qh, kh, vh), doh)))
             fo.append(chip_smoke.cuda_ms(sdpa_fwd))
-        flops, nbytes = chip_smoke._bwd_cost(B, T, H, K, D, 2)
+        flops, nbytes = chip_smoke._bwd_cost(B, T, T, H, K, D, 2)
         bound = max(flops / chip_smoke.PEAK_BF16_FLOPS,
                     nbytes / chip_smoke.PEAK_BYTES) * 1e3
         tag = f"B{B}_T{T}_H{H}_K{K}_D{D}_bf16_causal"
