@@ -11,23 +11,28 @@ Phases, each printing what it found; any failure raises and exits non-zero:
    tolerances, timed with CUDA events beside the plain version, a PyTorch
    library call computing the same function where there is one (flash and
    LUT: kernel and library timed in turns, three times each, median and
-   range printed), and the card's bound: flash attention (timed at glm4-9b's,
-   qwen2-moe-a2.7b's and musicgen-medium's prefill shapes, the last two
-   one query head a kv head, G = 1, and at the VLM's non-causal
+   range printed), and the card's bound: flash attention (head_dim 64, 80,
+   128 and 256; timed at glm4-9b's, qwen2-moe-a2.7b's, musicgen-medium's
+   and zamba2-2.7b's prefill shapes, the last three one query head a kv
+   head, G = 1, zamba2's at head_dim 80, and at the VLM's non-causal
    cross-attention over 1601 media tokens in prefill, Tq = 1100, and in a
    decode step, Tq = 1, from a CUDA graph), the flash backward (phase 7
    below, run here), the
-   selective scan's two entry points (``mamba_scan``, ``selective_scan``,
-   the latter timed as device time from a CUDA graph of its launches) and
-   the LUT matmul;
+   selective scan's three entry points (``mamba_scan``, ``selective_scan``
+   and the Mamba-2 form ``mamba2_scan``, the last two timed as device time
+   from a CUDA graph of their launches, ``mamba2_scan`` at zamba2-2.7b's
+   prefill and decode shapes and also held against ``selective_scan`` over
+   the same function) and the LUT matmul;
 4. moe-layer: ``moe.moe_block`` at qwen2-moe-a2.7b's layer width (N = 4400
    tokens, 60 experts, top-4, shared expert) in bf16 against a plain
    float32 loop over the experts with the same capacity rule, at the served
    capacity factor 1.25 and at 1.0, where experts overflow; equal routing
    and kept assignments, timed beside the loop;
 5. for each served model, glm4-9b (40 layers), falcon-mamba-7b (64 Mamba-1
-   layers), qwen2-moe-a2.7b (24 MoE layers), musicgen-medium (48 layers
-   after 64 conditioning frames) then llama-3.2-vision-11b (40 layers and
+   layers), zamba2-2.7b (54 Mamba-2 layers and 9 applications of its 2
+   shared attention blocks), qwen2-moe-a2.7b (24 MoE layers),
+   musicgen-medium (48 layers after 64 conditioning frames) then
+   llama-3.2-vision-11b (40 layers and
    8 gated cross blocks over 1601 media tokens, every gate set to
    ``VLM_GATE``), at full width and depth in bf16 with random weights from
    a seeded generator on the card, the previous model's weights freed
@@ -36,14 +41,17 @@ Phases, each printing what it found; any failure raises and exits non-zero:
       audio models with random N(0, 1) media) through ``Engine.generate``;
       launch counts are zeroed just before and read just after, and every
       kernel of the model's path must have run (flash once per layer in
-      prefill, and once per VLM cross block in prefill and in every decode
-      step; the selective scan once per layer in prefill and in every
-      decode step);
+      prefill, once per application of zamba2's shared blocks in prefill,
+      and once per VLM cross block in prefill and in every decode step;
+      the scan, ``selective_scan`` or ``mamba2_scan``, once per Mamba layer
+      in prefill and in every decode step); two calls at the same shapes
+      come first, so the served run reads a steady prefill, and their
+      prefills are printed beside it (``_first_prefills``);
    b. decode against forward: the teacher-forced forward logits at the
       generated positions against the logits decode produced (for the
-      Mamba model, whose state carries each step's bf16 rounding, the
-      served run is held at its prefill step and every step is held on
-      the same model in float32, teacher-forced).  For the MoE model the
+      Mamba and hybrid models, whose state carries each step's bf16
+      rounding, the served run is held at its prefill step and every step
+      is held on the same model in float32, teacher-forced).  For the MoE model the
       capacity rule makes the cached path (4 tokens a decode step, one
       slot an expert) and the forward different functions: it runs a
       second ``generate`` that must give identical tokens and
@@ -58,7 +66,8 @@ Phases, each printing what it found; any failure raises and exits non-zero:
    c. profile: one prefill and one decode step under ``torch.profiler``,
       device time split into GEMMs (``aten::mm``), batched products
       (``aten::bmm``: the experts' grouped FFN, and decode attention),
-      index ops (sort, top-k, gathers and scatters), flash and the rest;
+      index ops (sort, top-k, gathers and scatters), flash, the scans and
+      the rest;
       for the VLM also its cross blocks' device time (CUDA events);
 6. the entry points no model calls: ``ops.quantize_weights`` +
    ``ops.lut_matmul`` on falcon-mamba's layer-0 ``in_proj`` and
@@ -160,8 +169,12 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # abs, against the plain
 
 # the selective scan against its plain version (both f32 recurrences: fma
 # contraction and the order of the 16-term sum over n differ); elementwise
-# |got - want| <= atol + rtol * |want|, TestMambaScan's 1e-4
+# |got - want| <= atol + rtol * |want|, TestMambaScan's 1e-4; the Mamba-2
+# scan likewise
 SCAN_TOL = dict(rtol=1e-4, atol=1e-4)
+# FP32 instructions a second on the CUDA cores: 128 lanes an SM, 132 SMs,
+# 1.98 GHz boost (an FFMA is one instruction; PEAK_F32_FLOPS counts it as 2)
+PEAK_F32_INSTR = 128 * 132 * 1.98e9
 # the LUT matmul against dequantize + cuBLAS SGEMM (TF32 off): f32 sums of K
 # products in two orders; TestLutMatmul's f32 tolerance, with weights at the
 # models' init scale N(0, 1/K) so that y ~ N(0, 1) and the rounding of the
@@ -172,8 +185,8 @@ LUT_TOL = dict(rtol=1e-5, atol=1e-4)
 # rms; relative L2 above this is a wrong product, not quantization
 LUT_QUANT_REL_L2 = 0.15
 
-ARCHS = ("glm4-9b", "falcon-mamba-7b", "qwen2-moe-a2.7b", "musicgen-medium",
-         "llama-3.2-vision-11b")
+ARCHS = ("glm4-9b", "falcon-mamba-7b", "zamba2-2.7b", "qwen2-moe-a2.7b",
+         "musicgen-medium", "llama-3.2-vision-11b")
 # every VLM cross gate is set to this after init: the reference initialises
 # them to 0, where a cross block adds tanh(0) a = 0 and a wrong cross path
 # would show nothing
@@ -224,6 +237,12 @@ MOE_PREFILL_ATTN = (4, 1100, 16, 16, 128)
 # musicgen-medium's prefill (1100 prompt tokens after 64 conditioning
 # frames; 24 heads of 64 over 24 kv heads, G = 1): B, T, H, K, D
 MUSICGEN_PREFILL_ATTN = (4, 1164, 24, 24, 64)
+# zamba2-2.7b's shared attention in prefill (1100 prompt tokens, 32 heads
+# of 80 over 32 kv heads, G = 1; the bf16 kernel runs D = 80 on its
+# 128-wide tile): B, T, H, K, D
+ZAMBA2_PREFILL_ATTN = (4, 1100, 32, 32, 80)
+# zamba2-2.7b's Mamba-2 scan in prefill: B, T, H (80 heads), P, N
+ZAMBA2_SCAN = (4, 1100, 80, 64, 64)
 # llama-3.2-vision-11b's cross-attention in serving, B, Tq, Tk, H, K, D:
 # prefill (the 1100-token prompt) and a decode step, over 1601 media tokens
 VLM_CROSS_PREFILL_ATTN = (4, 1100, 1601, 32, 8, 128)
@@ -267,6 +286,7 @@ COUNTED = {"flash_attention": fa.flash_attention_gqa,
            "flash_attention_bwd": fa.flash_attention_bwd,
            "mamba_scan": ms.mamba_scan,
            "selective_scan": ms.selective_scan,
+           "mamba2_scan": ms.mamba2_scan,
            "lut_matmul": lm.lut_matmul}
 
 
@@ -394,7 +414,16 @@ def phase_flash(gen) -> dict:
         cases.append(dict(B=B, Tq=Tq, Tk=Tk, H=H, K=K, D=D,
                           dtype=torch.bfloat16, causal=False, window=0,
                           softcap=0.0))
-    for D in (64, 128, 256):
+    # zamba2's head_dim 80: T below, at and one past a 128-row tile, and
+    # the prefill's G = 1 with 32 heads
+    for dt in (torch.float32, torch.bfloat16):
+        for T in (100, 128, 129):
+            cases.append(dict(B=2, Tq=T, Tk=T, H=4, K=2, D=80, dtype=dt,
+                              causal=True, window=0, softcap=0.0))
+    cases.append(dict(B=4, Tq=1100, Tk=1100, H=32, K=32, D=80,
+                      dtype=torch.bfloat16, causal=True, window=0,
+                      softcap=0.0))
+    for D in (64, 80, 128, 256):
         for dt in (torch.float32, torch.bfloat16):
             cases.append(dict(B=2, Tq=300, Tk=300, H=4, K=2, D=D, dtype=dt,
                               causal=True, window=100, softcap=30.0))
@@ -437,6 +466,7 @@ def phase_flash(gen) -> dict:
     rec = _time_flash(gen, 4, max(PROMPT_LENS), 32, 2, 128)
     _time_flash(gen, *MOE_PREFILL_ATTN)
     _time_flash(gen, *MUSICGEN_PREFILL_ATTN)
+    _time_flash(gen, *ZAMBA2_PREFILL_ATTN)
     for shape, graph in ((VLM_CROSS_PREFILL_ATTN, False),
                          (VLM_CROSS_DECODE_ATTN, True)):
         B, Tq, Tk, H, K, D = shape
@@ -484,8 +514,10 @@ def _time_flash(gen, B, T, H, K, D, Tk=None, causal=True,
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     bound_ms = max(t_ops, t_bytes)
-    # the design multiplies P V twice (P as bf16 hi + lo): 1.5x the work
-    design_ms = max(1.5 * t_ops, t_bytes)
+    # the design multiplies P V twice (P as bf16 hi + lo): 1.5x the work;
+    # D = 80 runs on the 128-wide tile: 128 / 80 = 1.6x the products
+    tile_d = 128 if D == 80 else D
+    design_ms = max(1.5 * tile_d / D * t_ops, t_bytes)
     shape = (f"B{B}_T{T}_H{H}_K{K}_D{D}_bf16_causal" if causal else
              f"B{B}_Tq{T}_Tk{Tk}_H{H}_K{K}_D{D}_bf16_noncausal")
     log("kernel-time", name="flash_attention", shape=shape,
@@ -628,6 +660,116 @@ def phase_selective_scan(gen) -> dict:
             max_abs_err=f"{err:.3e}")
         if rec is None:                   # the prefill shape is the record
             rec = {"name": "selective_scan", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+                   "replaces": "src/repro/kernels/mamba_scan.py:43",
+                   "launches": None, "max_abs_err": err, "ms": ms_,
+                   "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "library_ms": None}
+    return rec
+
+
+def _mamba2_inputs(gen, B, T, H, P, N, dtype, offset=7):
+    """dt from a softplus as in the model (B, T, H), x (B, T, H, P) and b,
+    c (slices of one projection, ``offset`` columns in, as the model passes
+    them) in ``dtype``, A = -exp(N(0, 1)) < 0 a head, h0 random."""
+    dt = F.softplus(torch.randn((B, T, H), generator=gen, device="cuda") - 1)
+    x = torch.randn((B, T, H, P), generator=gen, device="cuda").to(dtype)
+    proj = torch.randn((B, T, offset + 2 * N), generator=gen,
+                       device="cuda").to(dtype)
+    A = -torch.exp(torch.randn((H,), generator=gen, device="cuda"))
+    h0 = torch.randn((B, H, P, N), generator=gen, device="cuda") * 0.5
+    return (dt, x, proj[..., offset:offset + N], proj[..., offset + N:], A,
+            h0)
+
+
+# chunk length of the chunked (SSD) form of the Mamba-2 scan
+SSD_CHUNK = 64
+
+
+def _mamba2_cost(B, T, H, P, N, itemsize):
+    """The function's least work and bytes, and the direct form's work.
+
+    With a scalar decay a head the scan is a chunked product on the tensor
+    cores (SSD, chunk Q): a chunk's C Bᵀ (Q x Q x N, shared by the heads),
+    each head's masked (C Bᵀ) X (Q x Q x P), its chunk state Bᵀ X and the
+    carried state's output C h (Q x N x P each), ~2·B·T·(Q·N + H·P·(Q +
+    2N)) flops at the TF32 rate (the state is f32).  The direct form the
+    kernel runs spends three FP32 instructions a state-step on the CUDA
+    cores (FMUL for u, FFMA for h, FFMA for y).  Bytes: dt, x, b, c, A, h0
+    read once and y, h_last written once."""
+    Q = min(SSD_CHUNK, T)
+    flops = 2 * B * T * (Q * N + H * P * (Q + 2 * N))
+    nbytes = (4 * B * T * H + itemsize * B * T * H * P + 2 * itemsize * B * T
+              * N + 4 * H + 2 * 4 * B * H * P * N + 4 * B * T * H * P)
+    return flops, nbytes, 3 * B * T * H * P * N
+
+
+def phase_mamba2_scan(gen) -> dict:
+    """``mamba2_scan``, the Mamba-2 form zamba2's ``mamba2_block`` calls,
+    against ``ref.mamba2_scan_ref`` (f32 and bf16 x/b/c; N 16, 64, 128;
+    T 1, 7, 65, 1100; A < 0, h0 nonzero), and against ``selective_scan``
+    over the same function with dt and x spread over (head, row) channels
+    and A over the rows (a check only: the model never calls it so); timed
+    at zamba2's serving prefill (B=4, T=1100, H=80, P=64, N=64, bf16 x/b/c)
+    and a decode step (T=1) as device time from a CUDA graph."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for N in (16, 64, 128):
+            for T in (1, 7, 65, 1100):
+                args = _mamba2_inputs(gen, 2, T, 3, 64, N, dtype)
+                y, h = ms.mamba2_scan(*args)
+                wy, wh = ref.mamba2_scan_ref(*args)
+                case = (2, T, 3, 64, N, str(dtype)[6:])
+                _held("mamba2_scan", case + ("y",), y, wy, SCAN_TOL)
+                _held("mamba2_scan", case + ("h_last",), h, wh, SCAN_TOL)
+    dt, x, b, c, A, h0 = _mamba2_inputs(gen, 2, 70, 3, 64, 16,
+                                        torch.bfloat16)
+    B, T, H, P = x.shape
+    y, h = ms.mamba2_scan(dt, x, b, c, A, h0)
+    y1, h1 = ms.selective_scan(
+        dt[..., None].expand(B, T, H, P).reshape(B, T, H * P),
+        x.reshape(B, T, H * P), b, c,
+        A[:, None, None].expand(H, P, 16).reshape(H * P, 16).contiguous(),
+        h0.reshape(B, H * P, 16))
+    _held("mamba2_scan_vs_selective_scan", (B, T, H, P, 16, "y"),
+          y.reshape(B, T, H * P), y1, SCAN_TOL)
+    _held("mamba2_scan_vs_selective_scan", (B, T, H, P, 16, "h_last"),
+          h.reshape(B, H * P, 16), h1, SCAN_TOL)
+    rec = None
+    for T in (ZAMBA2_SCAN[1], 1):
+        B, _, H, P, N = ZAMBA2_SCAN
+        args = _mamba2_inputs(gen, B, T, H, P, N, torch.bfloat16, offset=0)
+        y, h = ms.mamba2_scan(*args)
+        wy, wh = ref.mamba2_scan_ref(*args)
+        case = (B, T, H, P, N, "bfloat16")
+        err = max(_held("mamba2_scan", case + ("y",), y, wy, SCAN_TOL),
+                  _held("mamba2_scan", case + ("h_last",), h, wh, SCAN_TOL))
+        plan = ms.kernel_mamba2_plan(*args, h)
+        # N = 64: 16 lanes a row group, 32 rows a block, 2 blocks a head
+        want = ms.Mamba2Plan(16, 32, T <= 8, True, (2, H, B))
+        if plan != want:
+            raise AssertionError(f"the kernel's plan {plan} is not {want}")
+        ms_ = graph_ms(lambda: ms.mamba2_scan(*args))
+        wrapper_ms = cuda_ms(lambda: ms.mamba2_scan(*args))
+        plain_ms = cuda_ms(lambda: ref.mamba2_scan_ref(*args), iters=2,
+                           warmup=1)
+        flops, nbytes, instr = _mamba2_cost(B, T, H, P, N, 2)
+        t_ops = flops / PEAK_TF32_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        # the direct form's own floor: its FP32 instructions on the cores
+        design_ms = max(instr / PEAK_F32_INSTR * 1e3, t_bytes)
+        log("kernel-time", name="mamba2_scan",
+            shape=f"B{B}_T{T}_H{H}_P{P}_N{N}_bf16",
+            timing="cuda_graph_device_time", ms=f"{ms_:.4f}",
+            wrapper_ms=f"{wrapper_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            library_ms="none", plan=",".join(map(str, plan.as_ints())),
+            bound_ms=f"{max(t_ops, t_bytes):.4f}",
+            ops_bound_ms=f"{t_ops:.4f}", bytes_bound_ms=f"{t_bytes:.4f}",
+            design_bound_ms=f"{design_ms:.4f}", gflop=f"{flops / 1e9:.3f}",
+            ginstr=f"{instr / 1e9:.3f}", mbytes=f"{nbytes / 1e6:.2f}",
+            max_abs_err=f"{err:.3e}")
+        if rec is None:                   # the prefill shape is the record
+            rec = {"name": "mamba2_scan", "route": "cuda",
                    "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
                    "replaces": "src/repro/kernels/mamba_scan.py:43",
                    "launches": None, "max_abs_err": err, "ms": ms_,
@@ -791,11 +933,16 @@ def _expected_counts(cfg, decode_steps: int) -> dict[str, int]:
     """Launches of the model's serving path: flash once per layer in
     prefill (decode self-attention is plain PyTorch), and for the VLM once
     per cross block in prefill and in every decode step (over the cached
-    media K/V); the selective scan once per layer in prefill and in every
-    decode step."""
+    media K/V); the scan (``selective_scan`` for Mamba-1, ``mamba2_scan``
+    for Mamba-2) once per Mamba layer in prefill and in every decode step;
+    the hybrid's flash once per application of a shared block in
+    prefill."""
     want = dict.fromkeys(COUNTED, 0)
-    if cfg.family == "ssm":
-        want["selective_scan"] = cfg.n_layers * (1 + decode_steps)
+    if cfg.family in ("ssm", "hybrid"):
+        scan = "selective_scan" if cfg.mamba_version == 1 else "mamba2_scan"
+        want[scan] = cfg.n_layers * (1 + decode_steps)
+        if cfg.family == "hybrid":
+            want["flash_attention"] = cfg.n_layers // cfg.attn_every
     else:
         want["flash_attention"] = cfg.n_layers
     if cfg.family == "vlm":
@@ -822,6 +969,49 @@ def _random_media(cfg, gen, batch=4):
                        generator=gen, device="cuda")
 
 
+def _first_prefills(engine, prompts, media) -> dict[str, str]:
+    """Two calls at the served shapes before the served run, so that it
+    reads the steady prefill: the first after the short warm-up (new
+    allocator segments and each kernel's first launch at these shapes),
+    then one after ``empty_cache`` (the segments again, every kernel
+    already loaded).  For each: its prefill's host-clock time, and over
+    the whole call (prefill and 2 decode steps) the host-clock time, the
+    process's CPU time (well below the host clock: the process waited off
+    the CPU), the time in Python's garbage collector and the device
+    allocations (``cudaMalloc`` calls)."""
+    gc_s = [0.0, 0.0]
+
+    def gc_timer(phase, info):
+        if phase == "start":
+            gc_s[1] = time.perf_counter()
+        else:
+            gc_s[0] += time.perf_counter() - gc_s[1]
+
+    out = {}
+    gc.callbacks.append(gc_timer)
+    try:
+        for name in ("first", "regrow"):
+            if name == "regrow":
+                torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            n0 = torch.cuda.memory_stats().get("num_device_alloc", 0)
+            gc_s[0] = 0.0
+            t0, c0 = time.perf_counter(), time.process_time()
+            engine.generate(prompts, max_new=2, media=media)
+            torch.cuda.synchronize()
+            wall, cpu = time.perf_counter() - t0, time.process_time() - c0
+            n1 = torch.cuda.memory_stats().get("num_device_alloc", 0)
+            out[f"{name}_prefill_ms"] = (
+                f"{engine.timing['prefill_s'] * 1e3:.2f}")
+            out[f"{name}_call_ms"] = f"{wall * 1e3:.2f}"
+            out[f"{name}_call_cpu_ms"] = f"{cpu * 1e3:.2f}"
+            out[f"{name}_call_gc_ms"] = f"{gc_s[0] * 1e3:.2f}"
+            out[f"{name}_device_allocs"] = str(n1 - n0)
+    finally:
+        gc.callbacks.remove(gc_timer)
+    return out
+
+
 def phase_serve(arch, gen) -> tuple:
     cfg = registry.get(arch)
     model = model_lib.build(cfg, "cuda")
@@ -839,6 +1029,7 @@ def phase_serve(arch, gen) -> tuple:
     engine.generate([[5, 6, 7]] * 4, max_new=2)          # warm-up
     prompts = _prompts(gen, cfg.vocab_size)
     media = _random_media(cfg, gen)
+    first = _first_prefills(engine, prompts, media)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -855,7 +1046,7 @@ def phase_serve(arch, gen) -> tuple:
         decode_tok_s=f"{4 * tm['decode_steps'] / tm['decode_s']:.1f}",
         e2e_tok_s=f"{n_new / (tm['prefill_s'] + tm['decode_s']):.1f}",
         peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
-        launches=repr(counts).replace(" ", ""))
+        launches=repr(counts).replace(" ", ""), **first)
     if not all(len(g) == MAX_NEW for g in new):
         raise AssertionError(f"generated lengths {[len(g) for g in new]}")
     if not all(0 <= t < cfg.vocab_size for g in new for t in g):
@@ -936,11 +1127,13 @@ def _rounding_sensitivity(model, params, prompts, media=None) -> float:
         batch["media"] = media
 
     def last_logits(x):
+        T = x.shape[1]                       # audio: the frames and tokens
+        pos = torch.arange(T, device="cuda")[None].expand(len(x), T)
         if cfg.family == "ssm":
             h = model._run_ssm(params, x)
+        elif cfg.family == "hybrid":
+            h = model._run_hybrid(params, x, pos)
         else:
-            T = x.shape[1]                   # audio: the frames and tokens
-            pos = torch.arange(T, device="cuda")[None].expand(len(x), T)
             mtok = (model._media_tokens(params, media, x.dtype)
                     if cfg.family == "vlm" else None)
             h = model._run_decoder(params, x, pos, mtok=mtok)
@@ -963,13 +1156,15 @@ def phase_decode_vs_forward(model, params, engine, prompts, outs,
                             media=None) -> None:
     """The served bf16 logits against the forward's (with the served
     media).  A dense, VLM or audio model is held at every step.  A Mamba
-    model carries each decode step's bf16 rounding in its state, so only its
-    prefill step (no carried state yet) is held here;
+    or hybrid model carries each decode step's bf16 rounding in its state,
+    so only its prefill step (no carried state yet) is held here; that
+    step runs the forward's kernels on the forward's values and reads 0,
+    so it holds only that prefill's last position is the forward's.
     ``phase_decode_vs_forward_f32`` holds every step of its cached path."""
     cfg = model.cfg
     rels, fracs, agree = _against_forward(model, params, prompts, outs,
                                           engine.step_logits, media)
-    held = len(rels) if cfg.family != "ssm" else 1
+    held = len(rels) if cfg.family not in ("ssm", "hybrid") else 1
     worst_rel, worst_frac = max(rels[:held]), max(fracs[:held])
     noise = _rounding_sensitivity(model, params, prompts, media)
     log("decode-vs-forward", arch=cfg.name, dtype=cfg.dtype, steps=MAX_NEW,
@@ -1187,13 +1382,16 @@ def phase_profile(model, params, prompts, media=None) -> None:
                 rec[1] += 1
         dev_us = sum(us for us, _ in kernels.values())
         flash_us = sum(us for n, (us, _) in kernels.items() if "fa_fwd" in n)
+        scan_us = sum(us for n, (us, _) in kernels.items()
+                      if "selective_" in n or "mamba2_" in n)
         log("profile", arch=model.cfg.name, step=name,
             wall_ms=f"{wall_us / 1e3:.2f}",
             device_ms=(f"{dev_us / 1e3:.2f}" if dev_us else "not_measured"),
             busy_share=(f"{dev_us / wall_us:.3f}" if dev_us else
                         "not_measured"),
             device_events=sum(n for _, n in kernels.values()),
-            flash_ms=f"{flash_us / 1e3:.2f}", **_op_split(prof), **cross)
+            flash_ms=f"{flash_us / 1e3:.2f}", scan_ms=f"{scan_us / 1e3:.2f}",
+            **_op_split(prof), **cross)
         for kname, (us, n) in sorted(kernels.items(),
                                      key=lambda kv: -kv[1][0])[:6]:
             print(f"    {us / 1e3:9.3f} ms  x{n:<5d} {kname[:90]}", flush=True)
@@ -1236,7 +1434,8 @@ def phase_entry_points(model, params, prompts, gen) -> dict[str, int]:
     _held("mamba_scan_vs_selective_scan", (B, T, D, N), y_tpu, y_fused,
           SCAN_TOL)
     want_counts = {"flash_attention": 0, "flash_attention_bwd": 0,
-                   "mamba_scan": 1, "selective_scan": 1, "lut_matmul": 1}
+                   "mamba_scan": 1, "selective_scan": 1, "mamba2_scan": 0,
+                   "lut_matmul": 1}
     if counts != want_counts:
         raise AssertionError(f"entry-point launches {counts} != "
                              f"{want_counts}")
@@ -1564,10 +1763,10 @@ def phase_train_grad_vs_plain(arch: str) -> None:
 
 def run_arch(arch, gen) -> tuple:
     """Serve, decode against forward and profile one model (and, for the
-    Mamba model, drive the entry points no model calls); its weights are
+    Mamba-1 model, drive the entry points no model calls); its weights are
     freed when this returns.  ``need_f32`` says whether the cached path is
-    still to be held in a float32 build: always for the Mamba model; for
-    the MoE model when bf16 misses the limits."""
+    still to be held in a float32 build: always for the Mamba and hybrid
+    models; for the MoE model when bf16 misses the limits."""
     model, params, engine, prompts, outs, counts, media = phase_serve(arch,
                                                                       gen)
     family = model.cfg.family
@@ -1578,7 +1777,7 @@ def run_arch(arch, gen) -> tuple:
                                             model.cfg.dtype)
     else:
         phase_decode_vs_forward(model, params, engine, prompts, outs, media)
-        need_f32 = family == "ssm"
+        need_f32 = family in ("ssm", "hybrid")
     phase_profile(model, params, prompts, media)
     entry = (phase_entry_points(model, params, prompts, gen)
              if family == "ssm" else None)
@@ -1592,7 +1791,7 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     records = [phase_flash(gen), phase_flash_backward(gen),
                phase_mamba_scan(gen), phase_selective_scan(gen),
-               phase_lut_matmul(gen)]
+               phase_mamba2_scan(gen), phase_lut_matmul(gen)]
     phase_moe_layer(gen)
     by_name = {r["name"]: r for r in records}
     for arch in ARCHS:

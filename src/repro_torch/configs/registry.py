@@ -1,10 +1,7 @@
 """Architecture registry: ``get("glm4-9b")`` -> ModelConfig.
 
-The port covers the dense, MoE, VLM and audio families and the Mamba-1
-member of the SSM family.  The one other arch of the reference registry
-(zamba2, the Mamba-2 hybrid) is known by name and raises
-``NotImplementedError`` naming the ROADMAP item (Queue 1 item 7b) that
-will add it.
+The port covers every arch of the reference registry: the dense, MoE, VLM,
+audio and SSM families and the Mamba-2 hybrid (zamba2).
 """
 
 from __future__ import annotations
@@ -23,21 +20,14 @@ _MODULES = {
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "llama-3.2-vision-11b": "llama_3_2_vision_11b",
     "musicgen-medium": "musicgen_medium",
-}
-
-_NOT_PORTED = {
-    "zamba2-2.7b": "ROADMAP Queue 1 item 7b (models/ssm.py, Mamba-2 hybrid)",
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 
 ARCHS = tuple(_MODULES)
-ALL_ARCHS = ARCHS + tuple(_NOT_PORTED)
 
 
 def get(name: str) -> ModelConfig:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet; see {_NOT_PORTED[name]}")
     if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; known: {ALL_ARCHS}")
+        raise KeyError(f"unknown arch {name!r}; known: {ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG

@@ -27,7 +27,9 @@
 // Layout: q (B, Tq, H, D), k/v (B, Tk, H/G, D), o (B, Tq, H, D); heads and
 // head_dim contiguous, batch and time strides given in elements (so a slice
 // of a longer KV cache is taken without a copy).  Inputs float32 or bfloat16,
-// D in {64, 128, 256}.  The bf16 path reads q, k, v through TMA tensor maps,
+// D in {64, 80, 128, 256}; bf16 runs D = 80 (zamba2) on the 128-wide tile
+// with columns 80..127 zero-filled by TMA, so its products cost 128/80 =
+// 1.6x the work of the function.  The bf16 path reads q, k, v through TMA tensor maps,
 // so the wrapper requires 16-byte aligned base pointers and batch and time
 // strides that are multiples of 8 elements (16 bytes).
 //
@@ -304,9 +306,14 @@ __device__ __forceinline__ float ex2(float x) {
   return r;
 }
 
-template <int D>
+// D: the tile's head dim (the wgmma widths); DT <= D: the tensors' head
+// dim.  Columns DT..D-1 of q, k and v land as zeros (the tensor maps end
+// at DT), so they add nothing to QK^T and give zero columns of O, which
+// the epilogue does not store.
+template <int D, int DT = D>
 __global__ void __launch_bounds__(FT, 1)
 fa_fwd_bf16_kernel(const __grid_constant__ Bf16Maps maps, const Params p) {
+  static_assert(DT <= D && DT % 8 == 0, "the stored head dim");
   using Cfg = Bf16Cfg<D>;
   constexpr int BK = Cfg::BK, S = Cfg::S, CH = Cfg::CH;
   extern __shared__ unsigned char smem_raw[];
@@ -597,7 +604,7 @@ fa_fwd_bf16_kernel(const __grid_constant__ Bf16Maps maps, const Params p) {
       gt += n;
 
       using bf16 = __nv_bfloat16;
-      bf16* O = static_cast<bf16*>(p.o) + it.b * p.o_sb + (long long)it.h * D;
+      bf16* O = static_cast<bf16*>(p.o) + it.b * p.o_sb + (long long)it.h * DT;
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
         float l = l_r[rr];
@@ -611,7 +618,7 @@ fa_fwd_bf16_kernel(const __grid_constant__ Bf16Maps maps, const Params p) {
           p.lse[it.b * p.lse_sb + it.h * p.lse_sh + row] =
               (m_r[rr] + log2f(l)) / LOG2E;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
+        for (int j = 0; j < DT / 8; ++j)
           *reinterpret_cast<__nv_bfloat162*>(O + row * p.o_st + j * 8 +
                                              2 * t) =
               __floats2bfloat162_rn(o[4 * j + 2 * rr] / l,
@@ -632,17 +639,18 @@ cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// q (B, Tq, H, D), k/v (B, Tk, KV, D) as 4-D tensor maps (D, heads, T, B);
-// boxes of 64 head-dim elements (128 bytes, swizzled) by one head by `rows`
-template <int D>
+// q (B, Tq, H, DT), k/v (B, Tk, KV, DT) as 4-D tensor maps (DT, heads, T,
+// B); boxes of 64 head-dim elements (128 bytes, swizzled) by one head by
+// `rows`, D / 64 of them a row: those past DT are zero-filled
+template <int D, int DT = D>
 cudaError_t launch_bf16(const Params& p, int B, int KV, cudaStream_t stream) {
   using Cfg = Bf16Cfg<D>;
   Bf16Maps maps;
-  const uint64_t row = D * sizeof(__nv_bfloat16);
+  const uint64_t row = DT * sizeof(__nv_bfloat16);
   const uint32_t q_box[4] = {64, 1, FQ, 1};
   const uint32_t kv_box[4] = {64, 1, (uint32_t)Cfg::BK, 1};
-  const uint64_t q_dims[4] = {D, (uint64_t)p.H, (uint64_t)p.Tq, (uint64_t)B};
-  const uint64_t kv_dims[4] = {D, (uint64_t)KV, (uint64_t)p.Tk, (uint64_t)B};
+  const uint64_t q_dims[4] = {DT, (uint64_t)p.H, (uint64_t)p.Tq, (uint64_t)B};
+  const uint64_t kv_dims[4] = {DT, (uint64_t)KV, (uint64_t)p.Tk, (uint64_t)B};
   const uint64_t q_str[3] = {row, 2ull * p.q_st, 2ull * p.q_sb};
   const uint64_t k_str[3] = {row, 2ull * p.k_st, 2ull * p.k_sb};
   const uint64_t v_str[3] = {row, 2ull * p.v_st, 2ull * p.v_sb};
@@ -653,7 +661,7 @@ cudaError_t launch_bf16(const Params& p, int B, int KV, cudaStream_t stream) {
       !hopper_host::make_map(&maps.v, bf, 4, p.v, kv_dims, v_str, kv_box, sw))
     return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      fa_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_fwd_bf16_kernel<D, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)Cfg::SMEM);
   if (e != cudaSuccess) return e;
   static int sms = 0;                       // SMs of the card: one block each
@@ -665,7 +673,8 @@ cudaError_t launch_bf16(const Params& p, int B, int KV, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
   }
   const int items = B * p.H * ((p.Tq + FQ - 1) / FQ);
-  fa_fwd_bf16_kernel<D><<<items < sms ? items : sms, FT, Cfg::SMEM, stream>>>(
+  fa_fwd_bf16_kernel<D, DT><<<items < sms ? items : sms, FT, Cfg::SMEM,
+                              stream>>>(
       maps, p);
   return cudaGetLastError();
 }
@@ -675,12 +684,15 @@ cudaError_t dispatch(const Params& p, int dtype, int B, int KV, int D,
   if (dtype == 0) {
     switch (D) {
       case 64: return launch_f32<64>(p, B, s);
+      case 80: return launch_f32<80>(p, B, s);
       case 128: return launch_f32<128>(p, B, s);
       case 256: return launch_f32<256>(p, B, s);
     }
   } else if (dtype == 1) {
     switch (D) {
       case 64: return launch_bf16<64>(p, B, KV, s);
+      // zamba2's head dim, on the 128-wide tile (1.6x its products)
+      case 80: return launch_bf16<128, 80>(p, B, KV, s);
       case 128: return launch_bf16<128>(p, B, KV, s);
       case 256: return launch_bf16<256>(p, B, KV, s);
     }

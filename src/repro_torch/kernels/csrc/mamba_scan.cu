@@ -1,10 +1,10 @@
-// Selective scan (the Mamba-1 recurrence) for NVIDIA Hopper (sm_90a), CUDA
-// C++ with a plain C interface (loaded through ctypes by kernels/mamba_scan.py).
+// Selective scans (the Mamba-1 and Mamba-2 recurrences) for NVIDIA Hopper
+// (sm_90a), CUDA C++ with a plain C interface (loaded through ctypes by kernels/mamba_scan.py).
 //
 // Replaces repro/kernels/mamba_scan.py::mamba_scan, the Pallas TPU kernel:
 //   h_t = decay_t * h_{t-1} + u_t,  y_t = sum_n h_t[:, n] * c_t[n],  h_{-1} = 0
 // over decay, u (B, T, D, N), c (B, T, N), all float32, y (B, T, D) float32.
-// Two C entry points share one recurrence core (recur below):
+// Three C entry points (and two that report a call's plan):
 //   * mamba_scan_fwd: the TPU kernel's contract, any T (no time block bt);
 //   * selective_scan_fwd: the fused Mamba-1 form the model calls, as
 //     repro/models/ssm.py::mamba1_block's make_chunk/emit_chunk compute it:
@@ -12,7 +12,13 @@
 //     from h0, returning y and the last state.  It reads dt (B, T, D) f32,
 //     x (B, T, D) and b, c (B, T, N) in f32 or bf16, A (D, N) f32 and
 //     h0 (B, D, N) f32, and writes y (B, T, D) f32 and h_last (B, D, N) f32;
-//     the (B, T, D, N) decay and u are never stored.
+//     the (B, T, D, N) decay and u are never stored.  It and mamba_scan_fwd
+//     share one recurrence core (recur below);
+//   * mamba2_scan_fwd: the Mamba-2 form, as repro/models/ssm.py::mamba2_block
+//     computes it: a scalar decay exp(dt * A_h) a head, u = (dt * x) * b over
+//     a head's (P, N) state, b and c shared by all heads, from h0, returning
+//     y (B, T, H, P) and h_last (B, H, P, N).  Its design is at its code
+//     below ("mamba2_scan").
 //
 // Differences from the TPU kernel, none of which change the result beyond
 // float32 rounding order: the TPU walks time blocks of bt steps on a
@@ -563,6 +569,355 @@ bool sel_args(SelArgs* a, const float* dt, const void* x, const void* b,
   return true;
 }
 
+// ---- mamba2_scan: the Mamba-2 form ------------------------------------------
+// decay_t = exp(dt_t * A_h) is one scalar a (b, t, h); u_t = (dt_t * x_t) * b_t
+// fills a head's (P, N) state; b_t and c_t are shared by every head of a
+// batch row.  A lane holds a 4 x 4 tile of a head's state: rows
+// r0 .. r0+3 and states n0 .. n0+3, so the 4 values of b_t and of c_t it
+// reads a step serve 16 state-steps.  NL = max(4, next_pow2(N / 4)) lanes
+// (a "row group") cover N for the same 4 rows, and a block of M2_NT threads
+// holds R = 4 * M2_NT / NL rows of one head of one batch row: zamba2's head
+// (P = 64, N = 64: NL = 16, R = 32) takes two blocks, its serving prefill
+// (B = 4, H = 80) 640.  Steps past T and rows past P run with zeros
+// (dt = 0: decay 1, u 0).
+//
+// What bounds it: at zamba2's serving prefill (B = 4, T = 1100, H = 80,
+// P = N = 64) a state-step is three FP32 instructions (FMUL for u, FFMA for
+// h, FFMA for y), 4.3 G in all, ~0.13 ms on the CUDA cores, against ~148 MB
+// (x bf16, y f32, h0 and h_last), ~0.044 ms: it is bound by operations.  The
+// design spends those three and little else on a state-step:
+//   * one exponential a (b, t, h) and row block, not a state: log2(e) is
+//     folded into A and the decay of a step is ex2'd once when its dt is
+//     staged (zamba2: 2 row blocks a head, 0.7 M ex2 a prefill, where
+//     selective_scan_fwd over broadcast inputs would take 1.44 G);
+//   * b_t and c_t are loaded once a stage and block for all its rows and
+//     read from shared memory, one 16-byte vector each a lane and step
+//     (the lanes of a row group read consecutive vectors: no bank
+//     conflict).  Shared-memory traffic, not arithmetic, bounded the first
+//     design, one row and 16 states a lane: 8 vector loads a step, half of
+//     them in conflict, 0.89-1.29 ms at this shape (a diagnostic sweep);
+//   * a row's y is summed over the row group by a reduce-scatter: two
+//     shuffles halve the four rows' partial sums to one row a lane, then
+//     log2(NL) - 2 butterfly shuffles finish it (5 shuffles a step for four
+//     rows at NL = 16); every lane then writes its row's y to a shared
+//     tile (the lanes of a row the same value, so no branch sits in the
+//     step), which the block stores coalesced once a stage;
+//   * at NL = 16 (N = 64, zamba2's) the staged kernel is held to 96
+//     registers, 5 blocks an SM, so zamba2's 640 blocks run as one wave
+//     on 132 SMs: at ptxas's own choice (168 registers, 3 blocks) or at 4
+//     blocks (128) they ran as two and took 0.79-0.81 ms against 0.49 (a
+//     diagnostic sweep; 6 or 7 blocks spill more and gain nothing).
+//     ptxas spills 12 bytes there.  The other row-group widths, which no
+//     served model runs, spilled 52-212 bytes under that cap and keep
+//     ptxas's choice.
+// The tensor cores are not used: the chunked (SSD) form that would put the
+// work on them is a later redesign.
+
+constexpr int M2_NT = 128;      // threads a block
+constexpr int M2_TS = 16;       // steps a stage
+constexpr int M2_DIRECT_T = 8;  // the longest T run without the stages
+
+struct M2Args {
+  const float* dt;
+  const void* x;
+  const void* b;
+  const void* c;
+  const float* A;
+  const float* h0;
+  float* y;
+  float* h_last;
+  int B, T, H, P, N;
+  long long dt_sb, dt_st, x_sb, x_st, x_sh, b_sb, b_st, c_sb, c_st;
+  int vec;                      // from the plan
+};
+
+// How a call runs: NL lanes a row group (4 rows x 4 states a lane), R
+// rows a block, the direct path or the stages, 16-byte vectors for h0 and
+// h_last, and the grid (row blocks, heads, batch rows).
+struct M2Plan {
+  int NL, R, direct, vec;
+  unsigned gx, gy, gz;
+};
+
+M2Plan plan_mamba2(const M2Args& a) {
+  M2Plan pl{};
+  pl.NL = lanes_for(a.N, 4);
+  if (pl.NL < 4) pl.NL = 4;
+  pl.R = 4 * M2_NT / pl.NL;
+  pl.direct = a.T <= M2_DIRECT_T;
+  pl.vec = a.N % 4 == 0 && ((uintptr_t)a.h0 | (uintptr_t)a.h_last) % 16 == 0;
+  pl.gx = (unsigned)((a.P + pl.R - 1) / pl.R);
+  pl.gy = (unsigned)a.H;
+  pl.gz = (unsigned)a.B;
+  return pl;
+}
+
+// Where a thread sits: lane g of its row group (states 4g .. 4g+3), the
+// group's first row r0 in the block, and the row (r0 + 2 up + up2) whose
+// y it ends a step with.
+template <int NL>
+struct M2Lane {
+  int g, r0, mine;
+  __device__ explicit M2Lane(int tid) {
+    const int lane = tid % 32;
+    g = lane % NL;
+    r0 = 4 * ((tid / 32) * (32 / NL) + lane / NL);
+    mine = r0 + 2 * ((g & (NL / 2)) != 0) + ((g & (NL / 4)) != 0);
+  }
+};
+
+// One step of a lane: h = decay * h + dx_r * b over its 4 rows and 4
+// states, then the y of the lane's row (``M2Lane::mine``), summed over
+// the row group: every lane of a row ends with it.
+template <int NL>
+__device__ __forceinline__ float m2_step(float (&h)[4][4], float decay,
+                                         const float (&dx)[4], float4 b,
+                                         float4 c, int g) {
+  static_assert(NL >= 4 && NL <= 32, "a row group is 4 to 32 lanes");
+  float part[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    h[i][0] = fmaf(decay, h[i][0], dx[i] * b.x);
+    h[i][1] = fmaf(decay, h[i][1], dx[i] * b.y);
+    h[i][2] = fmaf(decay, h[i][2], dx[i] * b.z);
+    h[i][3] = fmaf(decay, h[i][3], dx[i] * b.w);
+    part[i] = fmaf(h[i][3], c.w, fmaf(h[i][2], c.z,
+                   fmaf(h[i][1], c.y, h[i][0] * c.x)));
+  }
+  // rows {0, 1} stay with the lower half of the group, {2, 3} go up; then
+  // one row of the pair stays with each quarter
+  const bool up = (g & (NL / 2)) != 0, up2 = (g & (NL / 4)) != 0;
+  float k0 = up ? part[2] : part[0], k1 = up ? part[3] : part[1];
+  k0 += __shfl_xor_sync(FULL, up ? part[0] : part[2], NL / 2);
+  k1 += __shfl_xor_sync(FULL, up ? part[1] : part[3], NL / 2);
+  float yv = up2 ? k1 : k0;
+  yv += __shfl_xor_sync(FULL, up2 ? k0 : k1, NL / 4);
+#pragma unroll
+  for (int off = NL / 8; off > 0; off >>= 1)
+    yv += __shfl_xor_sync(FULL, yv, off);
+  return yv;
+}
+
+// The lane's 4 rows' h0 (or h_last) states n0 .. n0+3.
+__device__ __forceinline__ void m2_load_h(float (&h)[4][4], const M2Args& a,
+                                          int bb, int hh, int p, int n0) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool live = p + i < a.P;
+    const long long off =
+        (((long long)bb * a.H + hh) * a.P + (live ? p + i : 0)) * a.N + n0;
+    load_states<4>(h[i], a.h0 + off, n0, a.N, live, a.vec);
+  }
+}
+
+__device__ __forceinline__ void m2_store_h(const float (&h)[4][4],
+                                           const M2Args& a, int bb, int hh,
+                                           int p, int n0) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool live = p + i < a.P;
+    const long long off =
+        (((long long)bb * a.H + hh) * a.P + (live ? p + i : 0)) * a.N + n0;
+    store_states<4>(h[i], a.h_last + off, n0, a.N, live, a.vec);
+  }
+}
+
+// ---- staged path ------------------------------------------------------------
+// Every M2_TS steps the block's threads load the next stage's inputs into
+// registers (dt; x of the block's R rows; b, c widened to f32 and padded to
+// NP = 4 NL with zeros) while they run the current stage from shared
+// memory, then store them into the other of two buffers; one barrier a
+// stage.  The thread that stages a step's dt also stages its decay.  After
+// the barrier the block writes the stage's y tile out, coalesced.
+
+template <int NL>
+struct M2Stage {
+  static constexpr int R = 4 * M2_NT / NL;
+  static constexpr int NP = 4 * NL;
+  // floats: (decay, dt)[TS], x[TS][R], y[TS][R], b[TS][NP], c[TS][NP]
+  static constexpr int DD = 0, X = 2 * M2_TS, Y = X + M2_TS * R,
+                       BV = Y + M2_TS * R, CV = BV + M2_TS * NP,
+                       SIZE = CV + M2_TS * NP;
+  static constexpr int MIN_BLOCKS = NL == 16 ? 5 : 1;  // blocks an SM
+  static constexpr int XE = M2_TS * R / M2_NT;   // x (and y) a thread
+  static constexpr int BE = M2_TS * NP / M2_NT;  // b (and c) a thread
+  static_assert(M2_TS * R % M2_NT == 0 && M2_TS * NP % M2_NT == 0,
+                "a stage is whole loads of the block");
+  static_assert(X % 4 == 0 && R % 4 == 0 && BV % 4 == 0 && CV % 4 == 0 &&
+                    SIZE % 4 == 0,
+                "x, b and c are read as 16-byte vectors");
+};
+
+template <typename TX, int NL>
+__global__ void __launch_bounds__(M2_NT, M2Stage<NL>::MIN_BLOCKS)
+mamba2_staged_kernel(const M2Args a) {
+  using St = M2Stage<NL>;
+  constexpr int R = St::R, NP = St::NP;
+  __shared__ __align__(16) float sm[2][St::SIZE];
+  const int tid = threadIdx.x;
+  const M2Lane<NL> ln(tid);
+  const int n0 = 4 * ln.g;
+  const int hh = blockIdx.y, bb = blockIdx.z, p0 = blockIdx.x * R;
+  const int T = a.T, N = a.N, P = a.P;
+  const float A2 = __ldg(a.A + hh) * LOG2E;
+  const float* dtg = a.dt + bb * a.dt_sb + hh;
+  const TX* xg = static_cast<const TX*>(a.x) + bb * a.x_sb +
+                 (long long)hh * a.x_sh + p0;
+  const TX* bg = static_cast<const TX*>(a.b) + bb * a.b_sb;
+  const TX* cg = static_cast<const TX*>(a.c) + bb * a.c_sb;
+  float* yg = a.y + ((long long)bb * T * a.H + hh) * P + p0;
+
+  float dt_r = 0.f, x_r[St::XE], b_r[St::BE], c_r[St::BE];
+  auto fetch = [&](int t0) {            // the stage from t0 into registers
+    dt_r = tid < M2_TS && t0 + tid < T ? __ldg(dtg + (t0 + tid) * a.dt_st)
+                                       : 0.f;
+#pragma unroll
+    for (int i = 0; i < St::XE; ++i) {
+      const int e = tid + i * M2_NT, s = e / R, rr = e % R;
+      x_r[i] = t0 + s < T && p0 + rr < P ? load(xg + (t0 + s) * a.x_st + rr)
+                                         : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < St::BE; ++i) {
+      const int e = tid + i * M2_NT, s = e / NP, n = e % NP;
+      const bool ok = t0 + s < T && n < N;
+      b_r[i] = ok ? load(bg + (t0 + s) * a.b_st + n) : 0.f;
+      c_r[i] = ok ? load(cg + (t0 + s) * a.c_st + n) : 0.f;
+    }
+  };
+  auto put = [&](float* st) {           // the registers into a buffer
+    if (tid < M2_TS)
+      *reinterpret_cast<float2*>(st + St::DD + 2 * tid) =
+          make_float2(hopper::ex2(dt_r * A2), dt_r);
+#pragma unroll
+    for (int i = 0; i < St::XE; ++i) st[St::X + tid + i * M2_NT] = x_r[i];
+#pragma unroll
+    for (int i = 0; i < St::BE; ++i) {
+      st[St::BV + tid + i * M2_NT] = b_r[i];
+      st[St::CV + tid + i * M2_NT] = c_r[i];
+    }
+  };
+
+  float h[4][4];
+  m2_load_h(h, a, bb, hh, p0 + ln.r0, n0);
+
+  const int stages = (T + M2_TS - 1) / M2_TS;
+  fetch(0);
+  put(sm[0]);
+  __syncthreads();
+  for (int k = 0; k < stages; ++k) {
+    const int t0 = k * M2_TS, left = T - t0;
+    float* st = sm[k & 1];
+    if (k + 1 < stages) fetch(t0 + M2_TS);
+    auto step = [&](int s) {
+      const float2 dd = *reinterpret_cast<const float2*>(st + St::DD + 2 * s);
+      const float4 xv =
+          *reinterpret_cast<const float4*>(st + St::X + s * R + ln.r0);
+      const float dx[4] = {dd.y * xv.x, dd.y * xv.y, dd.y * xv.z,
+                           dd.y * xv.w};
+      st[St::Y + s * R + ln.mine] = m2_step<NL>(
+          h, dd.x, dx,
+          *reinterpret_cast<const float4*>(st + St::BV + s * NP + n0),
+          *reinterpret_cast<const float4*>(st + St::CV + s * NP + n0), ln.g);
+    };
+    if (left >= M2_TS) {
+#pragma unroll
+      for (int s = 0; s < M2_TS; ++s) step(s);
+    } else {
+#pragma unroll 1
+      for (int s = 0; s < left; ++s) step(s);
+    }
+    if (k + 1 < stages) put(sm[(k + 1) & 1]);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < St::XE; ++i) {  // the stage's y tile, coalesced
+      const int e = tid + i * M2_NT, s = e / R, rr = e % R;
+      if (s < left && p0 + rr < P)
+        yg[(long long)(t0 + s) * a.H * P + rr] = st[St::Y + e];
+    }
+  }
+  m2_store_h(h, a, bb, hh, p0 + ln.r0, n0);
+}
+
+// ---- direct path: short T, no shared memory ----------------------------------
+// Each lane reads each step's dt, its rows' x and its 4 values of b and c
+// from global memory and evaluates the step's decay itself (T <=
+// M2_DIRECT_T: decode is T = 1, bound by the bytes of h0 and h_last).
+
+template <typename TX, int NL>
+__global__ void __launch_bounds__(M2_NT)
+mamba2_direct_kernel(const M2Args a) {
+  constexpr int R = 4 * M2_NT / NL;
+  const M2Lane<NL> ln(threadIdx.x);
+  const int n0 = 4 * ln.g;
+  const int hh = blockIdx.y, bb = blockIdx.z, p = blockIdx.x * R + ln.r0;
+  const int N = a.N, P = a.P;
+  const float A2 = __ldg(a.A + hh) * LOG2E;
+  const float* dtg = a.dt + bb * a.dt_sb + hh;
+  const TX* xg = static_cast<const TX*>(a.x) + bb * a.x_sb +
+                 (long long)hh * a.x_sh;
+  const TX* bg = static_cast<const TX*>(a.b) + bb * a.b_sb + n0;
+  const TX* cg = static_cast<const TX*>(a.c) + bb * a.c_sb + n0;
+  const int pm = blockIdx.x * R + ln.mine;       // the row whose y it writes
+  const bool writer = pm < P && ln.g % (NL / 4) == 0;
+  float* yg = a.y + ((long long)bb * a.T * a.H + hh) * P + (writer ? pm : 0);
+  float h[4][4];
+  m2_load_h(h, a, bb, hh, p, n0);
+  for (int t = 0; t < a.T; ++t) {
+    const float dt = __ldg(dtg + t * a.dt_st);
+    float dx[4], bv[4], cv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      dx[i] = p + i < P ? dt * load(xg + t * a.x_st + p + i) : 0.f;
+      const bool ok = n0 + i < N;
+      bv[i] = ok ? load(bg + t * a.b_st + i) : 0.f;
+      cv[i] = ok ? load(cg + t * a.c_st + i) : 0.f;
+    }
+    const float yv = m2_step<NL>(h, hopper::ex2(dt * A2), dx,
+                                 make_float4(bv[0], bv[1], bv[2], bv[3]),
+                                 make_float4(cv[0], cv[1], cv[2], cv[3]),
+                                 ln.g);
+    if (writer) yg[(long long)t * a.H * P] = yv;
+  }
+  m2_store_h(h, a, bb, hh, p, n0);
+}
+
+template <typename TX, int NL>
+cudaError_t launch_m2(const M2Args& a, const M2Plan& pl, cudaStream_t st) {
+  const dim3 grid(pl.gx, pl.gy, pl.gz);
+  if (pl.direct)
+    mamba2_direct_kernel<TX, NL><<<grid, M2_NT, 0, st>>>(a);
+  else
+    mamba2_staged_kernel<TX, NL><<<grid, M2_NT, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename TX>
+cudaError_t dispatch_m2(const M2Args& a, const M2Plan& pl, cudaStream_t st) {
+  switch (pl.NL) {
+    case 4: return launch_m2<TX, 4>(a, pl, st);
+    case 8: return launch_m2<TX, 8>(a, pl, st);
+    case 16: return launch_m2<TX, 16>(a, pl, st);
+    case 32: return launch_m2<TX, 32>(a, pl, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// the arguments both Mamba-2 C entry points take, checked
+bool m2_args(M2Args* a, const float* dt, const void* x, const void* b,
+             const void* c, const float* A, const float* h0, float* y,
+             float* h_last, int dtype, int B, int T, int H, int P, int N,
+             long long dt_sb, long long dt_st, long long x_sb, long long x_st,
+             long long x_sh, long long b_sb, long long b_st, long long c_sb,
+             long long c_st) {
+  if (B <= 0 || T <= 0 || H <= 0 || P <= 0 || N <= 0 || N > MAX_N ||
+      B > 65535 || H > 65535 || (dtype != 0 && dtype != 1))
+    return false;
+  *a = M2Args{dt, x, b, c, A, h0, y, h_last, B, T, H, P, N, dt_sb, dt_st,
+              x_sb, x_st, x_sh, b_sb, b_st, c_sb, c_st, 0};
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -625,6 +980,49 @@ int selective_scan_plan(const float* dt, const void* x, const void* b,
   const int v[9] = {pl.S, pl.P, pl.CH, pl.direct, pl.tma_dt, pl.tma_x,
                     pl.vec, (int)pl.gx, (int)pl.gy};
   for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return 0;
+}
+
+// The Mamba-2 form.  dt (B, T, H) f32; x (B, T, H, P), b and c (B, T, N)
+// in dtype 0 float32 or 1 bfloat16, all alike; A (H,) f32; h0 and h_last
+// (B, H, P, N) f32 contiguous; y (B, T, H, P) f32 contiguous.  Strides in
+// elements, unit stride along the last axis of dt, x, b, c.  Returns a
+// cudaError_t (0 on success).  N <= 128.
+int mamba2_scan_fwd(const float* dt, const void* x, const void* b,
+                    const void* c, const float* A, const float* h0, float* y,
+                    float* h_last, int dtype, int B, int T, int H, int P,
+                    int N, long long dt_sb, long long dt_st, long long x_sb,
+                    long long x_st, long long x_sh, long long b_sb,
+                    long long b_st, long long c_sb, long long c_st,
+                    void* stream) {
+  M2Args a;
+  if (!m2_args(&a, dt, x, b, c, A, h0, y, h_last, dtype, B, T, H, P, N,
+               dt_sb, dt_st, x_sb, x_st, x_sh, b_sb, b_st, c_sb, c_st))
+    return (int)cudaErrorInvalidValue;
+  const M2Plan pl = plan_mamba2(a);
+  a.vec = pl.vec;
+  auto s = static_cast<cudaStream_t>(stream);
+  return (int)(dtype == 0 ? dispatch_m2<float>(a, pl, s)
+                          : dispatch_m2<__nv_bfloat16>(a, pl, s));
+}
+
+// The plan mamba2_scan_fwd makes for these arguments, into out[0..6]: NL,
+// R, direct, vec, grid x, y, z.  Launches nothing.
+int mamba2_scan_plan(const float* dt, const void* x, const void* b,
+                     const void* c, const float* A, const float* h0, float* y,
+                     float* h_last, int dtype, int B, int T, int H, int P,
+                     int N, long long dt_sb, long long dt_st, long long x_sb,
+                     long long x_st, long long x_sh, long long b_sb,
+                     long long b_st, long long c_sb, long long c_st,
+                     int* out) {
+  M2Args a;
+  if (!m2_args(&a, dt, x, b, c, A, h0, y, h_last, dtype, B, T, H, P, N,
+               dt_sb, dt_st, x_sb, x_st, x_sh, b_sb, b_st, c_sb, c_st))
+    return (int)cudaErrorInvalidValue;
+  const M2Plan pl = plan_mamba2(a);
+  const int v[7] = {pl.NL, pl.R, pl.direct, pl.vec, (int)pl.gx, (int)pl.gy,
+                    (int)pl.gz};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
   return 0;
 }
 

@@ -31,7 +31,8 @@ from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                      flash_attention_gqa_ref,
                                      flash_attention_ref)
 
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 80, 128, 256)
+BWD_HEAD_DIMS = (64, 128, 256)      # the backward kernel's
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -168,6 +169,11 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _check_bwd(q, k, o, lse, do, causal, window=0):
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
+    if D not in BWD_HEAD_DIMS:
+        raise ValueError(f"head_dim {D}: the backward kernel takes "
+                         f"{BWD_HEAD_DIMS}; head_dim 80 (zamba2) comes with "
+                         "the SSM families' training, ROADMAP.md Queue 1 "
+                         "item 5b")
     if causal and Tk != Tq:
         raise ValueError("the backward kernel takes causal attention with "
                          "Tq == Tk (self-attention) or non-causal attention "
@@ -204,7 +210,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """dq (B, Tq, H, D), dk, dv (B, Tk, K, D) in the inputs' dtype, from
     the forward's q, k, v, o, lse and the output gradient do.  Causal with
     Tq == Tk (any T, a window), or non-causal with any Tq, Tk >= 1 (no
-    window; cross-attention); soft-cap, D in (64, 128, 256), float32 or
+    window; cross-attention); soft-cap, D in ``BWD_HEAD_DIMS``, float32 or
     bfloat16; anything else raises.  Inputs are made contiguous and
     aligned."""
     if q.device.type == "cpu":

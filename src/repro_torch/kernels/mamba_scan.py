@@ -2,19 +2,23 @@
 
 Replaces ``repro/kernels/mamba_scan.py::mamba_scan`` (Pallas TPU).  The
 kernel is CUDA C++ in ``csrc/mamba_scan.cu``, built by ``_build`` and called
-through its C interface, with two entry points over one recurrence core:
+through its C interface, with three entry points:
 
 * ``mamba_scan(decay, u, c)``: the TPU kernel's contract, any ``T``;
 * ``selective_scan(dt, x, b, c, A, h0)``: the fused Mamba-1 form that
   ``models/ssm.py::mamba1_block`` calls, which builds decay and u in
-  registers and never stores the (B, T, D, N) products.
+  registers and never stores the (B, T, D, N) products;
+* ``mamba2_scan(dt, x, b, c, A, h0)``: the Mamba-2 form that
+  ``models/ssm.py::mamba2_block`` calls: a scalar decay a head, b and c
+  shared by every head, a (P, N) state a head.
 
 A tensor on the CPU goes to the plain versions in ``ref``; a CUDA tensor
-goes to the kernel or the call raises.  ``mamba_scan.launches`` and
-``selective_scan.launches`` count kernel launches.  ``selective_plan``
-mirrors how the kernel's host code runs a call (lanes a channel, direct or
-ring path, TMA or lane loads, grid), so that the choice can be tested
-without a card.
+goes to the kernel or the call raises.  ``mamba_scan.launches``,
+``selective_scan.launches`` and ``mamba2_scan.launches`` count kernel
+launches.  ``selective_plan`` mirrors how the kernel's host code runs a
+Mamba-1 call (lanes a channel, direct or ring path, TMA or lane loads,
+grid), so that the choice can be tested without a card;
+``kernel_mamba2_plan`` asks the built library for the Mamba-2 form's plan.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import mamba_scan_ref, selective_scan_ref
+from repro_torch.kernels.ref import (mamba2_scan_ref, mamba_scan_ref,
+                                     selective_scan_ref)
 
 MAX_STATE = 128                 # N: 8 lanes of 16 states each
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -47,6 +52,10 @@ def _lib() -> ctypes.CDLL:
     lib.selective_scan_fwd.restype = i
     lib.selective_scan_plan.argtypes = [p] * 8 + [i] * 5 + [ll] * 8 + [p]
     lib.selective_scan_plan.restype = i
+    lib.mamba2_scan_fwd.argtypes = [p] * 8 + [i] * 6 + [ll] * 9 + [p]
+    lib.mamba2_scan_fwd.restype = i
+    lib.mamba2_scan_plan.argtypes = [p] * 8 + [i] * 6 + [ll] * 9 + [p]
+    lib.mamba2_scan_plan.restype = i
     lib.ms_error_string.argtypes = [i]
     lib.ms_error_string.restype = ctypes.c_char_p
     return lib
@@ -246,3 +255,108 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
 
 
 selective_scan.launches = 0
+
+
+def _check_mamba2(dt, x, b, c, A, h0):
+    if dt.dim() != 3 or x.dim() != 4 or x.shape[:3] != dt.shape:
+        raise ValueError(f"want dt (B,T,H), x (B,T,H,P); got "
+                         f"{tuple(dt.shape)}, {tuple(x.shape)}")
+    B, T, H, P = x.shape
+    if b.dim() != 3 or b.shape[:2] != (B, T) or c.shape != b.shape:
+        raise ValueError(f"want b, c (B,T,N); got {tuple(b.shape)}, "
+                         f"{tuple(c.shape)}")
+    N = b.shape[2]
+    if tuple(A.shape) != (H,) or tuple(h0.shape) != (B, H, P, N):
+        raise ValueError(f"want A (H,) {(H,)}, h0 (B,H,P,N) {(B, H, P, N)}; "
+                         f"got {tuple(A.shape)}, {tuple(h0.shape)}")
+    if min(B, T, H, P) == 0:
+        raise ValueError("empty input")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"B={B}, H={H}: the kernel's grid takes 65535")
+    _check_state(N)
+    if len({t.device for t in (dt, x, b, c, A, h0)}) != 1:
+        raise ValueError("inputs on different devices")
+    for name, t in (("dt", dt), ("A", A), ("h0", h0)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}: the kernel takes float32")
+    if not (x.dtype == b.dtype == c.dtype) or x.dtype not in _DTYPES:
+        raise TypeError(f"x, b, c are {x.dtype}, {b.dtype}, {c.dtype}: the "
+                        "kernel takes float32 or bfloat16, all alike")
+    for name, t in (("dt", dt), ("x", x), ("b", b), ("c", c)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} needs a unit stride on its last axis; "
+                             f"strides {t.stride()}")
+    for name, t in (("A", A), ("h0", h0)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+@dataclasses.dataclass(frozen=True)
+class Mamba2Plan:
+    """How ``mamba2_scan_fwd`` runs a call."""
+    lanes: int           # NL: lanes a row group (4 rows x 4 states a lane)
+    rows: int            # R: rows a block
+    direct: bool         # T <= 8: no stages, inputs read from global
+    vec: bool            # h0, h_last as 16-byte vectors
+    grid: tuple[int, int, int]
+
+    def as_ints(self) -> list[int]:
+        return [self.lanes, self.rows, int(self.direct), int(self.vec),
+                *self.grid]
+
+
+def _mamba2_args(dt, x, b, c, A, h0, y, h_last) -> list:
+    B, T, H, P = x.shape
+    return [dt.data_ptr(), x.data_ptr(), b.data_ptr(), c.data_ptr(),
+            A.data_ptr(), h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+            _DTYPES[x.dtype], B, T, H, P, b.shape[2], dt.stride(0),
+            dt.stride(1), x.stride(0), x.stride(1), x.stride(2), b.stride(0),
+            b.stride(1), c.stride(0), c.stride(1)]
+
+
+def kernel_mamba2_plan(dt, x, b, c, A, h0, h_last) -> Mamba2Plan:
+    """The plan ``csrc/mamba_scan.cu::plan_mamba2`` makes for these operands
+    (``h_last`` the output the wrapper allocates), from a card's library:
+    a lane holds 4 rows x 4 states, NL = max(4, next_pow2(N / 4)) lanes a
+    row group, 4 * 128 / NL rows a 128-thread block, one block a (row
+    block, head, batch row); T <= 8 takes the direct path."""
+    out = (ctypes.c_int * 7)()
+    y = h_last.new_empty(x.shape)
+    _raise_on(_lib().mamba2_scan_plan(
+        *_mamba2_args(dt, x, b, c, A, h0, y, h_last), out),
+        "mamba2_scan_plan")
+    v = list(out)
+    return Mamba2Plan(v[0], v[1], bool(v[2]), bool(v[3]), (v[4], v[5], v[6]))
+
+
+def mamba2_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                c: torch.Tensor, A: torch.Tensor, h0: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 scan from state ``h0``.
+
+    dt (B, T, H) float32; x (B, T, H, P), b and c (B, T, N) in float32 or
+    bfloat16 (batch, time and head strides free, so slices of one
+    projection need no copy); A (H,) and h0 (B, H, P, N) float32.  Returns
+    y (B, T, H, P) and the last state (B, H, P, N), both float32:
+    ``decay_t = exp(dt_t * A)`` a head, ``u_t = (dt_t * x_t) * b_t``,
+    ``h_t = decay_t * h_{t-1} + u_t``, ``y_t = sum_n h_t * c_t``.
+    """
+    if dt.device.type == "cpu":
+        return mamba2_scan_ref(dt, x, b, c, A, h0)
+    if dt.device.type != "cuda":
+        raise ValueError(f"unsupported device {dt.device}")
+    _check_mamba2(dt, x, b, c, A, h0)
+    B, T, H, P = x.shape
+    N = b.shape[2]
+    y = torch.empty((B, T, H, P), dtype=torch.float32, device=dt.device)
+    h_last = torch.empty((B, H, P, N), dtype=torch.float32, device=dt.device)
+    with torch.cuda.device(dt.device):
+        stream = torch.cuda.current_stream(dt.device).cuda_stream
+        err = _lib().mamba2_scan_fwd(
+            *_mamba2_args(dt, x, b, c, A, h0, y, h_last), stream)
+    _raise_on(err, "mamba2_scan")
+    mamba2_scan.launches += 1
+    return y, h_last
+
+
+mamba2_scan.launches = 0

@@ -3,8 +3,9 @@
 Counterpart of ``repro/kernels/ops.py``.  The reference folds (batch,
 kv-head, group) into the kernel's leading dim by broadcasting K/V G times;
 the Hopper kernel indexes kv head ``h // G`` instead, which gives the same
-result without the copy.  ``selective_scan`` is the fused Mamba-1 form of
-the ``mamba_scan`` kernel, which ``models/ssm.py`` calls.
+result without the copy.  ``selective_scan`` and ``mamba2_scan`` are the
+fused Mamba-1 and Mamba-2 forms of the ``mamba_scan`` kernel, which
+``models/ssm.py`` calls.
 """
 
 from __future__ import annotations
@@ -35,3 +36,9 @@ def selective_scan(dt, x, b, c, A, h0):
     """dt, x: (B, T, di); b, c: (B, T, n); A: (di, n); h0: (B, di, n) ->
     (y (B, T, di), h_last (B, di, n)), float32."""
     return ms.selective_scan(dt, x, b, c, A, h0)
+
+
+def mamba2_scan(dt, x, b, c, A, h0):
+    """dt: (B, T, H); x: (B, T, H, P); b, c: (B, T, n); A: (H,);
+    h0: (B, H, P, n) -> (y (B, T, H, P), h_last (B, H, P, n)), float32."""
+    return ms.mamba2_scan(dt, x, b, c, A, h0)

@@ -165,6 +165,31 @@ def selective_scan_ref(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
     return torch.stack(ys, dim=1), h
 
 
+def mamba2_scan_ref(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                    c: torch.Tensor, A: torch.Tensor, h0: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba-2 recurrence with its inputs built step by step.
+
+    dt: (B, T, H); x: (B, T, H, P); b, c: (B, T, N), shared by every head;
+    A: (H,); h0: (B, H, P, N).  ``decay_t = exp(dt_t * A)`` is a scalar a
+    head, ``u_t = (dt_t * x_t) * b_t`` fills a head's (P, N) state,
+    ``h_t = decay_t * h_{t-1} + u_t`` and ``y_t = sum_n h_t * c_t``; all in
+    float32, as ``make_chunk``/``emit_chunk`` of the reference's
+    ``mamba2_block``.  Returns y (B, T, H, P) and the last state
+    (B, H, P, N), float32.
+    """
+    dt, x, b, c = dt.float(), x.float(), b.float(), c.float()
+    A = A.float()
+    h = h0.float()
+    ys = []
+    for t in range(dt.shape[1]):
+        decay = torch.exp(dt[:, t] * A)[..., None, None]
+        u = (dt[:, t, :, None] * x[:, t])[..., None] * b[:, t, None, None, :]
+        h = decay * h + u
+        ys.append((h * c[:, t, None, None, :]).sum(dim=-1))
+    return torch.stack(ys, dim=1), h
+
+
 def lut_matmul_ref(x: torch.Tensor, codes: torch.Tensor, lut: torch.Tensor
                    ) -> torch.Tensor:
     """Dequantize the whole weight matrix, then a float32 matmul.

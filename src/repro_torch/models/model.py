@@ -1,5 +1,5 @@
-"""Model assembly, dense, MoE, VLM, audio and SSM families (PyTorch port
-of ``repro/models/model.py``).
+"""Model assembly, dense, MoE, VLM, audio, SSM and hybrid families (PyTorch
+port of ``repro/models/model.py``).
 
 ``build(cfg, device)`` returns a ``Model`` with:
 
@@ -37,8 +37,13 @@ vision tokens), non-causal and without rope; a group is those self layers
 and their cross block (the reference's ``_run_vlm``).  Prefill fills the
 media K/V ``media_k`` / ``media_v`` once from every cross block's
 ``wk`` / ``wv``, and the cross blocks of prefill and decode attend over
-them.  The SSM family covers Mamba-1 (falcon-mamba); Mamba-2 and the
-hybrid are not ported yet and raise ``NotImplementedError``.
+them.  The SSM family runs Mamba-1 (falcon-mamba) or Mamba-2 layers by
+``mamba_version``.  The hybrid family (zamba2) runs groups of
+``attn_every`` Mamba layers, each followed by shared attention block
+``g % n_shared_attn_blocks`` (attention and an MLP, its weights stacked in
+``shared_attn``); its decode cache holds every layer's conv and SSM state
+and one K/V row per application of a shared block, ``n_layers //
+attn_every`` of them (the reference's ``_run_hybrid``/``_decode_hybrid``).
 """
 
 from __future__ import annotations
@@ -119,7 +124,7 @@ class Model:
         if not cfg.tie_embeddings:
             p["unembed"] = layers.dense_init(gen, cfg.d_model,
                                              (cfg.vocab_size,), dtype)
-        if cfg.family == "ssm":
+        if cfg.family in ("ssm", "hybrid"):
             p["blocks"] = _stack_init(lambda: self._init_ssm_block(gen, dtype),
                                       cfg.n_layers)
         elif cfg.family == "moe" and cfg.moe_every > 1:
@@ -132,6 +137,10 @@ class Model:
         else:
             p["blocks"] = _stack_init(lambda: self._init_block(gen, dtype),
                                       cfg.n_layers)
+        if cfg.family == "hybrid":
+            p["shared_attn"] = _stack_init(
+                lambda: self._init_shared_attn(gen, dtype),
+                cfg.n_shared_attn_blocks)
         if cfg.family == "vlm":
             p["cross_blocks"] = _stack_init(
                 lambda: self._init_cross_block(gen, dtype), self._n_cross())
@@ -190,6 +199,19 @@ class Model:
                                                 self._attn_spec(), dtype),
                 "gate": torch.zeros((), dtype=torch.float32, device=dev)}
 
+    def _init_shared_attn(self, gen: torch.Generator, dtype: torch.dtype
+                          ) -> Params:
+        """A zamba2 shared block: attention and an MLP (the Mamba layers
+        carry no MLP)."""
+        cfg = self.cfg
+        dev = gen.device
+        return {"ln": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+                "attn": layers.init_attn_params(gen, cfg.d_model,
+                                                self._attn_spec(), dtype),
+                "ln2": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+                "mlp": layers.init_mlp_params(gen, cfg.d_model, cfg.d_ff,
+                                              dtype)}
+
     def _init_ssm_block(self, gen: torch.Generator, dtype: torch.dtype
                         ) -> Params:
         cfg = self.cfg
@@ -236,10 +258,12 @@ class Model:
         cfg = self.cfg
         x = self.embed_inputs(params, batch)
         B, T, _ = x.shape
+        positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
         if cfg.family == "ssm":
             x = self._run_ssm(params, x)
+        elif cfg.family == "hybrid":
+            x = self._run_hybrid(params, x, positions)
         else:
-            positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
             mtok = (self._media_tokens(params, batch["media"], x.dtype)
                     if cfg.family == "vlm" else None)
             x = self._run_decoder(params, x, positions, mtok=mtok)
@@ -369,20 +393,51 @@ class Model:
 
     def _ssm_layer(self, blk: Params, x, state=None):
         cfg = self.cfg
+        mixer = ssm.mamba1_block if cfg.mamba_version == 1 else \
+            ssm.mamba2_block
         h = layers.rms_norm(x, blk["ln"], cfg.norm_eps)
-        y, new_state = ssm.mamba1_block(blk["mixer"], h, cfg, state=state)
+        y, new_state = mixer(blk["mixer"], h, cfg, state=state)
         return x + y, new_state
 
-    def _run_ssm(self, params, x, cache=None):
-        """All Mamba layers over x; with a cache, layer i starts from
-        ``cache["conv"][i]``, ``cache["h"][i]`` and writes its new state
-        there in place."""
-        for i in range(self.cfg.n_layers):
+    def _run_ssm(self, params, x, cache=None, indices=None):
+        """Mamba layers ``indices`` (default all) over x; with a cache,
+        layer i starts from ``cache["conv"][i]``, ``cache["h"][i]`` and
+        writes its new state there in place."""
+        for i in range(self.cfg.n_layers) if indices is None else indices:
             st = None if cache is None else (cache["conv"][i], cache["h"][i])
             x, (conv, h) = self._ssm_layer(_take(params["blocks"], i), x, st)
             if cache is not None:
                 cache["conv"][i].copy_(conv)
                 cache["h"][i].copy_(h)
+        return x
+
+    def _shared_attn_layer(self, sa: Params, x, positions, kv_cache=None,
+                           cache_len=None):
+        """A zamba2 shared block: ``x + attention(rms_norm(x))``, then
+        ``x + mlp(rms_norm(x))``; global, causal, with rope."""
+        cfg = self.cfg
+        h = layers.rms_norm(x, sa["ln"], cfg.norm_eps)
+        a, _ = layers.attn_block(
+            sa["attn"], h, self._attn_spec(), rope_theta=cfg.rope_theta,
+            norm_eps=cfg.norm_eps, positions=positions, kv_cache=kv_cache,
+            cache_len=cache_len)
+        x = x + a
+        h = layers.rms_norm(x, sa["ln2"], cfg.norm_eps)
+        return x + layers.mlp_block(sa["mlp"], h, cfg.act)
+
+    def _run_hybrid(self, params, x, positions, cache=None, cache_len=None):
+        """Group g runs Mamba layers g*k .. g*k+k-1 (k = ``attn_every``),
+        then shared block ``g % n_shared_attn_blocks``; with a cache the
+        layers read and write their state as in ``_run_ssm`` and the shared
+        block of group g its K/V row ``cache["k"][g]``, ``cache["v"][g]``,
+        in place."""
+        cfg = self.cfg
+        k = cfg.attn_every
+        for g in range(cfg.n_layers // k):
+            x = self._run_ssm(params, x, cache, range(g * k, g * k + k))
+            sa = _take(params["shared_attn"], g % cfg.n_shared_attn_blocks)
+            kv = None if cache is None else (cache["k"][g], cache["v"][g])
+            x = self._shared_attn_layer(sa, x, positions, kv, cache_len)
         return x
 
     # ---------------- loss ----------------
@@ -416,12 +471,15 @@ class Model:
             batch["media"] = media
         x = self.embed_inputs(params, batch)
         B, T, _ = x.shape
+        positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
         if cfg.family == "ssm":
             x = self._run_ssm(params, x, cache=cache)
+        elif cfg.family == "hybrid":
+            x = self._run_hybrid(params, x, positions, cache=cache,
+                                 cache_len=0)
         else:
             if cfg.family == "vlm":
                 self._fill_media_kv(params, cache, batch["media"], x.dtype)
-            positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
             x = self._run_decoder(params, x, positions, cache=cache,
                                   cache_len=0)
         x = layers.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
@@ -445,25 +503,32 @@ class Model:
 
     def init_cache(self, batch_size: int, max_len: int) -> dict:
         """The shared position ``pos`` (a Python int) and, for attention,
-        K/V ``(L, B, max_len, K, Dh)`` in the model dtype; for Mamba-1,
+        K/V ``(L, B, max_len, K, Dh)`` in the model dtype; for Mamba,
         ``conv`` ``(L, B, ssm_conv - 1, d_inner)`` in the model dtype and
-        ``h`` ``(L, B, d_inner, ssm_state)`` in float32, whatever
-        ``max_len``; for the VLM also ``media_k`` / ``media_v``
-        ``(n_cross, B, n_media_tokens, K, Dh)`` in the model dtype."""
+        ``h`` in float32, whatever ``max_len``: ``(L, B, d_inner,
+        ssm_state)`` for Mamba-1, ``(L, B, H, ssm_head_dim, ssm_state)``
+        for Mamba-2; for the hybrid also K/V ``(n_layers // attn_every, B,
+        max_len, K, Dh)``, one row per application of a shared block; for
+        the VLM also ``media_k`` / ``media_v`` ``(n_cross, B,
+        n_media_tokens, K, Dh)`` in the model dtype."""
         cfg = self.cfg
         dtype = torch_dtype(cfg.dtype)
         L, dev = cfg.n_layers, self.device
-        if cfg.family == "ssm":
-            di = cfg.d_inner
-            return {"pos": 0,
-                    "conv": torch.zeros((L, batch_size, cfg.ssm_conv - 1, di),
-                                        dtype=dtype, device=dev),
-                    "h": torch.zeros((L, batch_size, di, cfg.ssm_state),
-                                     dtype=torch.float32, device=dev)}
+        cache: dict = {"pos": 0}
+        if cfg.family in ("ssm", "hybrid"):
+            di, n = cfg.d_inner, cfg.ssm_state
+            hshape = ((di, n) if cfg.mamba_version == 1 else
+                      (di // cfg.ssm_head_dim, cfg.ssm_head_dim, n))
+            cache["conv"] = torch.zeros((L, batch_size, cfg.ssm_conv - 1, di),
+                                        dtype=dtype, device=dev)
+            cache["h"] = torch.zeros((L, batch_size, *hshape),
+                                     dtype=torch.float32, device=dev)
+            if cfg.family == "ssm":
+                return cache
+            L = cfg.n_layers // cfg.attn_every
         shape = (L, batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
-        cache = {"pos": 0,
-                 "k": torch.zeros(shape, dtype=dtype, device=dev),
-                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
         if cfg.family == "vlm":
             shape = (self._n_cross(), batch_size, cfg.n_media_tokens,
                      cfg.n_kv_heads, cfg.head_dim)
@@ -483,27 +548,23 @@ class Model:
         cfg = self.cfg
         x = self._embed_tokens(params, tokens)
         pos = int(cache["pos"])
+        positions = torch.full((tokens.shape[0], 1), pos, dtype=torch.long,
+                               device=x.device)
         if cfg.family == "ssm":
             x = self._run_ssm(params, x, cache=cache)
+        elif cfg.family == "hybrid":
+            x = self._run_hybrid(params, x, positions, cache=cache,
+                                 cache_len=pos)
         else:
-            positions = torch.full((tokens.shape[0], 1), pos,
-                                   dtype=torch.long, device=x.device)
             x = self._run_decoder(params, x, positions, cache=cache,
                                   cache_len=pos)
         x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self._unembed(params, x), {**cache, "pos": pos + 1}
 
 
-# the families not ported yet, each with the ROADMAP item that adds it
-_NOT_PORTED = {"ssm": "Queue 1 item 7b (Mamba-2)",
-               "hybrid": "Queue 1 item 7b (Mamba-2 hybrid)"}
-
-
 def build(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
-    if not (cfg.family in ("dense", "moe", "vlm", "audio") or
-            cfg.family == "ssm" and cfg.mamba_version == 1):
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet; the port "
-            "covers the dense, MoE, VLM and audio families and Mamba-1 (see "
-            f"ROADMAP.md {_NOT_PORTED[cfg.family]})")
+    if cfg.family == "hybrid" and (cfg.attn_every <= 0 or
+                                   cfg.n_layers % cfg.attn_every):
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a "
+                         f"multiple of attn_every {cfg.attn_every}")
     return Model(cfg, resolve(device))

@@ -1,14 +1,15 @@
-"""State-space (Mamba) blocks (PyTorch port of ``repro/models/ssm.py``).
+"""State-space (Mamba) blocks (PyTorch port of ``repro/models/ssm.py``):
+Mamba-1 (falcon-mamba) and Mamba-2 (zamba2).
 
-Mamba-1 (falcon-mamba).  The reference runs the selective scan as a chunked
-associative scan (``fused_ssm_scan``, ``CHUNK`` steps a chunk) so that the
-(B, T, d_inner, n) decay and input products exist one chunk at a time; the
-port calls ``kernels.ops.selective_scan``, whose Hopper kernel builds them in
-registers step by step and never stores them.  ``chunked_selective_scan`` is
+The reference runs the selective scan as a chunked associative scan
+(``fused_ssm_scan``, ``CHUNK`` steps a chunk for Mamba-1, ``CHUNK // 4`` for
+Mamba-2) so that the (B, T, d_inner, n) decay and input products exist one
+chunk at a time; the port calls ``kernels.ops.selective_scan`` (Mamba-1) and
+``kernels.ops.mamba2_scan`` (Mamba-2), whose Hopper kernels build them in
+registers step by step and never store them.  ``chunked_selective_scan`` is
 the reference's plain chunked scan over given (decay, inp), kept for parity.
 
 Decode is the O(1) recurrent step on the carried (conv_state, ssm_state).
-Mamba-2 (zamba2) is not ported yet (ROADMAP Queue 1 item 7b).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import Params, dense_init
+from repro_torch.models.layers import Params, dense_init, rms_norm
 
 CHUNK = 256
 
@@ -70,21 +71,33 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def init_mamba_params(gen: torch.Generator, cfg, dtype: torch.dtype
                       ) -> Params:
-    """Mamba-1 mixer parameters, the reference's leaves.  ``dt_proj``,
-    ``dt_bias``, ``A_log`` and ``D`` are float32 whatever ``dtype``."""
-    if cfg.mamba_version != 1:
-        raise NotImplementedError(
-            f"mamba_version {cfg.mamba_version} ({cfg.name}) is not ported "
-            "yet; see ROADMAP.md Queue 1 item 7b (Mamba-2 hybrid)")
+    """Mamba mixer parameters, the reference's leaves.  Mamba-1:
+    ``dt_proj``, ``dt_bias``, ``A_log`` and ``D`` are float32 whatever
+    ``dtype``; Mamba-2 (a scalar decay a head, H = d_inner / ssm_head_dim):
+    ``dt_bias``, ``A_log`` (zeros: A = -1), ``D`` (H,) and ``dt_proj_h``
+    (d, H) are float32, ``bc_proj`` and the gated norm's ``norm_w`` are in
+    ``dtype``."""
     d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
     dev = gen.device
     dt_rank = max(1, d // 16)
     f32 = torch.float32
-    return {
+    p = {
         "in_proj": dense_init(gen, d, (2 * di,), dtype),
         "conv_w": dense_init(gen, cfg.ssm_conv, (di,), dtype),
         "conv_b": torch.zeros((di,), dtype=dtype, device=dev),
         "out_proj": dense_init(gen, di, (d,), dtype),
+    }
+    if cfg.mamba_version != 1:
+        H = di // cfg.ssm_head_dim
+        return {**p,
+                "bc_proj": dense_init(gen, d, (2 * n,), dtype),
+                "dt_bias": torch.zeros((H,), dtype=f32, device=dev),
+                "A_log": torch.zeros((H,), dtype=f32, device=dev),
+                "D": torch.ones((H,), dtype=f32, device=dev),
+                "dt_proj_h": dense_init(gen, d, (H,), f32),
+                "norm_w": torch.zeros((di,), dtype=dtype, device=dev)}
+    return {
+        **p,
         "x_proj": dense_init(gen, di, (dt_rank + 2 * n,), dtype),
         "dt_proj": dense_init(gen, dt_rank, (di,), f32),
         "dt_bias": torch.zeros((di,), dtype=f32, device=dev),
@@ -121,3 +134,31 @@ def mamba1_block(p: Params, x: torch.Tensor, cfg,
     y = (y * F.silu(z.float())).to(x.dtype)
     return y @ p["out_proj"], (conv_state, h_last)
 
+
+def mamba2_block(p: Params, x: torch.Tensor, cfg,
+                 state: tuple[torch.Tensor, torch.Tensor] | None = None
+                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Zamba2-style Mamba-2 mixer: a scalar decay a head, b and c shared by
+    the heads, then the gated RMSNorm.  x: (B, T, d) -> (y (B, T, d),
+    (conv_state (B, K-1, di), h_last (B, H, head_dim, n) float32))."""
+    di, n, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    H = di // hd
+    B, T, _ = x.shape
+    conv_state, h0 = state if state is not None else (None, None)
+
+    xz = x @ p["in_proj"]
+    xs, z = xz.split(di, dim=-1)
+    xs, conv_state = causal_conv1d(xs, p["conv_w"], p["conv_b"], conv_state)
+    xs = F.silu(xs)
+
+    Bc, Cc = (x @ p["bc_proj"]).split(n, dim=-1)              # (B,T,n) each
+    dt = F.softplus(x.float() @ p["dt_proj_h"] + p["dt_bias"])  # (B,T,H)
+    A = -torch.exp(p["A_log"])                                  # (H,)
+    xh = xs.view(B, T, H, hd)
+    if h0 is None:
+        h0 = torch.zeros((B, H, hd, n), dtype=torch.float32, device=x.device)
+
+    y, h_last = ops.mamba2_scan(dt, xh, Bc, Cc, A, h0)
+    y = (y + p["D"][:, None] * xh.float()).reshape(B, T, di)
+    y = rms_norm(y * F.silu(z.float()), p["norm_w"], cfg.norm_eps).to(x.dtype)
+    return y @ p["out_proj"], (conv_state, h_last)

@@ -1,7 +1,8 @@
 """Batched serving engine (PyTorch port of ``repro/serve/engine.py``).
 
 Static max-batch slots, one batched prefill of left-padded prompts into the
-decode cache (K/V, or a Mamba model's conv and SSM state), then lockstep
+decode cache (K/V, a Mamba model's conv and SSM state, or both for the
+hybrid), then lockstep
 decode with greedy or temperature sampling and per-slot EOS.  As in the
 reference, pads are token 0 and are not masked (a Mamba model runs them
 through its state), and all slots share one position.  The VLM and audio

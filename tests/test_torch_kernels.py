@@ -1416,3 +1416,115 @@ def test_cuda_launch_counters_under_grad_and_serving():
     torch.cuda.synchronize()
     assert (fa.flash_attention_gqa.launches - f0,
             fa.flash_attention_bwd.launches - b0) == (2, 1)
+
+
+# ---- the Mamba-2 scan and flash at head_dim 80 on the card (zamba2) --------
+# (their CPU parity tests are in test_torch_hybrid.py)
+
+def _cuda_mamba2(B, T, H, P, N, dtype, seed, offset=3):
+    """The model's operands on the card: dt from a softplus, b and c slices
+    of one projection, x in ``dtype``, A < 0, h0 nonzero."""
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.normal(size=(B, T, H)) - 1)).astype(np.float32)
+    dt, x, b, c, A, h0 = (torch.from_numpy(a).cuda() for a in (
+        dt, rng.normal(size=(B, T, H, P)).astype(np.float32),
+        rng.normal(size=(B, T, N)).astype(np.float32),
+        rng.normal(size=(B, T, N)).astype(np.float32),
+        -np.exp(rng.normal(size=(H,))).astype(np.float32),
+        (rng.normal(size=(B, H, P, N)) * 0.5).astype(np.float32)))
+    proj = torch.cat([b.new_zeros(b.shape[:-1] + (offset,)), b, c], dim=-1
+                     ).to(dtype)
+    return (dt, x.to(dtype), proj[..., offset:offset + N],
+            proj[..., offset + N:], A, h0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N", [16, 64, 128, 5])
+@pytest.mark.parametrize("T", [1, 7, 65, 300])
+def test_cuda_mamba2_scan_matches_plain_version(T, N, dtype):
+    _cuda_or_skip()
+    args = _cuda_mamba2(2, T, 3, 64, N, getattr(torch, dtype), T + N)
+    y, h = ms.mamba2_scan(*args)
+    wy, wh = ref.mamba2_scan_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, wy, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, wh, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 300])
+def test_cuda_mamba2_scan_ragged_rows_and_plan(T):
+    """P not a multiple of a block's rows; the built library's plan: 16
+    lanes a row group at N = 64, 32 rows a block, 2 row blocks."""
+    _cuda_or_skip()
+    args = _cuda_mamba2(1, T, 2, 40, 64, torch.bfloat16, 9)
+    y, h = ms.mamba2_scan(*args)
+    wy, wh = ref.mamba2_scan_ref(*args)
+    torch.testing.assert_close(y, wy, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, wh, rtol=1e-4, atol=1e-4)
+    assert ms.kernel_mamba2_plan(*args, h) == ms.Mamba2Plan(
+        16, 32, T <= 8, True, (2, 2, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,L,R", [(1, 4, 128), (8, 4, 128), (16, 4, 128),
+                                   (17, 8, 64), (32, 8, 64), (64, 16, 32),
+                                   (100, 32, 16), (128, 32, 16)])
+def test_cuda_mamba2_plan_lanes_and_rows(N, L, R):
+    """A lane holds 4 rows x 4 states; a row group of NL lanes covers N and
+    a 128-thread block holds 4 * 128 / NL rows."""
+    _cuda_or_skip()
+    args = _cuda_mamba2(1, 4, 2, 64, N, torch.float32, N)
+    plan = ms.kernel_mamba2_plan(*args, torch.empty_like(args[5]))
+    assert (plan.lanes, plan.rows) == (L, R)
+    assert plan.lanes * 4 >= N and plan.lanes * plan.rows == 4 * 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,P,direct,grid", [
+    (4, 1100, 80, 64, False, (2, 80, 4)),     # zamba2's serving prefill
+    (4, 1, 80, 64, True, (2, 80, 4)),         # a decode step
+    (1, 8, 3, 33, True, (2, 3, 1)),
+    (2, 9, 5, 16, False, (1, 5, 2))])
+def test_cuda_mamba2_plan_path_and_grid(B, T, H, P, direct, grid):
+    """T <= 8 takes the direct path; one block a (row block, head, batch
+    row)."""
+    _cuda_or_skip()
+    args = _cuda_mamba2(B, T, H, P, 64, torch.bfloat16, T)
+    plan = ms.kernel_mamba2_plan(*args, torch.empty_like(args[5]))
+    assert (plan.direct, plan.grid, plan.vec) == (direct, grid, True)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba2_plan_vectors_need_alignment():
+    """h0 and h_last go as 16-byte vectors only when N % 4 == 0 and both
+    are 16-byte aligned."""
+    _cuda_or_skip()
+    dt, x, b, c, A, h0 = _cuda_mamba2(1, 4, 2, 8, 8, torch.float32, 1)
+    off = torch.zeros(h0.numel() + 1, device="cuda")[1:].view(h0.shape)
+    off.copy_(h0)
+    assert ms.kernel_mamba2_plan(dt, x, b, c, A, h0,
+                                 torch.empty_like(h0)).vec
+    assert not ms.kernel_mamba2_plan(dt, x, b, c, A, off,
+                                     torch.empty_like(h0)).vec
+    args = _cuda_mamba2(1, 4, 2, 8, 6, torch.float32, 2)
+    assert not ms.kernel_mamba2_plan(*args, torch.empty_like(args[5])).vec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [100, 128, 129])
+def test_cuda_flash_head_dim_80_matches_plain_version(T, dtype):
+    _cuda_or_skip()
+    dt = getattr(torch, dtype)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    rng = np.random.default_rng(T)
+    cache = torch.tensor(rng.normal(size=(2, 2, 160, 4, 80)), dtype=dt,
+                         device="cuda")
+    q = torch.tensor(rng.normal(size=(2, T, 4, 80)), dtype=dt, device="cuda")
+    k, v = cache[0, :, :T], cache[1, :, :T]        # cache slices, in place
+    got = fa.flash_attention_gqa(q, k, v, causal=True).float()
+    want = ref.flash_attention_gqa_ref(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= tol

@@ -444,15 +444,25 @@ def test_build_and_train_step_accept_the_moe_family():
 
 @pytest.mark.parametrize("arch,item", [("zamba2-2.7b", "7b")])
 def test_build_still_refuses_the_other_families(arch, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        tmodel.build(_port_cfg(jreg.get(arch).reduced()), "cpu")
+    """``item`` ported the hybrid: it builds now, and the refusal that
+    remains, its training, names the scan backward's item 5b instead."""
+    m = tmodel.build(_port_cfg(jreg.get(arch).reduced()), "cpu")
+    assert m.cfg.family == "hybrid"
+    with pytest.raises(NotImplementedError, match="ROADMAP.*5b") as e:
+        ts.make_train_step(m, adamw.AdamWConfig())
+    assert f"item {item}" not in str(e.value)
 
 
 def test_build_still_refuses_mamba2():
+    """Mamba-2 builds in the SSM family too; its training is refused,
+    naming the scan backward's ROADMAP item 5b."""
     cfg = dataclasses.replace(treg.get("falcon-mamba-7b").reduced(),
                               mamba_version=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*7b"):
-        tmodel.build(cfg, "cpu")
+    m = tmodel.build(cfg, "cpu")
+    assert "bc_proj" in m.init(torch.Generator().manual_seed(0))[
+        "blocks"]["mixer"]
+    with pytest.raises(NotImplementedError, match="ROADMAP.*5b"):
+        ts.make_train_step(m, adamw.AdamWConfig())
 
 
 def test_train_launcher_on_cpu_trains_qwen2_moe(tmp_path):

@@ -293,8 +293,19 @@ def test_convert_rejects_a_tree_of_another_model(pair):
 
 
 def test_mamba2_not_ported():
+    """Mamba-2 is ported (``tests/test_torch_hybrid.py`` holds it against
+    the reference): the model builds and ``init_mamba_params`` gives the
+    reference's Mamba-2 leaves; what stays refused is its training, which
+    needs the scan backward (ROADMAP.md Queue 1 item 5b)."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as ts
     cfg = dataclasses.replace(treg.get(ARCH).reduced(), mamba_version=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.build(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tssm.init_mamba_params(torch.Generator(), cfg, torch.float32)
+    m = tmodel.build(cfg, "cpu")
+    p = tssm.init_mamba_params(torch.Generator(), cfg, torch.float32)
+    H = cfg.d_inner // cfg.ssm_head_dim
+    assert set(p) == {"in_proj", "conv_w", "conv_b", "out_proj", "bc_proj",
+                      "dt_bias", "A_log", "D", "dt_proj_h", "norm_w"}
+    assert p["A_log"].shape == (H,) and p["dt_proj_h"].shape == (
+        cfg.d_model, H)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*5b"):
+        ts.make_train_step(m, adamw.AdamWConfig())
