@@ -21,8 +21,9 @@ Phases, each printing what it found; any failure raises and exits non-zero:
    selective scan's three entry points (``mamba_scan``, ``selective_scan``
    and the Mamba-2 form ``mamba2_scan``, the last two timed as device time
    from a CUDA graph of their launches, ``mamba2_scan`` at zamba2-2.7b's
-   prefill and decode shapes and also held against ``selective_scan`` over
-   the same function) and the LUT matmul;
+   prefill and decode shapes, its chunked (SSD) path also on
+   ``MAMBA2_CHUNKED_CASES``, and held against ``selective_scan`` over the
+   same function) and the LUT matmul;
 4. moe-layer: ``moe.moe_block`` at qwen2-moe-a2.7b's layer width (N = 4400
    tokens, 60 experts, top-4, shared expert) in bf16 against a plain
    float32 loop over the experts with the same capacity rule, at the served
@@ -669,50 +670,88 @@ def phase_selective_scan(gen) -> dict:
     return rec
 
 
-def _mamba2_inputs(gen, B, T, H, P, N, dtype, offset=7):
+def _mamba2_inputs(gen, B, T, H, P, N, dtype, offset=7, reset=False):
     """dt from a softplus as in the model (B, T, H), x (B, T, H, P) and b,
     c (slices of one projection, ``offset`` columns in, as the model passes
-    them) in ``dtype``, A = -exp(N(0, 1)) < 0 a head, h0 random."""
+    them) in ``dtype``, A = -exp(N(0, 1)) < 0 a head, h0 random.
+    ``reset``: at step 3 of every 64-step chunk dt A = -1000 and x = 0, so
+    the state is wiped without an input of that size and the chunked
+    form's segment sums reach -1e3 (the SSD "segsum" trap: a difference of
+    two running sums would then lose ~1e3 * 2^-24 of an exponent, the
+    size of the tolerance)."""
     dt = F.softplus(torch.randn((B, T, H), generator=gen, device="cuda") - 1)
     x = torch.randn((B, T, H, P), generator=gen, device="cuda").to(dtype)
     proj = torch.randn((B, T, offset + 2 * N), generator=gen,
                        device="cuda").to(dtype)
     A = -torch.exp(torch.randn((H,), generator=gen, device="cuda"))
     h0 = torch.randn((B, H, P, N), generator=gen, device="cuda") * 0.5
+    if reset:
+        dt[:, 3::SSD_CHUNK] = 1000.0 / -A
+        x[:, 3::SSD_CHUNK] = 0
     return (dt, x, proj[..., offset:offset + N], proj[..., offset + N:], A,
             h0)
 
 
 # chunk length of the chunked (SSD) form of the Mamba-2 scan
 SSD_CHUNK = 64
+# the chunked path's own cases (B, T, H, P, N, b/c offset, reset), bf16:
+# a ragged last chunk (130), T a multiple of 64 (128, 640), a ragged P and
+# N (40, 16), two row blocks of P (100), N = 5, b and c through TMA
+# (offset 0) and by the threads (offset 7, not 16-byte aligned), y stored
+# from registers (P = 33: no TMA stride), and the segment-sum trap
+# (``_mamba2_inputs``' reset) over several chunks
+MAMBA2_CHUNKED_CASES = [
+    (2, 130, 3, 64, 64, 0, False), (2, 128, 3, 64, 64, 7, False),
+    (1, 640, 2, 64, 64, 0, False), (2, 200, 2, 40, 16, 7, False),
+    (1, 300, 2, 100, 64, 0, False), (2, 77, 3, 64, 5, 7, False),
+    (2, 100, 2, 33, 64, 0, False), (2, 300, 3, 64, 64, 7, True),
+    (2, 1100, 2, 64, 64, 0, True)]
 
 
 def _mamba2_cost(B, T, H, P, N, itemsize):
-    """The function's least work and bytes, and the direct form's work.
+    """The function's least work and bytes, and each path's own work.
 
     With a scalar decay a head the scan is a chunked product on the tensor
     cores (SSD, chunk Q): a chunk's C Bᵀ (Q x Q x N, shared by the heads),
     each head's masked (C Bᵀ) X (Q x Q x P), its chunk state Bᵀ X and the
     carried state's output C h (Q x N x P each), ~2·B·T·(Q·N + H·P·(Q +
-    2N)) flops at the TF32 rate (the state is f32).  The direct form the
-    kernel runs spends three FP32 instructions a state-step on the CUDA
-    cores (FMUL for u, FFMA for h, FFMA for y).  Bytes: dt, x, b, c, A, h0
-    read once and y, h_last written once."""
+    2N)) flops at the TF32 rate (the state is f32).  The chunked path
+    issues, for each 64-row block of P and each 64-step chunk (the last
+    padded), four m64n64 products of depth 64 (N padded to 64): C Bᵀ once
+    and the other three in three bf16 terms each, 10 · 2 · 64³ flops at the
+    bf16 rate.  The CUDA-core paths (decode) spend three FP32 instructions a
+    state-step (FMUL for u, FFMA for h, FFMA for y).  Bytes: dt, x, b, c,
+    A, h0 read once and y, h_last written once."""
     Q = min(SSD_CHUNK, T)
     flops = 2 * B * T * (Q * N + H * P * (Q + 2 * N))
     nbytes = (4 * B * T * H + itemsize * B * T * H * P + 2 * itemsize * B * T
               * N + 4 * H + 2 * 4 * B * H * P * N + 4 * B * T * H * P)
-    return flops, nbytes, 3 * B * T * H * P * N
+    tiles = B * H * -(-P // SSD_CHUNK) * -(-T // SSD_CHUNK)
+    ssd_flops = tiles * 10 * 2 * SSD_CHUNK ** 3
+    return flops, nbytes, ssd_flops, 3 * B * T * H * P * N
+
+
+def mamba2_plan_want(B, T, H) -> ms.Mamba2Plan:
+    """The plan at zamba2's widths (P = N = 64, bf16 x/b/c, b and c at
+    offset 0): the chunked path, one 64-row block a head, x, b, c in and y
+    out through TMA, for a prefill; the direct path (16 lanes a row group,
+    32 rows a block, 2 blocks a head) for a decode step."""
+    if T > 8:
+        return ms.Mamba2Plan("chunked", 0, 64, False, (True,) * 4,
+                             (1, H, B))
+    return ms.Mamba2Plan("direct", 16, 32, True, (False,) * 4, (2, H, B))
 
 
 def phase_mamba2_scan(gen) -> dict:
     """``mamba2_scan``, the Mamba-2 form zamba2's ``mamba2_block`` calls,
     against ``ref.mamba2_scan_ref`` (f32 and bf16 x/b/c; N 16, 64, 128;
-    T 1, 7, 65, 1100; A < 0, h0 nonzero), and against ``selective_scan``
-    over the same function with dt and x spread over (head, row) channels
-    and A over the rows (a check only: the model never calls it so); timed
-    at zamba2's serving prefill (B=4, T=1100, H=80, P=64, N=64, bf16 x/b/c)
-    and a decode step (T=1) as device time from a CUDA graph."""
+    T 1, 7, 65, 1100; A < 0, h0 nonzero; then ``MAMBA2_CHUNKED_CASES`` on
+    the chunked path), and against ``selective_scan`` over the same
+    function with dt and x spread over (head, row) channels and A over the
+    rows (a check only: the model never calls it so); timed at zamba2's
+    serving prefill (B=4, T=1100, H=80, P=64, N=64, bf16 x/b/c: the chunked
+    path) and a decode step (T=1: the direct path) as device time from a
+    CUDA graph."""
     for dtype in (torch.float32, torch.bfloat16):
         for N in (16, 64, 128):
             for T in (1, 7, 65, 1100):
@@ -722,6 +761,18 @@ def phase_mamba2_scan(gen) -> dict:
                 case = (2, T, 3, 64, N, str(dtype)[6:])
                 _held("mamba2_scan", case + ("y",), y, wy, SCAN_TOL)
                 _held("mamba2_scan", case + ("h_last",), h, wh, SCAN_TOL)
+    for B, T, H, P, N, offset, reset in MAMBA2_CHUNKED_CASES:
+        args = _mamba2_inputs(gen, B, T, H, P, N, torch.bfloat16, offset,
+                              reset)
+        y, h = ms.mamba2_scan(*args)
+        wy, wh = ref.mamba2_scan_ref(*args)
+        plan = ms.kernel_mamba2_plan(*args, h)
+        case = (B, T, H, P, N, offset, "reset" if reset else "softplus",
+                ",".join(map(str, plan.as_ints())))
+        if plan.path != "chunked":
+            raise AssertionError(f"{case}: the plan is {plan}, not chunked")
+        _held("mamba2_scan", case + ("y",), y, wy, SCAN_TOL)
+        _held("mamba2_scan", case + ("h_last",), h, wh, SCAN_TOL)
     dt, x, b, c, A, h0 = _mamba2_inputs(gen, 2, 70, 3, 64, 16,
                                         torch.bfloat16)
     B, T, H, P = x.shape
@@ -745,27 +796,30 @@ def phase_mamba2_scan(gen) -> dict:
         err = max(_held("mamba2_scan", case + ("y",), y, wy, SCAN_TOL),
                   _held("mamba2_scan", case + ("h_last",), h, wh, SCAN_TOL))
         plan = ms.kernel_mamba2_plan(*args, h)
-        # N = 64: 16 lanes a row group, 32 rows a block, 2 blocks a head
-        want = ms.Mamba2Plan(16, 32, T <= 8, True, (2, H, B))
+        want = mamba2_plan_want(B, T, H)
         if plan != want:
             raise AssertionError(f"the kernel's plan {plan} is not {want}")
         ms_ = graph_ms(lambda: ms.mamba2_scan(*args))
         wrapper_ms = cuda_ms(lambda: ms.mamba2_scan(*args))
         plain_ms = cuda_ms(lambda: ref.mamba2_scan_ref(*args), iters=2,
                            warmup=1)
-        flops, nbytes, instr = _mamba2_cost(B, T, H, P, N, 2)
+        flops, nbytes, ssd_flops, instr = _mamba2_cost(B, T, H, P, N, 2)
         t_ops = flops / PEAK_TF32_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
-        # the direct form's own floor: its FP32 instructions on the cores
-        design_ms = max(instr / PEAK_F32_INSTR * 1e3, t_bytes)
+        # the path's own floor: the chunked path's bf16 products on the
+        # tensor cores, or the CUDA-core paths' FP32 instructions
+        path_ms = (ssd_flops / PEAK_BF16_FLOPS if plan.path == "chunked"
+                   else instr / PEAK_F32_INSTR) * 1e3
         log("kernel-time", name="mamba2_scan",
-            shape=f"B{B}_T{T}_H{H}_P{P}_N{N}_bf16",
+            shape=f"B{B}_T{T}_H{H}_P{P}_N{N}_bf16", path=plan.path,
             timing="cuda_graph_device_time", ms=f"{ms_:.4f}",
             wrapper_ms=f"{wrapper_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
             library_ms="none", plan=",".join(map(str, plan.as_ints())),
             bound_ms=f"{max(t_ops, t_bytes):.4f}",
             ops_bound_ms=f"{t_ops:.4f}", bytes_bound_ms=f"{t_bytes:.4f}",
-            design_bound_ms=f"{design_ms:.4f}", gflop=f"{flops / 1e9:.3f}",
+            design_bound_ms=f"{max(path_ms, t_bytes):.4f}",
+            design_ops_ms=f"{path_ms:.4f}", gflop=f"{flops / 1e9:.3f}",
+            design_gflop=f"{ssd_flops / 1e9:.3f}",
             ginstr=f"{instr / 1e9:.3f}", mbytes=f"{nbytes / 1e6:.2f}",
             max_abs_err=f"{err:.3e}")
         if rec is None:                   # the prefill shape is the record

@@ -17,8 +17,11 @@
 //   * mamba2_scan_fwd: the Mamba-2 form, as repro/models/ssm.py::mamba2_block
 //     computes it: a scalar decay exp(dt * A_h) a head, u = (dt * x) * b over
 //     a head's (P, N) state, b and c shared by all heads, from h0, returning
-//     y (B, T, H, P) and h_last (B, H, P, N).  Its design is at its code
-//     below ("mamba2_scan").
+//     y (B, T, H, P) and h_last (B, H, P, N).  A prefill in bf16 runs the
+//     chunked state-space-duality (SSD) form on the tensor cores (wgmma,
+//     chunks of 64 steps, the state carried in registers); decode and the
+//     float32 form run on the CUDA cores.  Its design is at its code below
+//     ("mamba2_scan").
 //
 // Differences from the TPU kernel, none of which change the result beyond
 // float32 rounding order: the TPU walks time blocks of bt steps on a
@@ -63,8 +66,8 @@
 //     lane reads its inputs straight from global memory, and h0 / h_last
 //     move as 16-byte vectors.
 // plan_selective below makes these choices; kernels/mamba_scan.py mirrors it
-// for the tests.  Neither kernel uses the tensor cores; the measured times
-// are in PERF.md.
+// for the tests.  Neither of these two kernels uses the tensor cores (only
+// the Mamba-2 form's chunked path does); the measured times are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -572,50 +575,51 @@ bool sel_args(SelArgs* a, const float* dt, const void* x, const void* b,
 // ---- mamba2_scan: the Mamba-2 form ------------------------------------------
 // decay_t = exp(dt_t * A_h) is one scalar a (b, t, h); u_t = (dt_t * x_t) * b_t
 // fills a head's (P, N) state; b_t and c_t are shared by every head of a
-// batch row.  A lane holds a 4 x 4 tile of a head's state: rows
-// r0 .. r0+3 and states n0 .. n0+3, so the 4 values of b_t and of c_t it
-// reads a step serve 16 state-steps.  NL = max(4, next_pow2(N / 4)) lanes
-// (a "row group") cover N for the same 4 rows, and a block of M2_NT threads
-// holds R = 4 * M2_NT / NL rows of one head of one batch row: zamba2's head
-// (P = 64, N = 64: NL = 16, R = 32) takes two blocks, its serving prefill
-// (B = 4, H = 80) 640.  Steps past T and rows past P run with zeros
-// (dt = 0: decay 1, u 0).
+// batch row.  Three paths, chosen from the shape and dtype (plan_mamba2):
+//   * chunked (T > 8, bf16 x, b, c, N <= 64; zamba2's prefill): the
+//     state-space-duality (SSD) form on the tensor cores, below at
+//     mamba2_chunked_kernel;
+//   * direct (T <= 8; decode is T = 1): CUDA cores, inputs read straight
+//     from global memory, bound by the bytes of h0 and h_last;
+//   * staged (T > 8 with float32 inputs or N > 64, which no served model
+//     runs in bf16): CUDA cores through shared-memory stages.
 //
-// What bounds it: at zamba2's serving prefill (B = 4, T = 1100, H = 80,
-// P = N = 64) a state-step is three FP32 instructions (FMUL for u, FFMA for
-// h, FFMA for y), 4.3 G in all, ~0.13 ms on the CUDA cores, against ~148 MB
-// (x bf16, y f32, h0 and h_last), ~0.044 ms: it is bound by operations.  The
-// design spends those three and little else on a state-step:
+// The two CUDA-core paths: a lane holds a 4 x 4 tile of a head's state,
+// rows r0 .. r0+3 and states n0 .. n0+3, so the 4 values of b_t and of c_t
+// it reads a step serve 16 state-steps.  NL = max(4, next_pow2(N / 4))
+// lanes (a "row group") cover N for the same 4 rows, and a block of M2_NT
+// threads holds R = 4 * M2_NT / NL rows of one head of one batch row.
+// Steps past T and rows past P run with zeros (dt = 0: decay 1, u 0).  A
+// state-step is three FP32 instructions (FMUL for u, FFMA for h, FFMA for
+// y); the design spends little else on it:
 //   * one exponential a (b, t, h) and row block, not a state: log2(e) is
 //     folded into A and the decay of a step is ex2'd once when its dt is
-//     staged (zamba2: 2 row blocks a head, 0.7 M ex2 a prefill, where
-//     selective_scan_fwd over broadcast inputs would take 1.44 G);
-//   * b_t and c_t are loaded once a stage and block for all its rows and
+//     staged;
+//   * b_t and c_t are staged once a stage and block for all its rows and
 //     read from shared memory, one 16-byte vector each a lane and step
 //     (the lanes of a row group read consecutive vectors: no bank
-//     conflict).  Shared-memory traffic, not arithmetic, bounded the first
-//     design, one row and 16 states a lane: 8 vector loads a step, half of
-//     them in conflict, 0.89-1.29 ms at this shape (a diagnostic sweep);
+//     conflict);
 //   * a row's y is summed over the row group by a reduce-scatter: two
 //     shuffles halve the four rows' partial sums to one row a lane, then
 //     log2(NL) - 2 butterfly shuffles finish it (5 shuffles a step for four
 //     rows at NL = 16); every lane then writes its row's y to a shared
 //     tile (the lanes of a row the same value, so no branch sits in the
 //     step), which the block stores coalesced once a stage;
-//   * at NL = 16 (N = 64, zamba2's) the staged kernel is held to 96
-//     registers, 5 blocks an SM, so zamba2's 640 blocks run as one wave
-//     on 132 SMs: at ptxas's own choice (168 registers, 3 blocks) or at 4
-//     blocks (128) they ran as two and took 0.79-0.81 ms against 0.49 (a
-//     diagnostic sweep; 6 or 7 blocks spill more and gain nothing).
-//     ptxas spills 12 bytes there.  The other row-group widths, which no
-//     served model runs, spilled 52-212 bytes under that cap and keep
-//     ptxas's choice.
-// The tensor cores are not used: the chunked (SSD) form that would put the
-// work on them is a later redesign.
+//   * at NL = 16 (N = 64) the staged kernel is held to 96 registers, 5
+//     blocks an SM, so that 640 blocks run as one wave on 132 SMs (at
+//     ptxas's own choice they ran as two, 1.6x slower; PERF.md, PR 19).
+// At zamba2's prefill (B = 4, T = 1100, H = 80, P = N = 64) these three
+// FP32 instructions a state-step are 4.3 G, ~0.13 ms on the CUDA cores,
+// against ~148 MB of bytes, ~0.044 ms: on the CUDA cores the scan is bound
+// by operations, so the prefill takes the chunked path instead.
 
 constexpr int M2_NT = 128;      // threads a block
 constexpr int M2_TS = 16;       // steps a stage
 constexpr int M2_DIRECT_T = 8;  // the longest T run without the stages
+constexpr int SSD_Q = 64;       // steps a chunk, and rows of P a block
+constexpr int SSD_MAX_N = 64;   // the states the chunked path takes
+
+enum { M2_DIRECT = 0, M2_STAGED = 1, M2_CHUNKED = 2 };
 
 struct M2Args {
   const float* dt;
@@ -626,26 +630,46 @@ struct M2Args {
   const float* h0;
   float* y;
   float* h_last;
-  int B, T, H, P, N;
+  int dtype, B, T, H, P, N;
   long long dt_sb, dt_st, x_sb, x_st, x_sh, b_sb, b_st, c_sb, c_st;
-  int vec;                      // from the plan
+  int vec, tma_x, tma_b, tma_c, tma_y;  // from the plan
 };
 
-// How a call runs: NL lanes a row group (4 rows x 4 states a lane), R
-// rows a block, the direct path or the stages, 16-byte vectors for h0 and
-// h_last, and the grid (row blocks, heads, batch rows).
+// How a call runs: the path; on the CUDA-core paths NL lanes a row group
+// (4 rows x 4 states a lane), R rows a block and 16-byte vectors for h0
+// and h_last; on the chunked path SSD_Q rows a block, which of x, b, c
+// come in through TMA and whether y goes out through it; and the grid (row
+// blocks, heads, batch rows).
 struct M2Plan {
-  int NL, R, direct, vec;
+  int path, NL, R, vec, tma_x, tma_b, tma_c, tma_y;
   unsigned gx, gy, gz;
 };
 
 M2Plan plan_mamba2(const M2Args& a) {
   M2Plan pl{};
-  pl.NL = lanes_for(a.N, 4);
-  if (pl.NL < 4) pl.NL = 4;
-  pl.R = 4 * M2_NT / pl.NL;
-  pl.direct = a.T <= M2_DIRECT_T;
-  pl.vec = a.N % 4 == 0 && ((uintptr_t)a.h0 | (uintptr_t)a.h_last) % 16 == 0;
+  if (a.T <= M2_DIRECT_T)
+    pl.path = M2_DIRECT;
+  else if (a.dtype == 1 && a.N <= SSD_MAX_N)
+    pl.path = M2_CHUNKED;
+  else
+    pl.path = M2_STAGED;
+  if (pl.path == M2_CHUNKED) {
+    // a tensor map also takes the head stride of x (unused at H = 1)
+    pl.R = SSD_Q;
+    pl.tma_x = tma_ok(a.x, a.x_sb, a.x_st, 2, a.B) &&
+               (a.H == 1 || (a.x_sh > 0 && a.x_sh * 2 % 16 == 0));
+    pl.tma_b = tma_ok(a.b, a.b_sb, a.b_st, 2, a.B);
+    pl.tma_c = tma_ok(a.c, a.c_sb, a.c_st, 2, a.B);
+    // y is the wrapper's contiguous (B, T, H, P) float32: rows of P * 4
+    // bytes, a multiple of 16 when P % 4 == 0
+    pl.tma_y = a.P % 4 == 0 && (uintptr_t)a.y % 16 == 0;
+  } else {
+    pl.NL = lanes_for(a.N, 4);
+    if (pl.NL < 4) pl.NL = 4;
+    pl.R = 4 * M2_NT / pl.NL;
+    pl.vec =
+        a.N % 4 == 0 && ((uintptr_t)a.h0 | (uintptr_t)a.h_last) % 16 == 0;
+  }
   pl.gx = (unsigned)((a.P + pl.R - 1) / pl.R);
   pl.gy = (unsigned)a.H;
   pl.gz = (unsigned)a.B;
@@ -882,10 +906,712 @@ mamba2_direct_kernel(const M2Args a) {
   m2_store_h(h, a, bb, hh, p, n0);
 }
 
+// ---- chunked path: the SSD form on the tensor cores ---------------------------
+// Chunks of Q = SSD_Q steps.  With a_k = dt_k A_h, the segment sums
+// S[i, j] = sum_{k = j+1 .. i} a_k (i >= j) and L = exp(S) (0 above the
+// diagonal), a chunk's output and its state passed on are
+//   y      = (L o C B^T) diag(dt) X + diag(exp(S[i, -1])) C h_prev^T
+//   h_next = exp(S[Q-1, -1]) h_prev + X^T diag(dt_j exp(S[Q-1, j])) B,
+// where C, B (Q x N) are the chunk's c and b, X (Q x P) its x and
+// S[i, -1] = sum_{k = 0 .. i} a_k.  One block a (row block of 64 rows of P,
+// head, batch row): 320 at zamba2's prefill, two an SM.  It walks the
+// chunks in order with the (P, N) state in registers as a wgmma
+// accumulator, so no chunk state goes to device memory.  Four products a
+// chunk, each a 64-row wgmma tile (m64n64k16, issued in straight-line
+// code), A always from registers:
+//   G  = C B^T       Q x Q x N   A = c (ldmatrix), B = b, K-major;
+//   y  = C h^T       Q x N x P   A = c, B = the state's bf16 terms;
+//   y += M X         Q x Q x P   A = M = L o G diag(dt), B = x, MN-major;
+//   h += X^T W       P x Q x N   A = x (ldmatrix, transposed),
+//                                B = W = diag(w) b, MN-major;
+// G's accumulator layout is the register-A layout of M X, so M never
+// leaves registers, and c's and x's fragments are read from shared memory
+// once a chunk for all the terms they meet.
+//
+// Precision: x, b and c arrive as bf16 and are exact operands; the float32
+// side of a product (M, the state h, W) is split into three bf16 terms (two
+// truncations and a rounding: ~22 bits; split3), so the products are
+// exact and the wgmma sums are f32.  Two terms (~15 bits) miss the scans'
+// rtol 1e-4 / atol 1e-4 at zamba2's widths, on any one of the three
+// products (ref.mamba2_scan_chunked_ref's emulation of the split).  So a
+// chunk is 4 + 3 (12 + 12 + 12) = 40 k16 steps.  The decays
+// come from direct sums (a sum of the a_k of a range, never a difference
+// of two running sums, which loses ~1e3 * 2^-24 of an exponent once a sum
+// reaches -1e3, the size of the tolerance): L[i, j] is the product of
+// the exponentials of three such sums
+// over groups of 8 steps (see Tables below); entries above the diagonal
+// are 0 before they multiply G, so no inf * 0 makes a NaN.  exp is ex2
+// with log2(e) folded into A.
+//
+// On one warpgroup the chunk was bound by the latency of its float32 work
+// (the tables, M's, W's and the state's splits: ~1000 instructions a
+// thread and a chunk, with one warp on each scheduler), not by the tensor
+// cores, which stood idle most of it (PERF.md, PR 20).  So a block is two
+// warpgroups:
+//   * the helper (72 registers) loads dt one chunk ahead, builds chunk k's
+//     decay tables into one of two buffers and, once the main warpgroup's
+//     C h^T has read the state's terms, writes W's three terms over them;
+//   * the main one (184 registers; setmaxnreg moves them) issues the TMA
+//     loads of x, b and c (two ring slots, chunk k + 1 issued during k),
+//     loads an operand TMA cannot take (a base or stride not a multiple of
+//     16 bytes, e.g. b and c sliced at an odd column) with its threads,
+//     issues G and C h^T, forms M and issues M X while the helper writes
+//     W, then the state product; while that runs it stages y in the
+//     slot's b and c tiles for a TMA store (or stores it from registers
+//     when P % 4 != 0), then writes the state's terms for the next chunk.
+// Named barriers hand the tables, the state's terms and W between them.
+// Steps past T read zeros (dt = 0: decay 1), rows past P and states past N
+// are zero-filled, so a ragged chunk, P or N needs no branch around a
+// product.
+//
+// What bounds it: at zamba2's prefill the 40 k16 steps of 320 blocks x 18
+// chunks are 30.2 GFLOP, 0.031 ms at 989 TFLOP/s, and the bytes (x, y,
+// h0, h_last, b, c, dt) ~0.044 ms at 3.35 TB/s: the design is bound by
+// bytes, 0.044 ms, against 0.129 ms for the CUDA cores' three FP32
+// instructions a state-step.  The measured times are in PERF.md.
+
+constexpr int SSD_WG = 128;                  // a warpgroup
+constexpr int SSD_NT = 2 * SSD_WG;           // main and helper
+// registers a thread of each (2 blocks an SM: 128 a thread on average)
+constexpr int SSD_MAIN_REGS = 184, SSD_HELP_REGS = 72;
+constexpr uint32_t SSD_TILE = 64 * 128;      // 64 x 64 bf16, 128-byte rows
+constexpr int SSD_G = 8;                     // steps a group of the sums
+// named barriers (0 is __syncthreads): tables in (helper -> main), C h^T
+// done (main -> helper), W ready (helper -> main), and each warpgroup's own
+enum { BAR_IN = 1, BAR_YF = 2, BAR_W = 3, BAR_MAIN = 4, BAR_HELP = 5 };
+
+struct SsdSmem {  // byte offsets from the 1024-aligned base
+  static constexpr uint32_t SLOT = 3 * SSD_TILE;                 // x, b, c
+  static constexpr uint32_t SPLIT = 2 * SLOT;                    // 3 terms
+  // floats: a, dt, Ein, Eout [Q]; Win [Q][G]; Mid [G][G]; Epre [G + 1],
+  // Epost [G], the group totals [G] (16 each)
+  static constexpr uint32_t VEC = SPLIT + 3 * SSD_TILE;
+  static constexpr uint32_t NVEC = 4 * SSD_Q + SSD_Q * SSD_G + SSD_G * SSD_G
+                                   + 48;
+  static constexpr uint32_t BAR = VEC + 2 * NVEC * 4;   // 2 tables; full[2]
+  static constexpr size_t SIZE = 1024 + BAR + 2 * sizeof(uint64_t);
+};
+
+struct M2Maps {
+  CUtensorMap x, b, c, y;
+};
+
+// TMA store of a box of shared memory into a 4-D tensor (one bulk group a
+// commit); wait_read: until the groups have read their shared memory
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(map), "r"(hopper::smem_u32(src)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// m64n64k16 bf16, A from registers, B K-major in shared memory (hopper.cuh's
+// rs_bf16_tb takes B MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,"
+      "%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, {%32,%33,%34,%35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory (lane l gives the address of
+// row l % 8 of matrix l / 8) into the wgmma register-A layout; trans:
+// each transposed
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_t(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr) : "memory");
+}
+
+// descriptors of k16 step kk of a 64-row tile: K-major (k within the
+// 128-byte row) and MN-major (16 rows of k a step)
+__device__ __forceinline__ uint64_t kdesc(uint32_t tile, int kk) {
+  return hopper::desc_sw128(tile + kk * 32, 16);
+}
+__device__ __forceinline__ uint64_t mndesc(uint32_t tile, int kk) {
+  return hopper::desc_sw128(tile + kk * 16 * 128, SSD_TILE);
+}
+
+// the byte of 16-byte chunk ch of row r in a 128-byte swizzled tile
+__device__ __forceinline__ uint32_t sw128(int r, int ch) {
+  return r * 128 + ((ch ^ (r & 7)) << 4);
+}
+
+// (x, y) as three bf16x2 terms o[0] + o[1] + o[2], x in the low halves:
+// the top 16 bits of x (one byte permute for the pair), the top 16 bits of
+// what that leaves, then the nearest bf16 of the rest (each remainder exact
+// in f32): within 2^-22 |x| of x, and one conversion a pair (three
+// roundings would take three)
+__device__ __forceinline__ void split3(float x, float y, uint32_t (&o)[3]) {
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const uint32_t xb = __float_as_uint(x), yb = __float_as_uint(y);
+    o[k] = __byte_perm(xb, yb, 0x7632);
+    x -= __uint_as_float(xb & 0xffff0000u);
+    y -= __uint_as_float(yb & 0xffff0000u);
+  }
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  o[2] = *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A 64 x 64 bf16 tile of rows rs elements apart from src into a 128-byte
+// swizzled tile by a warpgroup's threads, for an operand TMA cannot take;
+// zeros at rows >= nr or columns >= nc.
+__device__ __forceinline__ void fill_ssd_tile(unsigned char* dst,
+                                              const __nv_bfloat16* src,
+                                              long long rs, int nr, int nc,
+                                              int tid) {
+  const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+#pragma unroll 4
+  for (int i = tid; i < 64 * 32; i += SSD_WG) {   // bf16 pairs
+    const int r = i / 32, c = 2 * (i % 32);
+    uint32_t lo = 0, hi = 0;
+    if (r < nr) {
+      const unsigned short* q = s + r * rs + c;
+      if (c < nc) lo = __ldg(q);
+      if (c + 1 < nc) hi = __ldg(q + 1);
+    }
+    *reinterpret_cast<uint32_t*>(dst + sw128(r, c / 8) + (c % 8) * 2) =
+        lo | (hi << 16);
+  }
+}
+
+__global__ void __launch_bounds__(SSD_NT, 2)
+mamba2_chunked_kernel(const __grid_constant__ M2Maps maps, const M2Args a) {
+  using Sm = SsdSmem;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hopper::align1024(smem_raw);
+  const uint32_t base = hopper::smem_u32(sm);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + Sm::BAR);
+  auto tile = [&](int slot, int which) {                  // 0 x, 1 b, 2 c
+    return sm + slot * Sm::SLOT + which * SSD_TILE;
+  };
+  // chunk k's decay tables (buffer k % 2), from direct sums over groups
+  // of SSD_G steps (all in log2 units; k in group K = k / SSD_G):
+  //   Ein[k]  = 2^(sum of a over K's steps up to k),
+  //   Eout[k] = 2^(sum of a over K's steps after k) * dt_k,
+  //   Win[i][c] = L[i, j] dt_j for j = SSD_G (i / SSD_G) + c <= i,
+  //   Mid[I][J] = 2^(sum of a over the groups strictly between J and I),
+  //   Epre[I] = 2^(sum over the groups before I), Epost[J] after J,
+  // so that L[i, j] dt_j = Ein[i] Mid[I][J] Eout[j] for groups J < I,
+  // exp(S[i, -1]) = Epre[I] Ein[i], w_j = Eout[j] Epost[J] and the chunk's
+  // decay is Epre[SSD_G]: products of exponentials of sums, never an
+  // exponential of a difference
+  struct Tables {
+    float *a2, *dt, *ein, *eout, *win, *mid, *epre, *epost, *tot;
+  };
+  auto tables = [&](int k) {
+    float* f = reinterpret_cast<float*>(sm + Sm::VEC) + (k & 1) * Sm::NVEC;
+    Tables t;
+    t.a2 = f;                       // a_k log2(e)
+    t.dt = t.a2 + SSD_Q;
+    t.ein = t.dt + SSD_Q;
+    t.eout = t.ein + SSD_Q;
+    t.win = t.eout + SSD_Q;
+    t.mid = t.win + SSD_Q * SSD_G;
+    t.epre = t.mid + SSD_G * SSD_G;
+    t.epost = t.epre + 16;
+    t.tot = t.epost + 16;           // group totals, log2 units
+    return t;
+  };
+
+  const int tid = threadIdx.x;
+  const int p0 = blockIdx.x * SSD_Q, hh = blockIdx.y, bb = blockIdx.z;
+  const int T = a.T, P = a.P, N = a.N, H = a.H;
+  const int nch = (T + SSD_Q - 1) / SSD_Q;
+  const uint32_t tx = SSD_TILE * (a.tma_x + a.tma_b + a.tma_c);
+  if (tid == 0) {
+    hopper::mbar_init(&full[0], 1);
+    hopper::mbar_init(&full[1], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= SSD_WG) {
+    // ---- helper warpgroup: dt, the decay tables, W ----
+    hopper::setmaxnreg_dec<SSD_HELP_REGS>();
+    const int h = tid - SSD_WG;
+    const float A2 = __ldg(a.A + hh) * LOG2E;
+    const float* dtg = a.dt + bb * a.dt_sb + hh;
+    float dtn = h < SSD_Q && h < T ? __ldg(dtg + h * a.dt_st) : 0.f;
+    for (int k = 0; k < nch; ++k) {
+      const int t0 = k * SSD_Q;
+      const Tables tb = tables(k);
+      if (h < SSD_Q) {
+        tb.dt[h] = dtn;
+        tb.a2[h] = dtn * A2;
+      }
+      if (k + 1 < nch)
+        dtn = h < SSD_Q && t0 + SSD_Q + h < T
+                  ? __ldg(dtg + (t0 + SSD_Q + h) * a.dt_st)
+                  : 0.f;
+      hopper::named_sync(BAR_HELP, SSD_WG);
+      // the sums within a group: thread h < 64 Ein[h], Eout[h] and (the
+      // group's last) its total; thread 64 + i row i of Win
+      {
+        const int i = h & (SSD_Q - 1), K0 = i & ~(SSD_G - 1),
+                  c = i & (SSD_G - 1);
+        float av[SSD_G];
+#pragma unroll
+        for (int m = 0; m < SSD_G; m += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(tb.a2 + K0 + m);
+          av[m] = v.x; av[m + 1] = v.y; av[m + 2] = v.z; av[m + 3] = v.w;
+        }
+        if (h < SSD_Q) {
+          float pin = 0.f, pout = 0.f;
+#pragma unroll
+          for (int m = 0; m < SSD_G; ++m) {
+            pin += m <= c ? av[m] : 0.f;
+            pout += m > c ? av[m] : 0.f;
+          }
+          tb.ein[i] = hopper::ex2(pin);
+          tb.eout[i] = hopper::ex2(pout) * tb.dt[i];
+          if (c == SSD_G - 1) tb.tot[i / SSD_G] = pin;
+        } else {
+          float dv[SSD_G], win[SSD_G], sum = 0.f;
+#pragma unroll
+          for (int m = 0; m < SSD_G; m += 4) {
+            const float4 v = *reinterpret_cast<const float4*>(tb.dt + K0 + m);
+            dv[m] = v.x; dv[m + 1] = v.y; dv[m + 2] = v.z; dv[m + 3] = v.w;
+          }
+#pragma unroll
+          for (int m = SSD_G - 1; m >= 0; --m) {  // S[i, K0 + m], m = c .. 0
+            win[m] = m <= c ? hopper::ex2(sum) * dv[m] : 0.f;
+            sum += m <= c ? av[m] : 0.f;
+          }
+#pragma unroll
+          for (int m = 0; m < SSD_G; m += 4)
+            *reinterpret_cast<float4*>(tb.win + i * SSD_G + m) =
+                make_float4(win[m], win[m + 1], win[m + 2], win[m + 3]);
+        }
+      }
+      hopper::named_sync(BAR_HELP, SSD_WG);
+      // then over the group totals: thread 8 I + J < 64 Mid[I][J] (I > J),
+      // Epre[I] (I == J), Epost[I] (J == I + 1), and two threads the
+      // chunk's decay Epre[G] and Epost[G - 1] = 1
+      if (h < SSD_Q) {
+        const int I = h / SSD_G, J = h % SSD_G;
+        const float4 u0 = *reinterpret_cast<const float4*>(tb.tot);
+        const float4 u1 = *reinterpret_cast<const float4*>(tb.tot + 4);
+        const float tot[SSD_G] = {u0.x, u0.y, u0.z, u0.w,
+                                  u1.x, u1.y, u1.z, u1.w};
+        int lo = 0, hi = 0;
+        float* dst = nullptr;
+        if (I > J) {
+          lo = J + 1, hi = I, dst = tb.mid + SSD_G * I + J;
+        } else if (I == J) {
+          lo = 0, hi = I, dst = tb.epre + I;
+        } else if (J == I + 1) {
+          lo = J, hi = SSD_G, dst = tb.epost + I;
+        } else if (I == 0 && J == 2) {
+          lo = 0, hi = SSD_G, dst = tb.epre + SSD_G;
+        } else if (I == 0 && J == 3) {
+          lo = SSD_G, hi = SSD_G, dst = tb.epost + SSD_G - 1;
+        }
+        float sum = 0.f;
+#pragma unroll
+        for (int K = 0; K < SSD_G; ++K)
+          sum += K >= lo && K < hi ? tot[K] : 0.f;
+        if (dst != nullptr) *dst = hopper::ex2(sum);
+      }
+      hopper::named_arrive(BAR_IN, 2 * SSD_WG);   // the tables are ready
+      // W = diag(w) b in three terms over the state's, once the main
+      // warpgroup's C h^T has read them
+      hopper::named_sync(BAR_YF, 2 * SSD_WG);
+      {
+        const unsigned char* bt = tile(k & 1, 1);
+#pragma unroll
+        for (int q4 = 0; q4 < 4; ++q4) {
+          const int ch = h + SSD_WG * q4;       // 16-byte chunk, row ch / 8
+          const uint4 v = *reinterpret_cast<const uint4*>(bt + ch * 16);
+          const int jw = ch / 8;
+          const float w = tb.eout[jw] * tb.epost[jw / SSD_G];
+          const uint32_t in[4] = {v.x, v.y, v.z, v.w};
+          uint32_t o[3][4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            uint32_t t3[3];
+            split3(__uint_as_float(in[q] << 16) * w,
+                   __uint_as_float(in[q] & 0xffff0000u) * w, t3);
+#pragma unroll
+            for (int k3 = 0; k3 < 3; ++k3) o[k3][q] = t3[k3];
+          }
+#pragma unroll
+          for (int k3 = 0; k3 < 3; ++k3)
+            *reinterpret_cast<uint4*>(sm + Sm::SPLIT + k3 * SSD_TILE +
+                                      ch * 16) =
+                make_uint4(o[k3][0], o[k3][1], o[k3][2], o[k3][3]);
+        }
+      }
+      hopper::fence_proxy_async();
+      hopper::named_arrive(BAR_W, 2 * SSD_WG);
+    }
+    return;
+  }
+
+  // ---- main warpgroup: the products, M, the state's terms, y ----
+  hopper::setmaxnreg_inc<SSD_MAIN_REGS>();
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int r0 = 16 * warp + g;   // fragment rows r0 and r0 + 8
+  const bf16* xg = static_cast<const bf16*>(a.x) + bb * a.x_sb +
+                   (long long)hh * a.x_sh + p0;
+  const bf16* bg = static_cast<const bf16*>(a.b) + bb * a.b_sb;
+  const bf16* cg = static_cast<const bf16*>(a.c) + bb * a.c_sb;
+  const bool fills = !(a.tma_x && a.tma_b && a.tma_c);
+
+  auto issue_tma = [&](int k) {   // chunk k's TMA operands into slot k % 2
+    const int s = k & 1, t0 = k * SSD_Q;
+    hopper::mbar_arrive_expect_tx(&full[s], tx);
+    if (a.tma_x)
+      hopper::tma_load_4d(tile(s, 0), &maps.x, &full[s], p0, hh, t0, bb);
+    if (a.tma_b) hopper::tma_load_3d(tile(s, 1), &maps.b, &full[s], 0, t0, bb);
+    if (a.tma_c) hopper::tma_load_3d(tile(s, 2), &maps.c, &full[s], 0, t0, bb);
+  };
+  if (tid == 0 && tx) {     // chunks 0 and 1; chunk k + 1 is issued in k
+    issue_tma(0);
+    if (nch > 1) issue_tma(1);
+  }
+
+  // the state in the accumulator layout: hs[4j + e] is row
+  // p0 + r0 + 8 (e >> 1), state 8j + 2 t4 + (e & 1)
+  const long long hrow = ((long long)bb * H + hh) * P + p0;
+  float hs[32];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + 8 * (e >> 1), n = 8 * j + 2 * t4 + (e & 1);
+      hs[4 * j + e] =
+          p0 + r < P && n < N ? __ldg(a.h0 + (hrow + r) * N + n) : 0.f;
+    }
+  // the state's three bf16 terms, K-major (rows p, states n), for C h^T
+  auto put_state = [&]() {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        uint32_t o[3];
+        split3(hs[4 * j + 2 * half], hs[4 * j + 2 * half + 1], o);
+        const uint32_t off = sw128(r0 + 8 * half, j) + 4 * t4;
+#pragma unroll
+        for (int k3 = 0; k3 < 3; ++k3)
+          *reinterpret_cast<uint32_t*>(sm + Sm::SPLIT + k3 * SSD_TILE +
+                                       off) = o[k3];
+      }
+  };
+  put_state();
+  hopper::fence_proxy_async();
+
+  float* yg = a.y + ((long long)bb * T * H + hh) * P + p0;
+  const bool pairs = P % 2 == 0;   // y's column pairs are 8-byte aligned
+  float gacc[32], y[32];
+  uint32_t mf[3][4][4];            // M's terms as register A fragments
+  uint32_t af[4][4];               // C's, then X^T's, A fragments
+  const int lq = lane / 8, lr = lane % 8;   // ldmatrix: matrix, its row
+
+  for (int k = 0; k < nch; ++k) {
+    const int s = k & 1, t0 = k * SSD_Q;
+    const Tables tb = tables(k);
+    // (1) the operands TMA does not bring; the tables of chunk k
+    if (fills) {
+      if (!a.tma_x)
+        fill_ssd_tile(tile(s, 0), xg + t0 * a.x_st, a.x_st, T - t0, P - p0,
+                      tid);
+      if (!a.tma_b)
+        fill_ssd_tile(tile(s, 1), bg + t0 * a.b_st, a.b_st, T - t0, N, tid);
+      if (!a.tma_c)
+        fill_ssd_tile(tile(s, 2), cg + t0 * a.c_st, a.c_st, T - t0, N, tid);
+      hopper::fence_proxy_async();
+    }
+    hopper::named_sync(BAR_IN, 2 * SSD_WG);
+    if (tx) hopper::mbar_wait(&full[s], (k >> 1) & 1);
+    const uint32_t xa = base + s * Sm::SLOT, ba = xa + SSD_TILE,
+                   ca = xa + 2 * SSD_TILE, sa = base + Sm::SPLIT;
+
+    // (2) G = C B^T and y = C h^T, C as register fragments read once for
+    // all four (A from shared memory would be read again for each)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int R = 16 * warp + 8 * (lq & 1) + lr;       // row i of c
+      ldmatrix_x4(af[kk], ca + sw128(R, 2 * kk + (lq >> 1)));
+    }
+    hopper::fence_regs(y);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hopper::fence_regs(af[kk]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(gacc, af[kk], kdesc(ba, kk), kk > 0);
+#pragma unroll
+    for (int k3 = 0; k3 < 3; ++k3)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(y, af[kk], kdesc(sa + k3 * SSD_TILE, kk), k3 + kk > 0);
+    hopper::wgmma_commit();
+    // slot s ^ 1 is free once chunk k - 1's y has been read out of it
+    if (tid == 0 && k > 0) {
+      if (a.tma_y) bulk_wait_read<0>();
+      if (tx && k + 1 < nch) issue_tma(k + 1);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(gacc);
+    hopper::fence_regs(y);
+    hopper::named_arrive(BAR_YF, 2 * SSD_WG);   // C h^T has read the terms
+
+    // (3) y rows scaled by exp(S[i, -1]); M = L o G diag(dt) in three terms
+    // (L diag(dt) from the tables: zero above the diagonal before it
+    // multiplies G); y += M X
+    {
+      const int I0 = r0 / SSD_G;
+      const float e0 = tb.epre[I0] * tb.ein[r0],
+                  e1 = tb.epre[I0 + 1] * tb.ein[r0 + 8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        y[4 * j] *= e0;
+        y[4 * j + 1] *= e0;
+        y[4 * j + 2] *= e1;
+        y[4 * j + 3] *= e1;
+      }
+      float ein[2], mid[2][SSD_G];
+      float2 win[2];
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int r = r0 + 8 * h2;
+        ein[h2] = tb.ein[r];
+        win[h2] = *reinterpret_cast<const float2*>(tb.win + r * SSD_G +
+                                                   2 * t4);
+#pragma unroll
+        for (int J = 0; J < SSD_G; J += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              tb.mid + SSD_G * (I0 + h2) + J);
+          mid[h2][J] = v.x; mid[h2][J + 1] = v.y;
+          mid[h2][J + 2] = v.z; mid[h2][J + 3] = v.w;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          const int J = 2 * kk + (rr >> 1), h2 = rr & 1, I = I0 + h2;
+          const float2 eo =
+              *reinterpret_cast<const float2*>(tb.eout + SSD_G * J + 2 * t4);
+          const float f = J < I ? ein[h2] * mid[h2][J] : 0.f;
+          const float lx = J == I ? win[h2].x : f * eo.x;
+          const float ly = J == I ? win[h2].y : f * eo.y;
+          uint32_t o[3];
+          split3(gacc[8 * kk + 2 * rr] * lx, gacc[8 * kk + 2 * rr + 1] * ly,
+                 o);
+#pragma unroll
+          for (int k3 = 0; k3 < 3; ++k3) mf[k3][kk][rr] = o[k3];
+        }
+    }
+    hopper::fence_regs(y);
+#pragma unroll
+    for (int k3 = 0; k3 < 3; ++k3)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hopper::fence_regs(mf[k3][kk]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int k3 = 0; k3 < 3; ++k3)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::Wgmma<64>::rs_bf16_tb(y, mf[k3][kk], mndesc(xa, kk), 1);
+    hopper::wgmma_commit();
+
+    // (4) h = exp(S[Q-1, -1]) h + X^T W, once the helper has written W;
+    // X^T as register fragments (x transposed by ldmatrix), read once for
+    // W's three terms.  C's fragments are done with: their products
+    // finished before (3)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int j = 16 * kk + 8 * (lq >> 1) + lr;        // step j of x
+      ldmatrix_x4_t(af[kk], xa + sw128(j, 2 * warp + (lq & 1)));
+    }
+    hopper::named_sync(BAR_W, 2 * SSD_WG);
+    {
+      const float dec = tb.epre[SSD_G];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) hs[i] *= dec;
+    }
+    hopper::fence_regs(hs);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hopper::fence_regs(af[kk]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int k3 = 0; k3 < 3; ++k3)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::Wgmma<64>::rs_bf16_tb(hs, af[kk],
+                                      mndesc(sa + k3 * SSD_TILE, kk), 1);
+    hopper::wgmma_commit();
+
+    // (5) y out while the state product runs, once M X (the older group)
+    // is done: through TMA from slot s (its b and c tiles, which nothing
+    // reads now: two boxes of 32 columns, 128-byte swizzled), stored by
+    // thread 0 once every thread has written its part, or from registers
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(y);
+    if (a.tma_y) {
+      unsigned char* st = tile(s, 1);
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int r = r0 + 8 * half;
+          const uint32_t off = (j >> 2) * SSD_TILE +
+                               sw128(r, 2 * (j & 3) + (t4 >> 1)) +
+                               (t4 & 1) * 8;
+          *reinterpret_cast<float2*>(st + off) =
+              make_float2(y[4 * j + 2 * half], y[4 * j + 2 * half + 1]);
+        }
+      hopper::fence_proxy_async();
+      hopper::named_sync(BAR_MAIN, SSD_WG);
+      if (tid == 0) {
+        tma_store_4d(&maps.y, st, p0, hh, t0, bb);
+        if (p0 + 32 < P)
+          tma_store_4d(&maps.y, st + SSD_TILE, p0 + 32, hh, t0, bb);
+        bulk_commit();
+      }
+    } else {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int tt = t0 + r0 + 8 * half;
+        if (tt >= T) continue;
+        float* row = yg + (long long)tt * H * P;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int p = 8 * j + 2 * t4;
+          const float v0 = y[4 * j + 2 * half], v1 = y[4 * j + 2 * half + 1];
+          if (pairs && p0 + p + 1 < P) {
+            *reinterpret_cast<float2*>(row + p) = make_float2(v0, v1);
+          } else {
+            if (p0 + p < P) row[p] = v0;
+            if (p0 + p + 1 < P) row[p + 1] = v1;
+          }
+        }
+      }
+    }
+
+    // (6) the state's terms for the next chunk, once every warp's state
+    // product is done with W
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(hs);
+    hopper::named_sync(BAR_MAIN, SSD_WG);
+    put_state();
+    hopper::fence_proxy_async();
+  }
+
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + 8 * (e >> 1), n = 8 * j + 2 * t4 + (e & 1);
+      if (p0 + r < P && n < N) a.h_last[(hrow + r) * N + n] = hs[4 * j + e];
+    }
+  if (tid == 0 && a.tma_y) bulk_wait<0>();
+}
+
+// x (B, T, H, P) as a 4-D map (P, H, T, B) and b or c (B, T, N) as a 3-D
+// map (N, T, B), boxes of 64 x 64 bf16 (one head, one batch row), 128-byte
+// swizzled; a stride of a size-1 dim is not used and is given packed
+bool map_ssd_x(CUtensorMap* m, const M2Args& a) {
+  const uint64_t dims[4] = {(uint64_t)a.P, (uint64_t)a.H, (uint64_t)a.T,
+                            (uint64_t)a.B};
+  const uint64_t sh = a.H == 1 ? (uint64_t)(a.P + 7) / 8 * 8 : a.x_sh;
+  const uint64_t sb = a.B == 1 ? (uint64_t)a.x_st * a.T : a.x_sb;
+  const uint64_t strides[3] = {2 * sh, 2 * (uint64_t)a.x_st, 2 * sb};
+  const uint32_t box[4] = {64, 1, 64, 1};
+  return hopper_host::make_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, a.x,
+                               dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+bool map_ssd_bc(CUtensorMap* m, const void* p, long long sb, long long st,
+                const M2Args& a) {
+  const uint64_t dims[3] = {(uint64_t)a.N, (uint64_t)a.T, (uint64_t)a.B};
+  const uint64_t bs = a.B == 1 ? (uint64_t)st * a.T : (uint64_t)sb;
+  const uint64_t strides[2] = {2 * (uint64_t)st, 2 * bs};
+  const uint32_t box[3] = {64, 64, 1};
+  return hopper_host::make_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, p,
+                               dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// y (B, T, H, P) float32, contiguous, as a 4-D map (P, H, T, B), boxes of
+// 32 columns (128 bytes, swizzled) by one head by 64 steps
+bool map_ssd_y(CUtensorMap* m, const M2Args& a) {
+  const uint64_t dims[4] = {(uint64_t)a.P, (uint64_t)a.H, (uint64_t)a.T,
+                            (uint64_t)a.B};
+  const uint64_t row = 4ull * a.P;
+  const uint64_t strides[3] = {row, row * a.H, row * a.H * a.T};
+  const uint32_t box[4] = {32, 1, 64, 1};
+  return hopper_host::make_map(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.y,
+                               dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+cudaError_t launch_chunked(const M2Args& a, const M2Plan& pl,
+                           cudaStream_t st) {
+  M2Maps maps;
+  memset(&maps, 0, sizeof maps);
+  if ((pl.tma_y && !map_ssd_y(&maps.y, a)) ||
+      (pl.tma_x && !map_ssd_x(&maps.x, a)) ||
+      (pl.tma_b && !map_ssd_bc(&maps.b, a.b, a.b_sb, a.b_st, a)) ||
+      (pl.tma_c && !map_ssd_bc(&maps.c, a.c, a.c_sb, a.c_st, a)))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      mamba2_chunked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SsdSmem::SIZE);
+  if (e != cudaSuccess) return e;
+  mamba2_chunked_kernel<<<dim3(pl.gx, pl.gy, pl.gz), SSD_NT, SsdSmem::SIZE,
+                          st>>>(maps, a);
+  return cudaGetLastError();
+}
+
 template <typename TX, int NL>
 cudaError_t launch_m2(const M2Args& a, const M2Plan& pl, cudaStream_t st) {
   const dim3 grid(pl.gx, pl.gy, pl.gz);
-  if (pl.direct)
+  if (pl.path == M2_DIRECT)
     mamba2_direct_kernel<TX, NL><<<grid, M2_NT, 0, st>>>(a);
   else
     mamba2_staged_kernel<TX, NL><<<grid, M2_NT, 0, st>>>(a);
@@ -894,6 +1620,8 @@ cudaError_t launch_m2(const M2Args& a, const M2Plan& pl, cudaStream_t st) {
 
 template <typename TX>
 cudaError_t dispatch_m2(const M2Args& a, const M2Plan& pl, cudaStream_t st) {
+  if (pl.path == M2_CHUNKED)
+    return sizeof(TX) == 2 ? launch_chunked(a, pl, st) : cudaErrorInvalidValue;
   switch (pl.NL) {
     case 4: return launch_m2<TX, 4>(a, pl, st);
     case 8: return launch_m2<TX, 8>(a, pl, st);
@@ -913,8 +1641,9 @@ bool m2_args(M2Args* a, const float* dt, const void* x, const void* b,
   if (B <= 0 || T <= 0 || H <= 0 || P <= 0 || N <= 0 || N > MAX_N ||
       B > 65535 || H > 65535 || (dtype != 0 && dtype != 1))
     return false;
-  *a = M2Args{dt, x, b, c, A, h0, y, h_last, B, T, H, P, N, dt_sb, dt_st,
-              x_sb, x_st, x_sh, b_sb, b_st, c_sb, c_st, 0};
+  *a = M2Args{dt, x, b, c, A, h0, y, h_last, dtype, B, T, H, P, N,
+              dt_sb, dt_st, x_sb, x_st, x_sh, b_sb, b_st, c_sb, c_st,
+              0, 0, 0, 0, 0};
   return true;
 }
 
@@ -1001,13 +1730,18 @@ int mamba2_scan_fwd(const float* dt, const void* x, const void* b,
     return (int)cudaErrorInvalidValue;
   const M2Plan pl = plan_mamba2(a);
   a.vec = pl.vec;
+  a.tma_x = pl.tma_x;
+  a.tma_b = pl.tma_b;
+  a.tma_c = pl.tma_c;
+  a.tma_y = pl.tma_y;
   auto s = static_cast<cudaStream_t>(stream);
   return (int)(dtype == 0 ? dispatch_m2<float>(a, pl, s)
                           : dispatch_m2<__nv_bfloat16>(a, pl, s));
 }
 
-// The plan mamba2_scan_fwd makes for these arguments, into out[0..6]: NL,
-// R, direct, vec, grid x, y, z.  Launches nothing.
+// The plan mamba2_scan_fwd makes for these arguments, into out[0..10]:
+// path (0 direct, 1 staged, 2 chunked), NL, R, vec, tma_x, tma_b, tma_c,
+// tma_y, grid x, y, z.  Launches nothing.
 int mamba2_scan_plan(const float* dt, const void* x, const void* b,
                      const void* c, const float* A, const float* h0, float* y,
                      float* h_last, int dtype, int B, int T, int H, int P,
@@ -1020,9 +1754,10 @@ int mamba2_scan_plan(const float* dt, const void* x, const void* b,
                dt_sb, dt_st, x_sb, x_st, x_sh, b_sb, b_st, c_sb, c_st))
     return (int)cudaErrorInvalidValue;
   const M2Plan pl = plan_mamba2(a);
-  const int v[7] = {pl.NL, pl.R, pl.direct, pl.vec, (int)pl.gx, (int)pl.gy,
-                    (int)pl.gz};
-  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  const int v[11] = {pl.path,  pl.NL,    pl.R,       pl.vec,
+                     pl.tma_x,  pl.tma_b, pl.tma_c,   pl.tma_y,
+                     (int)pl.gx, (int)pl.gy, (int)pl.gz};
+  for (int i = 0; i < 11; ++i) out[i] = v[i];
   return 0;
 }
 

@@ -10,7 +10,9 @@ through its C interface, with three entry points:
   registers and never stores the (B, T, D, N) products;
 * ``mamba2_scan(dt, x, b, c, A, h0)``: the Mamba-2 form that
   ``models/ssm.py::mamba2_block`` calls: a scalar decay a head, b and c
-  shared by every head, a (P, N) state a head.
+  shared by every head, a (P, N) state a head.  A bf16 prefill runs as the
+  chunked (SSD) form on the tensor cores, whose plain counterpart is
+  ``ref.mamba2_scan_chunked_ref``.
 
 A tensor on the CPU goes to the plain versions in ``ref``; a CUDA tensor
 goes to the kernel or the call raises.  ``mamba_scan.launches``,
@@ -291,18 +293,27 @@ def _check_mamba2(dt, x, b, c, A, h0):
             raise ValueError(f"{name} must be contiguous")
 
 
+MAMBA2_PATHS = ("direct", "staged", "chunked")   # csrc's plan codes 0, 1, 2
+
+
 @dataclasses.dataclass(frozen=True)
 class Mamba2Plan:
     """How ``mamba2_scan_fwd`` runs a call."""
-    lanes: int           # NL: lanes a row group (4 rows x 4 states a lane)
-    rows: int            # R: rows a block
-    direct: bool         # T <= 8: no stages, inputs read from global
-    vec: bool            # h0, h_last as 16-byte vectors
+    path: str            # "direct": T <= 8 (decode), CUDA cores;
+                         # "chunked": the SSD form on the tensor cores
+                         # (T > 8, bfloat16 x, b, c, N <= 64);
+                         # "staged": CUDA cores, the other T > 8 calls
+    lanes: int           # NL: lanes a row group on the CUDA-core paths
+                         # (4 rows x 4 states a lane); 0 when chunked
+    rows: int            # rows of P a block
+    vec: bool            # h0, h_last as 16-byte vectors (CUDA-core paths)
+    tma: tuple[bool, bool, bool, bool]  # chunked path: x, b, c in and y
+                                        # out through TMA
     grid: tuple[int, int, int]
 
     def as_ints(self) -> list[int]:
-        return [self.lanes, self.rows, int(self.direct), int(self.vec),
-                *self.grid]
+        return [MAMBA2_PATHS.index(self.path), self.lanes, self.rows,
+                int(self.vec), *map(int, self.tma), *self.grid]
 
 
 def _mamba2_args(dt, x, b, c, A, h0, y, h_last) -> list:
@@ -316,17 +327,22 @@ def _mamba2_args(dt, x, b, c, A, h0, y, h_last) -> list:
 
 def kernel_mamba2_plan(dt, x, b, c, A, h0, h_last) -> Mamba2Plan:
     """The plan ``csrc/mamba_scan.cu::plan_mamba2`` makes for these operands
-    (``h_last`` the output the wrapper allocates), from a card's library:
-    a lane holds 4 rows x 4 states, NL = max(4, next_pow2(N / 4)) lanes a
-    row group, 4 * 128 / NL rows a 128-thread block, one block a (row
-    block, head, batch row); T <= 8 takes the direct path."""
-    out = (ctypes.c_int * 7)()
+    (``h_last`` the output the wrapper allocates), from a card's library.
+    T <= 8 takes the direct path; T > 8 with bfloat16 x, b, c and N <= 64
+    the chunked path, 64 rows of P a block, each of x, b, c in through TMA
+    where its base and strides allow and y out through it when P % 4 == 0;
+    the other calls the staged path.  On the CUDA-core paths a lane holds
+    4 rows x 4 states, NL = max(4, next_pow2(N / 4)) lanes a row group and
+    4 * 128 / NL rows a 128-thread block.  One block a (row block, head,
+    batch row)."""
+    out = (ctypes.c_int * 11)()
     y = h_last.new_empty(x.shape)
     _raise_on(_lib().mamba2_scan_plan(
         *_mamba2_args(dt, x, b, c, A, h0, y, h_last), out),
         "mamba2_scan_plan")
     v = list(out)
-    return Mamba2Plan(v[0], v[1], bool(v[2]), bool(v[3]), (v[4], v[5], v[6]))
+    return Mamba2Plan(MAMBA2_PATHS[v[0]], v[1], v[2], bool(v[3]),
+                      tuple(map(bool, v[4:8])), (v[8], v[9], v[10]))
 
 
 def mamba2_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,

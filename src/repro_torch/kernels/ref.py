@@ -8,6 +8,7 @@ and ``chip_smoke.py`` hold the kernels against them on the card.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -188,6 +189,83 @@ def mamba2_scan_ref(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
         h = decay * h + u
         ys.append((h * c[:, t, None, None, :]).sum(dim=-1))
     return torch.stack(ys, dim=1), h
+
+
+def _bf16_terms(v: torch.Tensor, terms: int) -> list[torch.Tensor]:
+    """``v`` as ``terms`` bfloat16 values (in float32) as the chunked kernel
+    splits it: each term but the last the top 16 bits of what the terms
+    before it left (a truncation), the last its nearest bfloat16; ``[v]``
+    itself at 0."""
+    if terms == 0:
+        return [v]
+    parts = []
+    for i in range(terms):
+        if i < terms - 1:
+            part = (v.view(torch.int32) & -65536).view(torch.float32)
+        else:
+            part = v.to(torch.bfloat16).float()
+        parts.append(part)
+        v = v - part
+    return parts
+
+
+def mamba2_scan_chunked_ref(dt: torch.Tensor, x: torch.Tensor,
+                            b: torch.Tensor, c: torch.Tensor, A: torch.Tensor,
+                            h0: torch.Tensor, chunk: int = 64,
+                            bf16_terms: int = 0
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``mamba2_scan_ref``'s function in the chunked state-space-duality
+    (SSD) form that ``csrc/mamba_scan.cu``'s chunked path computes; for the
+    tests (the ``mamba2_scan`` wrapper takes ``mamba2_scan_ref`` on the
+    CPU).
+
+    Chunks of ``chunk`` steps (the last padded with dt = 0, x = b = c = 0).
+    With ``a_k = dt_k A`` and the segment sums ``S[i, j] = sum_{j<k<=i} a_k``
+    (running sums down each column, never a difference of two running
+    sums), ``L = exp(S)`` below the diagonal and 0 above, a chunk gives
+    ``y = (L o C B^T) diag(dt) X + diag(exp(S[i, -1])) C h^T`` and passes on
+    ``h = exp(S[Q-1, -1]) h + X^T diag(dt_j exp(S[Q-1, j])) B``.
+    ``bf16_terms`` > 0 emulates the kernel's tensor-core products: the
+    float32 side of the last three (M = L o C B^T diag(dt), h and
+    diag(w) B) is that many bfloat16 terms, each multiplied and summed in
+    float32.  Returns y (B, T, H, P) and the last state (B, H, P, N),
+    float32.
+    """
+    dt, x, b, c = dt.float(), x.float(), b.float(), c.float()
+    A, h = A.float(), h0.float()
+    B, T, H, P = x.shape
+    Q = chunk
+    pad = -T % Q
+    if pad:
+        dt = F.pad(dt, (0, 0, 0, pad))
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        b = F.pad(b, (0, 0, 0, pad))
+        c = F.pad(c, (0, 0, 0, pad))
+    lower = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    below = lower.tril(-1)
+
+    def products(f32, other, f32_first):
+        return sum((p @ other if f32_first else other @ p)
+                   for p in _bf16_terms(f32, bf16_terms))
+
+    ys = []
+    for t0 in range(0, T + pad, Q):
+        dc = dt[:, t0:t0 + Q].transpose(1, 2)            # (B, H, Q)
+        xc = x[:, t0:t0 + Q].transpose(1, 2)             # (B, H, Q, P)
+        bc, cc = b[:, None, t0:t0 + Q], c[:, None, t0:t0 + Q]  # (B, 1, Q, N)
+        a = dc * A[:, None]
+        S = torch.cumsum(a[..., :, None].expand(B, H, Q, Q)
+                         .masked_fill(~below, 0.), dim=-2)
+        L = torch.exp(S).masked_fill(~lower, 0.)
+        e = torch.exp(torch.cumsum(a, dim=-1))           # exp(S[i, -1])
+        w = dc * torch.exp(S[..., -1, :])                # dt_j exp(S[Q-1, j])
+        M = L * (cc @ bc.transpose(-1, -2)) * dc[..., None, :]
+        y = (e[..., None] * products(h, cc.transpose(-1, -2), True)
+             .transpose(-1, -2) + products(M, xc, True))
+        h = (e[..., -1, None, None] * h
+             + products(w[..., None] * bc, xc.transpose(-1, -2), False))
+        ys.append(y.transpose(1, 2))
+    return torch.cat(ys, dim=1)[:, :T], h
 
 
 def lut_matmul_ref(x: torch.Tensor, codes: torch.Tensor, lut: torch.Tensor

@@ -7,10 +7,13 @@ run the same numpy inputs.  The reference scans with a chunked associative
 scan (``CHUNK // 4`` = 64 steps a chunk), the port with a sequential
 recurrence (its kernel's plain version on the CPU): in float32 they differ
 by summation order only, held to 2e-4 as ``test_torch_ssm.py``; T = 100 and
-130 cross the chunk boundary.  The kernel itself (``mamba2_scan_fwd``) and
-flash at head_dim 80 run only on a card: their tests are in
-``test_torch_kernels.py``, marked ``cuda`` (that file imports JAX only
-inside its parity tests, since the card's machine has no JAX).
+130 cross the chunk boundary.  The plain version of the kernel's chunked
+(SSD) prefill path, ``ref.mamba2_scan_chunked_ref``, is held to both at
+the scans' tolerance, with and without its emulation of the kernel's bf16
+terms.  The kernel itself (``mamba2_scan_fwd``) and flash at head_dim 80
+run only on a card: their tests are in ``test_torch_kernels.py``, marked
+``cuda`` (that file imports JAX only inside its parity tests, since the
+card's machine has no JAX).
 """
 
 import dataclasses
@@ -227,6 +230,86 @@ def test_mamba2_scan_ref_is_selective_scan_ref_on_broadcast_inputs():
                                rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(h.reshape(B, H * P, 5).numpy(), h1.numpy(),
                                rtol=1e-6, atol=1e-6)
+
+
+# ---- the chunked (SSD) form of the kernel's prefill path --------------------
+# ``ref.mamba2_scan_chunked_ref`` is the plain version of what
+# ``csrc/mamba_scan.cu``'s chunked path computes: 64-step chunks, direct
+# segment sums, and (``bf16_terms``) the float32 side of three of its four
+# tensor-core products as bfloat16 terms.  It is held at the scans'
+# tolerance (``chip_smoke.SCAN_TOL``, what the kernel is held to on the card)
+# against the sequential recurrence and the reference's chunked scan.
+
+SCAN_TOL = dict(rtol=1e-4, atol=1e-4)
+KERNEL_TERMS = 3           # bf16 terms of a float32 operand in the kernel
+
+
+def _scan_close(t, want):
+    np.testing.assert_allclose(t.float().numpy(), np.asarray(want, np.float32),
+                               **SCAN_TOL)
+
+
+def _chunked_inputs(T, P, N, dtype, seed, reset=False):
+    """``_mamba2_inputs`` at B = 2, H = 3 as torch tensors, x, b and c in
+    ``dtype`` (and the float32 numpy arrays of the same values for JAX).
+    ``reset``: dt A = -1000 and x = 0 at step 3 of every 64-step chunk, so
+    the state is wiped without an input of that size."""
+    dt, x, b, c, A, h0 = _mamba2_inputs(2, T, 3, P, N, seed)
+    if reset:
+        dt[:, 3::64] = 1000.0 / -A
+        x[:, 3::64] = 0
+    tin = [torch.from_numpy(a) for a in (dt, x, b, c, A, h0)]
+    tin[1:4] = [t.to(getattr(torch, dtype)) for t in tin[1:4]]
+    return tin, [t.float().numpy() for t in tin]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("P,N", [(64, 64), (40, 16)])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 130, 200])
+def test_mamba2_scan_chunked_ref_matches_plain_and_jax(T, P, N, dtype):
+    """From a nonzero h0, across chunk edges and a ragged last chunk, at
+    zamba2's P = N = 64 and a ragged P and N: with the kernel's bf16 terms
+    and with exact float32 operands."""
+    tin, nin = _chunked_inputs(T, P, N, dtype, 10 * T + N)
+    jy, jh = _jax_mamba2_scan(*nin)
+    wy, wh = ref.mamba2_scan_ref(*tin)
+    for terms in (KERNEL_TERMS, 0):
+        y, h = ref.mamba2_scan_chunked_ref(*tin, bf16_terms=terms)
+        assert y.shape == (2, T, 3, P) and h.shape == (2, 3, P, N)
+        for got, want in ((y, wy), (h, wh), (y, jy), (h, jh)):
+            _scan_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [70, 200])
+def test_mamba2_scan_chunked_ref_segment_sums_are_direct(T, dtype):
+    """The SSD "segsum" trap: a step of dt A = -1000 early in each chunk,
+    small steps after it.  The segment sums past it reach -1e3, where a
+    difference of two running sums loses ~1e3 * 2^-24 of an exponent (a
+    copy of the plain version that takes such differences fails this
+    test); the direct sums hold it."""
+    tin, nin = _chunked_inputs(T, 64, 64, dtype, T, reset=True)
+    jy, jh = _jax_mamba2_scan(*nin)
+    wy, wh = ref.mamba2_scan_ref(*tin)
+    y, h = ref.mamba2_scan_chunked_ref(*tin, bf16_terms=KERNEL_TERMS)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    for got, want in ((y, wy), (h, wh), (y, jy), (h, jh)):
+        _scan_close(got, want)
+
+
+def test_mamba2_scan_chunked_ref_needs_three_bf16_terms():
+    """At zamba2's widths (P = N = 64) over 1100 steps, a float32 operand
+    as two bf16 terms (a truncation and a rounding, ~15 bits) misses the
+    scans' tolerance; as three (~22 bits), as the kernel splits it, it
+    holds."""
+    tin, _ = _chunked_inputs(1100, 64, 64, "bfloat16", 3)
+    wy, wh = ref.mamba2_scan_ref(*tin)
+    y, h = ref.mamba2_scan_chunked_ref(*tin, bf16_terms=KERNEL_TERMS)
+    _scan_close(y, wy)
+    _scan_close(h, wh)
+    y2, _ = ref.mamba2_scan_chunked_ref(*tin, bf16_terms=2)
+    within = (y2 - wy).abs() <= SCAN_TOL["atol"] + SCAN_TOL["rtol"] * wy.abs()
+    assert not bool(within.all())
 
 
 def _wrapper_inputs(B=2, T=3, H=4, P=8, N=4):

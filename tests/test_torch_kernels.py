@@ -1455,16 +1455,68 @@ def test_cuda_mamba2_scan_matches_plain_version(T, N, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", [1, 300])
 def test_cuda_mamba2_scan_ragged_rows_and_plan(T):
-    """P not a multiple of a block's rows; the built library's plan: 16
-    lanes a row group at N = 64, 32 rows a block, 2 row blocks."""
+    """P not a multiple of a block's rows; the built library's plan: at
+    T = 1 the direct path, 16 lanes a row group at N = 64, 32 rows a
+    block, 2 row blocks; at T = 300 the chunked path, one 64-row block,
+    x (a head stride of 80 bytes) in and y out through TMA, b and c
+    (offset 3) loaded by the threads."""
     _cuda_or_skip()
     args = _cuda_mamba2(1, T, 2, 40, 64, torch.bfloat16, 9)
     y, h = ms.mamba2_scan(*args)
     wy, wh = ref.mamba2_scan_ref(*args)
     torch.testing.assert_close(y, wy, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(h, wh, rtol=1e-4, atol=1e-4)
-    assert ms.kernel_mamba2_plan(*args, h) == ms.Mamba2Plan(
-        16, 32, T <= 8, True, (2, 2, 1))
+    want = (ms.Mamba2Plan("direct", 16, 32, True, (False,) * 4, (2, 2, 1))
+            if T <= 8 else
+            ms.Mamba2Plan("chunked", 0, 64, False, (True, False, False, True),
+                          (1, 2, 1)))
+    assert ms.kernel_mamba2_plan(*args, h) == want
+
+
+def _cuda_mamba2_reset(args):
+    """dt A = -1000 and x = 0 at step 3 of every 64-step chunk: the state is
+    wiped without an input of that size and the chunked form's segment
+    sums reach -1e3 (a difference of two running sums would lose ~1e3 *
+    2^-24 of an exponent there)."""
+    dt, x, b, c, A, h0 = args
+    dt, x = dt.clone(), x.clone()
+    dt[:, 3::64] = 1000.0 / -A
+    x[:, 3::64] = 0
+    return dt, x, b, c, A, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "ragged_last_chunk", "multiple_of_64", "segsum_reset", "offset_7",
+    "offset_0_tma", "two_row_blocks", "N_16_P_40", "P_33_y_by_threads"])
+def test_cuda_mamba2_chunked_path_matches_plain_version(case):
+    """The chunked (SSD) path on its own cases, bf16: T = 1100 (17 chunks
+    and 12 steps), T = 640, the segment-sum trap, b and c at offset 7 (not
+    16-byte aligned: loaded by the threads) and at 0 (TMA), P = 100 (two
+    64-row blocks, the second ragged), a ragged P and N, and P = 33 (y
+    stored from registers: rows of 132 bytes are no TMA stride)."""
+    _cuda_or_skip()
+    B, T, H, P, N, offset, tma = {
+        "ragged_last_chunk": (2, 1100, 3, 64, 64, 3, (1, 0, 0, 1)),
+        "multiple_of_64": (2, 640, 3, 64, 64, 3, (1, 0, 0, 1)),
+        "segsum_reset": (2, 300, 3, 64, 64, 3, (1, 0, 0, 1)),
+        "offset_7": (2, 130, 3, 64, 64, 7, (1, 0, 0, 1)),
+        "offset_0_tma": (2, 130, 3, 64, 64, 0, (1, 1, 1, 1)),
+        "two_row_blocks": (1, 200, 2, 100, 64, 0, (0, 1, 1, 1)),
+        "N_16_P_40": (2, 150, 3, 40, 16, 0, (1, 1, 1, 1)),
+        "P_33_y_by_threads": (2, 100, 2, 33, 64, 0, (0, 1, 1, 0))}[case]
+    args = _cuda_mamba2(B, T, H, P, N, torch.bfloat16, T + P, offset)
+    if case == "segsum_reset":
+        args = _cuda_mamba2_reset(args)
+    y, h = ms.mamba2_scan(*args)
+    wy, wh = ref.mamba2_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    torch.testing.assert_close(y, wy, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, wh, rtol=1e-4, atol=1e-4)
+    plan = ms.kernel_mamba2_plan(*args, h)
+    assert (plan.path, plan.tma, plan.grid) == (
+        "chunked", tuple(map(bool, tma)), (-(-P // 64), H, B))
 
 
 @pytest.mark.cuda
@@ -1472,28 +1524,50 @@ def test_cuda_mamba2_scan_ragged_rows_and_plan(T):
                                    (17, 8, 64), (32, 8, 64), (64, 16, 32),
                                    (100, 32, 16), (128, 32, 16)])
 def test_cuda_mamba2_plan_lanes_and_rows(N, L, R):
-    """A lane holds 4 rows x 4 states; a row group of NL lanes covers N and
-    a 128-thread block holds 4 * 128 / NL rows."""
+    """On the CUDA-core paths a lane holds 4 rows x 4 states; a row group
+    of NL lanes covers N and a 128-thread block holds 4 * 128 / NL rows."""
     _cuda_or_skip()
     args = _cuda_mamba2(1, 4, 2, 64, N, torch.float32, N)
     plan = ms.kernel_mamba2_plan(*args, torch.empty_like(args[5]))
-    assert (plan.lanes, plan.rows) == (L, R)
+    assert (plan.path, plan.lanes, plan.rows) == ("direct", L, R)
     assert plan.lanes * 4 >= N and plan.lanes * plan.rows == 4 * 128
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T,H,P,direct,grid", [
-    (4, 1100, 80, 64, False, (2, 80, 4)),     # zamba2's serving prefill
-    (4, 1, 80, 64, True, (2, 80, 4)),         # a decode step
-    (1, 8, 3, 33, True, (2, 3, 1)),
-    (2, 9, 5, 16, False, (1, 5, 2))])
-def test_cuda_mamba2_plan_path_and_grid(B, T, H, P, direct, grid):
-    """T <= 8 takes the direct path; one block a (row block, head, batch
+@pytest.mark.parametrize("B,T,H,P,N,dtype,path,grid", [
+    (4, 1100, 80, 64, 64, "bfloat16", "chunked", (1, 80, 4)),  # zamba2's
+    (4, 1, 80, 64, 64, "bfloat16", "direct", (2, 80, 4)),      # a decode step
+    (1, 8, 3, 33, 64, "bfloat16", "direct", (2, 3, 1)),
+    (2, 9, 5, 16, 64, "bfloat16", "chunked", (1, 5, 2)),
+    (2, 9, 5, 130, 64, "bfloat16", "chunked", (3, 5, 2)),
+    (2, 9, 5, 64, 64, "float32", "staged", (2, 5, 2)),
+    (2, 300, 5, 64, 128, "bfloat16", "staged", (4, 5, 2))])
+def test_cuda_mamba2_plan_path_and_grid(B, T, H, P, N, dtype, path, grid):
+    """T <= 8 takes the direct path; longer T the chunked path in bf16 up
+    to N = 64, else the staged path; one block a (row block, head, batch
     row)."""
     _cuda_or_skip()
-    args = _cuda_mamba2(B, T, H, P, 64, torch.bfloat16, T)
+    args = _cuda_mamba2(B, T, H, P, N, getattr(torch, dtype), T)
     plan = ms.kernel_mamba2_plan(*args, torch.empty_like(args[5]))
-    assert (plan.direct, plan.grid, plan.vec) == (direct, grid, True)
+    assert (plan.path, plan.grid) == (path, grid)
+    assert plan.vec == (path != "chunked")
+
+
+@pytest.mark.cuda
+def test_cuda_mamba2_plan_tma_needs_alignment():
+    """On the chunked path x, b and c each come in through TMA only with a
+    16-byte aligned base and strides that are multiples of 16 bytes: the
+    model's b and c (halves of one projection) and x (a view of the conv
+    output) do; b and c at an odd offset and x with a head stride of 36
+    elements (72 bytes) do not.  y goes out through TMA when P % 4 == 0."""
+    _cuda_or_skip()
+    for P, offset, want in ((64, 0, (True, True, True, True)),
+                            (64, 7, (True, False, False, True)),
+                            (36, 0, (False, True, True, True)),
+                            (42, 0, (False, True, True, False))):
+        args = _cuda_mamba2(2, 100, 3, P, 64, torch.bfloat16, P, offset)
+        plan = ms.kernel_mamba2_plan(*args, torch.empty_like(args[5]))
+        assert (plan.path, plan.tma) == ("chunked", want)
 
 
 @pytest.mark.cuda

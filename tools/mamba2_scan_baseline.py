@@ -1,0 +1,171 @@
+"""The Mamba-2 scan kernel against an older source, on one card.
+
+    python3 tools/mamba2_scan_baseline.py --baseline OLD.cu [OLD2.cu ...]
+        [--out F]
+
+Builds ``src/repro_torch/kernels/csrc/mamba_scan.cu`` (through
+``repro_torch.kernels._build``, as the port does) and each ``--baseline``,
+an older source with the same ``mamba2_scan_fwd`` C interface (e.g. ``git
+show <commit>:src/repro_torch/kernels/csrc/mamba_scan.cu``, written into
+the git-ignored ``build/``; a baseline is named by its directory), one
+``nvcc`` each, started together, and prints each library's ptxas lines for
+its Mamba-2 kernels (registers, spills, serialized wgmma).  Each library is
+held against ``ref.mamba2_scan_ref`` under ``chip_smoke.SCAN_TOL`` at
+zamba2-2.7b's prefill and decode shapes, and the current one also on
+``chip_smoke.MAMBA2_CHUNKED_CASES``.  Then all are timed in turns
+(baselines, current, current, baselines reversed; three rounds) as device
+time from a CUDA graph of their launches (``chip_smoke.graph_ms``) at
+zamba2-2.7b's prefill (B=4, T=1100, H=80, P=N=64, bf16 x/b/c, b and c
+slices of one projection) and decode (T=1) shapes, beside the function's
+bound and the current path's own bound.  Prints one JSON line a library
+and writes the records to ``--out``.  Needs a card and ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import ctypes
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import chip_smoke  # noqa: E402
+from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import mamba_scan as ms  # noqa: E402
+
+
+def _ptxas(log: str) -> list[str]:
+    """ptxas's lines for the entry functions named mamba2, and every line
+    about wgmma."""
+    out, keep = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            keep = "mamba2" in ln
+        if "wgmma" in ln or (keep and any(
+                w in ln for w in ("spill", "registers", "entry function"))):
+            out.append(ln.strip())
+    return out
+
+
+def build_baseline(src: pathlib.Path, out_dir: pathlib.Path):
+    out = out_dir / f"libmamba_scan_{src.parent.name}.so"
+    proc = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                           str(src)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{src}: nvcc failed\n{proc.stderr[-3000:]}")
+    lib = ctypes.CDLL(str(out))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.mamba2_scan_fwd.argtypes = [p] * 8 + [i] * 6 + [ll] * 9 + [p]
+    lib.mamba2_scan_fwd.restype = i
+    return lib, _ptxas(proc.stdout + proc.stderr)
+
+
+def baseline_call(lib, dt, x, b, c, A, h0):
+    """The baseline's ``mamba2_scan_fwd`` with the wrapper's outputs."""
+    B, T, H, P = x.shape
+    y = torch.empty((B, T, H, P), dtype=torch.float32, device=x.device)
+    h_last = torch.empty_like(h0)
+    err = lib.mamba2_scan_fwd(*ms._mamba2_args(dt, x, b, c, A, h0, y, h_last),
+                              torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"baseline launch failed: cudaError {err}")
+    return y, h_last
+
+
+def hold(name, fn, args, case, records) -> None:
+    y, h = fn(*args)
+    wy, wh = ref.mamba2_scan_ref(*args)
+    torch.cuda.synchronize()
+    res = [chip_smoke._close(g, w, **chip_smoke.SCAN_TOL)
+           for g, w in ((y, wy), (h, wh))]
+    records[name].setdefault("cases", []).append(
+        {"case": list(case), "max_abs_err": max(e for e, _ in res),
+         "ok": all(ok for _, ok in res)})
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", type=pathlib.Path, nargs="+", required=True,
+                    help="older mamba_scan.cu sources to time beside")
+    ap.add_argument("--out", type=pathlib.Path,
+                    default=ROOT / "build" / "mamba2_scan_baseline.json")
+    args = ap.parse_args(argv)
+    smi = chip_smoke.phase_card()
+    out_dir = ROOT / "build" / "mamba2_scan_baseline"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with concurrent.futures.ThreadPoolExecutor(1 + len(args.baseline)) as pool:
+        cur = pool.submit(_build.load, "mamba_scan")
+        bases = {src.parent.name: pool.submit(build_baseline, src.resolve(),
+                                              out_dir)
+                 for src in args.baseline}
+        records = {"current": {"name": "current",
+                               "ptxas": _ptxas(cur.result().log)}}
+        libs = {}
+        for name, fut in bases.items():
+            libs[name], ptxas = fut.result()
+            records[name] = {"name": name, "ptxas": ptxas}
+    for r in records.values():
+        print("PTXAS " + json.dumps(r), flush=True)
+
+    def caller(name):
+        if name == "current":
+            return ms.mamba2_scan
+        return lambda *a: baseline_call(libs[name], *a)
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    bf16 = torch.bfloat16
+    for B, T, H, P, N, offset, reset in chip_smoke.MAMBA2_CHUNKED_CASES:
+        a = chip_smoke._mamba2_inputs(gen, B, T, H, P, N, bf16, offset,
+                                      reset)
+        hold("current", ms.mamba2_scan, a,
+             (B, T, H, P, N, offset, reset), records)
+    order = [*libs, "current", "current", *reversed(list(libs))]
+    B, _, H, P, N = chip_smoke.ZAMBA2_SCAN
+    for T in (chip_smoke.ZAMBA2_SCAN[1], 1):
+        a = chip_smoke._mamba2_inputs(gen, B, T, H, P, N, bf16, offset=0)
+        for name in records:
+            hold(name, caller(name), a, (B, T, H, P, N, 0, False), records)
+        calls = {n: (lambda f=caller(n): f(*a)) for n in records}
+        ts = {n: [] for n in calls}
+        for _ in range(3):
+            for n in order:
+                ts[n].append(chip_smoke.graph_ms(calls[n]))
+        plan = ms.kernel_mamba2_plan(*a, a[5])
+        flops, nbytes, ssd_flops, instr = chip_smoke._mamba2_cost(
+            B, T, H, P, N, 2)
+        t_bytes = nbytes / chip_smoke.PEAK_BYTES * 1e3
+        bound = max(flops / chip_smoke.PEAK_TF32_FLOPS * 1e3, t_bytes)
+        path_ms = (ssd_flops / chip_smoke.PEAK_BF16_FLOPS
+                   if plan.path == "chunked"
+                   else instr / chip_smoke.PEAK_F32_INSTR) * 1e3
+        tag = f"B{B}_T{T}_H{H}_P{P}_N{N}_bf16"
+        for n, t in ts.items():
+            records[n][tag] = {
+                "ms": statistics.median(t), "ms_all": t,
+                "bound_ms": bound,
+                "current_plan": ",".join(map(str, plan.as_ints())),
+                "current_design_bound_ms": max(path_ms, t_bytes)}
+        del a, calls
+    for r in records.values():
+        print("BASELINE " + json.dumps(r), flush=True)
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps({"card": smi,
+                                    "libraries": list(records.values())},
+                                   indent=1))
+    bad = [(r["name"], c) for r in records.values()
+           for c in r.get("cases", []) if not c["ok"]]
+    if bad:
+        raise SystemExit(f"off the plain version: {bad}")
+
+
+if __name__ == "__main__":
+    main()
