@@ -23,7 +23,10 @@ Phases, each printing what it found; any failure raises and exits non-zero:
    from a CUDA graph of their launches, ``mamba2_scan`` at zamba2-2.7b's
    prefill and decode shapes, its chunked (SSD) path also on
    ``MAMBA2_CHUNKED_CASES``, and held against ``selective_scan`` over the
-   same function) and the LUT matmul;
+   same function), the Mamba-2 scan's backward ``mamba2_scan_bwd``
+   against ``ref.mamba2_scan_bwd_ref`` on ``MAMBA2_BWD_CASES`` (two calls
+   bit-identical, timed from a CUDA graph at zamba2-2.7b's training
+   shape; no library call computes it), and the LUT matmul;
 4. moe-layer: ``moe.moe_block`` at qwen2-moe-a2.7b's layer width (N = 4400
    tokens, 60 experts, top-4, shared expert) in bf16 against a plain
    float32 loop over the experts with the same capacity rule, at the served
@@ -74,16 +77,17 @@ Phases, each printing what it found; any failure raises and exits non-zero:
    ``ops.lut_matmul`` on falcon-mamba's layer-0 ``in_proj`` and
    ``ops.mamba_scan`` on the decay and input it builds, counted the same way;
 7. flash_backward: the backward kernel against ``flash_attention_bwd_ref``
-   (float32 and bfloat16, D 64/128/256, ``BWD_CASES``: causal GQA up to
+   (float32 and bfloat16, D 64/80/128/256, ``BWD_CASES``: causal GQA up to
    G = 8, T below, at and one past a tile, windows, soft-cap, and
    qwen2-moe's training shape, G = 1 at D = 128; non-causal Tq < Tk and
    Tq > Tk, ragged on both sides, 37 queries over 1601 keys, and the VLM's
    cross-attention training shape, Tq = 2048 over Tk = 1601), the forward
    with LSE against the forward without it and its LSE against the plain
    one; two calls at each timed shape must be bit-identical; timed at
-   granite-3-2b's, qwen2-moe's and the VLM cross-attention's training
-   shapes beside SDPA's backward (SDPA forward + backward minus SDPA
-   forward, in turns; a yardstick only, it runs nowhere on the path), with
+   granite-3-2b's, qwen2-moe's, zamba2-2.7b's (D = 80) and the VLM
+   cross-attention's training shapes beside SDPA's backward (SDPA
+   forward + backward minus SDPA forward, in turns; a yardstick only, it
+   runs nowhere on the path), with
    the five-product bound and the design's seven-product bound;
 8. train: granite-3-2b at full width (40 layers, 2.53 B parameters, bf16,
    remat "dots", AdamW 32-bit) through ``repro_torch.launch.train.main``
@@ -113,7 +117,15 @@ Phases, each printing what it found; any failure raises and exits non-zero:
     backward launches, the cross blocks' non-causal);
 15. train_grad_vs_plain for the VLM at full width and 5 layers (one group:
     5 self layers and a cross block), gates and ``media_proj`` among the
-    leaves.
+    leaves;
+16. train-hybrid: zamba2-2.7b at full width and depth (54 Mamba-2 layers,
+    2.527 B parameters) through ``repro_torch.launch.train.main``, the
+    same 5 steps, counted the same way (per step 9 + 9 flash forward and
+    9 backward launches, 54 + 54 ``mamba2_scan`` and 54
+    ``mamba2_scan_bwd`` launches);
+17. train_grad_vs_plain for zamba2 at full width and 6 layers (one group:
+    6 Mamba-2 layers and a shared block), both backward kernels swapped
+    for their plain versions.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -188,6 +200,10 @@ LUT_QUANT_REL_L2 = 0.15
 
 ARCHS = ("glm4-9b", "falcon-mamba-7b", "zamba2-2.7b", "qwen2-moe-a2.7b",
          "musicgen-medium", "llama-3.2-vision-11b")
+# zamba2-2.7b's training shapes: its Mamba-2 scan (B, T, H, P, N) and
+# its shared attention (B, T, H, K, D; 32 heads of 80, G = 1)
+ZAMBA2_TRAIN_SCAN = (4, 2048, 80, 64, 64)
+ZAMBA2_TRAIN_ATTN = (4, 2048, 32, 32, 80)
 # every VLM cross gate is set to this after init: the reference initialises
 # them to 0, where a cross block adds tanh(0) a = 0 and a wrong cross path
 # would show nothing
@@ -211,7 +227,7 @@ LSE_TOL = dict(rtol=1e-4, atol=1e-4)        # natural-log units
 # sides, and 37 queries over 1601 keys (the VLM's media tokens) with a
 # soft-cap
 BWD_CASES = [(B, T, T, H, K, D, dt, window, softcap, True)
-             for D in (64, 128, 256)
+             for D in (64, 80, 128, 256)
              for dt in (torch.float32, torch.bfloat16)
              for (B, T, H, K, window, softcap) in (
                  (2, 300, 4, 2, 0, 0.0), (1, 130, 4, 1, 100, 30.0),
@@ -221,7 +237,7 @@ BWD_CASES = [(B, T, T, H, K, D, dt, window, softcap, True)
 # qwen2-moe-a2.7b's training shape: one query head a kv head (G = 1)
 BWD_CASES.append((4, 2048, 2048, 16, 16, 128, torch.bfloat16, 0, 0.0, True))
 BWD_CASES += [(B, Tq, Tk, H, K, D, dt, 0, softcap, False)
-              for D in (64, 128, 256)
+              for D in (64, 80, 128, 256)
               for dt in (torch.float32, torch.bfloat16)
               for (B, Tq, Tk, H, K, softcap) in (
                   (2, 300, 333, 4, 2, 0.0), (1, 333, 130, 4, 1, 0.0),
@@ -230,6 +246,8 @@ BWD_CASES += [(B, Tq, Tk, H, K, D, dt, 0, softcap, False)
 # over 1601 media tokens, non-causal (B, Tq, Tk, H, K, D)
 VLM_CROSS_TRAIN_ATTN = (4, 2048, 1601, 32, 8, 128)
 BWD_CASES.append(VLM_CROSS_TRAIN_ATTN[:6] + (torch.bfloat16, 0, 0.0, False))
+# zamba2-2.7b's shared attention in training: D = 80 on the 128-wide tile
+BWD_CASES.append((4, 2048, 2048, 32, 32, 80, torch.bfloat16, 0, 0.0, True))
 # the training shapes (B, T, H, K, D) of granite-3-2b and qwen2-moe-a2.7b
 TRAIN_ATTN = (4, 2048, 32, 8, 64)
 MOE_TRAIN_ATTN = (4, 2048, 16, 16, 128)
@@ -260,12 +278,26 @@ VLM_TRAIN_LAYERS = 10
 # the gradient check's depths: every gradient leaf at full width; the VLM
 # needs one whole group (5 self layers and a cross block)
 GRAD_LAYERS = {"granite-3-2b": 2, "qwen2-moe-a2.7b": 2, "musicgen-medium": 2,
-               "llama-3.2-vision-11b": 5}
+               "llama-3.2-vision-11b": 5, "zamba2-2.7b": 6}
 # the card's bf16 moe_block against the plain float32 loop over experts:
 # bf16 rounds the gate and up products, their product, each expert's
 # output and the weighted sum once each (2^-9 relative a rounding, ~4e-3
 # in relative L2 together); this is ~2.5x that
 MOE_LAYER_REL_L2 = 1e-2
+# the Mamba-2 scan's backward against its plain version.  Its sums are
+# longer than the forward's (y sums N = 64 terms under SCAN_TOL): ddt and
+# da sum P N (4096 at zamba2's widths) terms a (b, t, h), db and dc H P
+# (5120), dA B T (8192).  Two orders of a sum of n terms of scale s differ
+# by up to ~n eps s, and the output's largest element is ~sqrt(n) s
+# (terms of random sign), so an element may differ by ~sqrt(n) eps of the
+# output's largest element even where cancellation left it near zero,
+# which SCAN_TOL's atol alone does not allow for: the limit is SCAN_TOL
+# plus sqrt(n) 2^-24 of the largest element, n the case's longest sum.
+# dx, db and dc, which the kernel rounds to the operands' dtype once, are
+# held against the plain version's float32 values: in bf16 that rounding
+# is at most half an ulp, 2^-8 of the value (8 significant bits), so their
+# rtol is 2^-8 there.
+SCAN_BWD_ROUND_RTOL = {torch.float32: SCAN_TOL["rtol"], torch.bfloat16: 2 ** -8}
 # every gradient leaf (2 layers, full width) against the plain backward:
 # the kernel's dQ, dK, dV are ~2.6e-3 off the plain ones in relative L2
 # (bf16 P and dS); this is ~8x that
@@ -288,6 +320,7 @@ COUNTED = {"flash_attention": fa.flash_attention_gqa,
            "mamba_scan": ms.mamba_scan,
            "selective_scan": ms.selective_scan,
            "mamba2_scan": ms.mamba2_scan,
+           "mamba2_scan_bwd": ms.mamba2_scan_bwd,
            "lut_matmul": lm.lut_matmul}
 
 
@@ -833,6 +866,159 @@ def phase_mamba2_scan(gen) -> dict:
     return rec
 
 
+# the scan backward's cases (B, T, H, P, N, dtype, b/c offset, reset): T
+# of one step, one below, at and one past a 64-step chunk, and 2048 (32
+# chunks, zamba2's training length); P 64 and 33 (a ragged row block);
+# N 16, 64 and 128 (4, 16 and 32 lanes a row group); float32 and bf16;
+# b and c at an odd column of one projection, and at 0; the segment-sum
+# reset (dt A = -1000, the decay underflowing to 0) over several chunks;
+# h0 and dh_last nonzero throughout
+MAMBA2_BWD_CASES = (
+    [(2, T, 3, 64, N, dt, 7, False)
+     for dt in (torch.float32, torch.bfloat16) for N in (16, 64, 128)
+     for T in (1, 63, 64, 65)]
+    + [(1, 2048, 2, P, N, dt, 7, False)
+       for dt in (torch.float32, torch.bfloat16) for (P, N) in
+       ((64, 16), (33, 64), (64, 128))]
+    + [(2, 65, 3, 33, N, torch.bfloat16, 7, False) for N in (16, 64, 128)]
+    + [(2, 130, 3, 64, 64, torch.bfloat16, 0, False),
+       (2, 300, 3, 64, 64, torch.bfloat16, 7, True),
+       (1, 2048, 2, 33, 16, torch.float32, 7, True)])
+
+
+def _mamba2_bwd_inputs(gen, B, T, H, P, N, dtype, offset=7, reset=False):
+    """``_mamba2_inputs`` and the output gradients dy (B, T, H, P) and
+    dh_last (B, H, P, N), float32 N(0, 1)."""
+    args = _mamba2_inputs(gen, B, T, H, P, N, dtype, offset, reset)
+    dy = torch.randn((B, T, H, P), generator=gen, device="cuda")
+    dh = torch.randn((B, H, P, N), generator=gen, device="cuda")
+    return (*args, dy, dh)
+
+
+def _hold_scan_bwd(case, got, args) -> float:
+    """The kernel's (ddt, dx, db, dc, dA, dh0) against the plain version on
+    float32 copies of x, b, c under ``SCAN_BWD_ROUND_RTOL``'s limits; the
+    largest difference."""
+    dt, x, b, c, A, h0, dy, dh = args
+    want = ref.mamba2_scan_bwd_ref(dt, x.float(), b.float(), c.float(), A,
+                                   h0, dy, dh)
+    B, T, H, P = x.shape
+    n = max(P * b.shape[2], H * P, B * T)
+    worst = 0.0
+    for name, g, w in zip(("ddt", "dx", "db", "dc", "dA", "dh0"), got, want):
+        if g.dtype != (x.dtype if name in ("dx", "db", "dc")
+                       else torch.float32) or g.shape != w.shape:
+            raise AssertionError(f"mamba2_scan_bwd {name}: {g.dtype} "
+                                 f"{tuple(g.shape)} at {case}")
+        d = (g.float() - w).abs()
+        lim = (SCAN_TOL["atol"] + SCAN_BWD_ROUND_RTOL[g.dtype] * w.abs()
+               + n ** 0.5 * 2.0 ** -24 * w.abs().max())
+        err, ratio = d.max().item(), (d / lim).max().item()
+        log("kernel", name="mamba2_scan_bwd",
+            case=repr(case + (name,)).replace(" ", ""),
+            max_abs_err=f"{err:.3e}", worst_of_limit=f"{ratio:.3f}")
+        if not ratio <= 1.0:
+            raise AssertionError(f"mamba2_scan_bwd {name} off its plain "
+                                 f"version by {err} ({ratio:.2f} of its "
+                                 f"limit) at {case}")
+        worst = max(worst, err)
+    return worst
+
+
+def _mamba2_bwd_cost(B, T, H, P, N, itemsize):
+    """The backward's least work and bytes, and the design's own work.
+
+    Least work: the chunked (SSD) form's backward, each of the forward's
+    products (``_mamba2_cost``) differentiated once for each operand: twice
+    the forward's flops, at the TF32 rate (the state is f32).  Bytes: dt,
+    x, b, c, A, h0, dy and dh_last read once; ddt, dx, db, dc, dA and dh0
+    written once.  The design's work: each state-step on the CUDA cores,
+    three forward steps (two FP32 instructions each, one a recompute level)
+    and the reverse step (seven: g += dy c, g b, x g, dy h, g h, the decay
+    and the bookkeeping), 13 FP32 instructions."""
+    flops = 2 * _mamba2_cost(B, T, H, P, N, itemsize)[0]
+    # each of dt, x, b, c, A once in and its gradient once out; h0, dh_last
+    # in and dh0 out; dy in
+    nbytes = (2 * (4 * B * T * H + itemsize * B * T * H * P
+                   + 2 * itemsize * B * T * N + 4 * H)
+              + 3 * 4 * B * H * P * N + 4 * B * T * H * P)
+    return flops, nbytes, 13 * B * T * H * P * N
+
+
+def phase_mamba2_scan_bwd(gen) -> dict:
+    """The Mamba-2 scan's backward kernel against
+    ``ref.mamba2_scan_bwd_ref`` on ``MAMBA2_BWD_CASES``; its plan against
+    the wrapper's mirror; two calls bit-identical; timed from a CUDA graph
+    at zamba2-2.7b's training shape (B=4, T=2048, H=80, P=N=64, bf16 x, b,
+    c) beside its plain version.  No PyTorch call computes this function
+    (library "none").  Also: ``selective_scan`` and ``mamba_scan``, which
+    have no backward yet, raise under grad on the card."""
+    for case in MAMBA2_BWD_CASES:
+        B, T, H, P, N, dtype, offset, reset = case
+        args = _mamba2_bwd_inputs(gen, B, T, H, P, N, dtype, offset, reset)
+        tag = (B, T, H, P, N, str(dtype)[6:], offset,
+               "reset" if reset else "softplus")
+        _hold_scan_bwd(tag, ms.mamba2_scan_bwd(*args), args)
+    for shape in (ZAMBA2_TRAIN_SCAN, (2, 65, 3, 33, 16), (1, 1, 2, 64, 128)):
+        plan = ms.kernel_mamba2_bwd_plan(*shape)
+        if plan != ms.mamba2_bwd_plan(*shape):
+            raise AssertionError(f"the backward's plan {plan} at {shape} is "
+                                 "not the wrapper's mirror of it")
+    for fn, grad_args in (
+            (ms.selective_scan,
+             _selective_inputs(gen, 1, 20, 16, 16, torch.bfloat16)),
+            (ms.mamba_scan, _scan_inputs(gen, 1, 20, 16, 16))):
+        leaf = grad_args[0].clone().requires_grad_()
+        try:
+            fn(leaf, *grad_args[1:])
+        except NotImplementedError as e:
+            if "5b-ii" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{fn.__name__} ran under grad on a card "
+                                 "without a backward")
+    B, T, H, P, N = ZAMBA2_TRAIN_SCAN
+    args = _mamba2_bwd_inputs(gen, B, T, H, P, N, torch.bfloat16, offset=0)
+    got = ms.mamba2_scan_bwd(*args)
+    case = (B, T, H, P, N, "bfloat16", 0, "softplus")
+    err = _hold_scan_bwd(case, got, args)
+    again = ms.mamba2_scan_bwd(*args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log("mamba2_scan_bwd", check="two calls bit-identical", shape=case,
+        ok=same)
+    if not same:
+        raise AssertionError("two scan backward calls differ: the kernel "
+                             "must be deterministic")
+    del got, again
+    ms_ = graph_ms(lambda: ms.mamba2_scan_bwd(*args), iters=5, replays=3)
+    plain_ms = cuda_ms(lambda: ref.mamba2_scan_bwd_ref(*args), iters=1,
+                       warmup=0)
+    flops, nbytes, instr = _mamba2_bwd_cost(B, T, H, P, N, 2)
+    t_ops = flops / PEAK_TF32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    design_ms = instr / PEAK_F32_INSTR * 1e3
+    plan = ms.mamba2_bwd_plan(B, T, H, P, N)
+    log("kernel-time", name="mamba2_scan_bwd",
+        shape=f"B{B}_T{T}_H{H}_P{P}_N{N}_bf16",
+        timing="cuda_graph_device_time", ms=f"{ms_:.4f}",
+        plain_ms=f"{plain_ms:.4f}", library_ms="none",
+        plan=",".join(map(str, plan.as_ints())),
+        bound_ms=f"{max(t_ops, t_bytes):.4f}", ops_bound_ms=f"{t_ops:.4f}",
+        bytes_bound_ms=f"{t_bytes:.4f}",
+        design_bound_ms=f"{max(design_ms, t_bytes):.4f}",
+        gflop=f"{flops / 1e9:.3f}", ginstr=f"{instr / 1e9:.3f}",
+        mbytes=f"{nbytes / 1e6:.2f}",
+        scratch_MB=f"{plan.scratch * 4 / 1e6:.1f}", max_abs_err=f"{err:.3e}")
+    return {"name": "mamba2_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+            "replaces": "src/repro/models/ssm.py:58",
+            "launches": None, "max_abs_err": err, "ms": ms_,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+
+
 def _lut_inputs(gen, M, K, N, dtype):
     """x ~ N(0, 1) and weights at the models' init scale N(0, 1/K), so that
     y ~ N(0, 1); codes and codebooks from ``quantize_weights``."""
@@ -1079,6 +1265,7 @@ def phase_serve(arch, gen) -> tuple:
         seconds=f"{time.perf_counter() - t0:.1f}")
     engine = Engine(model, params, ServeConfig(max_batch=4, max_len=MAX_LEN,
                                                eos_token=-1))
+    engine.keep_step_logits = True    # read by the checks below
     # eos -1: no slot stops early, so every slot decodes MAX_NEW steps
     engine.generate([[5, 6, 7]] * 4, max_new=2)          # warm-up
     prompts = _prompts(gen, cfg.vocab_size)
@@ -1487,9 +1674,8 @@ def phase_entry_points(model, params, prompts, gen) -> dict[str, int]:
         raise AssertionError(f"4-bit in_proj off the bf16 product: {rel}")
     _held("mamba_scan_vs_selective_scan", (B, T, D, N), y_tpu, y_fused,
           SCAN_TOL)
-    want_counts = {"flash_attention": 0, "flash_attention_bwd": 0,
-                   "mamba_scan": 1, "selective_scan": 1, "mamba2_scan": 0,
-                   "lut_matmul": 1}
+    want_counts = {**dict.fromkeys(COUNTED, 0), "mamba_scan": 1,
+                   "selective_scan": 1, "lut_matmul": 1}
     if counts != want_counts:
         raise AssertionError(f"entry-point launches {counts} != "
                              f"{want_counts}")
@@ -1509,8 +1695,8 @@ def _bwd_cost(B, Tq, Tk, H, K, D, itemsize, causal=True):
 
 def phase_flash_backward(gen) -> dict:
     """The backward kernel and the forward's LSE against their plain
-    versions; timed at granite-3-2b's, qwen2-moe-a2.7b's and the VLM's
-    cross-attention training shapes."""
+    versions; timed at granite-3-2b's, qwen2-moe-a2.7b's, zamba2-2.7b's
+    and the VLM's cross-attention training shapes."""
     for (B, Tq, Tk, H, K, D, dt, window, softcap, causal) in BWD_CASES:
         q, do = _rand(gen, (B, Tq, H, D), dt), _rand(gen, (B, Tq, H, D), dt)
         k, v = _rand(gen, (B, Tk, K, D), dt), _rand(gen, (B, Tk, K, D), dt)
@@ -1529,9 +1715,10 @@ def phase_flash_backward(gen) -> dict:
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
             _held("flash_attention_bwd", case + (name,), g, w, BWD_TOL[dt])
     # timed at the training shapes of granite-3-2b (the record),
-    # qwen2-moe-a2.7b and the VLM's cross-attention
+    # qwen2-moe-a2.7b, zamba2-2.7b (D = 80) and the VLM's cross-attention
     rec = _time_flash_bwd(gen, *TRAIN_ATTN)
     _time_flash_bwd(gen, *MOE_TRAIN_ATTN)
+    _time_flash_bwd(gen, *ZAMBA2_TRAIN_ATTN)
     B, Tq, Tk, H, K, D = VLM_CROSS_TRAIN_ATTN
     _time_flash_bwd(gen, B, Tq, H, K, D, Tk=Tk, causal=False)
     return rec
@@ -1620,8 +1807,8 @@ def _time_flash_bwd(gen, B, T, H, K, D, Tk=None, causal=True) -> dict:
 
 def _kernel_share(prof, wall_us, label) -> None:
     """Busy share, the top kernels, and device time by kind (GEMMs, flash
-    forward and backward, the rest: elementwise, copies, reductions) of one
-    profiled region."""
+    forward and backward, the Mamba-2 scan forward and backward, the rest:
+    elementwise, copies, reductions) of one profiled region."""
     kernels: dict[str, list] = {}
     for ev in prof.events():
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
@@ -1635,13 +1822,20 @@ def _kernel_share(prof, wall_us, label) -> None:
                  or "delta_kernel" in n)
     gemm_us = sum(us for n, (us, _) in kernels.items()
                   if any(w in n for w in ("nvjet", "gemm", "xmma", "cutlass")))
+    scan_bwd_us = sum(us for n, (us, _) in kernels.items()
+                      if "mamba2_bwd" in n)
+    scan_fwd_us = sum(us for n, (us, _) in kernels.items()
+                      if "mamba2_" in n and "mamba2_bwd" not in n)
+    scan_us = scan_fwd_us + scan_bwd_us
     log("profile", step=label, wall_ms=f"{wall_us / 1e3:.2f}",
         device_ms=(f"{dev_us / 1e3:.2f}" if dev_us else "not_measured"),
         busy_share=(f"{dev_us / wall_us:.3f}" if dev_us else "not_measured"),
         device_events=sum(n for _, n in kernels.values()),
         gemm_ms=f"{gemm_us / 1e3:.2f}",
         ops=repr(_op_split(prof)).replace(" ", ""),
-        other_ms=f"{(dev_us - gemm_us - fwd_us - bwd_us) / 1e3:.2f}",
+        other_ms=f"{(dev_us - gemm_us - fwd_us - bwd_us - scan_us) / 1e3:.2f}",
+        scan_fwd_ms=f"{scan_fwd_us / 1e3:.2f}",
+        scan_bwd_ms=f"{scan_bwd_us / 1e3:.2f}",
         flash_fwd_ms=f"{fwd_us / 1e3:.2f}", flash_bwd_ms=f"{bwd_us / 1e3:.2f}",
         flash_fwd_share=(f"{fwd_us / dev_us:.3f}" if dev_us else "-"),
         flash_bwd_share=(f"{bwd_us / dev_us:.3f}" if dev_us else "-"))
@@ -1651,15 +1845,16 @@ def _kernel_share(prof, wall_us, label) -> None:
     _top_ops(prof)
 
 
-def phase_train() -> dict[str, int]:
-    """granite-3-2b at full width through the port's launcher."""
-    cfg = registry.get("granite-3-2b")
+def phase_train(arch: str = "granite-3-2b", label: str = "train"
+                ) -> dict[str, int]:
+    """``arch`` at full width and depth through the port's launcher."""
+    cfg = registry.get(arch)
     ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
     return _train(cfg, ckpt_dir, lambda: train_launch.main([
         "--arch", cfg.name, "--steps", str(TRAIN_STEPS),
         "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
         "--ckpt-dir", str(ckpt_dir), "--ckpt-every", str(10 * TRAIN_STEPS)]),
-        "train")
+        label)
 
 
 def _data_cfg(cfg, batch: int) -> DataConfig:
@@ -1700,12 +1895,24 @@ def phase_train_with_trainer(arch: str, n_layers: int | None,
 
 
 def _attention_layers(cfg) -> int:
-    """Flash attention launches of one forward: one a layer, and one a VLM
-    cross block."""
+    """Flash attention launches of one forward: one a layer, one a VLM
+    cross block, one an application of a hybrid's shared block, none in an
+    SSM model."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
     n = cfg.n_layers
     if cfg.family == "vlm":
         n += cfg.n_layers // cfg.cross_attn_every
     return n
+
+
+def _scan_layers(cfg) -> int:
+    """Mamba-2 scan launches of one forward (one a Mamba-2 layer)."""
+    if cfg.family in ("ssm", "hybrid") and cfg.mamba_version == 2:
+        return cfg.n_layers
+    return 0
 
 
 def _train(cfg, ckpt_dir, run, label) -> dict[str, int]:
@@ -1743,9 +1950,11 @@ def _train(cfg, ckpt_dir, run, label) -> dict[str, int]:
             x == x and abs(x) < float("inf") for x in losses):
         raise AssertionError(f"train losses {losses}")
     want = dict.fromkeys(COUNTED, 0)
-    attn = _attention_layers(cfg)
+    attn, scans = _attention_layers(cfg), _scan_layers(cfg)
     want["flash_attention"] = 2 * attn * TRAIN_STEPS     # + recompute
     want["flash_attention_bwd"] = attn * TRAIN_STEPS
+    want["mamba2_scan"] = 2 * scans * TRAIN_STEPS        # + recompute
+    want["mamba2_scan_bwd"] = scans * TRAIN_STEPS
     if counts != want:
         raise AssertionError(f"train launches {counts} != {want}")
     batch = trainer.corpus.batch_at(TRAIN_STEPS)
@@ -1765,40 +1974,51 @@ def _train(cfg, ckpt_dir, run, label) -> dict[str, int]:
 
 @contextlib.contextmanager
 def _plain_backward():
-    """The differentiable flash op's backward on ``flash_attention_bwd_ref``
-    (a check only)."""
-    kernel = fa.flash_attention_bwd
+    """The differentiable ops' backwards on their plain versions, the flash
+    op's on ``flash_attention_bwd_ref`` and the Mamba-2 scan op's on
+    ``mamba2_scan_bwd_ref`` (a check only)."""
+    flash, scan = fa.flash_attention_bwd, ms.mamba2_scan_bwd
 
     def plain(q, k, v, o, lse, do, *, causal=True, window=0, softcap=0.0):
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                            window=window, softcap=softcap)
 
     fa.flash_attention_bwd = plain
+    ms.mamba2_scan_bwd = ref.mamba2_scan_bwd_ref
     try:
         yield
     finally:
-        fa.flash_attention_bwd = kernel
+        fa.flash_attention_bwd = flash
+        ms.mamba2_scan_bwd = scan
 
 
 def phase_train_grad_vs_plain(arch: str) -> None:
     """Every gradient leaf of ``arch`` at full width and ``GRAD_LAYERS``
     layers (B=1, T=2048, the family's random media, the VLM's gates at
-    ``VLM_GATE``) with the backward kernel against the same with the plain
-    backward: worst per-leaf relative L2."""
+    ``VLM_GATE``) with the backward kernels against the same with the
+    plain backwards (``_plain_backward``, which neither kernel may launch
+    in): worst per-leaf relative L2."""
     cfg = dataclasses.replace(registry.get(arch), n_layers=GRAD_LAYERS[arch])
     model = model_lib.build(cfg, "cuda")
     params = _init_params(model)
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in
              SyntheticCorpus(_data_cfg(cfg, 1)).batch_at(0).items()}
-    attn = _attention_layers(cfg)
-    before = fa.flash_attention_bwd.launches
+    want = {"flash_attention_bwd": _attention_layers(cfg),
+            "mamba2_scan_bwd": _scan_layers(cfg)}
+
+    def bwd_launches():
+        return {name: COUNTED[name].launches for name in want}
+
+    before = bwd_launches()
     loss, grads = train_step._loss_and_grads(model, params, batch, 1)
-    if fa.flash_attention_bwd.launches - before != attn:
-        raise AssertionError("the kernel run did not use the backward kernel")
+    after = bwd_launches()
+    if {k: after[k] - before[k] for k in want} != want:
+        raise AssertionError(f"the kernel run launched {after} - {before} "
+                             f"backward kernels, not {want}")
     with _plain_backward():
         loss_p, plain = train_step._loss_and_grads(model, params, batch, 1)
-    if fa.flash_attention_bwd.launches - before != attn:
-        raise AssertionError("the plain run launched the backward kernel")
+    if bwd_launches() != after:
+        raise AssertionError("the plain run launched a backward kernel")
     worst, where = 0.0, ""
     for (path, g), w in zip(tree.items(grads), tree.leaves(plain)):
         if not bool(torch.isfinite(g.float()).all()):
@@ -1845,7 +2065,8 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     records = [phase_flash(gen), phase_flash_backward(gen),
                phase_mamba_scan(gen), phase_selective_scan(gen),
-               phase_mamba2_scan(gen), phase_lut_matmul(gen)]
+               phase_mamba2_scan(gen), phase_mamba2_scan_bwd(gen),
+               phase_lut_matmul(gen)]
     phase_moe_layer(gen)
     by_name = {r["name"]: r for r in records}
     for arch in ARCHS:
@@ -1883,6 +2104,13 @@ def main() -> None:
         phase_train_grad_vs_plain(arch)
         gc.collect()
         torch.cuda.empty_cache()
+    train_counts = phase_train("zamba2-2.7b", "train-hybrid")
+    by_name["mamba2_scan_bwd"]["launches"] = train_counts["mamba2_scan_bwd"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_grad_vs_plain("zamba2-2.7b")
+    gc.collect()
+    torch.cuda.empty_cache()
     missing = [r["name"] for r in records if not r["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on a path: {missing}")

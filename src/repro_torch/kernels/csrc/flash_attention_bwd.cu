@@ -19,8 +19,8 @@
 // non-causal attention with any Tq, Tk >= 1 and no window (the VLM's cross
 // blocks: Tq text positions over Tk media tokens); ragged tails masked
 // (query rows past Tq and keys past Tk get P = 0: a zero-filled row past Tq
-// reads an LSE of 0 and would get P = 1), a tanh soft-cap, D in {64, 128,
-// 256}, float32 or bfloat16.  All tensors contiguous: q, o, dO, dQ
+// reads an LSE of 0 and would get P = 1), a tanh soft-cap, D in {64, 80,
+// 128, 256}, float32 or bfloat16.  All tensors contiguous: q, o, dO, dQ
 // (B, Tq, H, D); k, v, dK, dV (B, Tk, H/G, D); lse, delta (B, H, Tq) float32.
 //
 // What bounds it on this card: at granite-3-2b's training shape (B=4, T=2048,
@@ -69,7 +69,13 @@
 //   * D = 256: dK and dV of 64 keys by 256 columns would need 256 registers
 //     a thread, so a block accumulates 128 of the columns (two blocks a
 //     tile, each forming S and dP) with one consumer warpgroup, whose K, V
-//     and two-stage ring fill ~194 KB of shared memory; dQ likewise.
+//     and two-stage ring fill ~194 KB of shared memory; dQ likewise;
+//   * D = 80 (zamba2) runs on the D = 128 tiles, as the forward does: the
+//     tensor maps end at column 80, so TMA zero-fills columns 80..127 of
+//     every tile; S and dP take the 5 k16 steps of the 80 real columns,
+//     the dV, dK and dQ products the tile's 128 (their last 48 columns are
+//     zeros, 1.6x the work of those three), and only 80 columns are
+//     stored.
 // float32: CUDA cores, 32 x 32 tiles, 256 threads a block, same loop
 // structure, P and dS staged in shared memory (a tensor-core product would
 // round the f32 inputs).
@@ -385,10 +391,11 @@ __device__ __forceinline__ void fence_frags(uint32_t (&f)[K][4]) {
 }
 
 // a warpgroup's 64 x DC accumulator (rows row0 + 16 warp + lane / 4 (+ 8))
-// times f into X (row stride ld) from column c0; rows >= n are left out
+// times f into X (row stride ld) from column c0; rows >= n and columns >=
+// ncol are left out
 template <int DC>
 __device__ __forceinline__ void store_rows(bf16* X, long long ld, int row0,
-                                           int n, int c0,
+                                           int n, int c0, int ncol,
                                            const float (&acc)[DC / 2],
                                            float f) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
@@ -398,10 +405,12 @@ __device__ __forceinline__ void store_rows(bf16* X, long long ld, int row0,
     const int row = row0 + 16 * warp + g + 8 * r;
     if (row >= n) continue;
 #pragma unroll
-    for (int j = 0; j < DC / 8; ++j)
+    for (int j = 0; j < DC / 8; ++j) {
+      if (c0 + 8 * j >= ncol) continue;
       *reinterpret_cast<__nv_bfloat162*>(X + row * ld + c0 + 8 * j + 2 * t) =
           __floats2bfloat162_rn(acc[4 * j + 2 * r] * f,
                                 acc[4 * j + 2 * r + 1] * f);
+    }
   }
 }
 
@@ -415,8 +424,9 @@ __device__ __forceinline__ void release(uint64_t* bar) {
 // producer loads K and V once and streams Q, dO and (lse2, delta) of every
 // query tile (BN queries each) that sees one of the block's keys (every
 // query tile when not causal), for each of the G query heads of the kv head
-// in turn, so the GQA sum stays in registers.
-template <int D>
+// in turn, so the GQA sum stays in registers.  D is the tile's width, DT
+// the head dim (80 on the 128-wide tile, else D).
+template <int D, int DT>
 __global__ void __launch_bounds__(Bf16Cfg<D>::NT, 1)
 dkdv_bf16_kernel(const __grid_constant__ Maps maps, const Params p) {
   using C = Bf16Cfg<D>;
@@ -533,9 +543,9 @@ dkdv_bf16_kernel(const __grid_constant__ Maps maps, const Params p) {
     hopper::fence_regs(s);
     hopper::fence_regs(dp);
     hopper::wgmma_fence();
-    issue_scores<D, BN>(s, k_addr, q_addr);
+    issue_scores<DT, BN>(s, k_addr, q_addr);
     hopper::wgmma_commit();
-    issue_scores<D, BN>(dp, v_addr, o_addr);
+    issue_scores<DT, BN>(dp, v_addr, o_addr);
     hopper::wgmma_commit();
     PdS<true, BN, decltype(col_stat)> pds{s, dp, !interior(q0, BN, k0, BR, p),
                                           k0 + 16 * warp + g, q0 + 2 * t,
@@ -560,12 +570,12 @@ dkdv_bf16_kernel(const __grid_constant__ Maps maps, const Params p) {
     hopper::fence_regs(dv);
     release(&empty[st]);
   }
-  const long long ldk = (long long)KV * D;
-  const long long kv_off = ((long long)b * p.Tk * KV + kh) * D;
+  const long long ldk = (long long)KV * DT;
+  const long long kv_off = ((long long)b * p.Tk * KV + kh) * DT;
   store_rows<DC>(static_cast<bf16*>(p.dk) + kv_off, ldk, k0, p.Tk, cc * DC,
-                 dk, p.scale);
+                 DT, dk, p.scale);
   store_rows<DC>(static_cast<bf16*>(p.dv) + kv_off, ldk, k0, p.Tk, cc * DC,
-                 dv, 1.f);
+                 DT, dv, 1.f);
 }
 
 // dQ: one block a (query head, column chunk, batch; blockIdx.x) and query
@@ -573,7 +583,7 @@ dkdv_bf16_kernel(const __grid_constant__ Maps maps, const Params p) {
 // The producer loads Q and dO once and streams K and V of the key tiles
 // (BN keys each) from the first in the window of the block's first query
 // up to the diagonal of its last (every key tile when not causal).
-template <int D>
+template <int D, int DT>
 __global__ void __launch_bounds__(Bf16Cfg<D>::NT, 1)
 dq_bf16_kernel(const __grid_constant__ Maps maps, const Params p) {
   using C = Bf16Cfg<D>;
@@ -673,9 +683,9 @@ dq_bf16_kernel(const __grid_constant__ Maps maps, const Params p) {
     hopper::fence_regs(s);
     hopper::fence_regs(dp);
     hopper::wgmma_fence();
-    issue_scores<D, BN>(s, q_addr, k_addr);
+    issue_scores<DT, BN>(s, q_addr, k_addr);
     hopper::wgmma_commit();
-    issue_scores<D, BN>(dp, o_addr, hopper::smem_u32(sV + st * CTILE));
+    issue_scores<DT, BN>(dp, o_addr, hopper::smem_u32(sV + st * CTILE));
     hopper::wgmma_commit();
     PdS<false, BN, decltype(row_stat)> pds{s, dp, !interior(q0, BR, k0, BN, p),
                                            row0, k0 + 2 * t, row_stat, p, kc};
@@ -696,10 +706,10 @@ dq_bf16_kernel(const __grid_constant__ Maps maps, const Params p) {
   hopper::wgmma_wait<0>();
   hopper::fence_regs(dq);
   release(&empty[(n_it - 1) % S]);
-  const long long ldq = (long long)p.H * D;
-  const long long q_off = ((long long)b * p.Tq * p.H + h) * D;
+  const long long ldq = (long long)p.H * DT;
+  const long long q_off = ((long long)b * p.Tq * p.H + h) * DT;
   store_rows<DC>(static_cast<bf16*>(p.dq) + q_off, ldq, q0, p.Tq, cc * DC,
-                 dq, p.scale);
+                 DT, dq, p.scale);
 }
 
 // ---- float32: CUDA cores ---------------------------------------------------
@@ -959,19 +969,19 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-// q, dO (B, Tq, H, D) and k, v (B, Tk, KV, D) as 4-D tensor maps (D,
+// q, dO (B, Tq, H, DT) and k, v (B, Tk, KV, DT) as 4-D tensor maps (DT,
 // heads, time, B), boxes of 64 head-dim elements (128 bytes, swizzled) by
-// one head by 64 rows
-template <int D>
+// one head by 64 rows, on tiles D wide (columns DT..D-1 zero-filled)
+template <int D, int DT>
 cudaError_t run_bf16(const Params& p, cudaStream_t s) {
   using C = Bf16Cfg<D>;
   const int KV = p.H / p.G;
   Maps maps;
-  const uint64_t row = D * sizeof(bf16);
+  const uint64_t row = DT * sizeof(bf16);
   const uint32_t box[4] = {64, 1, BR, 1};
-  const uint64_t q_dims[4] = {D, (uint64_t)p.H, (uint64_t)p.Tq,
+  const uint64_t q_dims[4] = {DT, (uint64_t)p.H, (uint64_t)p.Tq,
                               (uint64_t)p.B};
-  const uint64_t kv_dims[4] = {D, (uint64_t)KV, (uint64_t)p.Tk,
+  const uint64_t kv_dims[4] = {DT, (uint64_t)KV, (uint64_t)p.Tk,
                                (uint64_t)p.B};
   const uint64_t q_str[3] = {row, row * p.H, row * p.H * p.Tq};
   const uint64_t kv_str[3] = {row, row * KV, row * KV * p.Tk};
@@ -986,10 +996,11 @@ cudaError_t run_bf16(const Params& p, cudaStream_t s) {
   constexpr int ROWS = C::NW * BR;          // rows of a block's tile
   const unsigned k_tiles = (unsigned)((p.Tk + ROWS - 1) / ROWS);
   const unsigned q_tiles = (unsigned)((p.Tq + ROWS - 1) / ROWS);
-  cudaError_t e = launch(dkdv_bf16_kernel<D>, dim3(KV * C::NC * p.B, k_tiles),
+  cudaError_t e = launch(dkdv_bf16_kernel<D, DT>,
+                         dim3(KV * C::NC * p.B, k_tiles),
                          C::NT, C::SMEM_KV, s, maps, p);
   if (e != cudaSuccess) return e;
-  return launch(dq_bf16_kernel<D>, dim3(p.H * C::NC * p.B, q_tiles), C::NT,
+  return launch(dq_bf16_kernel<D, DT>, dim3(p.H * C::NC * p.B, q_tiles), C::NT,
                 C::SMEM_Q, s, maps, p);
 }
 
@@ -1015,7 +1026,7 @@ cudaError_t run(const Params& p, int dtype, cudaStream_t s) {
   }
   delta_kernel<bf16, D><<<grid, 256, 0, s>>>(p);
   cudaError_t e = cudaGetLastError();
-  return e != cudaSuccess ? e : run_bf16<D>(p, s);
+  return e != cudaSuccess ? e : run_bf16<D == 80 ? 128 : D, D>(p, s);
 }
 
 }  // namespace
@@ -1042,6 +1053,7 @@ int fa_bwd(const void* q, const void* k, const void* v, const void* o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return (int)run<64>(p, dtype, s);
+    case 80: return (int)run<80>(p, dtype, s);
     case 128: return (int)run<128>(p, dtype, s);
     case 256: return (int)run<256>(p, dtype, s);
   }

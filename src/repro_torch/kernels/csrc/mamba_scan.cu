@@ -4,7 +4,7 @@
 // Replaces repro/kernels/mamba_scan.py::mamba_scan, the Pallas TPU kernel:
 //   h_t = decay_t * h_{t-1} + u_t,  y_t = sum_n h_t[:, n] * c_t[n],  h_{-1} = 0
 // over decay, u (B, T, D, N), c (B, T, N), all float32, y (B, T, D) float32.
-// Three C entry points (and two that report a call's plan):
+// Four C entry points (and three that report a call's plan):
 //   * mamba_scan_fwd: the TPU kernel's contract, any T (no time block bt);
 //   * selective_scan_fwd: the fused Mamba-1 form the model calls, as
 //     repro/models/ssm.py::mamba1_block's make_chunk/emit_chunk compute it:
@@ -21,7 +21,10 @@
 //     chunked state-space-duality (SSD) form on the tensor cores (wgmma,
 //     chunks of 64 steps, the state carried in registers); decode and the
 //     float32 form run on the CUDA cores.  Its design is at its code below
-//     ("mamba2_scan").
+//     ("mamba2_scan");
+//   * mamba2_scan_bwd: that form's gradient (ddt, dx, db, dc, dA, dh0 from
+//     dy and dh_last), a reverse-time walk on the CUDA cores over states
+//     it recomputes (below at "mamba2_scan_bwd").
 //
 // Differences from the TPU kernel, none of which change the result beyond
 // float32 rounding order: the TPU walks time blocks of bt steps on a
@@ -722,19 +725,22 @@ __device__ __forceinline__ float m2_step(float (&h)[4][4], float decay,
   return yv;
 }
 
-// The lane's 4 rows' h0 (or h_last) states n0 .. n0+3.
-__device__ __forceinline__ void m2_load_h(float (&h)[4][4], const M2Args& a,
-                                          int bb, int hh, int p, int n0) {
+// The lane's 4 rows' states n0 .. n0+3 of a (B, H, P, N) state tensor
+// (h0, h_last, or the backward's dh_last and dh0); a.vec: every such
+// tensor of the call has 16-byte aligned rows.
+__device__ __forceinline__ void m2_load_h(float (&h)[4][4], const float* src,
+                                          const M2Args& a, int bb, int hh,
+                                          int p, int n0) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const bool live = p + i < a.P;
     const long long off =
         (((long long)bb * a.H + hh) * a.P + (live ? p + i : 0)) * a.N + n0;
-    load_states<4>(h[i], a.h0 + off, n0, a.N, live, a.vec);
+    load_states<4>(h[i], src + off, n0, a.N, live, a.vec);
   }
 }
 
-__device__ __forceinline__ void m2_store_h(const float (&h)[4][4],
+__device__ __forceinline__ void m2_store_h(const float (&h)[4][4], float* dst,
                                            const M2Args& a, int bb, int hh,
                                            int p, int n0) {
 #pragma unroll
@@ -742,7 +748,7 @@ __device__ __forceinline__ void m2_store_h(const float (&h)[4][4],
     const bool live = p + i < a.P;
     const long long off =
         (((long long)bb * a.H + hh) * a.P + (live ? p + i : 0)) * a.N + n0;
-    store_states<4>(h[i], a.h_last + off, n0, a.N, live, a.vec);
+    store_states<4>(h[i], dst + off, n0, a.N, live, a.vec);
   }
 }
 
@@ -823,7 +829,7 @@ mamba2_staged_kernel(const M2Args a) {
   };
 
   float h[4][4];
-  m2_load_h(h, a, bb, hh, p0 + ln.r0, n0);
+  m2_load_h(h, a.h0, a, bb, hh, p0 + ln.r0, n0);
 
   const int stages = (T + M2_TS - 1) / M2_TS;
   fetch(0);
@@ -860,7 +866,7 @@ mamba2_staged_kernel(const M2Args a) {
         yg[(long long)(t0 + s) * a.H * P + rr] = st[St::Y + e];
     }
   }
-  m2_store_h(h, a, bb, hh, p0 + ln.r0, n0);
+  m2_store_h(h, a.h_last, a, bb, hh, p0 + ln.r0, n0);
 }
 
 // ---- direct path: short T, no shared memory ----------------------------------
@@ -886,7 +892,7 @@ mamba2_direct_kernel(const M2Args a) {
   const bool writer = pm < P && ln.g % (NL / 4) == 0;
   float* yg = a.y + ((long long)bb * a.T * a.H + hh) * P + (writer ? pm : 0);
   float h[4][4];
-  m2_load_h(h, a, bb, hh, p, n0);
+  m2_load_h(h, a.h0, a, bb, hh, p, n0);
   for (int t = 0; t < a.T; ++t) {
     const float dt = __ldg(dtg + t * a.dt_st);
     float dx[4], bv[4], cv[4];
@@ -903,7 +909,7 @@ mamba2_direct_kernel(const M2Args a) {
                                  ln.g);
     if (writer) yg[(long long)t * a.H * P] = yv;
   }
-  m2_store_h(h, a, bb, hh, p, n0);
+  m2_store_h(h, a.h_last, a, bb, hh, p, n0);
 }
 
 // ---- chunked path: the SSD form on the tensor cores ---------------------------
@@ -1647,6 +1653,538 @@ bool m2_args(M2Args* a, const float* dt, const void* x, const void* b,
   return true;
 }
 
+
+// ---- mamba2_scan_bwd: the backward of the Mamba-2 form ----------------------
+// Stands in for jax.grad of repro/models/ssm.py::fused_ssm_scan as
+// mamba2_block drives it (make_chunk / emit_chunk, the chunk body under
+// jax.checkpoint, so the reference too recomputes its states).  From the
+// forward's operands, dy (B, T, H, P) and dh_last (B, H, P, N), both f32,
+// it gives, with a_t = dt_t A_h, decay_t = exp(a_t) and g the state's
+// gradient walked from t = T - 1 down (g_t = decay_{t+1} g_{t+1} +
+// dy_t c_t^T, starting from dh_last):
+//   dx_t = dt_t (g_t b_t)            dc_t = sum_{h,p} dy_t h_t
+//   db_t = sum_h dt_t (x_t^T g_t)    da_t = decay_t <g_t, h_{t-1}>
+//   ddt_t = A_h da_t + <g_t, x_t b_t^T>,  dA_h = sum_{b,t} dt_t da_t,
+//   dh0 = decay_0 g_0
+// (ref.mamba2_scan_bwd_ref, step by step).  The reverse walk needs each
+// h_t in reverse order; they are recomputed, never recovered from h_t by
+// dividing by the decay (which underflows to 0: dt A = -1000 is a test
+// case), in three levels:
+//   1. a forward pass over T stores the state at every BW_Q-step chunk
+//      boundary in device memory (cb);
+//   2. walking the chunks in reverse, a chunk is run forward again from
+//      its boundary, storing the state at every BW_SC-step sub-chunk
+//      boundary (sb, a block's own slots, small enough to stay in L2);
+//   3. walking its sub-chunks in reverse, a sub-chunk is run forward from
+//      its boundary into shared memory (h_{t0-1} .. h_{t0+SC-1}), then
+//      walked in reverse with g in registers.
+// Blocks and lanes are the CUDA-core forward's (M2Lane: a lane holds a
+// 4 x 4 tile of rows and states, one block a row block, head and batch
+// row), and every state slot a thread writes (cb, sb, the shared history)
+// is read back only by that thread.  A sub-chunk's inputs (dt and its
+// decay, x, dy, b, c) are staged in shared memory by the whole block, the
+// loads of its BW_SC steps in flight together, into one of two buffers;
+// they are fetched into registers one sub-chunk ahead (with the next
+// sub-chunk's entry state), so the loads run under the current
+// sub-chunk's work, and a sub-chunk costs one or two barriers.  The step
+// loop is FMAs, shared-memory traffic and one 5-shuffle chain: the other
+// partial sums go to shared memory and are summed after the sub-chunk.
+// BW_SC = 4 keeps the history and the partial sums (~72 KB at N <= 64)
+// to three blocks an SM.  Reading each step's inputs from device memory in
+// the step, and reducing every sum by shuffles in the step, ran 3x slower
+// (the forms timed are in PERF.md).
+//
+// b and c are shared by every head, and da_t and <g, x b^T> are sums over
+// a head's rows: each reverse step leaves its lanes' partial sums in shared
+// memory (da and <g, x b^T> summed over the warp first, with shuffles),
+// and after the sub-chunk the block sums them in a fixed order, writing dx
+// and, per (b, t, head, row block), the partial sums of db, dc, da and
+// <g, x b^T> to device memory; a second kernel sums db and dc over (head,
+// row block) and a third ddt and dA, each in a fixed order.  There are no
+// float atomics: two calls are bit-identical.
+//
+// What bounds it: the function reads dt, x, b, c, A, h0, dy, dh_last and
+// writes their gradients once (at zamba2's training shape, B=4, T=2048,
+// H=80, P=N=64, bf16, 0.36 GB, 0.108 ms at 3.35 TB/s), and its least work,
+// the chunked (SSD) form's products differentiated, is 32 GFLOP (0.065 ms
+// at the TF32 rate).  This design is the simple one: every state-step runs
+// on the CUDA cores, three forward steps (one a level) and the reverse
+// step, ~13 FP32 instructions (2.7 G state-steps, ~1.04 ms at the issue
+// rate), plus its scratch traffic (the chunk states and the per-head
+// partial sums of db and dc, ~0.9 GB).  It measures 6.28 ms, 6x that
+// floor; where the rest goes is not measured yet (PERF.md).  The
+// tensor-core form is later work (ROADMAP Queue 2 item 4e).
+
+constexpr int BW_Q = 64;                 // steps a chunk (level 1)
+constexpr int BW_SC = 4;                 // steps a sub-chunk (level 2)
+constexpr int BW_SUB = BW_Q / BW_SC;
+constexpr int BW_TILE = 16 * M2_NT;      // floats of a block's state slot
+
+struct M2Bwd {
+  M2Args f;               // the forward's operands (y, h_last unused)
+  const float* dy;        // (B, T, H, P) f32, contiguous
+  const float* dh_last;   // (B, H, P, N) f32, contiguous
+  float* ddt;             // (B, T, H) f32
+  void* dx;               // (B, T, H, P), x's dtype, contiguous
+  void* db;               // (B, T, N), b's dtype, contiguous
+  void* dc;
+  float* dA;              // (H,)
+  float* dh0;             // (B, H, P, N) f32
+  float* cb;              // scratch: chunk states, sub-chunk states, and
+  float* sb;              // the per-(b, t, head, row block) partial sums
+  float* dbh;             // (B, T, H, RB, N)
+  float* dch;
+  float* dah;             // (B, T, H, RB)
+  float* xgbh;
+  int NL, R, RB, nchunks;
+};
+
+// How a backward call runs: NL lanes a row group, R rows a block, RB row
+// blocks a head, chunks of BW_Q steps, the main kernel's shared memory and
+// the scratch it needs, in floats.
+struct M2BwdPlan {
+  int NL, R, RB, nchunks;
+  long long smem, scratch;
+};
+
+M2BwdPlan plan_mamba2_bwd(int B, int T, int H, int P, int N) {
+  M2BwdPlan pl{};
+  pl.NL = lanes_for(N, 4);
+  if (pl.NL < 4) pl.NL = 4;
+  pl.R = 4 * M2_NT / pl.NL;
+  pl.RB = (P + pl.R - 1) / pl.R;
+  pl.nchunks = (T + BW_Q - 1) / BW_Q;
+  // the history (BW_SC + 1 slots), two sub-chunks' staged inputs and the
+  // reverse steps' partial sums (BwStage below: a step's NL (R + 4) of
+  // g b, 2 R NP = 8 M2_NT of x^T g and dy^T h, 8 of the warps' sums)
+  pl.smem = 4ll * ((BW_SC + 1) * BW_TILE +
+                   2 * (2 * BW_SC + 2 * BW_SC * (4 * M2_NT / pl.NL) +
+                        2 * BW_SC * 4 * pl.NL) +
+                   BW_SC * (4 * M2_NT + 4 * pl.NL + 8 * M2_NT + 8));
+  const long long blocks = (long long)B * H * pl.RB;
+  const long long rows = (long long)B * T * H * pl.RB;
+  pl.scratch = blocks * (pl.nchunks + BW_SUB) * BW_TILE + rows * (2 * N + 2);
+  return pl;
+}
+
+// A block's state slot (16 floats a thread, as 4 float4 at [i][thread]);
+// plain loads, not __ldg: the thread itself wrote it in this launch
+__device__ __forceinline__ void slot_store(float* s, const float (&h)[4][4]) {
+  float4* q = reinterpret_cast<float4*>(s) + threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    q[i * M2_NT] = make_float4(h[i][0], h[i][1], h[i][2], h[i][3]);
+}
+
+__device__ __forceinline__ void slot_load(float (&h)[4][4], const float* s) {
+  const float4* q = reinterpret_cast<const float4*>(s) + threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 v = q[i * M2_NT];
+    h[i][0] = v.x; h[i][1] = v.y; h[i][2] = v.z; h[i][3] = v.w;
+  }
+}
+
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// A sub-chunk's inputs, staged in shared memory by the whole block (the
+// loads of its BW_SC steps in flight together, coalesced): dt and its
+// decay, x and dy of the block's R rows (as f32), b and c padded to NP =
+// 4 NL states with zeros.  Steps past T read dt = 0 (decay 1) and zeros,
+// so a step runs unguarded and leaves g and h as they were.  Then the
+// reverse steps' partial sums, summed after the sub-chunk: each lane's
+// g b of its 4 rows (GB, [step][lane of the row group][row], rows padded
+// to R + 4 so that neither the lanes' 16-byte stores nor the sums' reads
+// down a row meet in a bank), its rows' x^T g and dy^T h over its 4
+// states (BC, [step][row group][db | dc]), and each warp's <g, h_{t-1}>
+// and <g, x b^T> (DA, [step][warp][2]).
+template <int NL>
+struct BwStage {
+  static constexpr int R = 4 * M2_NT / NL, NP = 4 * NL;
+  static constexpr int DT = 0, DEC = BW_SC, X = 2 * BW_SC,
+                       DY = X + BW_SC * R, BV = DY + BW_SC * R,
+                       CV = BV + BW_SC * NP, SIZE = CV + BW_SC * NP;
+  // x (and dy), b (and c) a thread, the last load guarded where the
+  // stage is not whole loads of the block
+  static constexpr int XE = (BW_SC * R + M2_NT - 1) / M2_NT;
+  static constexpr int BE = (BW_SC * NP + M2_NT - 1) / M2_NT;
+  static constexpr int RP = R + 4;               // a padded GB row
+  static constexpr int GB = 0, BC = GB + BW_SC * NL * RP,
+                       DA = BC + BW_SC * (R / 4) * 2 * NP,
+                       RED = DA + BW_SC * 4 * 2;
+  static_assert(X % 4 == 0 && R % 4 == 0 && NP % 4 == 0 && BC % 4 == 0,
+                "x, dy, b, c and the partial sums move as 16-byte vectors");
+  static_assert(BW_SC <= M2_NT, "a thread stages each step's dt");
+};
+
+template <int NL>
+constexpr long long bw_smem_bytes() {
+  using S = BwStage<NL>;
+  return 4ll * ((BW_SC + 1) * BW_TILE + 2 * S::SIZE + S::RED);
+}
+
+template <typename TX, int NL>
+__global__ void __launch_bounds__(M2_NT)
+mamba2_bwd_kernel(const M2Bwd a) {
+  using S = BwStage<NL>;
+  constexpr int R = S::R, NP = S::NP, RG = R / 4;
+  extern __shared__ __align__(16) float bw_smem[];
+  float* hist = bw_smem;                        // BW_SC + 1 state slots
+  float* stage = hist + (BW_SC + 1) * BW_TILE;  // two sub-chunks' inputs
+  float* red = stage + 2 * S::SIZE;             // the partial sums
+  const M2Args& f = a.f;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const M2Lane<NL> ln(tid);
+  const int n0 = 4 * ln.g, rg = ln.r0 / 4;
+  const int rb = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
+  const int p0 = rb * R, p = p0 + ln.r0, T = f.T, N = f.N, P = f.P, H = f.H;
+  const long long blk = ((long long)bb * H + hh) * a.RB + rb;
+  float* cb = a.cb + blk * a.nchunks * BW_TILE;
+  float* sb = a.sb + blk * BW_SUB * BW_TILE;
+  const float A2 = __ldg(f.A + hh) * LOG2E;
+  const float* dtg = f.dt + bb * f.dt_sb + hh;
+  const TX* xg = static_cast<const TX*>(f.x) + bb * f.x_sb +
+                 (long long)hh * f.x_sh + p0;
+  const TX* bg = static_cast<const TX*>(f.b) + bb * f.b_sb;
+  const TX* cg = static_cast<const TX*>(f.c) + bb * f.c_sb;
+  const long long trow = (long long)H * P;      // dy's and dx's time stride
+  const float* dyg =
+      a.dy + (long long)bb * T * trow + (long long)hh * P + p0;
+  TX* dxg = static_cast<TX*>(a.dx) + (long long)bb * T * trow +
+            (long long)hh * P + p0;
+
+  // the inputs of steps t0 .. t0 + BW_SC - 1 (dy and c only for the
+  // reverse walk) into registers, fetched one sub-chunk ahead so that the
+  // loads run under the current sub-chunk's work; put stages them
+  float rdt = 0.f, rx[S::XE], rdy[S::XE], rbv[S::BE], rcv[S::BE];
+  auto fetch = [&](int t0, bool reverse) {
+    if (tid < BW_SC)
+      rdt = t0 + tid < T ? __ldg(dtg + (t0 + tid) * f.dt_st) : 0.f;
+#pragma unroll
+    for (int i = 0; i < S::XE; ++i) {
+      const int e = tid + i * M2_NT, s = e / R, r = e % R;
+      const bool ok = e < BW_SC * R && t0 + s < T && p0 + r < P;
+      rx[i] = ok ? load(xg + (t0 + s) * f.x_st + r) : 0.f;
+      rdy[i] = ok && reverse ? __ldg(dyg + (t0 + s) * trow + r) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < S::BE; ++i) {
+      const int e = tid + i * M2_NT, s = e / NP, n = e % NP;
+      const bool ok = e < BW_SC * NP && t0 + s < T && n < N;
+      rbv[i] = ok ? load(bg + (t0 + s) * f.b_st + n) : 0.f;
+      rcv[i] = ok && reverse ? load(cg + (t0 + s) * f.c_st + n) : 0.f;
+    }
+  };
+  auto put = [&](float* st) {
+    if (tid < BW_SC) {
+      st[S::DT + tid] = rdt;
+      st[S::DEC + tid] = hopper::ex2(rdt * A2);
+    }
+#pragma unroll
+    for (int i = 0; i < S::XE; ++i) {
+      const int e = tid + i * M2_NT;
+      if (e < BW_SC * R) {
+        st[S::X + e] = rx[i];
+        st[S::DY + e] = rdy[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < S::BE; ++i) {
+      const int e = tid + i * M2_NT;
+      if (e < BW_SC * NP) {
+        st[S::BV + e] = rbv[i];
+        st[S::CV + e] = rcv[i];
+      }
+    }
+  };
+  // the sub-chunks in the order they run: chunk k's forward sub-chunks
+  // (all but its last, from the chunk state), then its sub-chunks in
+  // reverse; a chunk of one sub-chunk has only the reverse one
+  auto nsub_of = [&](int k) {
+    return min(BW_SUB, (T - k * BW_Q + BW_SC - 1) / BW_SC);
+  };
+  auto fetch_chunk = [&](int k) {        // the first sub-chunk chunk k runs
+    fetch(k * BW_Q, nsub_of(k) == 1);
+  };
+  // h = decay_t h + (dt_t x_t) b_t^T for the staged steps; with `keep`
+  // each state into the history (slot s + 1 after step s)
+  auto forward = [&](float (&h)[4][4], const float* st, bool keep) {
+#pragma unroll
+    for (int s = 0; s < BW_SC; ++s) {
+      const float dt = st[S::DT + s], dec = st[S::DEC + s];
+      const float4 xv =
+          *reinterpret_cast<const float4*>(st + S::X + s * R + ln.r0);
+      const float4 bv =
+          *reinterpret_cast<const float4*>(st + S::BV + s * NP + n0);
+      const float dx[4] = {dt * xv.x, dt * xv.y, dt * xv.z, dt * xv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        h[i][0] = fmaf(dec, h[i][0], dx[i] * bv.x);
+        h[i][1] = fmaf(dec, h[i][1], dx[i] * bv.y);
+        h[i][2] = fmaf(dec, h[i][2], dx[i] * bv.z);
+        h[i][3] = fmaf(dec, h[i][3], dx[i] * bv.w);
+      }
+      if (keep) slot_store(hist + (s + 1) * BW_TILE, h);
+    }
+  };
+
+  // 1. the state entering every chunk
+  float h[4][4], g[4][4];
+  m2_load_h(h, f.h0, f, bb, hh, p, n0);
+  int buf = 0;
+  const int nfwd = (a.nchunks - 1) * BW_SUB;   // sub-chunks before the last
+  if (nfwd > 0)
+    fetch(0, false);
+  else
+    fetch_chunk(0);
+  for (int i = 0; i < nfwd; ++i, buf ^= 1) {
+    if (i % BW_SUB == 0) slot_store(cb + (i / BW_SUB) * BW_TILE, h);
+    float* st = stage + buf * S::SIZE;
+    put(st);
+    __syncthreads();
+    if (i + 1 < nfwd)
+      fetch((i + 1) * BW_SC, false);
+    else
+      fetch_chunk(a.nchunks - 1);
+    forward(h, st, false);
+  }
+  slot_store(cb + (a.nchunks - 1) * BW_TILE, h);
+
+  m2_load_h(g, a.dh_last, f, bb, hh, p, n0);
+  for (int k = a.nchunks - 1; k >= 0; --k) {
+    // 2. the state entering every sub-chunk of chunk k
+    const int c0 = k * BW_Q, nsub = nsub_of(k);
+    slot_load(h, cb + k * BW_TILE);
+    for (int j = 0; j + 1 < nsub; ++j, buf ^= 1) {
+      slot_store(sb + j * BW_TILE, h);
+      float* st = stage + buf * S::SIZE;
+      put(st);
+      __syncthreads();
+      if (j + 2 < nsub)
+        fetch(c0 + (j + 1) * BW_SC, false);
+      else
+        fetch(c0 + (nsub - 1) * BW_SC, true);
+      forward(h, st, false);
+    }
+    // h now enters the last sub-chunk; each earlier one's entry state is
+    // loaded one sub-chunk ahead, with its inputs
+    float hn[4][4];
+    for (int j = nsub - 1; j >= 0; --j, buf ^= 1) {
+      // 3. the sub-chunk's states into the history (slot s is h_{t0+s-1}),
+      // then the reverse walk over it
+      const int t0 = c0 + j * BW_SC, steps = min(BW_SC, T - t0);
+      float* st = stage + buf * S::SIZE;
+      if (j < nsub - 1) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) h[i][jj] = hn[i][jj];
+      }
+      put(st);
+      slot_store(hist, h);
+      __syncthreads();
+      if (j > 0) {
+        fetch(t0 - BW_SC, true);
+        slot_load(hn, sb + (j - 1) * BW_TILE);
+      } else if (k > 0) {
+        fetch_chunk(k - 1);
+      }
+      forward(h, st, true);
+#pragma unroll
+      for (int s = BW_SC - 1; s >= 0; --s) {
+        const float dec = st[S::DEC + s];
+        const float4 x4 =
+            *reinterpret_cast<const float4*>(st + S::X + s * R + ln.r0);
+        const float4 dy4 =
+            *reinterpret_cast<const float4*>(st + S::DY + s * R + ln.r0);
+        const float4 b4 =
+            *reinterpret_cast<const float4*>(st + S::BV + s * NP + n0);
+        const float4 c4 =
+            *reinterpret_cast<const float4*>(st + S::CV + s * NP + n0);
+        const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+        const float dyv[4] = {dy4.x, dy4.y, dy4.z, dy4.w};
+        const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+        const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+        float hp[4][4], hc[4][4];
+        slot_load(hp, hist + s * BW_TILE);
+        slot_load(hc, hist + (s + 1) * BW_TILE);
+        float gb[4], dbp[4] = {0.f, 0.f, 0.f, 0.f};
+        float dcp[4] = {0.f, 0.f, 0.f, 0.f}, dap = 0.f, xgb = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            g[i][jj] = fmaf(dyv[i], cv[jj], g[i][jj]);          // g_t
+          gb[i] = fmaf(g[i][3], bv[3], fmaf(g[i][2], bv[2],
+                  fmaf(g[i][1], bv[1], g[i][0] * bv[0])));
+          xgb = fmaf(xv[i], gb[i], xgb);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            dbp[jj] = fmaf(xv[i], g[i][jj], dbp[jj]);
+            dcp[jj] = fmaf(dyv[i], hc[i][jj], dcp[jj]);
+            dap = fmaf(g[i][jj], hp[i][jj], dap);
+          }
+        }
+        // the partial sums, summed after the sub-chunk; da and <g, x b^T>
+        // over the warp first, reduce-scattered (lanes 0 and 16 end with
+        // them)
+        *reinterpret_cast<float4*>(red + S::GB + (s * NL + ln.g) * S::RP +
+                                   ln.r0) =
+            make_float4(gb[0], gb[1], gb[2], gb[3]);
+        float* bcs = red + S::BC + (s * RG + rg) * 2 * NP + n0;
+        *reinterpret_cast<float4*>(bcs) =
+            make_float4(dbp[0], dbp[1], dbp[2], dbp[3]);
+        *reinterpret_cast<float4*>(bcs + NP) =
+            make_float4(dcp[0], dcp[1], dcp[2], dcp[3]);
+        const bool hi16 = (lane & 16) != 0;
+        float w = (hi16 ? xgb : dap) +
+                  __shfl_xor_sync(FULL, hi16 ? dap : xgb, 16);
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1)
+          w += __shfl_xor_sync(FULL, w, off);
+        if (lane % 16 == 0) red[S::DA + (s * 4 + warp) * 2 + lane / 16] = w;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) g[i][jj] *= dec;   // d_t g_t
+      }
+      __syncthreads();
+      // the sub-chunk's partial sums, each in a fixed order: dx a row (over
+      // the row group's lanes), db and dc a state (over the row groups),
+      // da and <g, x b^T> (over the warps)
+      for (int e = tid; e < steps * R; e += M2_NT) {
+        const int s = e / R, r = e % R;
+        const float* v = red + S::GB + s * NL * S::RP + r;
+        float sum = 0.f;
+#pragma unroll
+        for (int q = 0; q < NL; ++q) sum += v[q * S::RP];
+        if (p0 + r < P)
+          store_as(dxg + (t0 + s) * trow + r, st[S::DT + s] * sum);
+      }
+      for (int e = tid; e < steps * 2 * NP; e += M2_NT) {
+        const int s = e / (2 * NP), v = e % (2 * NP), n = v % NP;
+        const float* q = red + S::BC + s * RG * 2 * NP + v;
+        float sum = 0.f;
+#pragma unroll
+        for (int r = 0; r < RG; ++r) sum += q[r * 2 * NP];
+        const long long row =
+            (((long long)bb * T + t0 + s) * H + hh) * a.RB + rb;
+        if (n < N) {
+          if (v < NP)
+            a.dbh[row * N + n] = st[S::DT + s] * sum;
+          else
+            a.dch[row * N + n] = sum;
+        }
+      }
+      if (tid < 2 * steps) {
+        const int s = tid / 2, which = tid % 2;
+        const float* q = red + S::DA + s * 8 + which;
+        const float sum = q[0] + q[2] + q[4] + q[6];
+        const long long row =
+            (((long long)bb * T + t0 + s) * H + hh) * a.RB + rb;
+        if (which == 0)
+          a.dah[row] = st[S::DEC + s] * sum;
+        else
+          a.xgbh[row] = sum;
+      }
+    }
+  }
+  m2_store_h(g, a.dh0, f, bb, hh, p, n0);       // decay_0 g_0
+}
+
+// db, dc (B, T, N): each the sum over (head, row block) of its partial
+// sums, in order; one thread a (b, t, n)
+template <typename TX>
+__global__ void __launch_bounds__(256) mamba2_bwd_bc_kernel(const M2Bwd a) {
+  const M2Args& f = a.f;
+  const long long e = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (e >= (long long)f.B * f.T * f.N) return;
+  const int n = (int)(e % f.N), parts = f.H * a.RB;
+  const long long base = e / f.N * parts * f.N + n;
+  float sb = 0.f, sc = 0.f;
+  for (int k = 0; k < parts; ++k) {
+    sb += a.dbh[base + (long long)k * f.N];
+    sc += a.dch[base + (long long)k * f.N];
+  }
+  store_as(static_cast<TX*>(a.db) + e, sb);
+  store_as(static_cast<TX*>(a.dc) + e, sc);
+}
+
+// ddt (B, T, H) = A da + <g, x b^T>, each summed over the row blocks in
+// order; one thread a (b, t, h)
+__global__ void __launch_bounds__(256) mamba2_bwd_dt_kernel(const M2Bwd a) {
+  const M2Args& f = a.f;
+  const long long e = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (e >= (long long)f.B * f.T * f.H) return;
+  float da = 0.f, xg = 0.f;
+  for (int r = 0; r < a.RB; ++r) {
+    da += a.dah[e * a.RB + r];
+    xg += a.xgbh[e * a.RB + r];
+  }
+  a.ddt[e] = fmaf(__ldg(f.A + e % f.H), da, xg);
+}
+
+// dA_h = sum over (b, t) of dt da: one block a head, a strided sum a
+// thread and a tree over the block, both in a fixed order
+__global__ void __launch_bounds__(256) mamba2_bwd_A_kernel(const M2Bwd a) {
+  const M2Args& f = a.f;
+  __shared__ float part[256];
+  const int hh = blockIdx.x;
+  float s = 0.f;
+  for (long long e = threadIdx.x; e < (long long)f.B * f.T; e += 256) {
+    const int b = (int)(e / f.T), t = (int)(e % f.T);
+    const long long row = ((long long)b * f.T + t) * f.H + hh;
+    float da = 0.f;
+    for (int r = 0; r < a.RB; ++r) da += a.dah[row * a.RB + r];
+    s = fmaf(__ldg(f.dt + b * f.dt_sb + t * f.dt_st + hh), da, s);
+  }
+  part[threadIdx.x] = s;
+  __syncthreads();
+  for (int w = 128; w > 0; w >>= 1) {
+    if (threadIdx.x < w) part[threadIdx.x] += part[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) a.dA[hh] = part[0];
+}
+
+template <typename TX, int NL>
+cudaError_t launch_m2_bwd_main(const M2Bwd& a, const M2BwdPlan& pl,
+                               cudaStream_t st) {
+  if (pl.smem != bw_smem_bytes<NL>()) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      mamba2_bwd_kernel<TX, NL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)pl.smem);
+  if (e != cudaSuccess) return e;
+  mamba2_bwd_kernel<TX, NL>
+      <<<dim3(pl.RB, a.f.H, a.f.B), M2_NT, pl.smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename TX>
+cudaError_t launch_m2_bwd(const M2Bwd& a, const M2BwdPlan& pl,
+                          cudaStream_t st) {
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (pl.NL) {
+    case 4: e = launch_m2_bwd_main<TX, 4>(a, pl, st); break;
+    case 8: e = launch_m2_bwd_main<TX, 8>(a, pl, st); break;
+    case 16: e = launch_m2_bwd_main<TX, 16>(a, pl, st); break;
+    case 32: e = launch_m2_bwd_main<TX, 32>(a, pl, st); break;
+  }
+  if (e != cudaSuccess) return e;
+  const M2Args& f = a.f;
+  const long long bcn = (long long)f.B * f.T * f.N;
+  const long long btn = (long long)f.B * f.T * f.H;
+  mamba2_bwd_bc_kernel<TX><<<(unsigned)((bcn + 255) / 256), 256, 0, st>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  mamba2_bwd_dt_kernel<<<(unsigned)((btn + 255) / 256), 256, 0, st>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  mamba2_bwd_A_kernel<<<f.H, 256, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1758,6 +2296,70 @@ int mamba2_scan_plan(const float* dt, const void* x, const void* b,
                      pl.tma_x,  pl.tma_b, pl.tma_c,   pl.tma_y,
                      (int)pl.gx, (int)pl.gy, (int)pl.gz};
   for (int i = 0; i < 11; ++i) out[i] = v[i];
+  return 0;
+}
+
+// The Mamba-2 form's backward.  dt, x, b, c, A, h0 and the strides as
+// mamba2_scan_fwd takes them; dy (B, T, H, P) and dh_last (B, H, P, N)
+// f32; out: ddt (B, T, H) f32, dx (B, T, H, P) in x's dtype, db and dc
+// (B, T, N) in b's, dA (H,) f32 and dh0 (B, H, P, N) f32; all of these
+// contiguous; scratch: scratch_floats f32, at least the plan's.  Four
+// launches on the stream; returns a cudaError_t (0 on success).
+int mamba2_scan_bwd(const float* dt, const void* x, const void* b,
+                    const void* c, const float* A, const float* h0,
+                    const float* dy, const float* dh_last, float* ddt,
+                    void* dx, void* db, void* dc, float* dA, float* dh0,
+                    float* scratch, long long scratch_floats, int dtype,
+                    int B, int T, int H, int P, int N, long long dt_sb,
+                    long long dt_st, long long x_sb, long long x_st,
+                    long long x_sh, long long b_sb, long long b_st,
+                    long long c_sb, long long c_st, void* stream) {
+  M2Bwd a{};
+  if (!m2_args(&a.f, dt, x, b, c, A, h0, nullptr, nullptr, dtype, B, T, H,
+               P, N, dt_sb, dt_st, x_sb, x_st, x_sh, b_sb, b_st, c_sb, c_st))
+    return (int)cudaErrorInvalidValue;
+  const M2BwdPlan pl = plan_mamba2_bwd(B, T, H, P, N);
+  if (scratch_floats < pl.scratch) return (int)cudaErrorInvalidValue;
+  a.f.vec = N % 4 == 0 &&
+            ((uintptr_t)h0 | (uintptr_t)dh_last | (uintptr_t)dh0) % 16 == 0;
+  const long long blocks = (long long)B * H * pl.RB;
+  const long long rows = (long long)B * T * H * pl.RB;
+  a.dy = dy;
+  a.dh_last = dh_last;
+  a.ddt = ddt;
+  a.dx = dx;
+  a.db = db;
+  a.dc = dc;
+  a.dA = dA;
+  a.dh0 = dh0;
+  a.cb = scratch;
+  a.sb = a.cb + blocks * pl.nchunks * BW_TILE;
+  a.dbh = a.sb + blocks * BW_SUB * BW_TILE;
+  a.dch = a.dbh + rows * N;
+  a.dah = a.dch + rows * N;
+  a.xgbh = a.dah + rows;
+  a.NL = pl.NL;
+  a.R = pl.R;
+  a.RB = pl.RB;
+  a.nchunks = pl.nchunks;
+  auto s = static_cast<cudaStream_t>(stream);
+  return (int)(dtype == 0 ? launch_m2_bwd<float>(a, pl, s)
+                          : launch_m2_bwd<__nv_bfloat16>(a, pl, s));
+}
+
+// The plan mamba2_scan_bwd makes for a (B, T, H, P, N) call, into
+// out[0..5]: NL, R, RB, chunks, shared memory bytes, scratch floats.
+// Launches nothing; returns 0, or cudaErrorInvalidValue for a shape the
+// kernel does not take.
+int mamba2_scan_bwd_plan(int B, int T, int H, int P, int N,
+                         long long* out) {
+  if (B <= 0 || T <= 0 || H <= 0 || P <= 0 || N <= 0 || N > MAX_N ||
+      B > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  const M2BwdPlan pl = plan_mamba2_bwd(B, T, H, P, N);
+  const long long v[6] = {pl.NL, pl.R, pl.RB, pl.nchunks, pl.smem,
+                          pl.scratch};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
   return 0;
 }
 

@@ -32,7 +32,7 @@ from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                      flash_attention_ref)
 
 HEAD_DIMS = (64, 80, 128, 256)
-BWD_HEAD_DIMS = (64, 128, 256)      # the backward kernel's
+BWD_HEAD_DIMS = (64, 80, 128, 256)  # the backward kernel's
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -171,9 +171,7 @@ def _check_bwd(q, k, o, lse, do, causal, window=0):
     Tk = k.shape[1]
     if D not in BWD_HEAD_DIMS:
         raise ValueError(f"head_dim {D}: the backward kernel takes "
-                         f"{BWD_HEAD_DIMS}; head_dim 80 (zamba2) comes with "
-                         "the SSM families' training, ROADMAP.md Queue 1 "
-                         "item 5b")
+                         f"{BWD_HEAD_DIMS}")
     if causal and Tk != Tq:
         raise ValueError("the backward kernel takes causal attention with "
                          "Tq == Tk (self-attention) or non-causal attention "

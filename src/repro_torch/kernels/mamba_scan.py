@@ -12,15 +12,27 @@ through its C interface, with three entry points:
   ``models/ssm.py::mamba2_block`` calls: a scalar decay a head, b and c
   shared by every head, a (P, N) state a head.  A bf16 prefill runs as the
   chunked (SSD) form on the tensor cores, whose plain counterpart is
-  ``ref.mamba2_scan_chunked_ref``.
+  ``ref.mamba2_scan_chunked_ref``;
+* ``mamba2_scan_bwd(dt, x, b, c, A, h0, dy, dh_last)``: the Mamba-2 form's
+  gradient, a reverse-time walk over recomputed states, whose plain
+  counterpart is ``ref.mamba2_scan_bwd_ref``.
 
 A tensor on the CPU goes to the plain versions in ``ref``; a CUDA tensor
-goes to the kernel or the call raises.  ``mamba_scan.launches``,
-``selective_scan.launches`` and ``mamba2_scan.launches`` count kernel
-launches.  ``selective_plan`` mirrors how the kernel's host code runs a
-Mamba-1 call (lanes a channel, direct or ring path, TMA or lane loads,
-grid), so that the choice can be tested without a card;
-``kernel_mamba2_plan`` asks the built library for the Mamba-2 form's plan.
+goes to the kernel or the call raises.  Under grad mode with an input that
+requires grad, ``mamba2_scan`` runs the ``repro_torch::mamba2_scan`` custom
+op, whose autograd formula is the ``repro_torch::mamba2_scan_bwd`` op (both
+dispatcher ops, so that selective activation checkpointing sees the scan
+and recomputes it); its forward saves only its inputs.  ``mamba_scan`` and
+``selective_scan`` have no backward yet: on a card they raise under grad
+rather than return an output that autograd cannot follow.
+``mamba_scan.launches``, ``selective_scan.launches``,
+``mamba2_scan.launches`` and ``mamba2_scan_bwd.launches`` count kernel
+launches (a backward call is one count for its four launches).
+``selective_plan`` and ``mamba2_bwd_plan`` mirror how the kernel's host
+code runs a Mamba-1 call (lanes a channel, direct or ring path, TMA or lane
+loads, grid) and a Mamba-2 backward (lanes, rows, scratch), so that the
+choice can be tested without a card; ``kernel_mamba2_plan`` and
+``kernel_mamba2_bwd_plan`` ask the built library.
 """
 
 from __future__ import annotations
@@ -32,8 +44,8 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (mamba2_scan_ref, mamba_scan_ref,
-                                     selective_scan_ref)
+from repro_torch.kernels.ref import (mamba2_scan_bwd_ref, mamba2_scan_ref,
+                                     mamba_scan_ref, selective_scan_ref)
 
 MAX_STATE = 128                 # N: 8 lanes of 16 states each
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -58,6 +70,10 @@ def _lib() -> ctypes.CDLL:
     lib.mamba2_scan_fwd.restype = i
     lib.mamba2_scan_plan.argtypes = [p] * 8 + [i] * 6 + [ll] * 9 + [p]
     lib.mamba2_scan_plan.restype = i
+    lib.mamba2_scan_bwd.argtypes = [p] * 15 + [ll] + [i] * 6 + [ll] * 9 + [p]
+    lib.mamba2_scan_bwd.restype = i
+    lib.mamba2_scan_bwd_plan.argtypes = [i] * 5 + [p]
+    lib.mamba2_scan_bwd_plan.restype = i
     lib.ms_error_string.argtypes = [i]
     lib.ms_error_string.restype = ctypes.c_char_p
     return lib
@@ -67,6 +83,15 @@ def _raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} launch failed: cudaError {err} "
                            f"({_lib().ms_error_string(err).decode()})")
+
+
+def _refuse_grad(what: str, *ts: torch.Tensor) -> None:
+    """A kernel without a backward, on a card, under grad: raise rather
+    than return an output that autograd cannot follow."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            f"{what} has no backward kernel yet (ROADMAP.md Queue 1 item "
+            "5b-ii): call it under torch.no_grad() or on the CPU")
 
 
 def _check_state(N: int) -> None:
@@ -103,6 +128,7 @@ def mamba_scan(decay: torch.Tensor, u: torch.Tensor, c: torch.Tensor
         return mamba_scan_ref(decay, u, c)
     if decay.device.type != "cuda":
         raise ValueError(f"unsupported device {decay.device}")
+    _refuse_grad("mamba_scan", decay, u, c)
     _check_scan(decay, u, c)
     B, T, D, N = decay.shape
     y = torch.empty((B, T, D), dtype=torch.float32, device=decay.device)
@@ -242,6 +268,7 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
         return selective_scan_ref(dt, x, b, c, A, h0)
     if dt.device.type != "cuda":
         raise ValueError(f"unsupported device {dt.device}")
+    _refuse_grad("selective_scan", dt, x, b, c, A, h0)
     _check_selective(dt, x, b, c, A, h0)
     B, T, D = dt.shape
     N = b.shape[2]
@@ -356,7 +383,17 @@ def mamba2_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
     y (B, T, H, P) and the last state (B, H, P, N), both float32:
     ``decay_t = exp(dt_t * A)`` a head, ``u_t = (dt_t * x_t) * b_t``,
     ``h_t = decay_t * h_{t-1} + u_t``, ``y_t = sum_n h_t * c_t``.
+    Differentiable: under grad mode with an input that requires grad this
+    is the ``repro_torch::mamba2_scan`` op.
     """
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (dt, x, b, c, A, h0)):
+        return tuple(torch.ops.repro_torch.mamba2_scan(dt, x, b, c, A, h0))
+    return _mamba2_forward(dt, x, b, c, A, h0)
+
+
+def _mamba2_forward(dt, x, b, c, A, h0):
+    """One forward call: the plain version on the CPU, else one launch."""
     if dt.device.type == "cpu":
         return mamba2_scan_ref(dt, x, b, c, A, h0)
     if dt.device.type != "cuda":
@@ -376,3 +413,142 @@ def mamba2_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
 
 
 mamba2_scan.launches = 0
+
+
+# --- the backward -------------------------------------------------------------
+
+BWD_CHUNK = 64                  # csrc's BW_Q: steps between stored states
+BWD_SUB = 4                     # csrc's BW_SC: steps of the shared history
+M2_THREADS = 128                # csrc's M2_NT: threads a block
+
+
+@dataclasses.dataclass(frozen=True)
+class Mamba2BwdPlan:
+    """How ``mamba2_scan_bwd`` runs a call."""
+    lanes: int           # NL: lanes a row group (4 rows x 4 states a lane)
+    rows: int            # R: rows of P a block
+    row_blocks: int      # RB: blocks a head
+    chunks: int          # chunks of BWD_CHUNK steps, a stored state each
+    smem: int            # the main kernel's shared memory, bytes
+    scratch: int         # floats of scratch the call needs
+
+    def as_ints(self) -> list[int]:
+        return [self.lanes, self.rows, self.row_blocks, self.chunks,
+                self.smem, self.scratch]
+
+
+def mamba2_bwd_plan(B: int, T: int, H: int, P: int, N: int) -> Mamba2BwdPlan:
+    """The plan ``csrc/mamba_scan.cu::plan_mamba2_bwd`` makes: the forward's
+    CUDA-core lanes (NL = max(4, next_pow2(N / 4)), R = 4 * 128 / NL rows a
+    block), the shared history of BWD_SUB + 1 states, two sub-chunks'
+    staged inputs and the reverse steps' partial sums, and the scratch: a
+    state slot a block and chunk (level 1) and sub-chunk (level 2), and
+    per (b, t, head, row block) the partial sums of db, dc (N each), da
+    and <g, x b^T>."""
+    NL = 4
+    while NL * 4 < N:
+        NL *= 2
+    R = 4 * M2_THREADS // NL
+    RB = -(-P // R)
+    chunks = -(-T // BWD_CHUNK)
+    tile = 16 * M2_THREADS
+    stage = 2 * BWD_SUB + 2 * BWD_SUB * R + 2 * BWD_SUB * 4 * NL
+    partial = 12 * M2_THREADS + 4 * NL + 8   # a reverse step's partial sums
+    smem = 4 * ((BWD_SUB + 1) * tile + 2 * stage + BWD_SUB * partial)
+    scratch = (B * H * RB * (chunks + BWD_CHUNK // BWD_SUB) * tile
+               + B * T * H * RB * (2 * N + 2))
+    return Mamba2BwdPlan(NL, R, RB, chunks, smem, scratch)
+
+
+def kernel_mamba2_bwd_plan(B: int, T: int, H: int, P: int, N: int
+                           ) -> Mamba2BwdPlan:
+    """The plan the built kernel's host code makes (a card's library)."""
+    out = (ctypes.c_longlong * 6)()
+    _raise_on(_lib().mamba2_scan_bwd_plan(B, T, H, P, N, out),
+              "mamba2_scan_bwd_plan")
+    return Mamba2BwdPlan(*map(int, out))
+
+
+def mamba2_scan_bwd(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                    c: torch.Tensor, A: torch.Tensor, h0: torch.Tensor,
+                    dy: torch.Tensor, dh_last: torch.Tensor
+                    ) -> tuple[torch.Tensor, ...]:
+    """The gradient of ``mamba2_scan`` at (dt, x, b, c, A, h0) for output
+    gradients dy (B, T, H, P) and dh_last (B, H, P, N): (ddt (B, T, H)
+    float32, dx in x's dtype, db and dc (B, T, N) in b's, dA (H,) and dh0
+    (B, H, P, N) float32), every output contiguous.  The operands as
+    ``mamba2_scan`` takes them; dy and dh_last are made contiguous
+    float32."""
+    if dt.device.type == "cpu":
+        return mamba2_scan_bwd_ref(dt, x, b, c, A, h0, dy, dh_last)
+    if dt.device.type != "cuda":
+        raise ValueError(f"unsupported device {dt.device}")
+    _check_mamba2(dt, x, b, c, A, h0)
+    B, T, H, P = x.shape
+    N = b.shape[2]
+    if tuple(dy.shape) != (B, T, H, P) or dh_last.shape != h0.shape:
+        raise ValueError(f"want dy {(B, T, H, P)}, dh_last {tuple(h0.shape)};"
+                         f" got {tuple(dy.shape)}, {tuple(dh_last.shape)}")
+    if not (dy.device == dh_last.device == dt.device):
+        raise ValueError("dy, dh_last and the operands on different devices")
+    dy = dy.float().contiguous()
+    dh_last = dh_last.float().contiguous()
+    plan = mamba2_bwd_plan(B, T, H, P, N)
+    f32, dev = torch.float32, dt.device
+    ddt = torch.empty((B, T, H), dtype=f32, device=dev)
+    dx = torch.empty((B, T, H, P), dtype=x.dtype, device=dev)
+    db = torch.empty((B, T, N), dtype=b.dtype, device=dev)
+    dc = torch.empty((B, T, N), dtype=c.dtype, device=dev)
+    dA = torch.empty((H,), dtype=f32, device=dev)
+    dh0 = torch.empty((B, H, P, N), dtype=f32, device=dev)
+    scratch = torch.empty((plan.scratch,), dtype=f32, device=dev)
+    args = _mamba2_args(dt, x, b, c, A, h0, ddt, dh0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().mamba2_scan_bwd(
+            *args[:6], dy.data_ptr(), dh_last.data_ptr(), ddt.data_ptr(),
+            dx.data_ptr(), db.data_ptr(), dc.data_ptr(), dA.data_ptr(),
+            dh0.data_ptr(), scratch.data_ptr(), plan.scratch, *args[8:],
+            stream)
+    _raise_on(err, "mamba2_scan_bwd")
+    mamba2_scan_bwd.launches += 1
+    return ddt, dx, db, dc, dA, dh0
+
+
+mamba2_scan_bwd.launches = 0
+
+
+# --- the differentiable op ----------------------------------------------------
+
+@torch.library.custom_op("repro_torch::mamba2_scan", mutates_args=())
+def _mamba2_scan_op(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                    c: torch.Tensor, A: torch.Tensor, h0: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    return _mamba2_forward(dt, x, b, c, A, h0)
+
+
+@torch.library.custom_op("repro_torch::mamba2_scan_bwd", mutates_args=())
+def _mamba2_scan_bwd_op(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                        c: torch.Tensor, A: torch.Tensor, h0: torch.Tensor,
+                        dy: torch.Tensor, dh_last: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor, torch.Tensor, torch.Tensor]:
+    return mamba2_scan_bwd(dt, x, b, c, A, h0, dy, dh_last)
+
+
+def _mamba2_setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _mamba2_backward(ctx, dy, dh_last):
+    dt, x, b, c, A, h0 = ctx.saved_tensors
+    if dy is None:
+        dy = dt.new_zeros(x.shape)
+    if dh_last is None:
+        dh_last = torch.zeros_like(h0, dtype=torch.float32)
+    return tuple(torch.ops.repro_torch.mamba2_scan_bwd(
+        dt, x, b, c, A, h0, dy, dh_last))
+
+
+_mamba2_scan_op.register_autograd(_mamba2_backward,
+                                  setup_context=_mamba2_setup_context)

@@ -191,6 +191,49 @@ def mamba2_scan_ref(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
     return torch.stack(ys, dim=1), h
 
 
+def mamba2_scan_bwd_ref(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                        c: torch.Tensor, A: torch.Tensor, h0: torch.Tensor,
+                        dy: torch.Tensor, dh_last: torch.Tensor
+                        ) -> tuple[torch.Tensor, ...]:
+    """The gradient of ``mamba2_scan_ref``, step by step, all in float32.
+
+    From the forward's inputs, dy (B, T, H, P) and dh_last (B, H, P, N),
+    with ``a_t = dt_t A``, ``decay_t = exp(a_t)`` and g the state's
+    gradient, walking t from T - 1 down:
+    ``g_t = decay_{t+1} g_{t+1} + dy_t ⊗ c_t`` (``g_{T-1} = dh_last +
+    dy_{T-1} ⊗ c_{T-1}``); ``dc_t = Σ_{h,p} dy_t h_t``;
+    ``dx_t = dt_t (g_t b_t)``; ``db_t = Σ_h dt_t (x_tᵀ g_t)``;
+    ``da_t = decay_t ⟨g_t, h_{t-1}⟩``; ``ddt_t = A da_t + ⟨g_t, x_t ⊗
+    b_t⟩``; ``dA = Σ_{b,t} dt_t da_t``; ``dh0 = decay_0 g_0``.  Returns
+    ddt (B, T, H) float32, dx in x's dtype, db and dc in b's and c's, dA
+    (H,) and dh0 (B, H, P, N) float32.
+    """
+    dtf, xf, bf, cf = dt.float(), x.float(), b.float(), c.float()
+    Af = A.float()
+    decay = torch.exp(dtf * Af)                                 # (B, T, H)
+    hs = [h0.float()]                  # hs[t + 1] is h_t, hs[0] is h0
+    for t in range(dt.shape[1]):
+        u = (dtf[:, t, :, None] * xf[:, t])[..., None] * bf[:, t, None,
+                                                            None, :]
+        hs.append(decay[:, t, :, None, None] * hs[-1] + u)
+    g = dh_last.float()
+    ddt, dx, db, dc, da = ([None] * dt.shape[1] for _ in range(5))
+    for t in reversed(range(dt.shape[1])):
+        g = g + dy[:, t].float()[..., None] * cf[:, t, None, None, :]
+        gb = torch.einsum("bhpn,bn->bhp", g, bf[:, t])
+        dc[t] = torch.einsum("bhp,bhpn->bn", dy[:, t].float(), hs[t + 1])
+        dx[t] = dtf[:, t, :, None] * gb
+        db[t] = torch.einsum("bh,bhp,bhpn->bn", dtf[:, t], xf[:, t], g)
+        da[t] = decay[:, t] * torch.einsum("bhpn,bhpn->bh", g, hs[t])
+        ddt[t] = Af * da[t] + torch.einsum("bhp,bhp->bh", xf[:, t], gb)
+        g = decay[:, t, :, None, None] * g
+    da = torch.stack(da, dim=1)
+    return (torch.stack(ddt, dim=1), torch.stack(dx, dim=1).to(x.dtype),
+            torch.stack(db, dim=1).to(b.dtype),
+            torch.stack(dc, dim=1).to(c.dtype), (dtf * da).sum(dim=(0, 1)),
+            g)
+
+
 def _bf16_terms(v: torch.Tensor, terms: int) -> list[torch.Tensor]:
     """``v`` as ``terms`` bfloat16 values (in float32) as the chunked kernel
     splits it: each term but the last the top 16 bits of what the terms

@@ -373,9 +373,7 @@ class Model:
             return self._decoder_layer(blk, x, positions, is_global,
                                        kv_cache=kv, cache_len=cache_len)[0]
 
-        if cache is None and torch.is_grad_enabled() and (
-                x.requires_grad or any(
-                    p.requires_grad for p in tree.leaves(params))):
+        if self._training(params, x, cache):
             def group(blks, x, flags, mtok):
                 for blk, is_global in zip(blks, flags):
                     x = layer(blk, x, is_global, None, mtok)
@@ -391,6 +389,15 @@ class Model:
                 x = layer(blk, x, is_global, row, mtok)
         return x
 
+    @staticmethod
+    def _training(params, x, cache) -> bool:
+        """No cache, grad mode on and something requiring grad: the layers
+        then run as the reference's ``jax.grad`` sees them, the stacks split
+        by ``_unstack`` and each layer or group under ``maybe_remat``."""
+        return cache is None and torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad
+                                   for p in tree.leaves(params)))
+
     def _ssm_layer(self, blk: Params, x, state=None):
         cfg = self.cfg
         mixer = ssm.mamba1_block if cfg.mamba_version == 1 else \
@@ -402,8 +409,18 @@ class Model:
     def _run_ssm(self, params, x, cache=None, indices=None):
         """Mamba layers ``indices`` (default all) over x; with a cache,
         layer i starts from ``cache["conv"][i]``, ``cache["h"][i]`` and
-        writes its new state there in place."""
-        for i in range(self.cfg.n_layers) if indices is None else indices:
+        writes its new state there in place.  In training each layer runs
+        under ``maybe_remat`` (the reference's ``_run_ssm``)."""
+        idx = range(self.cfg.n_layers) if indices is None else indices
+        if self._training(params, x, cache):
+            blocks = _unstack(params["blocks"], self.cfg.n_layers)
+            layer = layers.maybe_remat(
+                lambda blk, x: self._ssm_layer(blk, x)[0],
+                self.cfg.remat_policy)
+            for i in idx:
+                x = layer(blocks[i], x)
+            return x
+        for i in idx:
             st = None if cache is None else (cache["conv"][i], cache["h"][i])
             x, (conv, h) = self._ssm_layer(_take(params["blocks"], i), x, st)
             if cache is not None:
@@ -430,9 +447,25 @@ class Model:
         then shared block ``g % n_shared_attn_blocks``; with a cache the
         layers read and write their state as in ``_run_ssm`` and the shared
         block of group g its K/V row ``cache["k"][g]``, ``cache["v"][g]``,
-        in place."""
+        in place.  In training each group (its Mamba layers and its shared
+        block) runs under ``maybe_remat``, as the reference's scanned
+        group."""
         cfg = self.cfg
         k = cfg.attn_every
+        if self._training(params, x, cache):
+            blocks = _unstack(params["blocks"], cfg.n_layers)
+            shared = _unstack(params["shared_attn"], cfg.n_shared_attn_blocks)
+
+            def group(blks, sa, x):
+                for blk in blks:
+                    x = self._ssm_layer(blk, x)[0]
+                return self._shared_attn_layer(sa, x, positions)
+
+            group = layers.maybe_remat(group, cfg.remat_policy)
+            for g in range(cfg.n_layers // k):
+                x = group(blocks[g * k:g * k + k],
+                          shared[g % cfg.n_shared_attn_blocks], x)
+            return x
         for g in range(cfg.n_layers // k):
             x = self._run_ssm(params, x, cache, range(g * k, g * k + k))
             sa = _take(params["shared_attn"], g % cfg.n_shared_attn_blocks)

@@ -37,9 +37,12 @@ class Engine:
         self.cfg = cfg
         # filled by each generate(): host-clock seconds of the prefill and of
         # the decode steps (each ends in a device->host copy of the sampled
-        # tokens, so the clock covers the device work), and the sampled-
-        # position logits of every step, (B, V) each
+        # tokens, so the clock covers the device work); with
+        # ``keep_step_logits`` set, also the sampled-position logits of
+        # every step, (B, V) each, kept on the device (off by default, as
+        # the reference keeps none)
         self.timing: dict[str, float] = {}
+        self.keep_step_logits = False
         self.step_logits: list[torch.Tensor] = []
 
     @torch.no_grad()
@@ -100,7 +103,8 @@ class Engine:
     def _sample(self, logits: torch.Tensor, gen: torch.Generator
                 ) -> torch.Tensor:
         lg = logits[:, -1, :]
-        self.step_logits.append(lg)
+        if self.keep_step_logits:
+            self.step_logits.append(lg)
         if self.cfg.temperature <= 0:
             return torch.argmax(lg, dim=-1)[:, None]
         probs = torch.softmax(lg.float() / self.cfg.temperature, dim=-1)

@@ -549,11 +549,20 @@ def test_launcher_smoke_on_cpu_serves_zamba2():
 
 
 def test_training_the_hybrid_still_refused():
-    """The hybrid builds and serves; its training needs the scan backward,
-    ROADMAP.md Queue 1 item 5b."""
+    """The hybrid builds, serves and, since the Mamba-2 scan has its
+    backward, trains: ``make_train_step`` accepts it and a step gives a
+    finite loss and moves every parameter leaf (its parity with the
+    reference is ``tests/test_torch_hybrid_train.py``)."""
     m = tmodel.build(treg.get(ARCH).reduced(), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*5b"):
-        ts.make_train_step(m, adamw.AdamWConfig())
+    opt = adamw.AdamWConfig(lr=1e-2, warmup_steps=1)
+    state = ts.make_train_state(m, opt, torch.Generator().manual_seed(0))
+    before = [p.clone() for p in jax.tree.leaves(state["params"])]
+    tokens = np.random.default_rng(0).integers(0, m.cfg.vocab_size, (2, 16))
+    state, metrics = ts.make_train_step(m, opt)(state, {"tokens": tokens})
+    assert np.isfinite(float(metrics["loss"]))
+    moved = [not torch.equal(a, b)
+             for a, b in zip(before, jax.tree.leaves(state["params"]))]
+    assert all(moved)
 
 
 def test_build_refuses_a_ragged_hybrid():
@@ -566,16 +575,23 @@ def test_build_refuses_a_ragged_hybrid():
 
 def test_flash_takes_head_dim_80_forward_only():
     """zamba2's shared attention: the forward kernel takes head_dim 80 (and
-    a slice of the (B, max_len, K, 80) cache); the backward refuses it,
-    naming ROADMAP item 5b."""
+    a slice of the (B, max_len, K, 80) cache), and so does the backward
+    now, in both dtypes; a head_dim neither kernel has (96) is refused by
+    both."""
     B, T, H, D = 2, 9, 4, 80
     cache = torch.zeros(B, 32, H, D, dtype=torch.bfloat16)
     q = torch.zeros(B, T, H, D, dtype=torch.bfloat16)
     fa._check(q, cache[:, :T], cache[:, :T], 0, 0.0)
     fa._check(q.float(), cache[:, :T].float(), cache[:, :T].float(), 0, 0.0)
     lse = torch.zeros(B, H, T)
-    with pytest.raises(ValueError, match="5b"):
-        fa._check_bwd(q, q, q, lse, q, True)
+    fa._check_bwd(q, q, q, lse, q, True)
+    fa._check_bwd(q.float(), q.float(), q.float(), lse, q.float(), True)
+    assert 80 in fa.BWD_HEAD_DIMS
+    q96 = torch.zeros(B, T, H, 96)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        fa._check(q96, q96, q96, 0, 0.0)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        fa._check_bwd(q96, q96, q96, lse, q96, True)
 
 
 def test_flash_plain_version_at_head_dim_80_matches_model_attention():

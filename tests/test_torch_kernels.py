@@ -1239,7 +1239,7 @@ def test_flash_bwd_bf16_scheme_non_causal_holds_the_kernel_tolerance(
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
 @pytest.mark.parametrize("B,T,H,K,window,softcap", [
     (2, 300, 4, 2, 0, 0.0),       # GQA, ragged last tile
     (1, 130, 4, 1, 100, 30.0),    # window + soft-cap
@@ -1360,7 +1360,7 @@ def test_cuda_forward_lse_at_vlm_cross_training_shape():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
 def test_cuda_flash_bwd_is_deterministic(D, dtype):
     """No atomics: two calls give dQ, dK, dV bit for bit alike (GQA, a
     ragged tail, a window)."""
@@ -1602,3 +1602,144 @@ def test_cuda_flash_head_dim_80_matches_plain_version(T, dtype):
     want = ref.flash_attention_gqa_ref(q.float(), k.float(), v.float())
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= tol
+
+
+# ---- the Mamba-2 scan's backward on the card (zamba2's training) -------------
+# (its plain version's CPU parity tests are in test_torch_hybrid_train.py)
+
+def _cuda_mamba2_bwd(B, T, H, P, N, dtype, seed, offset=3, reset=False):
+    """``_cuda_mamba2``'s operands (with the reset of ``_cuda_mamba2_reset``
+    if asked) and the output gradients dy and dh_last, float32."""
+    args = _cuda_mamba2(B, T, H, P, N, dtype, seed, offset)
+    if reset:
+        args = _cuda_mamba2_reset(args)
+    rng = np.random.default_rng(seed + 1)
+    dy = torch.from_numpy(rng.normal(size=(B, T, H, P)).astype(
+        np.float32)).cuda()
+    dh = torch.from_numpy(rng.normal(size=(B, H, P, N)).astype(
+        np.float32)).cuda()
+    return (*args, dy, dh)
+
+
+def _hold_scan_bwd(got, args):
+    """chip_smoke.py's limits: SCAN_TOL plus sqrt(n) 2^-24 of an output's
+    largest element (n the case's longest sum), and, for the outputs the
+    kernel rounds to bf16, an rtol of 2^-8 against the plain version's
+    float32 values."""
+    dt, x, b, c, A, h0, dy, dh = args
+    want = ref.mamba2_scan_bwd_ref(dt, x.float(), b.float(), c.float(), A,
+                                   h0, dy, dh)
+    B, T, H, P = x.shape
+    n = max(P * b.shape[2], H * P, B * T)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("ddt", "dx", "db", "dc", "dA", "dh0"), got, want):
+        rtol = 2 ** -8 if g.dtype == torch.bfloat16 else 1e-4
+        lim = 1e-4 + rtol * w.abs() + n ** 0.5 * 2.0 ** -24 * w.abs().max()
+        assert g.shape == w.shape, name
+        assert bool(((g.float() - w).abs() <= lim).all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N", [16, 64, 128])
+@pytest.mark.parametrize("T,P", [(1, 64), (63, 64), (64, 33), (65, 64),
+                                 (2048, 33)])
+def test_cuda_mamba2_scan_bwd_matches_plain_version(T, P, N, dtype):
+    """T of one step, one below, at and past a 64-step chunk and 32
+    chunks; P 64 and 33 (a ragged row block); b and c at an odd column;
+    h0 and dh_last nonzero."""
+    _cuda_or_skip()
+    args = _cuda_mamba2_bwd(2, T, 3, P, N, getattr(torch, dtype), T + N)
+    _hold_scan_bwd(ms.mamba2_scan_bwd(*args), args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [130, 1100])
+def test_cuda_mamba2_scan_bwd_survives_the_segment_sum_reset(T):
+    """dt A = -1000 (the decay underflowing to 0) over several chunks:
+    the kernel never recovers a state by dividing by the decay."""
+    _cuda_or_skip()
+    args = _cuda_mamba2_bwd(2, T, 3, 64, 64, torch.bfloat16, 11,
+                            reset=True)
+    got = ms.mamba2_scan_bwd(*args)
+    assert all(bool(torch.isfinite(g.float()).all()) for g in got)
+    _hold_scan_bwd(got, args)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba2_scan_bwd_is_deterministic():
+    """No float atomics: two calls are bit-identical (b and c's gradients
+    are summed over 80 heads in a fixed order)."""
+    _cuda_or_skip()
+    args = _cuda_mamba2_bwd(2, 300, 80, 64, 64, torch.bfloat16, 12)
+    a, b = ms.mamba2_scan_bwd(*args), ms.mamba2_scan_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 2048, 80, 64, 64), (2, 65, 3, 33, 16),
+                                   (1, 1, 2, 64, 128), (2, 70, 3, 100, 5)])
+def test_cuda_mamba2_scan_bwd_plan_matches_the_mirror(shape):
+    _cuda_or_skip()
+    assert ms.kernel_mamba2_bwd_plan(*shape) == ms.mamba2_bwd_plan(*shape)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba2_op_under_autograd_runs_both_kernels():
+    """Under grad the wrapper is the custom op: one forward and one
+    backward launch, gradients the plain backward's; without grad no
+    graph."""
+    _cuda_or_skip()
+    args = _cuda_mamba2_bwd(2, 130, 3, 64, 64, torch.bfloat16, 13)
+    ins = [t.clone().requires_grad_() for t in args[:6]]
+    f0, b0 = ms.mamba2_scan.launches, ms.mamba2_scan_bwd.launches
+    y, h = ops.mamba2_scan(*ins)
+    got = torch.autograd.grad((y * args[6]).sum() + (h * args[7]).sum(),
+                              ins)
+    assert (ms.mamba2_scan.launches - f0,
+            ms.mamba2_scan_bwd.launches - b0) == (1, 1)
+    _hold_scan_bwd(got, args)
+    with torch.no_grad():
+        assert ops.mamba2_scan(*ins)[0].grad_fn is None
+
+
+@pytest.mark.cuda
+def test_cuda_scans_without_a_backward_raise_under_grad():
+    """``selective_scan`` and ``mamba_scan`` have no backward kernel yet
+    (ROADMAP item 5b-ii): on the card, under grad with an input that
+    requires grad, they raise rather than return an output autograd
+    cannot follow; under ``no_grad`` they run."""
+    _cuda_or_skip()
+    dt, x, b, c, A, h0 = (torch.from_numpy(a).cuda()
+                          for a in _selective_inputs(1, 20, 16, 16, 0))
+    decay, u, cc = (torch.from_numpy(a).cuda()
+                    for a in _scan_inputs(1, 20, 16, 16, 0))
+    launches = (ms.selective_scan.launches, ms.mamba_scan.launches)
+    with pytest.raises(NotImplementedError, match="5b-ii"):
+        ms.selective_scan(dt.requires_grad_(), x, b, c, A, h0)
+    with pytest.raises(NotImplementedError, match="5b-ii"):
+        ms.mamba_scan(decay.requires_grad_(), u, cc)
+    assert (ms.selective_scan.launches, ms.mamba_scan.launches) == launches
+    with torch.no_grad():
+        ms.selective_scan(dt, x, b, c, A, h0)
+        ms.mamba_scan(decay, u, cc)
+    torch.cuda.synchronize()
+    assert (ms.selective_scan.launches, ms.mamba_scan.launches) == (
+        launches[0] + 1, launches[1] + 1)
+
+
+def test_scans_without_a_backward_run_their_plain_versions_under_grad():
+    """On the CPU the same calls are the plain versions, which autograd
+    follows, unchanged."""
+    dt, x, b, c, A, h0 = map(torch.from_numpy,
+                             _selective_inputs(1, 20, 16, 16, 0))
+    dt.requires_grad_()
+    y, _ = ms.selective_scan(dt, x, b, c, A, h0)
+    wy, _ = ref.selective_scan_ref(dt, x, b, c, A, h0)
+    assert y.grad_fn is not None
+    torch.testing.assert_close(y, wy, rtol=0, atol=0)
+    decay, u, cc = (torch.from_numpy(a) for a in _scan_inputs(1, 20, 16, 16,
+                                                             0))
+    decay.requires_grad_()
+    assert ms.mamba_scan(decay, u, cc).grad_fn is not None

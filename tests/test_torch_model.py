@@ -68,17 +68,17 @@ def test_config_copy_matches_reference(arch):
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b"])
 def test_other_families_not_ported(arch):
-    """Every arch of the reference registry is ported now (zamba2 last);
-    what the port still refuses of the hybrid is its training, which needs
-    the scan backward (ROADMAP.md Queue 1 item 5b)."""
+    """Every arch of the reference registry is ported now (zamba2 last),
+    and the hybrid's training too: ``make_train_step`` accepts it (its
+    parity is ``tests/test_torch_hybrid_train.py``)."""
     from repro_torch.optim import adamw
     from repro_torch.train import train_step as ts
     assert set(treg.ARCHS) == set(jreg.ARCHS)
     cfg = treg.get(arch)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jreg.get(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*5b"):
-        ts.make_train_step(tmodel.build(cfg.reduced(), "cpu"),
-                           adamw.AdamWConfig())
+    step = ts.make_train_step(tmodel.build(cfg.reduced(), "cpu"),
+                              adamw.AdamWConfig())
+    assert callable(step)
 
 
 @pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS + MULTIMODAL_ARCHS)

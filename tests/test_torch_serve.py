@@ -73,11 +73,28 @@ def test_greedy_matches_jax_engine(arch):
     prompts = _prompts(cfg)
     media = _media(cfg)
     want = jeng.generate(prompts, max_new=8, media=media)
+    teng.keep_step_logits = True
     got = teng.generate(prompts, max_new=8, media=media)
     assert got == want
     # as in the reference, the step after the last kept token still decodes
     assert teng.timing["decode_steps"] == 8
     assert len(teng.step_logits) == 9
+
+
+def test_step_logits_kept_only_when_asked():
+    """The engine keeps no step logits unless ``keep_step_logits`` is set
+    (the reference keeps none); set, it keeps one (B, V) row a step, the
+    logits the step sampled from."""
+    cfg, _, teng = _engines("granite-3-2b")
+    prompts = _prompts(cfg, seed=3)
+    got = teng.generate(prompts, max_new=4)
+    assert teng.step_logits == []
+    teng.keep_step_logits = True
+    assert teng.generate(prompts, max_new=4) == got
+    assert len(teng.step_logits) == 5
+    assert all(lg.shape == (4, cfg.vocab_size) for lg in teng.step_logits)
+    new = got[0][len(prompts[0]):]                  # greedy: the argmaxes
+    assert [int(lg[0].argmax()) for lg in teng.step_logits[:len(new)]] == new
 
 
 def test_stops_at_max_len():

@@ -295,8 +295,9 @@ def test_convert_rejects_a_tree_of_another_model(pair):
 def test_mamba2_not_ported():
     """Mamba-2 is ported (``tests/test_torch_hybrid.py`` holds it against
     the reference): the model builds and ``init_mamba_params`` gives the
-    reference's Mamba-2 leaves; what stays refused is its training, which
-    needs the scan backward (ROADMAP.md Queue 1 item 5b)."""
+    reference's Mamba-2 leaves; it trains (the Mamba-2 scan has its
+    backward, ``tests/test_torch_hybrid_train.py``), where Mamba-1 is still
+    refused, naming ROADMAP.md Queue 1 item 5b-ii."""
     from repro_torch.optim import adamw
     from repro_torch.train import train_step as ts
     cfg = dataclasses.replace(treg.get(ARCH).reduced(), mamba_version=2)
@@ -307,5 +308,12 @@ def test_mamba2_not_ported():
                       "dt_bias", "A_log", "D", "dt_proj_h", "norm_w"}
     assert p["A_log"].shape == (H,) and p["dt_proj_h"].shape == (
         cfg.d_model, H)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*5b"):
-        ts.make_train_step(m, adamw.AdamWConfig())
+    step = ts.make_train_step(m, adamw.AdamWConfig())
+    state = ts.make_train_state(m, adamw.AdamWConfig(),
+                                torch.Generator().manual_seed(0))
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))
+    state, metrics = step(state, {"tokens": tokens})
+    assert np.isfinite(float(metrics["loss"])) and int(state["step"]) == 1
+    with pytest.raises(NotImplementedError, match="ROADMAP.*5b-ii"):
+        ts.make_train_step(tmodel.build(treg.get(ARCH).reduced(), "cpu"),
+                           adamw.AdamWConfig())

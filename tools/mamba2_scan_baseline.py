@@ -17,8 +17,13 @@ zamba2-2.7b's prefill and decode shapes, and the current one also on
 time from a CUDA graph of their launches (``chip_smoke.graph_ms``) at
 zamba2-2.7b's prefill (B=4, T=1100, H=80, P=N=64, bf16 x/b/c, b and c
 slices of one projection) and decode (T=1) shapes, beside the function's
-bound and the current path's own bound.  Prints one JSON line a library
-and writes the records to ``--out``.  Needs a card and ``nvcc``.
+bound and the current path's own bound.  The backward
+(``mamba2_scan_bwd``), where a library has it, is held against
+``ref.mamba2_scan_bwd_ref`` under ``chip_smoke._hold_scan_bwd``'s limits
+and timed the same way at zamba2-2.7b's training shape (B=4, T=2048),
+beside its bound and its design's (``chip_smoke._mamba2_bwd_cost``).
+Prints one JSON line a library and writes the records to ``--out``.
+Needs a card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -66,6 +71,9 @@ def build_baseline(src: pathlib.Path, out_dir: pathlib.Path):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.mamba2_scan_fwd.argtypes = [p] * 8 + [i] * 6 + [ll] * 9 + [p]
     lib.mamba2_scan_fwd.restype = i
+    if hasattr(lib, "mamba2_scan_bwd"):       # sources from the backward on
+        lib.mamba2_scan_bwd.argtypes = ms._lib().mamba2_scan_bwd.argtypes
+        lib.mamba2_scan_bwd.restype = i
     return lib, _ptxas(proc.stdout + proc.stderr)
 
 
@@ -79,6 +87,32 @@ def baseline_call(lib, dt, x, b, c, A, h0):
     if err:
         raise RuntimeError(f"baseline launch failed: cudaError {err}")
     return y, h_last
+
+
+def baseline_bwd_call(lib, dt, x, b, c, A, h0, dy, dh):
+    """The baseline's ``mamba2_scan_bwd`` with the wrapper's outputs and
+    scratch (the library refuses scratch below its own plan's)."""
+    B, T, H, P = x.shape
+    N = b.shape[2]
+    plan = ms.mamba2_bwd_plan(B, T, H, P, N)
+    f32 = torch.float32
+    ddt = torch.empty((B, T, H), dtype=f32, device=x.device)
+    dx = torch.empty_like(x, memory_format=torch.contiguous_format)
+    db = torch.empty((B, T, N), dtype=b.dtype, device=x.device)
+    dc = torch.empty_like(db)
+    dA = torch.empty((H,), dtype=f32, device=x.device)
+    dh0 = torch.empty_like(h0)
+    scratch = torch.empty((plan.scratch,), dtype=f32, device=x.device)
+    args = ms._mamba2_args(dt, x, b, c, A, h0, ddt, dh0)
+    err = lib.mamba2_scan_bwd(
+        *args[:6], dy.data_ptr(), dh.data_ptr(), ddt.data_ptr(),
+        dx.data_ptr(), db.data_ptr(), dc.data_ptr(), dA.data_ptr(),
+        dh0.data_ptr(), scratch.data_ptr(), plan.scratch, *args[8:],
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"baseline backward launch failed: cudaError "
+                           f"{err}")
+    return ddt, dx, db, dc, dA, dh0
 
 
 def hold(name, fn, args, case, records) -> None:
@@ -155,6 +189,42 @@ def main(argv=None) -> None:
                 "current_plan": ",".join(map(str, plan.as_ints())),
                 "current_design_bound_ms": max(path_ms, t_bytes)}
         del a, calls
+    # the backward at zamba2's training shape, where a library has it
+    bwd = [n for n in records
+           if n == "current" or hasattr(libs[n], "mamba2_scan_bwd")]
+    B, T, H, P, N = chip_smoke.ZAMBA2_TRAIN_SCAN
+    a = chip_smoke._mamba2_bwd_inputs(gen, B, T, H, P, N, bf16, offset=0)
+
+    def bwd_caller(name):
+        if name == "current":
+            return ms.mamba2_scan_bwd
+        return lambda *x: baseline_bwd_call(libs[name], *x)
+
+    case = (B, T, H, P, N, 0, False)
+    for name in bwd:
+        try:
+            err = chip_smoke._hold_scan_bwd(case, bwd_caller(name)(*a), a)
+            ok = True
+        except AssertionError as e:
+            err, ok = str(e), False
+        records[name].setdefault("bwd_cases", []).append(
+            {"case": list(case), "max_abs_err": err, "ok": ok})
+    calls = {n: (lambda f=bwd_caller(n): f(*a)) for n in bwd}
+    ts = {n: [] for n in calls}
+    order = [n for n in [*libs, "current", "current", *reversed(list(libs))]
+             if n in calls]
+    for _ in range(3):
+        for n in order:
+            ts[n].append(chip_smoke.graph_ms(calls[n], iters=5, replays=3))
+    flops, nbytes, instr = chip_smoke._mamba2_bwd_cost(B, T, H, P, N, 2)
+    t_bytes = nbytes / chip_smoke.PEAK_BYTES * 1e3
+    bound = max(flops / chip_smoke.PEAK_TF32_FLOPS * 1e3, t_bytes)
+    design = max(instr / chip_smoke.PEAK_F32_INSTR * 1e3, t_bytes)
+    for n, t in ts.items():
+        records[n][f"bwd_B{B}_T{T}_H{H}_P{P}_N{N}_bf16"] = {
+            "ms": statistics.median(t), "ms_all": t, "bound_ms": bound,
+            "design_bound_ms": design}
+    del a, calls
     for r in records.values():
         print("BASELINE " + json.dumps(r), flush=True)
     args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -162,7 +232,8 @@ def main(argv=None) -> None:
                                     "libraries": list(records.values())},
                                    indent=1))
     bad = [(r["name"], c) for r in records.values()
-           for c in r.get("cases", []) if not c["ok"]]
+           for c in r.get("cases", []) + r.get("bwd_cases", [])
+           if not c["ok"]]
     if bad:
         raise SystemExit(f"off the plain version: {bad}")
 
