@@ -23,10 +23,13 @@ Phases, each printing what it found; any failure raises and exits non-zero:
    from a CUDA graph of their launches, ``mamba2_scan`` at zamba2-2.7b's
    prefill and decode shapes, its chunked (SSD) path also on
    ``MAMBA2_CHUNKED_CASES``, and held against ``selective_scan`` over the
-   same function), the Mamba-2 scan's backward ``mamba2_scan_bwd``
-   against ``ref.mamba2_scan_bwd_ref`` on ``MAMBA2_BWD_CASES`` (two calls
-   bit-identical, timed from a CUDA graph at zamba2-2.7b's training
-   shape; no library call computes it), and the LUT matmul;
+   same function; also timed at zamba2's training length T = 2048), the
+   Mamba-2 scan's backward ``mamba2_scan_bwd`` against
+   ``ref.mamba2_scan_bwd_ref`` on ``MAMBA2_BWD_CASES`` (both forms: the
+   chunked (SSD) one on the tensor cores for bf16 with N <= 64 and T > 8,
+   the CUDA-core one for the rest; two calls bit-identical, timed from a
+   CUDA graph at zamba2-2.7b's training shape beside its bound and its
+   design's; no library call computes it), and the LUT matmul;
 4. moe-layer: ``moe.moe_block`` at qwen2-moe-a2.7b's layer width (N = 4400
    tokens, 60 experts, top-4, shared expert) in bf16 against a plain
    float32 loop over the experts with the same capacity rule, at the served
@@ -83,7 +86,8 @@ Phases, each printing what it found; any failure raises and exits non-zero:
    Tq > Tk, ragged on both sides, 37 queries over 1601 keys, and the VLM's
    cross-attention training shape, Tq = 2048 over Tk = 1601), the forward
    with LSE against the forward without it and its LSE against the plain
-   one; two calls at each timed shape must be bit-identical; timed at
+   one (timed at the training shapes beside its bound); two calls at each
+   timed shape must be bit-identical; timed at
    granite-3-2b's, qwen2-moe's, zamba2-2.7b's (D = 80) and the VLM
    cross-attention's training shapes beside SDPA's backward (SDPA
    forward + backward minus SDPA forward, in turns; a yardstick only, it
@@ -783,8 +787,8 @@ def phase_mamba2_scan(gen) -> dict:
     function with dt and x spread over (head, row) channels and A over the
     rows (a check only: the model never calls it so); timed at zamba2's
     serving prefill (B=4, T=1100, H=80, P=64, N=64, bf16 x/b/c: the chunked
-    path) and a decode step (T=1: the direct path) as device time from a
-    CUDA graph."""
+    path), a decode step (T=1: the direct path) and its training length
+    (T=2048, the chunked path) as device time from a CUDA graph."""
     for dtype in (torch.float32, torch.bfloat16):
         for N in (16, 64, 128):
             for T in (1, 7, 65, 1100):
@@ -820,7 +824,7 @@ def phase_mamba2_scan(gen) -> dict:
     _held("mamba2_scan_vs_selective_scan", (B, T, H, P, 16, "h_last"),
           h.reshape(B, H * P, 16), h1, SCAN_TOL)
     rec = None
-    for T in (ZAMBA2_SCAN[1], 1):
+    for T in (ZAMBA2_SCAN[1], 1, ZAMBA2_TRAIN_SCAN[1]):
         B, _, H, P, N = ZAMBA2_SCAN
         args = _mamba2_inputs(gen, B, T, H, P, N, torch.bfloat16, offset=0)
         y, h = ms.mamba2_scan(*args)
@@ -872,7 +876,11 @@ def phase_mamba2_scan(gen) -> dict:
 # N 16, 64 and 128 (4, 16 and 32 lanes a row group); float32 and bf16;
 # b and c at an odd column of one projection, and at 0; the segment-sum
 # reset (dt A = -1000, the decay underflowing to 0) over several chunks;
-# h0 and dh_last nonzero throughout
+# h0 and dh_last nonzero throughout.  bf16 with N <= 64 and T > 8 takes
+# the chunked form; its own cases at the end: 30 heads (a group of
+# ``ms.BWD_HEADS`` = 20 and a short one) with T = 200, two row blocks
+# (P = 100) over the reset, and a ragged P and N (40, 5) over the reset,
+# at offsets 7 and 0
 MAMBA2_BWD_CASES = (
     [(2, T, 3, 64, N, dt, 7, False)
      for dt in (torch.float32, torch.bfloat16) for N in (16, 64, 128)
@@ -883,7 +891,10 @@ MAMBA2_BWD_CASES = (
     + [(2, 65, 3, 33, N, torch.bfloat16, 7, False) for N in (16, 64, 128)]
     + [(2, 130, 3, 64, 64, torch.bfloat16, 0, False),
        (2, 300, 3, 64, 64, torch.bfloat16, 7, True),
-       (1, 2048, 2, 33, 16, torch.float32, 7, True)])
+       (1, 2048, 2, 33, 16, torch.float32, 7, True)]
+    + [(2, 200, 30, 64, 64, torch.bfloat16, 7, False),
+       (1, 300, 2, 100, 64, torch.bfloat16, 0, True),
+       (2, 77, 3, 40, 5, torch.bfloat16, 7, True)])
 
 
 def _mamba2_bwd_inputs(gen, B, T, H, P, N, dtype, offset=7, reset=False):
@@ -926,23 +937,38 @@ def _hold_scan_bwd(case, got, args) -> float:
 
 
 def _mamba2_bwd_cost(B, T, H, P, N, itemsize):
-    """The backward's least work and bytes, and the design's own work.
+    """The backward's least work and bytes, and each form's own work.
 
     Least work: the chunked (SSD) form's backward, each of the forward's
     products (``_mamba2_cost``) differentiated once for each operand: twice
     the forward's flops, at the TF32 rate (the state is f32).  Bytes: dt,
     x, b, c, A, h0, dy and dh_last read once; ddt, dx, db, dc, dA and dh0
-    written once.  The design's work: each state-step on the CUDA cores,
-    three forward steps (two FP32 instructions each, one a recompute level)
-    and the reverse step (seven: g += dy c, g b, x g, dy h, g h, the decay
-    and the bookkeeping), 13 FP32 instructions."""
+    written once.  The CUDA-core form's work: each state-step on the CUDA
+    cores, three forward steps (two FP32 instructions each, one a recompute
+    level) and the reverse step (seven: g += dy c, g b, x g, dy h, g h, the
+    decay and the bookkeeping), 13 FP32 instructions.  The chunked form's
+    work: its bf16 products, 112 m64n64k16 steps a (chunk, head, 64-row
+    block) tile and 12 a chunk of each of its two state walks; its bytes:
+    the function's, the walks' second reads of x and dy, and its scratch
+    (h_in and dh_out written and read, the partial sums of db and dc per
+    head group of ``ms.BWD_HEADS`` and of da and ddt per head, each written
+    and read).  Returns (flops, bytes, CUDA-core instructions, chunked
+    flops, chunked bytes)."""
     flops = 2 * _mamba2_cost(B, T, H, P, N, itemsize)[0]
     # each of dt, x, b, c, A once in and its gradient once out; h0, dh_last
     # in and dh0 out; dy in
     nbytes = (2 * (4 * B * T * H + itemsize * B * T * H * P
                    + 2 * itemsize * B * T * N + 4 * H)
               + 3 * 4 * B * H * P * N + 4 * B * T * H * P)
-    return flops, nbytes, 13 * B * T * H * P * N
+    K, RB = -(-T // SSD_CHUNK), -(-P // SSD_CHUNK)
+    tiles = B * K * H * RB
+    chunked_flops = tiles * (112 + 2 * 12) * 2 * 64 * 64 * 16
+    groups = -(-H // ms.BWD_HEADS)
+    chunked_bytes = (nbytes + (itemsize + 4) * B * T * H * P
+                     + 4 * (4 * B * K * H * P * N
+                            + 2 * 2 * B * T * groups * RB * N
+                            + 2 * 2 * B * T * H * RB))
+    return flops, nbytes, 13 * B * T * H * P * N, chunked_flops, chunked_bytes
 
 
 def phase_mamba2_scan_bwd(gen) -> dict:
@@ -956,14 +982,23 @@ def phase_mamba2_scan_bwd(gen) -> dict:
     for case in MAMBA2_BWD_CASES:
         B, T, H, P, N, dtype, offset, reset = case
         args = _mamba2_bwd_inputs(gen, B, T, H, P, N, dtype, offset, reset)
+        plan = ms.kernel_mamba2_bwd_plan(B, T, H, P, N, dtype)
+        want = ("chunked" if dtype == torch.bfloat16 and N <= 64 and T > 8
+                else "cudacore")
+        if plan.path != want:
+            raise AssertionError(f"{case}: the backward's plan is {plan}, "
+                                 f"not {want}")
         tag = (B, T, H, P, N, str(dtype)[6:], offset,
-               "reset" if reset else "softplus")
+               "reset" if reset else "softplus", plan.path)
         _hold_scan_bwd(tag, ms.mamba2_scan_bwd(*args), args)
-    for shape in (ZAMBA2_TRAIN_SCAN, (2, 65, 3, 33, 16), (1, 1, 2, 64, 128)):
-        plan = ms.kernel_mamba2_bwd_plan(*shape)
-        if plan != ms.mamba2_bwd_plan(*shape):
-            raise AssertionError(f"the backward's plan {plan} at {shape} is "
-                                 "not the wrapper's mirror of it")
+    for shape in (ZAMBA2_TRAIN_SCAN, (2, 65, 3, 33, 16), (1, 1, 2, 64, 128),
+                  (1, 300, 2, 100, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = ms.kernel_mamba2_bwd_plan(*shape, dtype)
+            if plan != ms.mamba2_bwd_plan(*shape, dtype):
+                raise AssertionError(f"the backward's plan {plan} at {shape}"
+                                     f", {dtype} is not the wrapper's "
+                                     "mirror of it")
     for fn, grad_args in (
             (ms.selective_scan,
              _selective_inputs(gen, 1, 20, 16, 16, torch.bfloat16)),
@@ -994,21 +1029,28 @@ def phase_mamba2_scan_bwd(gen) -> dict:
     ms_ = graph_ms(lambda: ms.mamba2_scan_bwd(*args), iters=5, replays=3)
     plain_ms = cuda_ms(lambda: ref.mamba2_scan_bwd_ref(*args), iters=1,
                        warmup=0)
-    flops, nbytes, instr = _mamba2_bwd_cost(B, T, H, P, N, 2)
+    flops, nbytes, instr, cflops, cbytes = _mamba2_bwd_cost(B, T, H, P, N, 2)
     t_ops = flops / PEAK_TF32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    design_ms = instr / PEAK_F32_INSTR * 1e3
-    plan = ms.mamba2_bwd_plan(B, T, H, P, N)
+    plan = ms.mamba2_bwd_plan(B, T, H, P, N, torch.bfloat16)
+    if plan.path != "chunked":
+        raise AssertionError(f"zamba2's training shape takes {plan.path}")
+    # the chunked form's own floor: its bf16 products or its bytes
+    design_ops = cflops / PEAK_BF16_FLOPS * 1e3
+    design_bytes = cbytes / PEAK_BYTES * 1e3
     log("kernel-time", name="mamba2_scan_bwd",
-        shape=f"B{B}_T{T}_H{H}_P{P}_N{N}_bf16",
+        shape=f"B{B}_T{T}_H{H}_P{P}_N{N}_bf16", path=plan.path,
         timing="cuda_graph_device_time", ms=f"{ms_:.4f}",
         plain_ms=f"{plain_ms:.4f}", library_ms="none",
         plan=",".join(map(str, plan.as_ints())),
         bound_ms=f"{max(t_ops, t_bytes):.4f}", ops_bound_ms=f"{t_ops:.4f}",
         bytes_bound_ms=f"{t_bytes:.4f}",
-        design_bound_ms=f"{max(design_ms, t_bytes):.4f}",
-        gflop=f"{flops / 1e9:.3f}", ginstr=f"{instr / 1e9:.3f}",
-        mbytes=f"{nbytes / 1e6:.2f}",
+        design_bound_ms=f"{max(design_ops, design_bytes):.4f}",
+        design_ops_ms=f"{design_ops:.4f}",
+        design_bytes_ms=f"{design_bytes:.4f}",
+        gflop=f"{flops / 1e9:.3f}", design_gflop=f"{cflops / 1e9:.3f}",
+        mbytes=f"{nbytes / 1e6:.2f}", design_mbytes=f"{cbytes / 1e6:.2f}",
+        cudacore_ginstr=f"{instr / 1e9:.3f}",
         scratch_MB=f"{plan.scratch * 4 / 1e6:.1f}", max_abs_err=f"{err:.3e}")
     return {"name": "mamba2_scan_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
@@ -1793,9 +1835,17 @@ def _time_flash_bwd(gen, B, T, H, K, D, Tk=None, causal=True) -> dict:
         bytes_bound_ms=f"{t_bytes:.4f}", gflop=f"{flops / 1e9:.2f}",
         mbytes=f"{nbytes / 1e6:.2f}", tflops=f"{flops / ms_ / 1e9:.2f}",
         max_abs_err=f"{err:.3e}")
+    # the forward's bound: q.k and p.v over the unmasked pairs, q, k, v
+    # read and o written once, and the LSE written (with it)
+    fflops, fbytes = attn_cost(B, T, Tk, H, K, D, 2, causal)
+    f_ops = fflops / PEAK_BF16_FLOPS * 1e3
+    f_bytes = (fbytes + 4 * B * H * T) / PEAK_BYTES * 1e3
     log("kernel-time", name="flash_attention_fwd_train_shape", shape=shape,
         with_lse_ms=f"{fwd_lse_ms[0]:.4f}", with_lse_range=_range(fwd_lse_ms),
-        without_lse_ms=f"{fwd_ms[0]:.4f}", without_lse_range=_range(fwd_ms))
+        without_lse_ms=f"{fwd_ms[0]:.4f}", without_lse_range=_range(fwd_ms),
+        with_lse_bound_ms=f"{max(f_ops, f_bytes):.4f}",
+        bound_by="operations" if f_ops >= f_bytes else "bytes",
+        ops_bound_ms=f"{f_ops:.4f}", bytes_bound_ms=f"{f_bytes:.4f}")
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/models/layers.py:71",

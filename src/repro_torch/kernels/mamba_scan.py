@@ -14,8 +14,10 @@ through its C interface, with three entry points:
   chunked (SSD) form on the tensor cores, whose plain counterpart is
   ``ref.mamba2_scan_chunked_ref``;
 * ``mamba2_scan_bwd(dt, x, b, c, A, h0, dy, dh_last)``: the Mamba-2 form's
-  gradient, a reverse-time walk over recomputed states, whose plain
-  counterpart is ``ref.mamba2_scan_bwd_ref``.
+  gradient, whose plain counterpart is ``ref.mamba2_scan_bwd_ref``.  A bf16
+  call runs as the chunked (SSD) form's backward on the tensor cores
+  (``ref.mamba2_scan_chunked_bwd_ref``, stage by stage), the others as a
+  reverse-time walk over recomputed states on the CUDA cores.
 
 A tensor on the CPU goes to the plain versions in ``ref``; a CUDA tensor
 goes to the kernel or the call raises.  Under grad mode with an input that
@@ -27,10 +29,10 @@ and recomputes it); its forward saves only its inputs.  ``mamba_scan`` and
 rather than return an output that autograd cannot follow.
 ``mamba_scan.launches``, ``selective_scan.launches``,
 ``mamba2_scan.launches`` and ``mamba2_scan_bwd.launches`` count kernel
-launches (a backward call is one count for its four launches).
+launches (a backward call is one count for its four or six launches).
 ``selective_plan`` and ``mamba2_bwd_plan`` mirror how the kernel's host
 code runs a Mamba-1 call (lanes a channel, direct or ring path, TMA or lane
-loads, grid) and a Mamba-2 backward (lanes, rows, scratch), so that the
+loads, grid) and a Mamba-2 backward (path, lanes, rows, scratch), so that the
 choice can be tested without a card; ``kernel_mamba2_plan`` and
 ``kernel_mamba2_bwd_plan`` ask the built library.
 """
@@ -72,7 +74,7 @@ def _lib() -> ctypes.CDLL:
     lib.mamba2_scan_plan.restype = i
     lib.mamba2_scan_bwd.argtypes = [p] * 15 + [ll] + [i] * 6 + [ll] * 9 + [p]
     lib.mamba2_scan_bwd.restype = i
-    lib.mamba2_scan_bwd_plan.argtypes = [i] * 5 + [p]
+    lib.mamba2_scan_bwd_plan.argtypes = [i] * 6 + [p]
     lib.mamba2_scan_bwd_plan.restype = i
     lib.ms_error_string.argtypes = [i]
     lib.ms_error_string.restype = ctypes.c_char_p
@@ -417,56 +419,84 @@ mamba2_scan.launches = 0
 
 # --- the backward -------------------------------------------------------------
 
-BWD_CHUNK = 64                  # csrc's BW_Q: steps between stored states
+BWD_CHUNK = 64                  # csrc's BW_Q (and SSD_Q): steps a chunk
 BWD_SUB = 4                     # csrc's BW_SC: steps of the shared history
 M2_THREADS = 128                # csrc's M2_NT: threads a block
+BWD_HEADS = 20                  # csrc's CB_HEADS: heads a tile block walks
+BWD_PATHS = ("cudacore", "chunked")     # csrc's plan codes 0, 1
+TILE = 64 * 128                 # csrc's SSD_TILE: a 64 x 64 bf16 tile, bytes
+# csrc's CbSmem::SIZE: 9 tiles, dB and dC (4 tiles' bytes of f32), the
+# tables and sums (880 + 900 floats), after up to 1024 bytes of alignment
+CHUNKED_SMEM = 1024 + 13 * TILE + 4 * (880 + 900)
 
 
 @dataclasses.dataclass(frozen=True)
 class Mamba2BwdPlan:
     """How ``mamba2_scan_bwd`` runs a call."""
-    lanes: int           # NL: lanes a row group (4 rows x 4 states a lane)
+    path: str            # "chunked": the SSD form's backward on the tensor
+                         # cores (bfloat16 x, b, c, N <= 64, T > 8);
+                         # "cudacore": the recomputing walk, the others
+    lanes: int           # NL: lanes a row group (4 rows x 4 states a
+                         # lane) on the CUDA cores; 0 when chunked
     rows: int            # R: rows of P a block
     row_blocks: int      # RB: blocks a head
-    chunks: int          # chunks of BWD_CHUNK steps, a stored state each
+    chunks: int          # chunks of BWD_CHUNK steps
     smem: int            # the main kernel's shared memory, bytes
     scratch: int         # floats of scratch the call needs
+    heads: int = 0       # heads a tile block walks (chunked)
 
     def as_ints(self) -> list[int]:
-        return [self.lanes, self.rows, self.row_blocks, self.chunks,
-                self.smem, self.scratch]
+        return [BWD_PATHS.index(self.path), self.lanes, self.rows,
+                self.row_blocks, self.chunks, self.smem, self.scratch,
+                self.heads]
 
 
-def mamba2_bwd_plan(B: int, T: int, H: int, P: int, N: int) -> Mamba2BwdPlan:
-    """The plan ``csrc/mamba_scan.cu::plan_mamba2_bwd`` makes: the forward's
-    CUDA-core lanes (NL = max(4, next_pow2(N / 4)), R = 4 * 128 / NL rows a
-    block), the shared history of BWD_SUB + 1 states, two sub-chunks'
-    staged inputs and the reverse steps' partial sums, and the scratch: a
-    state slot a block and chunk (level 1) and sub-chunk (level 2), and
-    per (b, t, head, row block) the partial sums of db, dc (N each), da
-    and <g, x b^T>."""
+def mamba2_bwd_plan(B: int, T: int, H: int, P: int, N: int,
+                    dtype: torch.dtype) -> Mamba2BwdPlan:
+    """The plan ``csrc/mamba_scan.cu::plan_mamba2_bwd`` makes for x, b, c
+    in ``dtype``.
+
+    Chunked (bfloat16, N <= 64, T > 8, the forward's rule): 64 rows of P a
+    block, 64-step chunks, BWD_HEADS heads a tile block; scratch for the
+    state entering and the gradient leaving every (batch row, chunk, head)
+    in float32, the per-(b, t, head group, row block) partial sums of db
+    and dc and the per-(b, t, head, row block) ones of da and ddt's direct
+    terms.  CUDA cores (the others): the forward's CUDA-core lanes
+    (NL = max(4, next_pow2(N / 4)), R = 4 * 128 / NL rows a block), the
+    shared history of BWD_SUB + 1 states, two sub-chunks' staged inputs and
+    the reverse steps' partial sums, and the scratch: a state slot a block
+    and chunk (level 1) and sub-chunk (level 2), and per (b, t, head, row
+    block) the partial sums of db, dc (N each), da and <g, x b^T>."""
+    chunks = -(-T // BWD_CHUNK)
+    if dtype == torch.bfloat16 and N <= 64 and T > DIRECT_T:
+        RB = -(-P // 64)
+        groups = -(-H // BWD_HEADS)
+        scratch = (2 * B * chunks * H * P * N + 2 * B * T * groups * RB * N
+                   + 2 * B * T * H * RB)
+        return Mamba2BwdPlan("chunked", 0, 64, RB, chunks, CHUNKED_SMEM,
+                             scratch, BWD_HEADS)
     NL = 4
     while NL * 4 < N:
         NL *= 2
     R = 4 * M2_THREADS // NL
     RB = -(-P // R)
-    chunks = -(-T // BWD_CHUNK)
     tile = 16 * M2_THREADS
     stage = 2 * BWD_SUB + 2 * BWD_SUB * R + 2 * BWD_SUB * 4 * NL
     partial = 12 * M2_THREADS + 4 * NL + 8   # a reverse step's partial sums
     smem = 4 * ((BWD_SUB + 1) * tile + 2 * stage + BWD_SUB * partial)
     scratch = (B * H * RB * (chunks + BWD_CHUNK // BWD_SUB) * tile
                + B * T * H * RB * (2 * N + 2))
-    return Mamba2BwdPlan(NL, R, RB, chunks, smem, scratch)
+    return Mamba2BwdPlan("cudacore", NL, R, RB, chunks, smem, scratch)
 
 
-def kernel_mamba2_bwd_plan(B: int, T: int, H: int, P: int, N: int
-                           ) -> Mamba2BwdPlan:
+def kernel_mamba2_bwd_plan(B: int, T: int, H: int, P: int, N: int,
+                           dtype: torch.dtype) -> Mamba2BwdPlan:
     """The plan the built kernel's host code makes (a card's library)."""
-    out = (ctypes.c_longlong * 6)()
-    _raise_on(_lib().mamba2_scan_bwd_plan(B, T, H, P, N, out),
+    out = (ctypes.c_longlong * 8)()
+    _raise_on(_lib().mamba2_scan_bwd_plan(B, T, H, P, N, _DTYPES[dtype], out),
               "mamba2_scan_bwd_plan")
-    return Mamba2BwdPlan(*map(int, out))
+    v = list(map(int, out))
+    return Mamba2BwdPlan(BWD_PATHS[v[0]], *v[1:])
 
 
 def mamba2_scan_bwd(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
@@ -493,7 +523,7 @@ def mamba2_scan_bwd(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
         raise ValueError("dy, dh_last and the operands on different devices")
     dy = dy.float().contiguous()
     dh_last = dh_last.float().contiguous()
-    plan = mamba2_bwd_plan(B, T, H, P, N)
+    plan = mamba2_bwd_plan(B, T, H, P, N, x.dtype)
     f32, dev = torch.float32, dt.device
     ddt = torch.empty((B, T, H), dtype=f32, device=dev)
     dx = torch.empty((B, T, H, P), dtype=x.dtype, device=dev)

@@ -13,6 +13,13 @@ import torch.nn.functional as F
 NEG_INF = -1e30
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or in float64 if it is float64 (the Mamba-2 scans'
+    plain versions then run in float64, so that the tests can hold two
+    orders of their sums against each other at 1e-4)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def _mask(Tq: int, Tk: int, causal: bool, window: int,
           device: torch.device) -> torch.Tensor:
     """(Tq, Tk) bool, True where query t may attend to key s."""
@@ -208,20 +215,20 @@ def mamba2_scan_bwd_ref(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
     ddt (B, T, H) float32, dx in x's dtype, db and dc in b's and c's, dA
     (H,) and dh0 (B, H, P, N) float32.
     """
-    dtf, xf, bf, cf = dt.float(), x.float(), b.float(), c.float()
-    Af = A.float()
+    dtf, xf, bf, cf = _wide(dt), _wide(x), _wide(b), _wide(c)
+    Af = _wide(A)
     decay = torch.exp(dtf * Af)                                 # (B, T, H)
-    hs = [h0.float()]                  # hs[t + 1] is h_t, hs[0] is h0
+    hs = [_wide(h0)]                    # hs[t + 1] is h_t, hs[0] is h0
     for t in range(dt.shape[1]):
         u = (dtf[:, t, :, None] * xf[:, t])[..., None] * bf[:, t, None,
                                                             None, :]
         hs.append(decay[:, t, :, None, None] * hs[-1] + u)
-    g = dh_last.float()
+    g = _wide(dh_last)
     ddt, dx, db, dc, da = ([None] * dt.shape[1] for _ in range(5))
     for t in reversed(range(dt.shape[1])):
-        g = g + dy[:, t].float()[..., None] * cf[:, t, None, None, :]
+        g = g + _wide(dy[:, t])[..., None] * cf[:, t, None, None, :]
         gb = torch.einsum("bhpn,bn->bhp", g, bf[:, t])
-        dc[t] = torch.einsum("bhp,bhpn->bn", dy[:, t].float(), hs[t + 1])
+        dc[t] = torch.einsum("bhp,bhpn->bn", _wide(dy[:, t]), hs[t + 1])
         dx[t] = dtf[:, t, :, None] * gb
         db[t] = torch.einsum("bh,bhp,bhpn->bn", dtf[:, t], xf[:, t], g)
         da[t] = decay[:, t] * torch.einsum("bhpn,bhpn->bh", g, hs[t])
@@ -274,8 +281,8 @@ def mamba2_scan_chunked_ref(dt: torch.Tensor, x: torch.Tensor,
     float32.  Returns y (B, T, H, P) and the last state (B, H, P, N),
     float32.
     """
-    dt, x, b, c = dt.float(), x.float(), b.float(), c.float()
-    A, h = A.float(), h0.float()
+    dt, x, b, c = _wide(dt), _wide(x), _wide(b), _wide(c)
+    A, h = _wide(A), _wide(h0)
     B, T, H, P = x.shape
     Q = chunk
     pad = -T % Q
@@ -309,6 +316,142 @@ def mamba2_scan_chunked_ref(dt: torch.Tensor, x: torch.Tensor,
              + products(w[..., None] * bc, xc.transpose(-1, -2), False))
         ys.append(y.transpose(1, 2))
     return torch.cat(ys, dim=1)[:, :T], h
+
+
+def _pair_products(a: torch.Tensor, b: torch.Tensor, terms: int
+                   ) -> torch.Tensor:
+    """``a @ b`` with both sides float32, as the kernel multiplies them:
+    each split into ``terms`` bfloat16 terms and the products of the
+    pairs (i, j) with i + j < terms summed in float32 (the dropped pairs
+    are below 2^-21 of the product); ``a @ b`` itself at 0."""
+    if terms == 0:
+        return a @ b
+    at, bt = _bf16_terms(a, terms), _bf16_terms(b, terms)
+    return sum(at[i] @ bt[j] for i in range(terms) for j in range(terms - i))
+
+
+def mamba2_scan_chunked_bwd_ref(dt: torch.Tensor, x: torch.Tensor,
+                                b: torch.Tensor, c: torch.Tensor,
+                                A: torch.Tensor, h0: torch.Tensor,
+                                dy: torch.Tensor, dh_last: torch.Tensor,
+                                chunk: int = 64, bf16_terms: int = 0
+                                ) -> tuple[torch.Tensor, ...]:
+    """``mamba2_scan_bwd_ref``'s function in the chunked (SSD) form that
+    ``csrc/mamba_scan.cu``'s chunked backward computes, stage by stage.
+
+    With ``mamba2_scan_chunked_ref``'s notation a chunk's forward is
+    ``y = M X + diag(e) C h_inᵀ`` and ``h_out = E h_in + Xᵀ diag(w) B``,
+    ``M = L ∘ C Bᵀ ∘ dt_j``, ``e_i = exp(S[i, -1])``, ``w_j = dt_j ew_j``,
+    ``ew_j = exp(S[Q-1, j])``, ``E = e_{Q-1}``; its backward is
+      (a, b) h_in of every chunk: ``h_in[k+1] = E h_in[k] + Xᵀ diag(w) B``
+          from h0 (the kernel's f32 side ``w X``);
+      (c) dh_out of every chunk: ``dh_out[k-1] = E dh_out[k] +
+          (diag(e) dY)ᵀ C`` from dh_last, and dh0 the walk's last value;
+      (d) per chunk, with ``dMᵀ = X dYᵀ``, ``dG = dM ∘ L ∘ dt_j`` and
+          ``K = dM ∘ L ∘ C Bᵀ``:
+          ``dX = diag(w) B dh_outᵀ + Mᵀ dY``;
+          ``dB = diag(w) X dh_out + dGᵀ C``, summed over heads;
+          ``dC = diag(e) dY h_in + dG B``, summed over heads;
+          the log-decay gradient ``da_k = Σ_{i≥k, j<k} (K dt_j)[i, j]
+          + Σ_{i≥k} r_i + Σ_{j<k} w_j v_j + E ⟨dh_out, h_in⟩`` with
+          ``r_i = e_i ⟨C_i, (dY h_in)_i⟩``, ``v_j = ⟨B_j, (X dh_out)_j⟩``,
+          every sum a direct sum in float32 (the rectangle as ``Sᵀ =
+          (K dt)ᵀ U``, ``U[i, k] = [i ≥ k]``, then the rows j < k of each
+          column);
+          ``ddt = A da + Σ_i K[i, j] + ew_j v_j`` and ``dA = Σ dt da``.
+    ``bf16_terms`` > 0 emulates the kernel's tensor-core products: the
+    float32 side of a product with a bf16 side is that many bfloat16
+    terms; where both sides are float32 (``Mᵀ dY``, ``dY h_in``) both are
+    split and the pairs of terms (i, j), i + j < ``bf16_terms``, summed.
+    Returns what ``mamba2_scan_bwd_ref`` returns.
+    """
+    dtf, xf, bf, cf = _wide(dt), _wide(x), _wide(b), _wide(c)
+    Af, dyf = _wide(A), _wide(dy)
+    B, T, H, P = x.shape
+    N = b.shape[2]
+    Q = chunk
+    pad = -T % Q
+    if pad:
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+        xf = F.pad(xf, (0, 0, 0, 0, 0, pad))
+        dyf = F.pad(dyf, (0, 0, 0, 0, 0, pad))
+        bf = F.pad(bf, (0, 0, 0, pad))
+        cf = F.pad(cf, (0, 0, 0, pad))
+    K = (T + pad) // Q
+    terms = bf16_terms
+
+    def one(f32, other, f32_first):     # a product with one float32 side
+        return sum((p @ other if f32_first else other @ p)
+                   for p in _bf16_terms(f32, terms))
+
+    lower = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    below = lower.tril(-1)
+    U = lower.to(dtf.dtype)                             # U[i, k] = [i >= k]
+    ch = []                                # each chunk's operands and decays
+    for k in range(K):
+        s = slice(k * Q, (k + 1) * Q)
+        dc = dtf[:, s].transpose(1, 2)                     # (B, H, Q)
+        a = dc * Af[:, None]
+        S = torch.cumsum(a[..., :, None].expand(B, H, Q, Q)
+                         .masked_fill(~below, 0.), dim=-2)
+        ch.append(dict(
+            dt=dc, L=torch.exp(S).masked_fill(~lower, 0.),
+            e=torch.exp(torch.cumsum(a, dim=-1)), ew=torch.exp(S[..., -1, :]),
+            E=torch.exp(a.sum(dim=-1))[..., None, None],
+            X=xf[:, s].transpose(1, 2), dY=dyf[:, s].transpose(1, 2),
+            Bc=bf[:, None, s], Cc=cf[:, None, s]))
+    # (a, b) the state entering every chunk, forwards from h0
+    h_in, h = [], _wide(h0)
+    for d in ch:
+        h_in.append(h)
+        w = d["dt"] * d["ew"]
+        h = d["E"] * h + one((w[..., None] * d["X"]).transpose(-1, -2),
+                             d["Bc"], True)
+    # (c) the gradient of the state leaving every chunk, backwards
+    dh_out, g = [None] * K, _wide(dh_last)
+    for k in reversed(range(K)):
+        d = ch[k]
+        dh_out[k] = g
+        g = d["E"] * g + one((d["e"][..., None] * d["dY"]).transpose(-1, -2),
+                             d["Cc"], True)
+    dh0 = g
+    # (d) every chunk's gradients
+    ddt, dx, db, dc, da = [], [], [], [], []
+    for k, d in enumerate(ch):
+        X, dY, Bc, Cc, L, dtc = d["X"], d["dY"], d["Bc"], d["Cc"], d["L"], \
+            d["dt"]
+        w = dtc * d["ew"]
+        G = Cc @ Bc.transpose(-1, -2)                      # C Bᵀ (exact)
+        dM = one(dY, X.transpose(-1, -2), True)            # dY Xᵀ
+        M = L * G * dtc[..., None, :]
+        dG = dM * L * dtc[..., None, :]
+        Km = dM * L * G
+        dX = (w[..., None] * one(dh_out[k].transpose(-1, -2), Bc, False)
+              + _pair_products(M.transpose(-1, -2), dY, terms))
+        xdh = one(dh_out[k], X, False)                     # X dh_out
+        v = (Bc * xdh).sum(dim=-1)                         # (B, H, Q)
+        dB = w[..., None] * xdh + one(dG.transpose(-1, -2), Cc, True)
+        dyh = _pair_products(dY, h_in[k], terms)           # dY h_in
+        r = d["e"] * (Cc * dyh).sum(dim=-1)
+        dC = d["e"][..., None] * dyh + one(dG, Bc, True)
+        # Sᵀ[j, k'] = Σ_{i ≥ k'} (K dt)[i, j], then its rows j < k'
+        St = (Km * dtc[..., None, :]).transpose(-1, -2) @ U
+        Z = St.masked_fill(~below.transpose(0, 1), 0.).sum(dim=-2)
+        rsum = torch.flip(torch.cumsum(torch.flip(r, [-1]), -1), [-1])
+        qsum = F.pad(torch.cumsum(w * v, -1)[..., :-1], (1, 0))
+        c0 = d["E"][..., 0, 0] * (dh_out[k] * h_in[k]).sum(dim=(-2, -1))
+        dak = Z + rsum + qsum + c0[..., None]
+        ddt.append(Af[:, None] * dak + Km.sum(dim=-2) + d["ew"] * v)
+        da.append(dak)
+        dx.append(dX)
+        db.append(dB.sum(dim=1))
+        dc.append(dC.sum(dim=1))
+    ddt = torch.cat(ddt, dim=-1).transpose(1, 2)[:, :T]
+    da = torch.cat(da, dim=-1).transpose(1, 2)[:, :T]
+    dx = torch.cat(dx, dim=-2).transpose(1, 2)[:, :T]
+    return (ddt, dx.to(x.dtype), torch.cat(db, dim=1)[:, :T].to(b.dtype),
+            torch.cat(dc, dim=1)[:, :T].to(c.dtype),
+            (dtf[:, :T] * da).sum(dim=(0, 1)), dh0)
 
 
 def lut_matmul_ref(x: torch.Tensor, codes: torch.Tensor, lut: torch.Tensor

@@ -200,11 +200,13 @@ def test_op_backward_without_dh_last_takes_zeros():
     (2, 130, 3, 33, 16, 4, 128, 1, 3), (1, 1, 2, 64, 128, 32, 16, 4, 1),
     (2, 65, 3, 100, 5, 4, 128, 1, 2), (1, 64, 1, 8, 33, 16, 32, 1, 1)])
 def test_bwd_plan_mirror(B, T, H, P, N, L, R, RB, chunks):
-    """The wrapper's mirror of the backward's plan (its scratch is what the
-    wrapper allocates): the forward's CUDA-core lanes and rows, row blocks
+    """The wrapper's mirror of the CUDA-core backward's plan (float32; the
+    chunked form's is held in test_torch_scan_bwd.py; its scratch is what
+    the wrapper allocates): the forward's CUDA-core lanes and rows, row blocks
     a head, 64-step chunks, and scratch for a state slot a block and
     (sub-)chunk and the per-(b, t, head, row block) partial sums."""
-    plan = ms.mamba2_bwd_plan(B, T, H, P, N)
+    plan = ms.mamba2_bwd_plan(B, T, H, P, N, torch.float32)
+    assert plan.path == "cudacore"
     assert (plan.lanes, plan.rows, plan.row_blocks, plan.chunks) == (
         L, R, RB, chunks)
     slot = 16 * 128

@@ -1667,6 +1667,23 @@ def test_cuda_mamba2_scan_bwd_survives_the_segment_sum_reset(T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,P,N,reset", [
+    (2, 200, 30, 64, 64, False), (1, 300, 2, 100, 64, True),
+    (2, 77, 3, 40, 5, True), (2, 9, 3, 64, 64, False)])
+def test_cuda_mamba2_scan_bwd_chunked_form_matches_plain_version(
+        B, T, H, P, N, reset):
+    """bf16 with N <= 64 and T > 8 takes the chunked (SSD) form: 30 heads
+    (a group of 20 and a short one), two 64-row blocks of P, a ragged P
+    and N, the reset, and T = 9 (one short chunk)."""
+    _cuda_or_skip()
+    assert ms.kernel_mamba2_bwd_plan(B, T, H, P, N,
+                                     torch.bfloat16).path == "chunked"
+    args = _cuda_mamba2_bwd(B, T, H, P, N, torch.bfloat16, T + H,
+                            reset=reset)
+    _hold_scan_bwd(ms.mamba2_scan_bwd(*args), args)
+
+
+@pytest.mark.cuda
 def test_cuda_mamba2_scan_bwd_is_deterministic():
     """No float atomics: two calls are bit-identical (b and c's gradients
     are summed over 80 heads in a fixed order)."""
@@ -1681,8 +1698,11 @@ def test_cuda_mamba2_scan_bwd_is_deterministic():
 @pytest.mark.parametrize("shape", [(4, 2048, 80, 64, 64), (2, 65, 3, 33, 16),
                                    (1, 1, 2, 64, 128), (2, 70, 3, 100, 5)])
 def test_cuda_mamba2_scan_bwd_plan_matches_the_mirror(shape):
+    """Both paths: bf16 takes the chunked form where T > 8 and N <= 64."""
     _cuda_or_skip()
-    assert ms.kernel_mamba2_bwd_plan(*shape) == ms.mamba2_bwd_plan(*shape)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert (ms.kernel_mamba2_bwd_plan(*shape, dtype)
+                == ms.mamba2_bwd_plan(*shape, dtype))
 
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
 """The Mamba-2 scan kernel against an older source, on one card.
 
     python3 tools/mamba2_scan_baseline.py --baseline OLD.cu [OLD2.cu ...]
-        [--out F]
+        [--heads 8 20 40] [--out F]
 
 Builds ``src/repro_torch/kernels/csrc/mamba_scan.cu`` (through
 ``repro_torch.kernels._build``, as the port does) and each ``--baseline``,
@@ -21,7 +21,10 @@ bound and the current path's own bound.  The backward
 (``mamba2_scan_bwd``), where a library has it, is held against
 ``ref.mamba2_scan_bwd_ref`` under ``chip_smoke._hold_scan_bwd``'s limits
 and timed the same way at zamba2-2.7b's training shape (B=4, T=2048),
-beside its bound and its design's (``chip_smoke._mamba2_bwd_cost``).
+beside its bound and each form's own (``chip_smoke._mamba2_bwd_cost``);
+``--heads`` adds copies of the current source with another number of
+heads a block of the chunked backward's tile kernel (its ``CB_HEADS``
+rewritten in a copy under ``build/``), held and timed with the rest.
 Prints one JSON line a library and writes the records to ``--out``.
 Needs a card and ``nvcc``.
 """
@@ -61,8 +64,22 @@ def _ptxas(log: str) -> list[str]:
     return out
 
 
-def build_baseline(src: pathlib.Path, out_dir: pathlib.Path):
-    out = out_dir / f"libmamba_scan_{src.parent.name}.so"
+HEADS_LINE = "constexpr int CB_HEADS = "
+
+
+def heads_variant(n: int, out_dir: pathlib.Path) -> pathlib.Path:
+    """A copy of the current source with ``CB_HEADS`` set to ``n``."""
+    src = (_build.CSRC / "mamba_scan.cu").read_text()
+    start = src.index(HEADS_LINE) + len(HEADS_LINE)
+    end = src.index(";", start)
+    path = out_dir / f"heads{n}" / "mamba_scan.cu"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(src[:start] + str(n) + src[end:])
+    return path
+
+
+def build_baseline(src: pathlib.Path, out_dir: pathlib.Path, name: str):
+    out = out_dir / f"libmamba_scan_{name}.so"
     proc = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
                            str(src)], capture_output=True, text=True)
     if proc.returncode != 0:
@@ -89,12 +106,20 @@ def baseline_call(lib, dt, x, b, c, A, h0):
     return y, h_last
 
 
-def baseline_bwd_call(lib, dt, x, b, c, A, h0, dy, dh):
+def baseline_bwd_call(lib, dt, x, b, c, A, h0, dy, dh, heads=None):
     """The baseline's ``mamba2_scan_bwd`` with the wrapper's outputs and
-    scratch (the library refuses scratch below its own plan's)."""
+    scratch: the CUDA-core form's (the only form of the sources before the
+    chunked one), or the chunked form's with ``heads`` heads a block (the
+    library refuses scratch below its own plan's)."""
     B, T, H, P = x.shape
     N = b.shape[2]
-    plan = ms.mamba2_bwd_plan(B, T, H, P, N)
+    plan = ms.mamba2_bwd_plan(B, T, H, P, N, torch.float32)
+    scratch_floats = plan.scratch
+    if heads is not None:
+        K, RB = -(-T // 64), -(-P // 64)
+        scratch_floats = (2 * B * K * H * P * N
+                          + 2 * B * T * -(-H // heads) * RB * N
+                          + 2 * B * T * H * RB)
     f32 = torch.float32
     ddt = torch.empty((B, T, H), dtype=f32, device=x.device)
     dx = torch.empty_like(x, memory_format=torch.contiguous_format)
@@ -102,12 +127,12 @@ def baseline_bwd_call(lib, dt, x, b, c, A, h0, dy, dh):
     dc = torch.empty_like(db)
     dA = torch.empty((H,), dtype=f32, device=x.device)
     dh0 = torch.empty_like(h0)
-    scratch = torch.empty((plan.scratch,), dtype=f32, device=x.device)
+    scratch = torch.empty((scratch_floats,), dtype=f32, device=x.device)
     args = ms._mamba2_args(dt, x, b, c, A, h0, ddt, dh0)
     err = lib.mamba2_scan_bwd(
         *args[:6], dy.data_ptr(), dh.data_ptr(), ddt.data_ptr(),
         dx.data_ptr(), db.data_ptr(), dc.data_ptr(), dA.data_ptr(),
-        dh0.data_ptr(), scratch.data_ptr(), plan.scratch, *args[8:],
+        dh0.data_ptr(), scratch.data_ptr(), scratch_floats, *args[8:],
         torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"baseline backward launch failed: cudaError "
@@ -130,23 +155,31 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=pathlib.Path, nargs="+", required=True,
                     help="older mamba_scan.cu sources to time beside")
+    ap.add_argument("--heads", type=int, nargs="*", default=[],
+                    help="heads a tile block of the chunked backward, each "
+                         "a build of the current source")
     ap.add_argument("--out", type=pathlib.Path,
                     default=ROOT / "build" / "mamba2_scan_baseline.json")
     args = ap.parse_args(argv)
     smi = chip_smoke.phase_card()
     out_dir = ROOT / "build" / "mamba2_scan_baseline"
     out_dir.mkdir(parents=True, exist_ok=True)
-    with concurrent.futures.ThreadPoolExecutor(1 + len(args.baseline)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(
+            1 + len(args.baseline) + len(args.heads)) as pool:
         cur = pool.submit(_build.load, "mamba_scan")
         bases = {src.parent.name: pool.submit(build_baseline, src.resolve(),
-                                              out_dir)
+                                              out_dir, src.parent.name)
                  for src in args.baseline}
+        variants = {f"heads{n}": pool.submit(
+            build_baseline, heads_variant(n, out_dir), out_dir, f"heads{n}")
+                    for n in args.heads}
         records = {"current": {"name": "current",
                                "ptxas": _ptxas(cur.result().log)}}
         libs = {}
         for name, fut in bases.items():
             libs[name], ptxas = fut.result()
             records[name] = {"name": name, "ptxas": ptxas}
+        heads = {name: fut.result()[0] for name, fut in variants.items()}
     for r in records.values():
         print("PTXAS " + json.dumps(r), flush=True)
 
@@ -192,12 +225,19 @@ def main(argv=None) -> None:
     # the backward at zamba2's training shape, where a library has it
     bwd = [n for n in records
            if n == "current" or hasattr(libs[n], "mamba2_scan_bwd")]
+    bwd += list(heads)
+    for name in heads:
+        records[name] = {"name": name,
+                         "heads_a_block": int(name[len("heads"):])}
     B, T, H, P, N = chip_smoke.ZAMBA2_TRAIN_SCAN
     a = chip_smoke._mamba2_bwd_inputs(gen, B, T, H, P, N, bf16, offset=0)
 
     def bwd_caller(name):
         if name == "current":
             return ms.mamba2_scan_bwd
+        if name in heads:
+            return lambda *x: baseline_bwd_call(
+                heads[name], *x, heads=records[name]["heads_a_block"])
         return lambda *x: baseline_bwd_call(libs[name], *x)
 
     case = (B, T, H, P, N, 0, False)
@@ -211,19 +251,26 @@ def main(argv=None) -> None:
             {"case": list(case), "max_abs_err": err, "ok": ok})
     calls = {n: (lambda f=bwd_caller(n): f(*a)) for n in bwd}
     ts = {n: [] for n in calls}
-    order = [n for n in [*libs, "current", "current", *reversed(list(libs))]
+    order = [n for n in [*libs, *heads, "current", "current",
+                         *reversed(list(heads)), *reversed(list(libs))]
              if n in calls]
     for _ in range(3):
         for n in order:
             ts[n].append(chip_smoke.graph_ms(calls[n], iters=5, replays=3))
-    flops, nbytes, instr = chip_smoke._mamba2_bwd_cost(B, T, H, P, N, 2)
+    flops, nbytes, instr, cflops, cbytes = chip_smoke._mamba2_bwd_cost(
+        B, T, H, P, N, 2)
     t_bytes = nbytes / chip_smoke.PEAK_BYTES * 1e3
     bound = max(flops / chip_smoke.PEAK_TF32_FLOPS * 1e3, t_bytes)
-    design = max(instr / chip_smoke.PEAK_F32_INSTR * 1e3, t_bytes)
+    # each form's own floor: the CUDA-core form's FP32 instructions, the
+    # chunked form's bf16 products or bytes
+    cudacore = max(instr / chip_smoke.PEAK_F32_INSTR * 1e3, t_bytes)
+    chunked = max(cflops / chip_smoke.PEAK_BF16_FLOPS * 1e3,
+                  cbytes / chip_smoke.PEAK_BYTES * 1e3)
     for n, t in ts.items():
         records[n][f"bwd_B{B}_T{T}_H{H}_P{P}_N{N}_bf16"] = {
             "ms": statistics.median(t), "ms_all": t, "bound_ms": bound,
-            "design_bound_ms": design}
+            "cudacore_design_bound_ms": cudacore,
+            "chunked_design_bound_ms": chunked}
     del a, calls
     for r in records.values():
         print("BASELINE " + json.dumps(r), flush=True)
