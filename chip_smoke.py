@@ -29,7 +29,14 @@ Phases, each printing what it found; any failure raises and exits non-zero:
    chunked (SSD) one on the tensor cores for bf16 with N <= 64 and T > 8,
    the CUDA-core one for the rest; two calls bit-identical, timed from a
    CUDA graph at zamba2-2.7b's training shape beside its bound and its
-   design's; no library call computes it), and the LUT matmul;
+   design's; no library call computes it), the Mamba-1 scan's backward
+   ``selective_scan_bwd`` against ``ref.selective_scan_bwd_ref`` on
+   ``SEL_BWD_CASES`` (f32 and bf16, N 4, 16 and 128, T 1 to 300, ragged
+   channel blocks, the decay underflowing; two calls bit-identical; timed
+   from a CUDA graph at falcon-mamba-7b's training shape beside its bound
+   and its design's SFU floor; no library call computes it; under grad
+   ``selective_scan`` is the differentiable op and ``mamba_scan`` raises),
+   ``selective_scan`` also timed at T = 2048, and the LUT matmul;
 4. moe-layer: ``moe.moe_block`` at qwen2-moe-a2.7b's layer width (N = 4400
    tokens, 60 experts, top-4, shared expert) in bf16 against a plain
    float32 loop over the experts with the same capacity rule, at the served
@@ -129,7 +136,15 @@ Phases, each printing what it found; any failure raises and exits non-zero:
     ``mamba2_scan_bwd`` launches);
 17. train_grad_vs_plain for zamba2 at full width and 6 layers (one group:
     6 Mamba-2 layers and a shared block), both backward kernels swapped
-    for their plain versions.
+    for their plain versions;
+18. train-ssm: falcon-mamba-7b at full width and depth (64 Mamba-1 layers,
+    7.273 B parameters) through ``make_train_step`` and the ``Trainer``
+    with 8-bit AdamW moments and remat "full" (with 32-bit moments its
+    state does not fit one card), the same 5 steps, counted the same way
+    (per step 64 + 64 ``selective_scan`` and 64 ``selective_scan_bwd``
+    launches);
+19. train_grad_vs_plain for falcon-mamba-7b at full width and 2 layers,
+    the scan backward swapped for its plain version.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -282,7 +297,8 @@ VLM_TRAIN_LAYERS = 10
 # the gradient check's depths: every gradient leaf at full width; the VLM
 # needs one whole group (5 self layers and a cross block)
 GRAD_LAYERS = {"granite-3-2b": 2, "qwen2-moe-a2.7b": 2, "musicgen-medium": 2,
-               "llama-3.2-vision-11b": 5, "zamba2-2.7b": 6}
+               "llama-3.2-vision-11b": 5, "zamba2-2.7b": 6,
+               "falcon-mamba-7b": 2}
 # the card's bf16 moe_block against the plain float32 loop over experts:
 # bf16 rounds the gate and up products, their product, each expert's
 # output and the weighted sum once each (2^-9 relative a rounding, ~4e-3
@@ -324,6 +340,7 @@ COUNTED = {"flash_attention": fa.flash_attention_gqa,
            "mamba_scan": ms.mamba_scan,
            "selective_scan": ms.selective_scan,
            "mamba2_scan": ms.mamba2_scan,
+           "selective_scan_bwd": ms.selective_scan_bwd,
            "mamba2_scan_bwd": ms.mamba2_scan_bwd,
            "lut_matmul": lm.lut_matmul}
 
@@ -652,7 +669,8 @@ def _selective_cost(B, T, D, N, itemsize):
 def phase_selective_scan(gen) -> dict:
     """``selective_scan``, the fused Mamba-1 form the model calls, against
     ``ref.selective_scan_ref``; timed at the serving prefill shape (B=4,
-    T=1100, d_inner 8192, n 16, bf16 x/b/c) and the decode step's (T=1):
+    T=1100, d_inner 8192, n 16, bf16 x/b/c), the decode step's (T=1) and
+    falcon-mamba-7b's training length (T=2048):
     ``ms`` is device time (``graph_ms``), ``wrapper_ms`` the wrapper's calls
     between two events (at T=1 the host's work, not the kernel's)."""
     for case in [(2, 37, 48, 12, torch.float32), (2, 300, 96, 16,
@@ -667,7 +685,7 @@ def phase_selective_scan(gen) -> dict:
         _held("selective_scan", case[:4] + (str(case[4])[6:], "h_last"), h,
               wh, SCAN_TOL)
     rec = None
-    for T in (max(PROMPT_LENS), 1):
+    for T in (max(PROMPT_LENS), 1, TRAIN_SEQ):
         B, D, N = 4, 8192, 16
         args = _selective_inputs(gen, B, T, D, N, torch.bfloat16, offset=256)
         y, h = ms.selective_scan(*args)
@@ -906,34 +924,40 @@ def _mamba2_bwd_inputs(gen, B, T, H, P, N, dtype, offset=7, reset=False):
     return (*args, dy, dh)
 
 
-def _hold_scan_bwd(case, got, args) -> float:
-    """The kernel's (ddt, dx, db, dc, dA, dh0) against the plain version on
-    float32 copies of x, b, c under ``SCAN_BWD_ROUND_RTOL``'s limits; the
-    largest difference."""
-    dt, x, b, c, A, h0, dy, dh = args
-    want = ref.mamba2_scan_bwd_ref(dt, x.float(), b.float(), c.float(), A,
-                                   h0, dy, dh)
-    B, T, H, P = x.shape
-    n = max(P * b.shape[2], H * P, B * T)
+def _hold_bwd(name, case, got, want, dtype, n) -> float:
+    """A scan backward kernel's (ddt, dx, db, dc, dA, dh0) against its
+    plain version's on float32 copies of x, b, c under
+    ``SCAN_BWD_ROUND_RTOL``'s limits (n the case's longest sum; dx, db, dc
+    in the operands' ``dtype``); the largest difference."""
     worst = 0.0
-    for name, g, w in zip(("ddt", "dx", "db", "dc", "dA", "dh0"), got, want):
-        if g.dtype != (x.dtype if name in ("dx", "db", "dc")
+    for out, g, w in zip(("ddt", "dx", "db", "dc", "dA", "dh0"), got, want):
+        if g.dtype != (dtype if out in ("dx", "db", "dc")
                        else torch.float32) or g.shape != w.shape:
-            raise AssertionError(f"mamba2_scan_bwd {name}: {g.dtype} "
+            raise AssertionError(f"{name} {out}: {g.dtype} "
                                  f"{tuple(g.shape)} at {case}")
         d = (g.float() - w).abs()
         lim = (SCAN_TOL["atol"] + SCAN_BWD_ROUND_RTOL[g.dtype] * w.abs()
                + n ** 0.5 * 2.0 ** -24 * w.abs().max())
         err, ratio = d.max().item(), (d / lim).max().item()
-        log("kernel", name="mamba2_scan_bwd",
-            case=repr(case + (name,)).replace(" ", ""),
+        log("kernel", name=name, case=repr(case + (out,)).replace(" ", ""),
             max_abs_err=f"{err:.3e}", worst_of_limit=f"{ratio:.3f}")
         if not ratio <= 1.0:
-            raise AssertionError(f"mamba2_scan_bwd {name} off its plain "
-                                 f"version by {err} ({ratio:.2f} of its "
-                                 f"limit) at {case}")
+            raise AssertionError(f"{name} {out} off its plain version by "
+                                 f"{err} ({ratio:.2f} of its limit) at "
+                                 f"{case}")
         worst = max(worst, err)
     return worst
+
+
+def _hold_scan_bwd(case, got, args) -> float:
+    """The Mamba-2 backward under ``_hold_bwd`` (n: P N for ddt, H P for db
+    and dc, B T for dA)."""
+    dt, x, b, c, A, h0, dy, dh = args
+    want = ref.mamba2_scan_bwd_ref(dt, x.float(), b.float(), c.float(), A,
+                                   h0, dy, dh)
+    B, T, H, P = x.shape
+    return _hold_bwd("mamba2_scan_bwd", case, got, want, x.dtype,
+                     max(P * b.shape[2], H * P, B * T))
 
 
 def _mamba2_bwd_cost(B, T, H, P, N, itemsize):
@@ -977,8 +1001,7 @@ def phase_mamba2_scan_bwd(gen) -> dict:
     the wrapper's mirror; two calls bit-identical; timed from a CUDA graph
     at zamba2-2.7b's training shape (B=4, T=2048, H=80, P=N=64, bf16 x, b,
     c) beside its plain version.  No PyTorch call computes this function
-    (library "none").  Also: ``selective_scan`` and ``mamba_scan``, which
-    have no backward yet, raise under grad on the card."""
+    (library "none")."""
     for case in MAMBA2_BWD_CASES:
         B, T, H, P, N, dtype, offset, reset = case
         args = _mamba2_bwd_inputs(gen, B, T, H, P, N, dtype, offset, reset)
@@ -999,19 +1022,6 @@ def phase_mamba2_scan_bwd(gen) -> dict:
                 raise AssertionError(f"the backward's plan {plan} at {shape}"
                                      f", {dtype} is not the wrapper's "
                                      "mirror of it")
-    for fn, grad_args in (
-            (ms.selective_scan,
-             _selective_inputs(gen, 1, 20, 16, 16, torch.bfloat16)),
-            (ms.mamba_scan, _scan_inputs(gen, 1, 20, 16, 16))):
-        leaf = grad_args[0].clone().requires_grad_()
-        try:
-            fn(leaf, *grad_args[1:])
-        except NotImplementedError as e:
-            if "5b-ii" not in str(e):
-                raise
-        else:
-            raise AssertionError(f"{fn.__name__} ran under grad on a card "
-                                 "without a backward")
     B, T, H, P, N = ZAMBA2_TRAIN_SCAN
     args = _mamba2_bwd_inputs(gen, B, T, H, P, N, torch.bfloat16, offset=0)
     got = ms.mamba2_scan_bwd(*args)
@@ -1053,6 +1063,140 @@ def phase_mamba2_scan_bwd(gen) -> dict:
         cudacore_ginstr=f"{instr / 1e9:.3f}",
         scratch_MB=f"{plan.scratch * 4 / 1e6:.1f}", max_abs_err=f"{err:.3e}")
     return {"name": "mamba2_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+            "replaces": "src/repro/models/ssm.py:58",
+            "launches": None, "max_abs_err": err, "ms": ms_,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+
+
+# falcon-mamba-7b's selective scan in training (B, T, D = d_inner, N)
+FALCON_TRAIN_SCAN = (4, 2048, 8192, 16)
+# the Mamba-1 scan's backward against its plain version: f32 and bf16, N of
+# one (P = 1), two (the model's 16) and sixteen lanes a channel, T of one
+# step, at and past the direct path's 8, below, at and past a 64-step
+# chunk (two and more of the kernel's 32-step chunks, a ragged sub-chunk),
+# and 300; D = 203 leaves every channel block ragged; b and c slices of one
+# projection at an odd column; h0 and dh_last nonzero.  Then the underflow:
+# at step 3 of every 64, dt A <= -1000 (the decay is 0) and x = 0
+SEL_BWD_CASES = (
+    [(2, T, 203, N, dt, False) for dt in (torch.float32, torch.bfloat16)
+     for N in (4, 16, 128) for T in (1, 8, 9, 63, 64, 65, 300)]
+    + [(2, 300, 203, 16, torch.bfloat16, True),
+       (2, 130, 203, 4, torch.float32, True),
+       (1, 130, 40, 128, torch.bfloat16, True)])
+
+
+def _sel_bwd_inputs(gen, B, T, D, N, dtype, reset=False, offset=7):
+    """``_selective_inputs`` (b and c slices of one projection ``offset``
+    columns in, A = -(1..N), h0 random) and the output gradients dy
+    (B, T, D) and dh_last (B, D, N), float32 N(0, 1).  ``reset``: at step 3
+    of every 64, dt = 1000 (dt A <= -1000: the decay underflows to 0) and
+    x = 0 (so the input there is 0, not of that size)."""
+    dt, x, b, c, A, h0 = _selective_inputs(gen, B, T, D, N, dtype, offset)
+    if reset:
+        dt[:, 3::64] = 1000.0
+        x[:, 3::64] = 0
+    dy = torch.randn((B, T, D), generator=gen, device="cuda")
+    dh = torch.randn((B, D, N), generator=gen, device="cuda")
+    return dt, x, b, c, A, h0, dy, dh
+
+
+def _hold_sel_bwd(case, got, args) -> float:
+    """The Mamba-1 backward under ``_hold_bwd`` (n: N for ddt and dx, D for
+    db and dc, B T for dA)."""
+    dt, x, b, c, A, h0, dy, dh = args
+    want = ref.selective_scan_bwd_ref(dt, x.float(), b.float(), c.float(),
+                                      A, h0, dy, dh)
+    B, T, D = dt.shape
+    return _hold_bwd("selective_scan_bwd", case, got, want, x.dtype,
+                     max(b.shape[2], D, B * T))
+
+
+def _sel_bwd_cost(B, T, D, N, itemsize):
+    """The backward's exponentials (one a state-step) and bytes: dt, x, b,
+    c, A, h0, dy and dh_last read once; ddt, dx, db, dc, dA and dh0
+    written once."""
+    nbytes = (2 * (4 * B * T * D + itemsize * B * T * D
+                   + 2 * itemsize * B * T * N + 4 * D * N)
+              + 3 * 4 * B * D * N + 4 * B * T * D)
+    return B * T * D * N, nbytes
+
+
+def phase_selective_scan_bwd(gen) -> dict:
+    """The Mamba-1 scan's backward kernel against
+    ``ref.selective_scan_bwd_ref`` on ``SEL_BWD_CASES``; its plan against
+    the wrapper's mirror; two calls bit-identical; timed from a CUDA graph
+    at falcon-mamba-7b's training shape (B=4, T=2048, D=8192, N=16, bf16 x,
+    b, c) beside its plain version, its bound and its design's own floor
+    (three recompute levels, one exponential a state-step each, on the
+    special-function units).  No PyTorch call computes this function
+    (library "none").  Also: under grad on the card ``selective_scan`` is
+    the differentiable op (one forward and one backward launch), and
+    ``mamba_scan``, which has no backward, raises."""
+    for case in SEL_BWD_CASES:
+        args = _sel_bwd_inputs(gen, *case)
+        B, T, D, N, dtype, reset = case
+        tag = (B, T, D, N, str(dtype)[6:], "reset" if reset else "softplus")
+        _hold_sel_bwd(tag, ms.selective_scan_bwd(*args), args)
+    for shape in (FALCON_TRAIN_SCAN, (2, 65, 203, 4), (1, 1, 40, 128),
+                  (3, 300, 96, 33)):
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = ms.kernel_selective_scan_bwd_plan(*shape, dtype)
+            if plan != ms.selective_scan_bwd_plan(*shape):
+                raise AssertionError(f"the backward's plan {plan} at {shape}"
+                                     f", {dtype} is not the wrapper's "
+                                     "mirror of it")
+    args = _sel_bwd_inputs(gen, 1, 20, 16, 16, torch.bfloat16)
+    ins = [t.clone().requires_grad_() for t in args[:6]]
+    before = (ms.selective_scan.launches, ms.selective_scan_bwd.launches)
+    y, h = ms.selective_scan(*ins)
+    got = torch.autograd.grad((y * args[6]).sum() + (h * args[7]).sum(), ins)
+    if (ms.selective_scan.launches - before[0],
+            ms.selective_scan_bwd.launches - before[1]) != (1, 1):
+        raise AssertionError("selective_scan under grad did not run one "
+                             "forward and one backward launch")
+    _hold_sel_bwd((1, 20, 16, 16, "bfloat16", "op"), got, args)
+    decay, u, c = _scan_inputs(gen, 1, 20, 16, 16)
+    try:
+        ms.mamba_scan(decay.requires_grad_(), u, c)
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("mamba_scan ran under grad on a card without "
+                             "a backward")
+    B, T, D, N = FALCON_TRAIN_SCAN
+    args = _sel_bwd_inputs(gen, B, T, D, N, torch.bfloat16, offset=256)
+    got = ms.selective_scan_bwd(*args)
+    case = (B, T, D, N, "bfloat16", "softplus")
+    err = _hold_sel_bwd(case, got, args)
+    again = ms.selective_scan_bwd(*args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log("selective_scan_bwd", check="two calls bit-identical", shape=case,
+        ok=same)
+    if not same:
+        raise AssertionError("two selective scan backward calls differ: the "
+                             "kernel must be deterministic")
+    del got, again
+    ms_ = graph_ms(lambda: ms.selective_scan_bwd(*args), iters=5, replays=3)
+    plain_ms = cuda_ms(lambda: ref.selective_scan_bwd_ref(*args), iters=1,
+                       warmup=0)
+    exps, nbytes = _sel_bwd_cost(B, T, D, N, 2)
+    t_ops = exps / PEAK_SFU_OPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    plan = ms.selective_scan_bwd_plan(B, T, D, N)
+    log("kernel-time", name="selective_scan_bwd",
+        shape=f"B{B}_T{T}_D{D}_N{N}_bf16", timing="cuda_graph_device_time",
+        ms=f"{ms_:.4f}", plain_ms=f"{plain_ms:.4f}", library_ms="none",
+        plan=",".join(map(str, plan.as_ints())),
+        bound_ms=f"{max(t_ops, t_bytes):.4f}", sfu_bound_ms=f"{t_ops:.4f}",
+        bytes_bound_ms=f"{t_bytes:.4f}",
+        design_sfu_ms=f"{3 * t_ops:.4f}", mexp=f"{exps / 1e6:.1f}",
+        mbytes=f"{nbytes / 1e6:.2f}",
+        scratch_MB=f"{plan.scratch * 4 / 1e6:.1f}", max_abs_err=f"{err:.3e}")
+    return {"name": "selective_scan_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
             "replaces": "src/repro/models/ssm.py:58",
             "launches": None, "max_abs_err": err, "ms": ms_,
@@ -1857,7 +2001,7 @@ def _time_flash_bwd(gen, B, T, H, K, D, Tk=None, causal=True) -> dict:
 
 def _kernel_share(prof, wall_us, label) -> None:
     """Busy share, the top kernels, and device time by kind (GEMMs, flash
-    forward and backward, the Mamba-2 scan forward and backward, the rest:
+    forward and backward, the scans' forward and backward, the rest:
     elementwise, copies, reductions) of one profiled region."""
     kernels: dict[str, list] = {}
     for ev in prof.events():
@@ -1873,9 +2017,10 @@ def _kernel_share(prof, wall_us, label) -> None:
     gemm_us = sum(us for n, (us, _) in kernels.items()
                   if any(w in n for w in ("nvjet", "gemm", "xmma", "cutlass")))
     scan_bwd_us = sum(us for n, (us, _) in kernels.items()
-                      if "mamba2_bwd" in n)
+                      if "mamba2_bwd" in n or "selective_bwd" in n)
     scan_fwd_us = sum(us for n, (us, _) in kernels.items()
-                      if "mamba2_" in n and "mamba2_bwd" not in n)
+                      if ("mamba2_" in n or "selective_" in n)
+                      and "mamba2_bwd" not in n and "selective_bwd" not in n)
     scan_us = scan_fwd_us + scan_bwd_us
     log("profile", step=label, wall_ms=f"{wall_us / 1e3:.2f}",
         device_ms=(f"{dev_us / 1e3:.2f}" if dev_us else "not_measured"),
@@ -1915,21 +2060,26 @@ def _data_cfg(cfg, batch: int) -> DataConfig:
 
 
 def phase_train_with_trainer(arch: str, n_layers: int | None,
-                             label: str) -> dict[str, int]:
+                             label: str, state_bits: int = 32,
+                             remat: str | None = None) -> dict[str, int]:
     """``arch`` at full width (and ``n_layers`` layers, where its full-depth
     state does not fit one card) through ``make_train_step`` and the
     ``Trainer``, with the launcher's settings (the launcher has no depth
-    option, as the reference's has none); the VLM's cross gates set to
+    option, as the reference's has none) but for AdamW's ``state_bits``
+    and the remat policy, where given; the VLM's cross gates set to
     ``VLM_GATE``, so that its cross blocks' gradients are not zero."""
     cfg = registry.get(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if remat is not None:
+        cfg = dataclasses.replace(cfg, remat_policy=remat)
     ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
 
     def run() -> dict:
         model = model_lib.build(cfg, "cuda")
         opt_cfg = adamw.AdamWConfig(lr=3e-4, total_steps=TRAIN_STEPS,
-                                    warmup_steps=max(1, TRAIN_STEPS // 10))
+                                    warmup_steps=max(1, TRAIN_STEPS // 10),
+                                    state_bits=state_bits)
         state = train_step.make_train_state(
             model, opt_cfg, torch.Generator(device="cuda").manual_seed(0))
         if "cross_blocks" in state["params"]:
@@ -1958,11 +2108,13 @@ def _attention_layers(cfg) -> int:
     return n
 
 
-def _scan_layers(cfg) -> int:
-    """Mamba-2 scan launches of one forward (one a Mamba-2 layer)."""
-    if cfg.family in ("ssm", "hybrid") and cfg.mamba_version == 2:
-        return cfg.n_layers
-    return 0
+def _scan_layers(cfg) -> dict[str, int]:
+    """Scan launches of one forward, by kernel: one a Mamba layer, of the
+    Mamba-1 form (``selective_scan``) or of the Mamba-2 form."""
+    if cfg.family not in ("ssm", "hybrid"):
+        return {}
+    return {"selective_scan" if cfg.mamba_version == 1 else "mamba2_scan":
+            cfg.n_layers}
 
 
 def _train(cfg, ckpt_dir, run, label) -> dict[str, int]:
@@ -1988,7 +2140,10 @@ def _train(cfg, ckpt_dir, run, label) -> dict[str, int]:
     steady = [m["sec_per_step"] for m in out["metrics"][1:]]
     log("train", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
         params_B=f"{n_params / 1e9:.3f}", dtype=cfg.dtype,
-        remat=cfg.remat_policy, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        remat=cfg.remat_policy,
+        adamw_bits=(8 if isinstance(trainer.state["opt"]["m"]["embed"], dict)
+                    else 32),
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ,
         media_tokens=cfg.n_media_tokens,
         steps=out["final_step"],
         ms_per_step_median_after_first=f"{statistics.median(steady) * 1e3:.1f}",
@@ -2000,11 +2155,12 @@ def _train(cfg, ckpt_dir, run, label) -> dict[str, int]:
             x == x and abs(x) < float("inf") for x in losses):
         raise AssertionError(f"train losses {losses}")
     want = dict.fromkeys(COUNTED, 0)
-    attn, scans = _attention_layers(cfg), _scan_layers(cfg)
+    attn = _attention_layers(cfg)
     want["flash_attention"] = 2 * attn * TRAIN_STEPS     # + recompute
     want["flash_attention_bwd"] = attn * TRAIN_STEPS
-    want["mamba2_scan"] = 2 * scans * TRAIN_STEPS        # + recompute
-    want["mamba2_scan_bwd"] = scans * TRAIN_STEPS
+    for scan, n in _scan_layers(cfg).items():
+        want[scan] = 2 * n * TRAIN_STEPS                 # + recompute
+        want[scan + "_bwd"] = n * TRAIN_STEPS
     if counts != want:
         raise AssertionError(f"train launches {counts} != {want}")
     batch = trainer.corpus.batch_at(TRAIN_STEPS)
@@ -2025,9 +2181,11 @@ def _train(cfg, ckpt_dir, run, label) -> dict[str, int]:
 @contextlib.contextmanager
 def _plain_backward():
     """The differentiable ops' backwards on their plain versions, the flash
-    op's on ``flash_attention_bwd_ref`` and the Mamba-2 scan op's on
-    ``mamba2_scan_bwd_ref`` (a check only)."""
+    op's on ``flash_attention_bwd_ref`` and the scan ops' on
+    ``selective_scan_bwd_ref`` and ``mamba2_scan_bwd_ref`` (a check
+    only)."""
     flash, scan = fa.flash_attention_bwd, ms.mamba2_scan_bwd
+    sel = ms.selective_scan_bwd
 
     def plain(q, k, v, o, lse, do, *, causal=True, window=0, softcap=0.0):
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
@@ -2035,11 +2193,13 @@ def _plain_backward():
 
     fa.flash_attention_bwd = plain
     ms.mamba2_scan_bwd = ref.mamba2_scan_bwd_ref
+    ms.selective_scan_bwd = ref.selective_scan_bwd_ref
     try:
         yield
     finally:
         fa.flash_attention_bwd = flash
         ms.mamba2_scan_bwd = scan
+        ms.selective_scan_bwd = sel
 
 
 def phase_train_grad_vs_plain(arch: str) -> None:
@@ -2054,7 +2214,9 @@ def phase_train_grad_vs_plain(arch: str) -> None:
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in
              SyntheticCorpus(_data_cfg(cfg, 1)).batch_at(0).items()}
     want = {"flash_attention_bwd": _attention_layers(cfg),
-            "mamba2_scan_bwd": _scan_layers(cfg)}
+            "selective_scan_bwd": 0, "mamba2_scan_bwd": 0}
+    for scan, n in _scan_layers(cfg).items():
+        want[scan + "_bwd"] = n
 
     def bwd_launches():
         return {name: COUNTED[name].launches for name in want}
@@ -2115,8 +2277,8 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     records = [phase_flash(gen), phase_flash_backward(gen),
                phase_mamba_scan(gen), phase_selective_scan(gen),
-               phase_mamba2_scan(gen), phase_mamba2_scan_bwd(gen),
-               phase_lut_matmul(gen)]
+               phase_selective_scan_bwd(gen), phase_mamba2_scan(gen),
+               phase_mamba2_scan_bwd(gen), phase_lut_matmul(gen)]
     phase_moe_layer(gen)
     by_name = {r["name"]: r for r in records}
     for arch in ARCHS:
@@ -2159,6 +2321,15 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_grad_vs_plain("zamba2-2.7b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_counts = phase_train_with_trainer(
+        "falcon-mamba-7b", None, "train-ssm", state_bits=8, remat="full")
+    by_name["selective_scan_bwd"]["launches"] = train_counts[
+        "selective_scan_bwd"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_grad_vs_plain("falcon-mamba-7b")
     gc.collect()
     torch.cuda.empty_cache()
     missing = [r["name"] for r in records if not r["launches"]]

@@ -4,7 +4,7 @@
 // Replaces repro/kernels/mamba_scan.py::mamba_scan, the Pallas TPU kernel:
 //   h_t = decay_t * h_{t-1} + u_t,  y_t = sum_n h_t[:, n] * c_t[n],  h_{-1} = 0
 // over decay, u (B, T, D, N), c (B, T, N), all float32, y (B, T, D) float32.
-// Four C entry points (and three that report a call's plan):
+// Five C entry points (and four that report a call's plan):
 //   * mamba_scan_fwd: the TPU kernel's contract, any T (no time block bt);
 //   * selective_scan_fwd: the fused Mamba-1 form the model calls, as
 //     repro/models/ssm.py::mamba1_block's make_chunk/emit_chunk compute it:
@@ -14,6 +14,10 @@
 //     h0 (B, D, N) f32, and writes y (B, T, D) f32 and h_last (B, D, N) f32;
 //     the (B, T, D, N) decay and u are never stored.  It and mamba_scan_fwd
 //     share one recurrence core (recur below);
+//   * selective_scan_bwd: that form's gradient (ddt, dx, db, dc, dA, dh0
+//     from dy and dh_last), a reverse-time walk on the CUDA cores over
+//     states it recomputes, in selective_scan_fwd's lane layout (below at
+//     "selective_scan_bwd");
 //   * mamba2_scan_fwd: the Mamba-2 form, as repro/models/ssm.py::mamba2_block
 //     computes it: a scalar decay exp(dt * A_h) a head, u = (dt * x) * b over
 //     a head's (P, N) state, b and c shared by all heads, from h0, returning
@@ -23,8 +27,10 @@
 //     float32 form run on the CUDA cores.  Its design is at its code below
 //     ("mamba2_scan");
 //   * mamba2_scan_bwd: that form's gradient (ddt, dx, db, dc, dA, dh0 from
-//     dy and dh_last), a reverse-time walk on the CUDA cores over states
-//     it recomputes (below at "mamba2_scan_bwd").
+//     dy and dh_last): a bf16 call with N <= 64 and T > 8 the chunked (SSD)
+//     form's backward on the tensor cores, the others a reverse-time walk
+//     on the CUDA cores over states it recomputes (below at
+//     "mamba2_scan_bwd").
 //
 // Differences from the TPU kernel, none of which change the result beyond
 // float32 rounding order: the TPU walks time blocks of bt steps on a
@@ -69,8 +75,9 @@
 //     lane reads its inputs straight from global memory, and h0 / h_last
 //     move as 16-byte vectors.
 // plan_selective below makes these choices; kernels/mamba_scan.py mirrors it
-// for the tests.  Neither of these two kernels uses the tensor cores (only
-// the Mamba-2 form's chunked path does); the measured times are in PERF.md.
+// for the tests.  Neither of these two kernels, nor the Mamba-1 form's
+// backward, uses the tensor cores (only the Mamba-2 form's chunked paths
+// do); the measured times are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -3285,6 +3292,510 @@ cudaError_t launch_m2_bwd_chunked(const M2Bwd& a, const M2BwdPlan& pl,
   return launch_m2_bwd_sums<__nv_bfloat16>(a, st);
 }
 
+// ---- selective_scan_bwd: the backward of the Mamba-1 form -------------------
+// Stands in for jax.grad of repro/models/ssm.py::fused_ssm_scan as
+// mamba1_block drives it (make_chunk / emit_chunk, the chunk body under
+// jax.checkpoint, so the reference too recomputes its states).  From
+// selective_scan_fwd's operands, dy (B, T, D) and dh_last (B, D, N), both
+// f32, it gives, with a_t = dt_t A (one value a (channel, state)),
+// decay_t = exp(a_t) and g the state's gradient walked from t = T - 1 down
+// (g_t = decay_{t+1} g_{t+1} + dy_t c_t, starting from dh_last):
+//   dx_t = dt_t sum_n g_t b_t          dc_t = sum_d dy_t h_t
+//   db_t = sum_d dt_t x_t g_t          da_t = decay_t g_t h_{t-1}
+//   ddt_t = sum_n A da_t + x_t sum_n g_t b_t,  dA = sum_{b,t} dt_t da_t,
+//   dh0 = decay_0 g_0
+// (ref.selective_scan_bwd_ref, step by step).  The decay is one value a
+// (channel, state), not a scalar a head, so the Mamba-2 form's chunked
+// (SSD) backward on the tensor cores does not apply: this is a reverse-time
+// walk on the CUDA cores in selective_scan_fwd's lane layout, P lanes a
+// channel, each holding S = 8 of its N states in registers (P =
+// next_pow2(N / 8)), one block a channel block of SB_NT / P channels and
+// a batch row.
+//
+// The walk needs h_{t-1} and h_t in reverse order.  They are recomputed,
+// never recovered by dividing by the decay (which underflows to 0: dt A =
+// -1000 is a test case), in three levels, each a forward pass with the
+// forward kernel's arithmetic (ex2 of dt A log2 e, one fma a state-step):
+//   1. over T, storing the state entering every SB_Q-step chunk in device
+//      memory (cb: a block's own slots, each read back only by the thread
+//      that wrote it);
+//   2. walking the chunks in reverse, over a chunk from its stored state,
+//      keeping the state entering each SB_SC-step sub-chunk in shared
+//      memory (a thread's own slots);
+//   3. walking the sub-chunks in reverse, over a sub-chunk from its slot,
+//      keeping each step's state and decay in registers; then the reverse
+//      steps over them, with g in registers.
+// A sub-chunk's inputs (dt, x, dy of the block's channels; b, c padded to
+// NP = 8 P states with zeros) are staged in shared memory by the whole
+// block, the loads of its steps in flight together, into one of two
+// buffers, and fetched into registers one sub-chunk ahead so that the
+// loads run under the current sub-chunk's work (mamba2_bwd_kernel's
+// pattern); the rows of the sub-chunk after that are prefetched into L2
+// (a hint: no register, no wait), so that the fetch waits on L2, not on
+// device memory.  Steps past T and channels past D read zeros (dt = 0:
+// decay 1, u 0, no gradient), so every step runs unguarded.
+//
+// Sums.  dx and ddt sum over a channel's N states, which its P lanes hold
+// (log2 P xor shuffles).  db and dc sum over all D channels: each reverse
+// step reduce-scatters a lane's 2 S terms over the warp's channels with
+// xor shuffles (15 a step at P = 2, each lane left with one sum), the
+// warps' sums go to shared memory, and after the sub-chunk the block adds
+// its warps in a fixed order and writes one partial sum a (b, t, channel
+// block) to device memory; a second kernel adds the channel blocks in a
+// fixed order.  dA is summed over t in registers and written a batch row;
+// a third kernel adds the rows in order.  There are no float atomics: two
+// calls are bit-identical.
+//
+// What bounds the function at falcon-mamba-7b's training shape (B=4,
+// T=2048, D=8192, N=16, bf16 x, b, c): it reads dt, x, dy, b, c, A, h0,
+// dh_last and writes their gradients once, ~1.08 GB, 0.32 ms at 3.35 TB/s;
+// its B T D N = 1.07 G exponentials take 0.26 ms on the special-function
+// units.  This design evaluates each exponential once a level, three
+// times (0.77 ms on those units), and issues ~30 instructions a state-step
+// on the CUDA cores (three forward steps of ~4, the reverse step's ~9 and
+// its share of the shuffles).  The call has only B D P lanes of work
+// (65536 at that shape, ~15.5 warps an SM): SB_MINB = 4 caps the
+// registers at 128 so that its 512 blocks run as one wave (three an SM
+// ran as two and took ~1.5x as long).  The forms timed
+// (benchmarks/selective_scan_bwd_sweep.py) are in PERF.md.
+
+constexpr int SB_Q = 16;                  // steps a chunk (level 1)
+constexpr int SB_SC = 4;                  // steps a sub-chunk (level 2)
+constexpr int SB_MINB = 4;                // blocks an SM (caps the registers)
+constexpr int SB_PREFETCH = 1;            // rows two sub-chunks ahead to L2
+constexpr int SB_NT = 128;                // threads a block
+constexpr int SB_NW = SB_NT / 32;
+constexpr int SB_S = 8;                   // states a lane
+constexpr int SB_SUBS = SB_Q / SB_SC;     // sub-chunks a chunk
+constexpr int SB_TILE = SB_S * SB_NT;     // floats of a block's state slot
+constexpr float LN2 = 0.6931471805599453f;
+static_assert(SB_Q % SB_SC == 0, "a chunk is whole sub-chunks");
+
+struct SelBwd {
+  SelArgs f;              // the forward's operands (y, h_last unused)
+  const float* dy;        // (B, T, D) f32, contiguous
+  const float* dh_last;   // (B, D, N) f32, contiguous
+  float* ddt;             // (B, T, D) f32
+  void* dx;               // (B, T, D), x's dtype, contiguous
+  void* db;               // (B, T, N), b's dtype, contiguous
+  void* dc;
+  float* dA;              // (D, N)
+  float* dh0;             // (B, D, N)
+  float* cb;              // scratch: the chunk states, a block's slots
+  float* dAp;             // dA's partial sums a batch row (B, D, N)
+  float* dbp;             // db's and dc's partial sums a channel block
+  float* dcp;             // (B, T, NB, N)
+  int NB, nchunks;
+};
+
+// How a backward call runs: S states a lane, P lanes a channel, CH
+// channels a block, NB channel blocks, chunks of SB_Q steps, the main
+// kernel's shared memory and the scratch the call needs, in floats.
+struct SelBwdPlan {
+  int S, P, CH, NB, nchunks;
+  long long smem, scratch;
+};
+
+// The main kernel's shared memory: SB_SUBS state slots, two sub-chunks'
+// staged inputs (dt, x, dy [SB_SC][CH]; b, c [SB_SC][NP], as f32) and a
+// sub-chunk's warp sums of db and dc ([SB_SC][warp][db | dc][NP]).
+template <int P>
+struct SbStage {
+  static constexpr int CH = SB_NT / P, NP = SB_S * P;
+  static constexpr int DT = 0, X = SB_SC * CH, DY = 2 * SB_SC * CH,
+                       BV = 3 * SB_SC * CH, CV = BV + SB_SC * NP,
+                       SIZE = CV + SB_SC * NP;
+  // dt, x, dy (and b, c) a thread, the last load guarded where the stage
+  // is not whole loads of the block
+  static constexpr int XE = (SB_SC * CH + SB_NT - 1) / SB_NT;
+  static constexpr int BE = (SB_SC * NP + SB_NT - 1) / SB_NT;
+  static constexpr int RED = SB_SC * SB_NW * 2 * NP;
+  static constexpr long long SMEM =
+      4ll * (SB_SUBS * SB_TILE + 2 * SIZE + RED);
+  static_assert(BV % 4 == 0 && NP % 8 == 0 && SIZE % 4 == 0,
+                "b and c are read as 16-byte vectors");
+};
+
+long long sel_bwd_smem_bytes(int P) {
+  const int CH = SB_NT / P, NP = SB_S * P;
+  return 4ll * (SB_SUBS * SB_TILE + 2 * (3 * SB_SC * CH + 2 * SB_SC * NP) +
+                SB_SC * SB_NW * 2 * NP);
+}
+
+SelBwdPlan plan_selective_bwd(int B, int T, int D, int N) {
+  SelBwdPlan pl{};
+  pl.S = SB_S;
+  pl.P = lanes_for(N, SB_S);
+  pl.CH = SB_NT / pl.P;
+  pl.NB = (D + pl.CH - 1) / pl.CH;
+  pl.nchunks = (T + SB_Q - 1) / SB_Q;
+  pl.smem = sel_bwd_smem_bytes(pl.P);
+  pl.scratch = (long long)B * pl.NB * pl.nchunks * SB_TILE +
+               (long long)B * D * N + 2ll * B * T * pl.NB * N;
+  return pl;
+}
+
+// A thread's 8 states in a state slot, as 2 float4 at [i][thread]; plain
+// accesses, not __ldg: the thread itself wrote the slot in this launch
+__device__ __forceinline__ void slot8_store(float* s, const float (&h)[8]) {
+  float4* q = reinterpret_cast<float4*>(s) + threadIdx.x;
+  q[0] = make_float4(h[0], h[1], h[2], h[3]);
+  q[SB_NT] = make_float4(h[4], h[5], h[6], h[7]);
+}
+
+__device__ __forceinline__ void slot8_load(float (&h)[8], const float* s) {
+  const float4* q = reinterpret_cast<const float4*>(s) + threadIdx.x;
+  const float4 u = q[0], w = q[SB_NT];
+  h[0] = u.x; h[1] = u.y; h[2] = u.z; h[3] = u.w;
+  h[4] = w.x; h[5] = w.y; h[6] = w.z; h[7] = w.w;
+}
+
+// the cache line holding p into L2: a hint, no register, no wait
+__device__ __forceinline__ void prefetch_line(const void* p) {
+  asm volatile("prefetch.L2 [%0];" ::"l"(p));
+}
+
+__device__ __forceinline__ void smem_read8(float (&v)[8], const float* p) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  const float4 w = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+  v[4] = w.x; v[5] = w.y; v[6] = w.z; v[7] = w.w;
+}
+
+// One reduce-scatter round over the lanes that differ in bit M: a lane
+// keeps the upper HALF of its values if its bit is set, else the lower,
+// adding its partner's; `off` tracks which of the 16 the kept ones are.
+template <int HALF>
+__device__ __forceinline__ void rs_round(float (&v)[2 * SB_S], int lane,
+                                         int M, int& off) {
+  const bool hi = (lane & M) != 0;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = hi ? v[i] : v[i + HALF];
+    const float keep = hi ? v[i + HALF] : v[i];
+    v[i] = keep + __shfl_xor_sync(FULL, send, M);
+  }
+  if (hi) off += HALF;
+}
+
+// A reverse step's db and dc terms (v[0..S) of db, v[S..2S) of dc, this
+// lane's states q*S ..) summed over the warp's 32 / P channels (lane bits
+// log2 P .. 4), into dst[db | dc][NP]; each sum is written once
+template <int P>
+__device__ __forceinline__ void channel_sums(float (&v)[2 * SB_S], float* dst,
+                                             int lane, int q) {
+  int off = 0;
+  rs_round<8>(v, lane, 16, off);
+  if constexpr (P <= 8) rs_round<4>(v, lane, 8, off);
+  if constexpr (P <= 4) rs_round<2>(v, lane, 4, off);
+  if constexpr (P <= 2) rs_round<1>(v, lane, 2, off);
+  if constexpr (P == 1) {        // the last channel bit: both lanes add
+    v[0] += __shfl_xor_sync(FULL, v[0], 1);
+    if (lane & 1) return;
+  }
+  constexpr int KEEP = P >= 16 ? 8 : P == 8 ? 4 : P == 4 ? 2 : 1;
+#pragma unroll
+  for (int i = 0; i < KEEP; ++i) {
+    const int k = off + i;
+    dst[(k / SB_S) * SB_S * P + q * SB_S + k % SB_S] = v[i];
+  }
+}
+
+template <typename TX, int P>
+__global__ void __launch_bounds__(SB_NT, SB_MINB)
+selective_bwd_kernel(const SelBwd a) {
+  using St = SbStage<P>;
+  constexpr int S = SB_S, CH = St::CH, NP = St::NP, SC = SB_SC;
+  extern __shared__ __align__(16) float sel_bwd_smem[];
+  float* slots = sel_bwd_smem;                  // level 2: SB_SUBS slots
+  float* stage = slots + SB_SUBS * SB_TILE;     // two sub-chunks' inputs
+  float* red = stage + 2 * St::SIZE;            // a sub-chunk's warp sums
+  const SelArgs& f = a.f;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int cl = tid / P, q = tid % P, n0 = q * S;
+  const int cblk = blockIdx.x, bb = blockIdx.y, d0 = cblk * CH, d = d0 + cl;
+  const int T = f.T, D = f.D, N = f.N;
+  const bool live = d < D;
+  const int dl = live ? d : 0;
+  float* cb = a.cb + ((long long)bb * a.NB + cblk) * a.nchunks * SB_TILE;
+  const long long hoff = ((long long)bb * D + dl) * N + n0;
+  float A2[S];
+  load_states<S>(A2, f.A + (long long)dl * N + n0, n0, N, live, f.vec);
+#pragma unroll
+  for (int j = 0; j < S; ++j) A2[j] *= LOG2E;
+  const float* dtg = f.dt + bb * f.dt_sb + d0;
+  const TX* xg = static_cast<const TX*>(f.x) + bb * f.x_sb + d0;
+  const TX* bg = static_cast<const TX*>(f.b) + bb * f.b_sb;
+  const TX* cg = static_cast<const TX*>(f.c) + bb * f.c_sb;
+  const long long row0 = (long long)bb * T * D;  // dy's, dx's, ddt's row
+  const float* dyg = a.dy + row0 + d0;
+  TX* dxg = static_cast<TX*>(a.dx) + row0 + dl;
+  float* ddtg = a.ddt + row0 + dl;
+
+  // the inputs of steps t0 .. t0 + SC - 1 (dy and c only for the reverse
+  // walk) into registers, fetched one sub-chunk ahead; put stages them
+  float rdt[St::XE], rx[St::XE], rdy[St::XE], rbv[St::BE], rcv[St::BE];
+  auto fetch = [&](int t0, bool reverse) {
+#pragma unroll
+    for (int i = 0; i < St::XE; ++i) {
+      const int e = tid + i * SB_NT, s = e / CH, c = e % CH;
+      const bool ok = e < SC * CH && t0 + s < T && d0 + c < D;
+      rdt[i] = ok ? __ldg(dtg + (t0 + s) * f.dt_st + c) : 0.f;
+      rx[i] = ok ? load(xg + (t0 + s) * f.x_st + c) : 0.f;
+      rdy[i] = ok && reverse ? __ldg(dyg + (long long)(t0 + s) * D + c)
+                             : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < St::BE; ++i) {
+      const int e = tid + i * SB_NT, s = e / NP, n = e % NP;
+      const bool ok = e < SC * NP && t0 + s < T && n < N;
+      rbv[i] = ok ? load(bg + (t0 + s) * f.b_st + n) : 0.f;
+      rcv[i] = ok && reverse ? load(cg + (t0 + s) * f.c_st + n) : 0.f;
+    }
+  };
+  auto put = [&](float* st) {
+#pragma unroll
+    for (int i = 0; i < St::XE; ++i) {
+      const int e = tid + i * SB_NT;
+      if (e < SC * CH) {
+        st[St::DT + e] = rdt[i];
+        st[St::X + e] = rx[i];
+        st[St::DY + e] = rdy[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < St::BE; ++i) {
+      const int e = tid + i * SB_NT;
+      if (e < SC * NP) {
+        st[St::BV + e] = rbv[i];
+        st[St::CV + e] = rcv[i];
+      }
+    }
+  };
+  // the sub-chunks in the order they run: chunk k's forward sub-chunks
+  // (all but its last, from the chunk state), then its sub-chunks in
+  // reverse; a chunk of one sub-chunk has only the reverse one
+  auto nsub_of = [&](int k) {
+    return min(SB_SUBS, (T - k * SB_Q + SC - 1) / SC);
+  };
+  auto fetch_chunk = [&](int k) { fetch(k * SB_Q, nsub_of(k) == 1); };
+  // the rows of steps t0 .. t0 + SC - 1 into L2, one step a thread, for
+  // the fetch after the next (the sub-chunk two runs ahead, or a guess at
+  // it: a hint costs no wait), so that fetch waits for L2, not DRAM
+  auto prefetch = [&](int t0) {
+    const int t = t0 + tid;
+    if (!SB_PREFETCH || tid >= SC || t < 0 || t >= T) return;
+    constexpr int XL = 128 / (int)sizeof(TX);       // x's elements a line
+#pragma unroll
+    for (int o = 0; o < CH; o += 32) {
+      prefetch_line(dtg + t * f.dt_st + o);
+      prefetch_line(dyg + (long long)t * D + o);
+    }
+#pragma unroll
+    for (int o = 0; o < CH; o += XL) prefetch_line(xg + t * f.x_st + o);
+    prefetch_line(bg + t * f.b_st);
+    prefetch_line(cg + t * f.c_st);
+  };
+  // h = decay_t h + (dt_t x_t) b_t over the staged steps
+  auto forward = [&](float (&h)[S], const float* st) {
+#pragma unroll
+    for (int s = 0; s < SC; ++s) {
+      const float dt = st[St::DT + s * CH + cl];
+      const float dx = dt * st[St::X + s * CH + cl];
+      float bv[S];
+      smem_read8(bv, st + St::BV + s * NP + n0);
+#pragma unroll
+      for (int j = 0; j < S; ++j)
+        h[j] = fmaf(hopper::ex2(dt * A2[j]), h[j], dx * bv[j]);
+    }
+  };
+
+  // 1. the state entering every chunk
+  float h[S], g[S], dAr[S];
+  load_states<S>(h, f.h0 + hoff, n0, N, live, f.vec);
+  int buf = 0;
+  const int nfwd = (a.nchunks - 1) * SB_SUBS;   // sub-chunks before the last
+  if (nfwd > 0)
+    fetch(0, false);
+  else
+    fetch_chunk(0);
+  for (int i = 0; i < nfwd; ++i, buf ^= 1) {
+    if (i % SB_SUBS == 0) slot8_store(cb + (i / SB_SUBS) * SB_TILE, h);
+    float* st = stage + buf * St::SIZE;
+    put(st);
+    __syncthreads();
+    if (i + 1 < nfwd)
+      fetch((i + 1) * SC, false);
+    else
+      fetch_chunk(a.nchunks - 1);
+    prefetch((i + 2) * SC);
+    forward(h, st);
+  }
+  slot8_store(cb + (a.nchunks - 1) * SB_TILE, h);
+
+  load_states<S>(g, a.dh_last + hoff, n0, N, live, f.vec);
+#pragma unroll
+  for (int j = 0; j < S; ++j) dAr[j] = 0.f;
+  for (int k = a.nchunks - 1; k >= 0; --k) {
+    // 2. the state entering every sub-chunk of chunk k
+    const int c0 = k * SB_Q, nsub = nsub_of(k);
+    slot8_load(h, cb + k * SB_TILE);
+    for (int j = 0; j + 1 < nsub; ++j, buf ^= 1) {
+      slot8_store(slots + j * SB_TILE, h);
+      float* st = stage + buf * St::SIZE;
+      put(st);
+      __syncthreads();
+      if (j + 2 < nsub)
+        fetch(c0 + (j + 1) * SC, false);
+      else
+        fetch(c0 + (nsub - 1) * SC, true);
+      prefetch(c0 + (j + 2 < nsub ? j + 2 : nsub - 2) * SC);
+      forward(h, st);
+    }
+    for (int j = nsub - 1; j >= 0; --j, buf ^= 1) {
+      // 3. the sub-chunk's states and decays into registers (hs[s] is
+      // h_{t0+s-1}), then the reverse walk over them
+      const int t0 = c0 + j * SC;
+      float* st = stage + buf * St::SIZE;
+      if (j < nsub - 1) slot8_load(h, slots + j * SB_TILE);
+      put(st);
+      __syncthreads();
+      if (j > 0)
+        fetch(t0 - SC, true);
+      else if (k > 0)
+        fetch_chunk(k - 1);
+      prefetch(j > 1 ? t0 - 2 * SC : (k - 1) * SB_Q + (j ? 0 : SC));
+      float hs[SC + 1][S], dec[SC][S];
+#pragma unroll
+      for (int jj = 0; jj < S; ++jj) hs[0][jj] = h[jj];
+#pragma unroll
+      for (int s = 0; s < SC; ++s) {
+        const float dt = st[St::DT + s * CH + cl];
+        const float dx = dt * st[St::X + s * CH + cl];
+        float bv[S];
+        smem_read8(bv, st + St::BV + s * NP + n0);
+#pragma unroll
+        for (int jj = 0; jj < S; ++jj) {
+          dec[s][jj] = hopper::ex2(dt * A2[jj]);
+          hs[s + 1][jj] = fmaf(dec[s][jj], hs[s][jj], dx * bv[jj]);
+        }
+      }
+#pragma unroll
+      for (int s = SC - 1; s >= 0; --s) {
+        const float dt = st[St::DT + s * CH + cl];
+        const float xv = st[St::X + s * CH + cl];
+        const float dyv = st[St::DY + s * CH + cl];
+        const float dtx = dt * xv;
+        float bv[S], cv[S], v[2 * S];
+        smem_read8(bv, st + St::BV + s * NP + n0);
+        smem_read8(cv, st + St::CV + s * NP + n0);
+        float gb = 0.f, ada = 0.f;     // <g_t, b_t> and <A log2 e, da_t>
+#pragma unroll
+        for (int jj = 0; jj < S; ++jj) {
+          g[jj] = fmaf(dyv, cv[jj], g[jj]);                 // g_t
+          gb = fmaf(g[jj], bv[jj], gb);
+          const float da = dec[s][jj] * g[jj] * hs[s][jj];
+          ada = fmaf(A2[jj], da, ada);
+          dAr[jj] = fmaf(dt, da, dAr[jj]);
+          v[jj] = dtx * g[jj];                               // db's term
+          v[S + jj] = dyv * hs[s + 1][jj];                   // dc's term
+          g[jj] *= dec[s][jj];                               // decay_t g_t
+        }
+#pragma unroll
+        for (int o = P / 2; o > 0; o >>= 1) {
+          gb += __shfl_xor_sync(FULL, gb, o);
+          ada += __shfl_xor_sync(FULL, ada, o);
+        }
+        const int t = t0 + s;
+        if (live && q == 0 && t < T) {
+          store_as(dxg + (long long)t * D, dt * gb);
+          ddtg[(long long)t * D] = fmaf(LN2, ada, xv * gb);
+        }
+        channel_sums<P>(v, red + (s * SB_NW + warp) * 2 * NP, lane, q);
+      }
+      __syncthreads();
+      // the block's partial sums of db and dc, its warps in a fixed order
+      const int steps = min(SC, T - t0);
+      for (int e = tid; e < steps * 2 * NP; e += SB_NT) {
+        const int s = e / (2 * NP), v = e % (2 * NP), n = v % NP;
+        const float* w = red + s * SB_NW * 2 * NP + v;
+        float sum = 0.f;
+#pragma unroll
+        for (int k2 = 0; k2 < SB_NW; ++k2) sum += w[k2 * 2 * NP];
+        if (n < N) {
+          const long long row = ((long long)bb * T + t0 + s) * a.NB + cblk;
+          (v < NP ? a.dbp : a.dcp)[row * N + n] = sum;
+        }
+      }
+    }
+  }
+  store_states<S>(g, a.dh0 + hoff, n0, N, live, f.vec);   // decay_0 g_0
+  store_states<S>(dAr, a.dAp + hoff, n0, N, live, f.vec);
+}
+
+// db, dc (B, T, N): each the sum of its NB channel blocks' partial sums,
+// in order; one thread a (b, t, n)
+template <typename TX>
+__global__ void __launch_bounds__(256) selective_bwd_bc_kernel(const SelBwd a) {
+  const SelArgs& f = a.f;
+  const long long e = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (e >= (long long)f.B * f.T * f.N) return;
+  const long long base = e / f.N * a.NB * f.N + e % f.N;
+  float sb = 0.f, sc = 0.f;
+  for (int k = 0; k < a.NB; ++k) {
+    sb += a.dbp[base + (long long)k * f.N];
+    sc += a.dcp[base + (long long)k * f.N];
+  }
+  store_as(static_cast<TX*>(a.db) + e, sb);
+  store_as(static_cast<TX*>(a.dc) + e, sc);
+}
+
+// dA (D, N): the batch rows' partial sums, in order; one thread a (d, n)
+__global__ void __launch_bounds__(256) selective_bwd_A_kernel(const SelBwd a) {
+  const SelArgs& f = a.f;
+  const long long e = (long long)blockIdx.x * 256 + threadIdx.x;
+  const long long dn = (long long)f.D * f.N;
+  if (e >= dn) return;
+  float s = 0.f;
+  for (int b = 0; b < f.B; ++b) s += a.dAp[b * dn + e];
+  a.dA[e] = s;
+}
+
+template <typename TX, int P>
+cudaError_t launch_sel_bwd(const SelBwd& a, const SelBwdPlan& pl,
+                           cudaStream_t st) {
+  using Sg = SbStage<P>;
+  if (pl.smem != Sg::SMEM) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      selective_bwd_kernel<TX, P>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sg::SMEM);
+  if (e != cudaSuccess) return e;
+  const SelArgs& f = a.f;
+  selective_bwd_kernel<TX, P>
+      <<<dim3(pl.NB, f.B), SB_NT, Sg::SMEM, st>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const long long btn = (long long)f.B * f.T * f.N;
+  const long long dn = (long long)f.D * f.N;
+  selective_bwd_bc_kernel<TX>
+      <<<(unsigned)((btn + 255) / 256), 256, 0, st>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  selective_bwd_A_kernel<<<(unsigned)((dn + 255) / 256), 256, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename TX>
+cudaError_t dispatch_sel_bwd(const SelBwd& a, const SelBwdPlan& pl,
+                             cudaStream_t st) {
+  switch (pl.P) {
+    case 1: return launch_sel_bwd<TX, 1>(a, pl, st);
+    case 2: return launch_sel_bwd<TX, 2>(a, pl, st);
+    case 4: return launch_sel_bwd<TX, 4>(a, pl, st);
+    case 8: return launch_sel_bwd<TX, 8>(a, pl, st);
+    case 16: return launch_sel_bwd<TX, 16>(a, pl, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -3475,6 +3986,67 @@ int mamba2_scan_bwd_plan(int B, int T, int H, int P, int N, int dtype,
   const long long v[8] = {pl.path, pl.NL, pl.R, pl.RB, pl.nchunks, pl.smem,
                           pl.scratch, pl.heads};
   for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
+}
+
+// The Mamba-1 form's backward.  dt, x, b, c, A, h0 and the strides as
+// selective_scan_fwd takes them; dy (B, T, D) and dh_last (B, D, N) f32;
+// out: ddt (B, T, D) f32, dx (B, T, D) in x's dtype, db and dc (B, T, N)
+// in b's, dA (D, N) f32 and dh0 (B, D, N) f32; all of these contiguous;
+// scratch: scratch_floats f32, at least the plan's.  Three launches on the
+// stream; returns a cudaError_t (0 on success).  N <= 128.
+int selective_scan_bwd(const float* dt, const void* x, const void* b,
+                       const void* c, const float* A, const float* h0,
+                       const float* dy, const float* dh_last, float* ddt,
+                       void* dx, void* db, void* dc, float* dA, float* dh0,
+                       float* scratch, long long scratch_floats, int dtype,
+                       int B, int T, int D, int N, long long dt_sb,
+                       long long dt_st, long long x_sb, long long x_st,
+                       long long b_sb, long long b_st, long long c_sb,
+                       long long c_st, void* stream) {
+  SelBwd a{};
+  int itemsize;
+  if (!sel_args(&a.f, dt, x, b, c, A, h0, nullptr, nullptr, dtype, B, T, D,
+                N, dt_sb, dt_st, x_sb, x_st, b_sb, b_st, c_sb, c_st,
+                &itemsize))
+    return (int)cudaErrorInvalidValue;
+  const SelBwdPlan pl = plan_selective_bwd(B, T, D, N);
+  if (scratch_floats < pl.scratch) return (int)cudaErrorInvalidValue;
+  a.dy = dy;
+  a.dh_last = dh_last;
+  a.ddt = ddt;
+  a.dx = dx;
+  a.db = db;
+  a.dc = dc;
+  a.dA = dA;
+  a.dh0 = dh0;
+  a.NB = pl.NB;
+  a.nchunks = pl.nchunks;
+  a.cb = scratch;
+  a.dAp = a.cb + (long long)B * pl.NB * pl.nchunks * SB_TILE;
+  a.dbp = a.dAp + (long long)B * D * N;
+  a.dcp = a.dbp + (long long)B * T * pl.NB * N;
+  a.f.vec = N % 4 == 0 && ((uintptr_t)A | (uintptr_t)h0 |
+                           (uintptr_t)dh_last | (uintptr_t)dh0 |
+                           (uintptr_t)a.dAp) % 16 == 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  return (int)(dtype == 0 ? dispatch_sel_bwd<float>(a, pl, s)
+                          : dispatch_sel_bwd<__nv_bfloat16>(a, pl, s));
+}
+
+// The plan selective_scan_bwd makes for a (B, T, D, N) call with x, b, c
+// in dtype (0 float32, 1 bfloat16), into out[0..6]: S, P, CH, channel
+// blocks, chunks, shared memory bytes, scratch floats.  Launches nothing;
+// returns 0, or cudaErrorInvalidValue for a shape the kernel does not take.
+int selective_scan_bwd_plan(int B, int T, int D, int N, int dtype,
+                            long long* out) {
+  if (B <= 0 || T <= 0 || D <= 0 || N <= 0 || N > MAX_N || B > 65535 ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const SelBwdPlan pl = plan_selective_bwd(B, T, D, N);
+  const long long v[7] = {pl.S, pl.P, pl.CH, pl.NB, pl.nchunks, pl.smem,
+                          pl.scratch};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
   return 0;
 }
 

@@ -2,12 +2,15 @@
 
 Replaces ``repro/kernels/mamba_scan.py::mamba_scan`` (Pallas TPU).  The
 kernel is CUDA C++ in ``csrc/mamba_scan.cu``, built by ``_build`` and called
-through its C interface, with three entry points:
+through its C interface, with these entry points:
 
 * ``mamba_scan(decay, u, c)``: the TPU kernel's contract, any ``T``;
 * ``selective_scan(dt, x, b, c, A, h0)``: the fused Mamba-1 form that
   ``models/ssm.py::mamba1_block`` calls, which builds decay and u in
   registers and never stores the (B, T, D, N) products;
+* ``selective_scan_bwd(dt, x, b, c, A, h0, dy, dh_last)``: the Mamba-1
+  form's gradient, whose plain counterpart is ``ref.selective_scan_bwd_ref``:
+  a reverse-time walk on the CUDA cores over states it recomputes;
 * ``mamba2_scan(dt, x, b, c, A, h0)``: the Mamba-2 form that
   ``models/ssm.py::mamba2_block`` calls: a scalar decay a head, b and c
   shared by every head, a (P, N) state a head.  A bf16 prefill runs as the
@@ -21,19 +24,24 @@ through its C interface, with three entry points:
 
 A tensor on the CPU goes to the plain versions in ``ref``; a CUDA tensor
 goes to the kernel or the call raises.  Under grad mode with an input that
-requires grad, ``mamba2_scan`` runs the ``repro_torch::mamba2_scan`` custom
-op, whose autograd formula is the ``repro_torch::mamba2_scan_bwd`` op (both
-dispatcher ops, so that selective activation checkpointing sees the scan
-and recomputes it); its forward saves only its inputs.  ``mamba_scan`` and
-``selective_scan`` have no backward yet: on a card they raise under grad
-rather than return an output that autograd cannot follow.
+requires grad, ``selective_scan`` and ``mamba2_scan`` run the
+``repro_torch::selective_scan`` and ``repro_torch::mamba2_scan`` custom ops,
+whose autograd formulas are the ``repro_torch::selective_scan_bwd`` and
+``repro_torch::mamba2_scan_bwd`` ops (all dispatcher ops, so that selective
+activation checkpointing sees the scans and recomputes them); each forward
+saves only its inputs.  ``mamba_scan``, which no model differentiates (the
+reference's Pallas kernel defines no VJP), has no backward: on a card it
+raises under grad rather than return an output that autograd cannot follow.
 ``mamba_scan.launches``, ``selective_scan.launches``,
-``mamba2_scan.launches`` and ``mamba2_scan_bwd.launches`` count kernel
-launches (a backward call is one count for its four or six launches).
-``selective_plan`` and ``mamba2_bwd_plan`` mirror how the kernel's host
-code runs a Mamba-1 call (lanes a channel, direct or ring path, TMA or lane
-loads, grid) and a Mamba-2 backward (path, lanes, rows, scratch), so that the
-choice can be tested without a card; ``kernel_mamba2_plan`` and
+``selective_scan_bwd.launches``, ``mamba2_scan.launches`` and
+``mamba2_scan_bwd.launches`` count kernel launches (a backward call is one
+count for its three to six launches).  ``selective_plan``,
+``selective_scan_bwd_plan`` and ``mamba2_bwd_plan`` mirror how the kernel's
+host code runs a Mamba-1 call (lanes a channel, direct or ring path, TMA or
+lane loads, grid), a Mamba-1 backward (lanes, channel blocks, chunks,
+scratch) and a Mamba-2 backward (path, lanes, rows, scratch), so that the
+choice can be tested without a card; ``kernel_plan``,
+``kernel_selective_scan_bwd_plan``, ``kernel_mamba2_plan`` and
 ``kernel_mamba2_bwd_plan`` ask the built library.
 """
 
@@ -47,7 +55,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (mamba2_scan_bwd_ref, mamba2_scan_ref,
-                                     mamba_scan_ref, selective_scan_ref)
+                                     mamba_scan_ref, selective_scan_bwd_ref,
+                                     selective_scan_ref)
 
 MAX_STATE = 128                 # N: 8 lanes of 16 states each
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -68,6 +77,11 @@ def _lib() -> ctypes.CDLL:
     lib.selective_scan_fwd.restype = i
     lib.selective_scan_plan.argtypes = [p] * 8 + [i] * 5 + [ll] * 8 + [p]
     lib.selective_scan_plan.restype = i
+    lib.selective_scan_bwd.argtypes = ([p] * 15 + [ll] + [i] * 5 + [ll] * 8
+                                       + [p])
+    lib.selective_scan_bwd.restype = i
+    lib.selective_scan_bwd_plan.argtypes = [i] * 5 + [p]
+    lib.selective_scan_bwd_plan.restype = i
     lib.mamba2_scan_fwd.argtypes = [p] * 8 + [i] * 6 + [ll] * 9 + [p]
     lib.mamba2_scan_fwd.restype = i
     lib.mamba2_scan_plan.argtypes = [p] * 8 + [i] * 6 + [ll] * 9 + [p]
@@ -92,8 +106,9 @@ def _refuse_grad(what: str, *ts: torch.Tensor) -> None:
     than return an output that autograd cannot follow."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise NotImplementedError(
-            f"{what} has no backward kernel yet (ROADMAP.md Queue 1 item "
-            "5b-ii): call it under torch.no_grad() or on the CPU")
+            f"{what} has no backward kernel (no model differentiates it; the "
+            "models' Mamba-1 path is selective_scan): call it under "
+            "torch.no_grad() or on the CPU")
 
 
 def _check_state(N: int) -> None:
@@ -264,13 +279,22 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
     no copy); A (D, N) and h0 (B, D, N) float32.  Returns y (B, T, D) and
     the last state (B, D, N), both float32: ``decay_t = exp(dt_t * A)``,
     ``u_t = (dt_t * x_t) * b_t``, ``h_t = decay_t * h_{t-1} + u_t``,
-    ``y_t = sum_n h_t * c_t``.
+    ``y_t = sum_n h_t * c_t``.  Differentiable: under grad mode with an
+    input that requires grad this is the ``repro_torch::selective_scan``
+    op.
     """
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (dt, x, b, c, A, h0)):
+        return tuple(torch.ops.repro_torch.selective_scan(dt, x, b, c, A, h0))
+    return _selective_forward(dt, x, b, c, A, h0)
+
+
+def _selective_forward(dt, x, b, c, A, h0):
+    """One forward call: the plain version on the CPU, else one launch."""
     if dt.device.type == "cpu":
         return selective_scan_ref(dt, x, b, c, A, h0)
     if dt.device.type != "cuda":
         raise ValueError(f"unsupported device {dt.device}")
-    _refuse_grad("selective_scan", dt, x, b, c, A, h0)
     _check_selective(dt, x, b, c, A, h0)
     B, T, D = dt.shape
     N = b.shape[2]
@@ -286,6 +310,113 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
 
 
 selective_scan.launches = 0
+
+
+# --- the Mamba-1 backward ----------------------------------------------------
+
+SEL_BWD_THREADS = 128           # csrc's SB_NT: threads a block
+SEL_BWD_STATES = 8              # csrc's SB_S: states a lane
+SEL_BWD_CHUNK = 16              # csrc's SB_Q: steps a chunk (level 1)
+SEL_BWD_SUB = 4                 # csrc's SB_SC: steps a sub-chunk (level 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class SelectiveBwdPlan:
+    """How ``selective_scan_bwd`` runs a call."""
+    states: int          # S: states a lane
+    lanes: int           # P: lanes a channel
+    channels: int        # CH: channels a block
+    channel_blocks: int  # NB: blocks a batch row
+    chunks: int          # chunks of SEL_BWD_CHUNK steps
+    smem: int            # the main kernel's shared memory, bytes
+    scratch: int         # floats of scratch the call needs
+
+    def as_ints(self) -> list[int]:
+        return [self.states, self.lanes, self.channels, self.channel_blocks,
+                self.chunks, self.smem, self.scratch]
+
+
+def selective_scan_bwd_plan(B: int, T: int, D: int, N: int
+                            ) -> SelectiveBwdPlan:
+    """The plan ``csrc/mamba_scan.cu::plan_selective_bwd`` makes.
+
+    S = 8 states a lane, P = next_pow2(N / 8) lanes a channel and
+    SEL_BWD_THREADS / P channels a block, one block a channel block and
+    batch row; chunks of SEL_BWD_CHUNK steps.  Shared memory: a state slot
+    (S floats a thread) for each SEL_BWD_SUB-step sub-chunk of a chunk, two
+    sub-chunks' staged inputs (dt, x, dy a channel, b and c over NP = S P
+    states) and a sub-chunk's warp sums of db and dc.  Scratch: a state
+    slot a block and chunk, dA's partial sums a batch row (B, D, N), and
+    db's and dc's a channel block (B, T, NB, N) each."""
+    S, NT, SC = SEL_BWD_STATES, SEL_BWD_THREADS, SEL_BWD_SUB
+    P = 1
+    while S * P < N:
+        P *= 2
+    CH, NP = NT // P, S * P
+    NB, chunks = -(-D // CH), -(-T // SEL_BWD_CHUNK)
+    tile = S * NT
+    smem = 4 * (SEL_BWD_CHUNK // SC * tile + 2 * (3 * SC * CH + 2 * SC * NP)
+                + SC * (NT // 32) * 2 * NP)
+    scratch = B * NB * chunks * tile + B * D * N + 2 * B * T * NB * N
+    return SelectiveBwdPlan(S, P, CH, NB, chunks, smem, scratch)
+
+
+def kernel_selective_scan_bwd_plan(B: int, T: int, D: int, N: int,
+                                   dtype: torch.dtype) -> SelectiveBwdPlan:
+    """The plan the built kernel's host code makes (a card's library)."""
+    out = (ctypes.c_longlong * 7)()
+    _raise_on(_lib().selective_scan_bwd_plan(B, T, D, N, _DTYPES[dtype], out),
+              "selective_scan_bwd_plan")
+    return SelectiveBwdPlan(*map(int, out))
+
+
+def selective_scan_bwd(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, A: torch.Tensor, h0: torch.Tensor,
+                       dy: torch.Tensor, dh_last: torch.Tensor
+                       ) -> tuple[torch.Tensor, ...]:
+    """The gradient of ``selective_scan`` at (dt, x, b, c, A, h0) for output
+    gradients dy (B, T, D) and dh_last (B, D, N): (ddt (B, T, D) float32,
+    dx in x's dtype, db and dc (B, T, N) in b's, dA (D, N) and dh0
+    (B, D, N) float32), every output contiguous.  The operands as
+    ``selective_scan`` takes them; dy and dh_last are made contiguous
+    float32."""
+    if dt.device.type == "cpu":
+        return selective_scan_bwd_ref(dt, x, b, c, A, h0, dy, dh_last)
+    if dt.device.type != "cuda":
+        raise ValueError(f"unsupported device {dt.device}")
+    _check_selective(dt, x, b, c, A, h0)
+    B, T, D = dt.shape
+    N = b.shape[2]
+    if tuple(dy.shape) != (B, T, D) or dh_last.shape != h0.shape:
+        raise ValueError(f"want dy {(B, T, D)}, dh_last {tuple(h0.shape)}; "
+                         f"got {tuple(dy.shape)}, {tuple(dh_last.shape)}")
+    if not (dy.device == dh_last.device == dt.device):
+        raise ValueError("dy, dh_last and the operands on different devices")
+    dy = dy.float().contiguous()
+    dh_last = dh_last.float().contiguous()
+    plan = selective_scan_bwd_plan(B, T, D, N)
+    f32, dev = torch.float32, dt.device
+    ddt = torch.empty((B, T, D), dtype=f32, device=dev)
+    dx = torch.empty((B, T, D), dtype=x.dtype, device=dev)
+    db = torch.empty((B, T, N), dtype=b.dtype, device=dev)
+    dc = torch.empty((B, T, N), dtype=c.dtype, device=dev)
+    dA = torch.empty((D, N), dtype=f32, device=dev)
+    dh0 = torch.empty((B, D, N), dtype=f32, device=dev)
+    scratch = torch.empty((plan.scratch,), dtype=f32, device=dev)
+    args = _selective_args(dt, x, b, c, A, h0, ddt, dh0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().selective_scan_bwd(
+            *args[:6], dy.data_ptr(), dh_last.data_ptr(), ddt.data_ptr(),
+            dx.data_ptr(), db.data_ptr(), dc.data_ptr(), dA.data_ptr(),
+            dh0.data_ptr(), scratch.data_ptr(), plan.scratch, *args[8:],
+            stream)
+    _raise_on(err, "selective_scan_bwd")
+    selective_scan_bwd.launches += 1
+    return ddt, dx, db, dc, dA, dh0
+
+
+selective_scan_bwd.launches = 0
 
 
 def _check_mamba2(dt, x, b, c, A, h0):
@@ -566,7 +697,7 @@ def _mamba2_scan_bwd_op(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
     return mamba2_scan_bwd(dt, x, b, c, A, h0, dy, dh_last)
 
 
-def _mamba2_setup_context(ctx, inputs, output):
+def _scan_setup_context(ctx, inputs, output):
     ctx.save_for_backward(*inputs)
 
 
@@ -581,4 +712,36 @@ def _mamba2_backward(ctx, dy, dh_last):
 
 
 _mamba2_scan_op.register_autograd(_mamba2_backward,
-                                  setup_context=_mamba2_setup_context)
+                                  setup_context=_scan_setup_context)
+
+
+@torch.library.custom_op("repro_torch::selective_scan", mutates_args=())
+def _selective_scan_op(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, A: torch.Tensor, h0: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    return _selective_forward(dt, x, b, c, A, h0)
+
+
+@torch.library.custom_op("repro_torch::selective_scan_bwd", mutates_args=())
+def _selective_scan_bwd_op(dt: torch.Tensor, x: torch.Tensor,
+                           b: torch.Tensor, c: torch.Tensor, A: torch.Tensor,
+                           h0: torch.Tensor, dy: torch.Tensor,
+                           dh_last: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor, torch.Tensor,
+                                      torch.Tensor, torch.Tensor]:
+    return selective_scan_bwd(dt, x, b, c, A, h0, dy, dh_last)
+
+
+def _selective_backward(ctx, dy, dh_last):
+    dt, x, b, c, A, h0 = ctx.saved_tensors
+    if dy is None:
+        dy = dt.new_zeros(dt.shape)
+    if dh_last is None:
+        dh_last = torch.zeros_like(h0, dtype=torch.float32)
+    return tuple(torch.ops.repro_torch.selective_scan_bwd(
+        dt, x, b, c, A, h0, dy, dh_last))
+
+
+_selective_scan_op.register_autograd(_selective_backward,
+                                     setup_context=_scan_setup_context)

@@ -138,11 +138,12 @@ def mamba_scan_ref(decay: torch.Tensor, u: torch.Tensor, c: torch.Tensor
 
     decay, u: (B, T, D, N); c: (B, T, N) -> y: (B, T, D) float32, with
     ``h_t = decay_t * h_{t-1} + u_t``, ``h_{-1} = 0`` and
-    ``y_t = sum_n h_t * c_t``, all in float32.
+    ``y_t = sum_n h_t * c_t``, all in float32 (float64 when given
+    float64, ``_wide``).
     """
-    decay, u, c = decay.float(), u.float(), c.float()
+    decay, u, c = _wide(decay), _wide(u), _wide(c)
     B, T, D, N = decay.shape
-    h = torch.zeros((B, D, N), dtype=torch.float32, device=decay.device)
+    h = torch.zeros((B, D, N), dtype=decay.dtype, device=decay.device)
     ys = []
     for t in range(T):
         h = decay[:, t] * h + u[:, t]
@@ -158,12 +159,13 @@ def selective_scan_ref(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
     dt, x: (B, T, di); b, c: (B, T, n); A: (di, n); h0: (B, di, n).
     ``decay_t = exp(dt_t * A)``, ``u_t = (dt_t * x_t) * b_t``, then the
     recurrence of ``mamba_scan_ref`` from ``h0``; all in float32, as
-    ``make_chunk``/``emit_chunk`` of the reference's ``mamba1_block``.
-    Returns y (B, T, di) and the last state (B, di, n), float32.
+    ``make_chunk``/``emit_chunk`` of the reference's ``mamba1_block`` (in
+    float64 when given float64, ``_wide``).  Returns y (B, T, di) and the
+    last state (B, di, n), float32.
     """
-    dt, x, b, c = dt.float(), x.float(), b.float(), c.float()
-    A = A.float()
-    h = h0.float()
+    dt, x, b, c = _wide(dt), _wide(x), _wide(b), _wide(c)
+    A = _wide(A)
+    h = _wide(h0)
     ys = []
     for t in range(dt.shape[1]):
         decay = torch.exp(dt[:, t, :, None] * A)
@@ -171,6 +173,54 @@ def selective_scan_ref(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
         h = decay * h + u
         ys.append((h * c[:, t, None, :]).sum(dim=-1))
     return torch.stack(ys, dim=1), h
+
+
+def selective_scan_bwd_ref(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                           c: torch.Tensor, A: torch.Tensor, h0: torch.Tensor,
+                           dy: torch.Tensor, dh_last: torch.Tensor
+                           ) -> tuple[torch.Tensor, ...]:
+    """The gradient of ``selective_scan_ref``, step by step, in float32 (or
+    float64 when given float64).
+
+    From the forward's inputs, dy (B, T, di) and dh_last (B, di, n), with
+    ``a_t = dt_t A`` and ``decay_t = exp(a_t)`` (both (di, n) a (b, t)) and
+    g the state's gradient, walking t from T - 1 down:
+    ``g_t = decay_{t+1} ⊙ g_{t+1} + dy_t ⊗ c_t`` (``g_{T-1} = dh_last +
+    dy_{T-1} ⊗ c_{T-1}``); ``dc_t = Σ_d dy_t h_t``;
+    ``dx_t = dt_t Σ_n g_t b_t``; ``db_t = Σ_d dt_t x_t g_t``;
+    ``da_t = decay_t ⊙ g_t ⊙ h_{t-1}``; ``ddt_t = Σ_n A da_t +
+    x_t Σ_n g_t b_t``; ``dA = Σ_{b,t} dt_t da_t``; ``dh0 = decay_0 g_0``.
+    Returns ddt (B, T, di) float32, dx in x's dtype, db and dc (B, T, n) in
+    b's and c's, dA (di, n) and dh0 (B, di, n) float32.
+    """
+    dtf, xf, bf, cf = _wide(dt), _wide(x), _wide(b), _wide(c)
+    Af, dyf = _wide(A), _wide(dy)
+    T = dt.shape[1]
+
+    def decay(t):                                   # (B, di, n)
+        return torch.exp(dtf[:, t, :, None] * Af)
+
+    hs = [_wide(h0)]                    # hs[t + 1] is h_t, hs[0] is h0
+    for t in range(T):
+        u = (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
+        hs.append(decay(t) * hs[-1] + u)
+    g = _wide(dh_last)
+    dA = torch.zeros_like(hs[0][0])
+    ddt, dx, db, dc = ([None] * T for _ in range(4))
+    for t in reversed(range(T)):
+        g = g + dyf[:, t, :, None] * cf[:, t, None, :]
+        gb = (g * bf[:, t, None, :]).sum(dim=-1)                 # (B, di)
+        dc[t] = torch.einsum("bd,bdn->bn", dyf[:, t], hs[t + 1])
+        dx[t] = dtf[:, t] * gb
+        db[t] = torch.einsum("bd,bdn->bn", dtf[:, t] * xf[:, t], g)
+        dec = decay(t)
+        da = dec * g * hs[t]
+        ddt[t] = (Af * da).sum(dim=-1) + xf[:, t] * gb
+        dA = dA + (dtf[:, t, :, None] * da).sum(dim=0)
+        g = dec * g
+    return (torch.stack(ddt, dim=1), torch.stack(dx, dim=1).to(x.dtype),
+            torch.stack(db, dim=1).to(b.dtype),
+            torch.stack(dc, dim=1).to(c.dtype), dA, g)
 
 
 def mamba2_scan_ref(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,

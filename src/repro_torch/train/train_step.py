@@ -80,33 +80,27 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     failure once it began writing raises ``adamw.PartialUpdateError``,
     which the trainer does not retry.
 
-    The dense, MoE, VLM, audio and hybrid families train, and the SSM
-    family with Mamba-2 layers; Mamba-1 (falcon-mamba) is refused until its
-    scan has a backward.  The VLM and audio families' ``batch`` also holds
+    Every family trains: dense, MoE, VLM, audio, hybrid and SSM (Mamba-1
+    and Mamba-2 layers).  The VLM and audio families' ``batch`` also holds
     their ``media`` (B, n_media_tokens, media_embed_dim), which goes to the
     device with the tokens.  Under remat "dots" each layer (or group:
     llama4's dense layers and their MoE layer, the VLM's self layers and
     their cross block, the hybrid's ``attn_every`` Mamba-2 layers and their
     shared block) saves the outputs of its ``aten.mm`` / ``aten.addmm``
     products (the projections, the cross blocks' q/k/v/o projections, the
-    MoE router and shared MLP; a Mamba-2 layer's in, bc, dt and out
-    projections) and recomputes the rest in the backward: attention (the
-    flash op, self and cross), the Mamba-2 scan (the
-    ``repro_torch::mamba2_scan`` op, whose backward recomputes its states
-    itself), the experts' grouped ``aten.bmm`` products, the dispatch and
-    the elementwise work (a Mamba-2 layer's causal conv, gates and gated
-    norm).  ``media @ media_proj`` runs once a step outside the groups and,
-    an ``mm``, is kept.
+    MoE router and shared MLP; a Mamba layer's projections) and recomputes
+    the rest in the backward: attention (the flash op, self and cross), the
+    scans (the ``repro_torch::selective_scan`` and
+    ``repro_torch::mamba2_scan`` ops, whose backwards recompute their
+    states themselves), the experts' grouped ``aten.bmm`` products, the
+    dispatch and the elementwise work (a Mamba layer's causal conv, gates
+    and, in Mamba-2, gated norm).  Under remat "full" a layer keeps only
+    its input.  ``media @ media_proj`` runs once a step outside the groups
+    and, an ``mm``, is kept.
     """
     if settings.compress_pod_grads:
         raise ValueError("compress_pod_grads requires a mesh with a 'pod' "
                          "axis")
-    if model.cfg.family in ("ssm", "hybrid") and model.cfg.mamba_version == 1:
-        raise NotImplementedError(
-            f"training covers the dense, MoE, VLM, audio and hybrid families "
-            f"and Mamba-2 SSM models; {model.cfg.name} ({model.cfg.family}, "
-            "Mamba-1) needs a backward for its selective scan kernel, which "
-            "is not ported yet (ROADMAP.md Queue 1 item 5b-ii)")
 
     def step(state, batch):
         batch = {k: torch.as_tensor(v, device=model.device)

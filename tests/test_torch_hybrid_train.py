@@ -244,8 +244,9 @@ def _randomize(np_tree, seed):
     rng = np.random.default_rng(seed)
     mix = np_tree["blocks"]["mixer"]
     mix["A_log"] = rng.normal(size=mix["A_log"].shape).astype(np.float32)
-    mix["norm_w"] = (rng.normal(size=mix["norm_w"].shape) * 0.1).astype(
-        mix["norm_w"].dtype)
+    if "norm_w" in mix:                 # Mamba-2's gated norm
+        mix["norm_w"] = (rng.normal(size=mix["norm_w"].shape) * 0.1).astype(
+            mix["norm_w"].dtype)
     mix["dt_bias"] = (rng.normal(size=mix["dt_bias"].shape) * 0.5).astype(
         np.float32)
     return np_tree
@@ -340,7 +341,7 @@ def _ssm_mamba2_kw():
     return dict(arch="falcon-mamba-7b", mamba_version=2, ssm_head_dim=16)
 
 
-@pytest.mark.parametrize("model", ["hybrid", "ssm_mamba2"])
+@pytest.mark.parametrize("model", ["hybrid", "ssm_mamba2", "ssm_mamba1"])
 def test_train_steps_match_jax(model):
     """Three train steps from one float32 state on the corpus' batches
     0..2 (two rows of 32 tokens).  Each loss against the reference's
@@ -355,8 +356,10 @@ def test_train_steps_match_jax(model):
     decides).
     ``ssm_mamba2`` is the SSM family with Mamba-2 layers (falcon-mamba's
     reduced config, ``mamba_version=2``), each layer under its own
-    remat."""
-    kw = {} if model == "hybrid" else _ssm_mamba2_kw()
+    remat; ``ssm_mamba1`` falcon-mamba's reduced config itself, its
+    Mamba-1 layers through the ``repro_torch::selective_scan`` op."""
+    kw = {"hybrid": {}, "ssm_mamba2": _ssm_mamba2_kw(),
+          "ssm_mamba1": dict(arch="falcon-mamba-7b")}[model]
     jm, jstate, tm, tstate, jopt, topt = _states(seed=2, **kw)
     jstep = jax.jit(jts.make_train_step(jm, jopt))
     tstep = ts.make_train_step(tm, topt)
@@ -453,9 +456,16 @@ def test_launcher_smoke_on_cpu_trains_zamba2(tmp_path):
     assert losses[-1] < losses[0]
 
 
-def test_mamba1_training_still_refused():
-    """falcon-mamba (Mamba-1) waits for the selective scan's backward,
-    ROADMAP item 5b-ii."""
+def test_mamba1_training_still_refused(tmp_path):
+    """falcon-mamba (Mamba-1) is no longer refused: its selective scan has
+    a backward, and the launcher trains the reduced model on the CPU with
+    a falling loss."""
     m = tmodel.build(treg.get("falcon-mamba-7b").reduced(), "cpu")
-    with pytest.raises(NotImplementedError, match="5b-ii"):
-        ts.make_train_step(m, adamw.AdamWConfig())
+    assert callable(ts.make_train_step(m, adamw.AdamWConfig()))
+    out = tlaunch.main(["--arch", "falcon-mamba-7b", "--smoke", "--device",
+                        "cpu", "--steps", "6", "--batch", "2", "--seq", "32",
+                        "--lr", "1e-2", "--ckpt-dir", str(tmp_path)])
+    losses = [m["loss"] for m in out["metrics"]]
+    assert out["final_step"] == 6 and len(losses) == 6
+    assert all(np.isfinite(losses))
+    assert losses[-1] < losses[0]

@@ -1621,22 +1621,26 @@ def _cuda_mamba2_bwd(B, T, H, P, N, dtype, seed, offset=3, reset=False):
     return (*args, dy, dh)
 
 
-def _hold_scan_bwd(got, args):
+def _hold_bwd(got, want, dtype, n):
     """chip_smoke.py's limits: SCAN_TOL plus sqrt(n) 2^-24 of an output's
     largest element (n the case's longest sum), and, for the outputs the
     kernel rounds to bf16, an rtol of 2^-8 against the plain version's
-    float32 values."""
-    dt, x, b, c, A, h0, dy, dh = args
-    want = ref.mamba2_scan_bwd_ref(dt, x.float(), b.float(), c.float(), A,
-                                   h0, dy, dh)
-    B, T, H, P = x.shape
-    n = max(P * b.shape[2], H * P, B * T)
+    float32 values; dx, db, dc in the operands' ``dtype``."""
     torch.cuda.synchronize()
     for name, g, w in zip(("ddt", "dx", "db", "dc", "dA", "dh0"), got, want):
         rtol = 2 ** -8 if g.dtype == torch.bfloat16 else 1e-4
         lim = 1e-4 + rtol * w.abs() + n ** 0.5 * 2.0 ** -24 * w.abs().max()
-        assert g.shape == w.shape, name
+        assert g.shape == w.shape and g.dtype == (
+            dtype if name in ("dx", "db", "dc") else torch.float32), name
         assert bool(((g.float() - w).abs() <= lim).all()), name
+
+
+def _hold_scan_bwd(got, args):
+    dt, x, b, c, A, h0, dy, dh = args
+    want = ref.mamba2_scan_bwd_ref(dt, x.float(), b.float(), c.float(), A,
+                                   h0, dy, dh)
+    B, T, H, P = x.shape
+    _hold_bwd(got, want, x.dtype, max(P * b.shape[2], H * P, B * T))
 
 
 @pytest.mark.cuda
@@ -1726,27 +1730,110 @@ def test_cuda_mamba2_op_under_autograd_runs_both_kernels():
 
 @pytest.mark.cuda
 def test_cuda_scans_without_a_backward_raise_under_grad():
-    """``selective_scan`` and ``mamba_scan`` have no backward kernel yet
-    (ROADMAP item 5b-ii): on the card, under grad with an input that
-    requires grad, they raise rather than return an output autograd
-    cannot follow; under ``no_grad`` they run."""
+    """Only ``mamba_scan`` (the TPU contract, which no model differentiates)
+    has no backward kernel: on the card, under grad with an input that
+    requires grad, it raises rather than return an output autograd cannot
+    follow, and runs under ``no_grad``.  ``selective_scan`` under grad is
+    the ``repro_torch::selective_scan`` op: one forward launch, and one
+    backward launch when autograd reaches it."""
     _cuda_or_skip()
     dt, x, b, c, A, h0 = (torch.from_numpy(a).cuda()
                           for a in _selective_inputs(1, 20, 16, 16, 0))
     decay, u, cc = (torch.from_numpy(a).cuda()
                     for a in _scan_inputs(1, 20, 16, 16, 0))
-    launches = (ms.selective_scan.launches, ms.mamba_scan.launches)
-    with pytest.raises(NotImplementedError, match="5b-ii"):
-        ms.selective_scan(dt.requires_grad_(), x, b, c, A, h0)
-    with pytest.raises(NotImplementedError, match="5b-ii"):
+    launches = (ms.selective_scan.launches, ms.selective_scan_bwd.launches,
+                ms.mamba_scan.launches)
+    with pytest.raises(NotImplementedError, match="no backward"):
         ms.mamba_scan(decay.requires_grad_(), u, cc)
-    assert (ms.selective_scan.launches, ms.mamba_scan.launches) == launches
+    y, _ = ms.selective_scan(dt.requires_grad_(), x, b, c, A, h0)
+    assert "selective_scan" in type(y.grad_fn).__name__
+    y.sum().backward()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dt.grad).all())
+    assert (ms.selective_scan.launches, ms.selective_scan_bwd.launches,
+            ms.mamba_scan.launches) == (launches[0] + 1, launches[1] + 1,
+                                        launches[2])
     with torch.no_grad():
-        ms.selective_scan(dt, x, b, c, A, h0)
         ms.mamba_scan(decay, u, cc)
     torch.cuda.synchronize()
-    assert (ms.selective_scan.launches, ms.mamba_scan.launches) == (
-        launches[0] + 1, launches[1] + 1)
+    assert ms.mamba_scan.launches == launches[2] + 1
+
+
+# ---- the selective scan's backward on the card (falcon-mamba's training) ----
+# (its plain version's CPU parity tests are in test_torch_ssm_train.py)
+
+def _cuda_sel_bwd(B, T, D, N, dtype, seed, offset=7, reset=False):
+    """``_sel_case``'s operands (b and c slices of one projection, h0
+    nonzero), dy and dh_last float32; ``reset``: dt A <= -1000 (the decay
+    underflowing to 0) and x = 0 at step 3 of every 64."""
+    dt, x, b, c, A, h0 = _sel_case(B, T, D, N, dtype, offset, seed)
+    if reset:
+        dt[:, 3::64] = 1000.0 / A.abs().min()
+        x[:, 3::64] = 0
+    rng = np.random.default_rng(seed + 1)
+    dy = torch.from_numpy(rng.normal(size=(B, T, D)).astype(
+        np.float32)).cuda()
+    dh = torch.from_numpy(rng.normal(size=(B, D, N)).astype(
+        np.float32)).cuda()
+    return dt, x, b, c, A, h0, dy, dh
+
+
+def _hold_sel_bwd(got, args):
+    dt, x, b, c, A, h0, dy, dh = args
+    want = ref.selective_scan_bwd_ref(dt, x.float(), b.float(), c.float(),
+                                      A, h0, dy, dh)
+    B, T, D = dt.shape
+    _hold_bwd(got, want, x.dtype, max(b.shape[2], D, B * T))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N", [4, 16, 128])
+@pytest.mark.parametrize("T", [1, 8, 9, 63, 64, 65, 300])
+def test_cuda_selective_scan_bwd_matches_plain_version(T, N, dtype):
+    """chip_smoke.SEL_BWD_CASES: N of one, two and sixteen lanes a channel;
+    T of one step, at and past the forward's direct path, below, at and
+    past a 64-step chunk, and 300; D = 203 leaves every channel block
+    ragged; b and c at an odd column; h0 and dh_last nonzero."""
+    _cuda_or_skip()
+    args = _cuda_sel_bwd(2, T, 203, N, getattr(torch, dtype), T + N)
+    _hold_sel_bwd(ms.selective_scan_bwd(*args), args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,N,dtype", [
+    (2, 300, 203, 16, "bfloat16"), (2, 130, 203, 4, "float32"),
+    (1, 130, 40, 128, "bfloat16")])
+def test_cuda_selective_scan_bwd_survives_the_decay_underflow(B, T, D, N,
+                                                              dtype):
+    """dt A <= -1000 (the decay underflowing to 0) at step 3 of every 64:
+    the kernel never recovers a state by dividing by the decay."""
+    _cuda_or_skip()
+    args = _cuda_sel_bwd(B, T, D, N, getattr(torch, dtype), 11, reset=True)
+    got = ms.selective_scan_bwd(*args)
+    assert all(bool(torch.isfinite(g.float()).all()) for g in got)
+    _hold_sel_bwd(got, args)
+
+
+@pytest.mark.cuda
+def test_cuda_selective_scan_bwd_is_deterministic():
+    """No float atomics: two calls are bit-identical (db and dc sum over
+    D = 4096 channels, dA over the batch rows, each in a fixed order)."""
+    _cuda_or_skip()
+    args = _cuda_sel_bwd(2, 300, 4096, 16, torch.bfloat16, 12, offset=256)
+    a, b = ms.selective_scan_bwd(*args), ms.selective_scan_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 2048, 8192, 16), (2, 65, 203, 4),
+                                   (1, 1, 40, 128), (3, 300, 96, 33)])
+def test_cuda_selective_scan_bwd_plan_matches_the_mirror(shape):
+    _cuda_or_skip()
+    for dtype in (torch.float32, torch.bfloat16):
+        assert (ms.kernel_selective_scan_bwd_plan(*shape, dtype)
+                == ms.selective_scan_bwd_plan(*shape))
 
 
 def test_scans_without_a_backward_run_their_plain_versions_under_grad():

@@ -296,8 +296,9 @@ def test_mamba2_not_ported():
     """Mamba-2 is ported (``tests/test_torch_hybrid.py`` holds it against
     the reference): the model builds and ``init_mamba_params`` gives the
     reference's Mamba-2 leaves; it trains (the Mamba-2 scan has its
-    backward, ``tests/test_torch_hybrid_train.py``), where Mamba-1 is still
-    refused, naming ROADMAP.md Queue 1 item 5b-ii."""
+    backward, ``tests/test_torch_hybrid_train.py``), and so does Mamba-1,
+    no longer refused (its scan's backward is held in
+    ``tests/test_torch_ssm_train.py``)."""
     from repro_torch.optim import adamw
     from repro_torch.train import train_step as ts
     cfg = dataclasses.replace(treg.get(ARCH).reduced(), mamba_version=2)
@@ -314,6 +315,9 @@ def test_mamba2_not_ported():
     tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))
     state, metrics = step(state, {"tokens": tokens})
     assert np.isfinite(float(metrics["loss"])) and int(state["step"]) == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP.*5b-ii"):
-        ts.make_train_step(tmodel.build(treg.get(ARCH).reduced(), "cpu"),
-                           adamw.AdamWConfig())
+    m1 = tmodel.build(treg.get(ARCH).reduced(), "cpu")
+    state = ts.make_train_state(m1, adamw.AdamWConfig(),
+                                torch.Generator().manual_seed(0))
+    state, metrics = ts.make_train_step(m1, adamw.AdamWConfig())(
+        state, {"tokens": tokens})
+    assert np.isfinite(float(metrics["loss"])) and int(state["step"]) == 1

@@ -579,10 +579,20 @@ def test_launcher_default_device_raises_without_card(tmp_path):
 
 
 def test_train_step_refuses_the_families_without_a_backward():
+    """No family lacks a backward any more: falcon-mamba (Mamba-1), the
+    last one refused, gets a train step, which takes a step with a finite
+    loss and moves every parameter leaf."""
     tcfg = dataclasses.replace(treg.get("falcon-mamba-7b").reduced(),
                                dtype="float32")
-    with pytest.raises(NotImplementedError, match="dense"):
-        ts.make_train_step(tmodel.build(tcfg, "cpu"), adamw.AdamWConfig())
+    tm = tmodel.build(tcfg, "cpu")
+    opt = adamw.AdamWConfig(lr=1e-2, warmup_steps=1)
+    state = ts.make_train_state(tm, opt, torch.Generator().manual_seed(0))
+    before = [p.clone() for p in tree.leaves(state["params"])]
+    state, metrics = ts.make_train_step(tm, opt)(state, _batch(0, B=2))
+    assert np.isfinite(float(metrics["loss"]))
+    assert int(state["step"]) == 1
+    assert all(not torch.equal(a, b) for a, b in
+               zip(before, tree.leaves(state["params"])))
 
 
 def test_pod_compression_raises_without_a_mesh():
