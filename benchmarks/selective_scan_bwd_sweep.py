@@ -4,22 +4,25 @@
         [--diagnose] [--out F]
 
 Builds ``src/repro_torch/kernels/csrc/mamba_scan.cu`` once for each set of
-values of the backward's constants (``SB_Q`` steps a chunk, the first
-recompute level; ``SB_SC`` steps a sub-chunk, the second; ``SB_MINB``
-blocks an SM its launch bounds ask for, which caps the registers;
-``SB_PREFETCH``, the L2 prefetch of the rows two sub-chunks ahead),
-written into a copy under ``build/sweep_bwd/`` by
+values of the backward's constants (``SB_Q`` steps a chunk, the ring's
+stage and the first recompute level; ``SB_SC`` steps a sub-chunk, the
+last level; ``SB_DEPTH``, the ring's stages at most; ``SB_MINB`` blocks an
+SM its launch bounds ask for, which caps the registers and sizes the
+ring), written into a copy under ``build/sweep_bwd/`` by
 ``selective_scan_sweep.variant_source``, one ``nvcc`` each, all started
-together, and ``--baseline``, an older source with the same C interface,
-beside them; with ``--diagnose`` also the ``DIAGNOSTICS`` copies, each
-with one part of the work taken out (timed only).  Each library's
-``selective_scan_bwd`` but those is held against
-``ref.selective_scan_bwd_ref`` at falcon-mamba-7b's training shape (B=4,
-T=2048, D=8192, N=16, bf16 x/b/c, b and c slices of one projection) under
-``chip_smoke``'s limits, then all are timed in turns (three rounds) as
-device time from a CUDA graph of 5 calls.  Prints each variant's ptxas
-lines (registers, spills) and one line a variant, and writes the records
-as JSON.  Needs a card and ``nvcc``.
+together, and ``--baseline``, an older source with the same C entry point
+``selective_scan_bwd`` (its plan entry point may differ: the scratch is
+allocated for chunks of 4 steps, enough for any of them), beside them;
+with ``--diagnose`` also the ``DIAGNOSTICS`` copies, each with one part of
+the work taken out (timed only).  Each library's ``selective_scan_bwd``
+but those is held against ``ref.selective_scan_bwd_ref`` at
+falcon-mamba-7b's training shape (B=4, T=2048, D=8192, N=16, bf16 x/b/c,
+b and c slices of one projection at falcon's 16-byte aligned column, so
+every operand goes through TMA) under ``chip_smoke``'s limits, then all
+are timed in turns (three rounds) as device time from a CUDA graph of 5
+calls.  Prints each variant's ptxas lines (registers, spills) and one
+line a variant, and writes the records as JSON.  Needs a card and
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -45,26 +48,43 @@ import selective_scan_sweep  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 
-VARIANTS = {    # the constants SB_Q, SB_SC, SB_MINB and SB_PREFETCH
-    "q16_sc4_b4": {},            # as the source has them
-    "q32_sc4_b4": {"SB_Q": 32},
-    "q16_sc4_b3": {"SB_MINB": 3},
-    "q16_sc2_b4": {"SB_SC": 2},
-    "q16_sc8_b2": {"SB_SC": 8, "SB_MINB": 2},
-    "q16_sc4_b4_noprefetch": {"SB_PREFETCH": 0},
+VARIANTS = {    # the constants SB_Q, SB_SC, SB_DEPTH and SB_MINB
+    "q16_sc4_d3_b4": {},         # as the source has them (at N = 16 the
+                                 # ring is two stages of 16 steps)
+    "q8_sc4_d3_b4": {"SB_Q": 8},
+    "q8_sc4_d2_b4": {"SB_Q": 8, "SB_DEPTH": 2},
+    "q16_sc4_d3_b3": {"SB_MINB": 3},     # three stages, 512 blocks in two
+                                         # waves
+    "q16_sc2_d3_b4": {"SB_SC": 2},   # eight slots: the chunk falls to 8
 }
+_SUMS = ("channel_sums<P>(v, red + (s * SB_NW + pw.warp) * O, pw.lane, pw.q,"
+         "\n                        hi ? S : 0);")
 # --diagnose: copies of the source as it is with one part of the backward
 # kernel's work taken out, so that their times show what that part costs;
 # they no longer compute the function and are timed, not held
 DIAGNOSTICS = {
-    "no_loads": [("auto fetch = [&](int t0, bool reverse) {",
-                  "auto fetch = [&](int t0, bool reverse) {\n"
-                  "    if (t0 >= 0) return;")],
-    "no_channel_sums": [(
-        "channel_sums<P>(v, red + (s * SB_NW + warp) * 2 * NP, lane, q);",
-        "red[(s * SB_NW + warp) * 2 * NP + lane] = v[0] + v[3] + v[9];")],
+    "no_loads": [("      if (bytes == 0) {", "      if (1) {"),
+                 ("    if (!a.tma_dt)\n      sb_fill<Q, CH>",
+                  "    if (i >= 0) return;\n    if (!a.tma_dt)\n"
+                  "      sb_fill<Q, CH>")],
+    "no_channel_sums": [
+        ("v[jj] = (hi ? tc : tb) + __shfl_xor_sync(FULL, hi ? tb : tc, 16);",
+         "v[jj] = tc + tb;"),
+        (_SUMS, "red[(s * SB_NW + pw.warp) * O + pw.lane] = v[0] + v[3]"
+                " + v[6];")],
     "no_exp": [("hopper::ex2(dt * A2[j])", "(dt * A2[j])"),
                ("hopper::ex2(dt * A2[jj])", "(dt * A2[jj])")],
+    # level 1 and its loads taken out (the walk starts at the last chunk
+    # from h0 and reads chunk states no one wrote): what a forward that
+    # stored the chunk states would save the backward
+    "no_level1": [
+        ("const int items = 2 * nch - 1;", "const int items = nch;"),
+        ("return i < nch - 1 ? i : 2 * nch - 2 - i;", "return nch - 1 - i;"),
+        ("const bool rev = i >= nch - 1;", "const bool rev = true;"),
+        ("if (i >= nch) flush(chunk_of(i - 1), pc);",
+         "if (i >= 1) flush(chunk_of(i - 1), pc);"),
+        ("if (i >= nch) sb_wait(red_free, (i - nch) & 1);",
+         "if (i >= 1) sb_wait(red_free, (i - 1) & 1);")],
 }
 
 
@@ -94,8 +114,6 @@ def build(name: str, src: pathlib.Path, out_dir):
     lib.selective_scan_bwd.argtypes = ([p] * 15 + [ll] + [i] * 5 + [ll] * 8
                                        + [p])
     lib.selective_scan_bwd.restype = i
-    lib.selective_scan_bwd_plan.argtypes = [i] * 5 + [p]
-    lib.selective_scan_bwd_plan.restype = i
     # each backward kernel's entry: its name, stack and spills, registers
     lines = (proc.stdout + proc.stderr).splitlines()
     ptxas = [" | ".join(ln.strip() for ln in lines[k:k + 4])
@@ -106,29 +124,29 @@ def build(name: str, src: pathlib.Path, out_dir):
 
 def caller(lib, args):
     """One call of ``lib``'s backward on ``args``, its outputs and scratch
-    allocated once, the scratch by the library's own plan."""
+    allocated once; the scratch as the plan sizes it for chunks of 4
+    steps, at least what any of the sources needs."""
     dt, x, b, c, A, h0, dy, dh = args
     B, T, D = dt.shape
     N = b.shape[2]
-    plan = (ctypes.c_longlong * 7)()
-    err = lib.selective_scan_bwd_plan(B, T, D, N, 1, plan)
-    if err:
-        raise RuntimeError(f"plan failed: cudaError {err}")
+    plan = ms.selective_scan_bwd_plan(B, T, D, N, x.dtype)
+    scratch_floats = (plan.scratch + B * plan.channel_blocks
+                      * (-(-T // 4) - plan.chunks) * 8 * 128)
     f32 = dict(dtype=torch.float32, device="cuda")
     outs = (torch.empty((B, T, D), **f32),
             torch.empty((B, T, D), dtype=x.dtype, device="cuda"),
             torch.empty((B, T, N), dtype=b.dtype, device="cuda"),
             torch.empty((B, T, N), dtype=c.dtype, device="cuda"),
             torch.empty((D, N), **f32), torch.empty((B, D, N), **f32))
-    scratch = torch.empty((plan[6],), **f32)
+    scratch = torch.empty((scratch_floats,), **f32)
     sel = ms._selective_args(dt, x, b, c, A, h0, outs[0], outs[5])
 
     def call():
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.selective_scan_bwd(
             *sel[:6], dy.data_ptr(), dh.data_ptr(),
-            *(o.data_ptr() for o in outs), scratch.data_ptr(), plan[6],
-            *sel[8:], stream)
+            *(o.data_ptr() for o in outs), scratch.data_ptr(),
+            scratch_floats, *sel[8:], stream)
         if err:
             raise RuntimeError(f"launch failed: cudaError {err}")
         return outs

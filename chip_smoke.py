@@ -31,10 +31,11 @@ Phases, each printing what it found; any failure raises and exits non-zero:
    CUDA graph at zamba2-2.7b's training shape beside its bound and its
    design's; no library call computes it), the Mamba-1 scan's backward
    ``selective_scan_bwd`` against ``ref.selective_scan_bwd_ref`` on
-   ``SEL_BWD_CASES`` (f32 and bf16, N 4, 16 and 128, T 1 to 300, ragged
-   channel blocks, the decay underflowing; two calls bit-identical; timed
-   from a CUDA graph at falcon-mamba-7b's training shape beside its bound
-   and its design's SFU floor; no library call computes it; under grad
+   ``SEL_BWD_CASES`` (f32 and bf16, N 4, 16 and 128, T 1 to 300 and around
+   its chunk, ragged channel blocks, the decay underflowing, its operands
+   loaded by the block's threads and through TMA; two calls bit-identical;
+   timed from a CUDA graph at falcon-mamba-7b's training shape beside its
+   bound and its design's SFU floor; no library call computes it; under grad
    ``selective_scan`` is the differentiable op and ``mamba_scan`` raises),
    ``selective_scan`` also timed at T = 2048, and the LUT matmul;
 4. moe-layer: ``moe.moe_block`` at qwen2-moe-a2.7b's layer width (N = 4400
@@ -1075,17 +1076,29 @@ def phase_mamba2_scan_bwd(gen) -> dict:
 FALCON_TRAIN_SCAN = (4, 2048, 8192, 16)
 # the Mamba-1 scan's backward against its plain version: f32 and bf16, N of
 # one (P = 1), two (the model's 16) and sixteen lanes a channel, T of one
-# step, at and past the direct path's 8, below, at and past a 64-step
-# chunk (two and more of the kernel's 32-step chunks, a ragged sub-chunk),
-# and 300; D = 203 leaves every channel block ragged; b and c slices of one
-# projection at an odd column; h0 and dh_last nonzero.  Then the underflow:
-# at step 3 of every 64, dt A <= -1000 (the decay is 0) and x = 0
+# step, at and around the kernel's chunks (16 steps at N = 16, 8 at N = 4
+# and 128: T = Q - 1, Q, Q + 1, 2 Q + 1, one chunk, a ragged one, a ragged
+# sub-chunk), below, at and past 64 and 300; D = 203 leaves every channel
+# block ragged and b and c are slices of one projection at an odd column,
+# so that the block's threads load every operand; h0 and dh_last nonzero.
+# Then the underflow: at step 3 of every 64, dt A <= -1000 (the decay is 0)
+# and x = 0.  Then the TMA route for every operand: D a multiple of 8 and
+# b and c at a 16-byte aligned column, as falcon's are (N = 4 over a
+# ring's 8 states).  A case: (B, T, D, N, dtype, reset, column of b in the
+# projection).
 SEL_BWD_CASES = (
-    [(2, T, 203, N, dt, False) for dt in (torch.float32, torch.bfloat16)
-     for N in (4, 16, 128) for T in (1, 8, 9, 63, 64, 65, 300)]
-    + [(2, 300, 203, 16, torch.bfloat16, True),
-       (2, 130, 203, 4, torch.float32, True),
-       (1, 130, 40, 128, torch.bfloat16, True)])
+    [(2, T, 203, N, dt, False, 7) for dt in (torch.float32, torch.bfloat16)
+     for N in (4, 16, 128)
+     for T in (1, 7, 8, 9, 15, 16, 17, 33, 63, 64, 65, 300)]
+    + [(2, 300, 203, 16, torch.bfloat16, True, 7),
+       (2, 130, 203, 4, torch.float32, True, 7),
+       (1, 130, 40, 128, torch.bfloat16, True, 7)]
+    + [(2, T, 256, 16, dt, False, 256) for dt in (torch.float32,
+                                                   torch.bfloat16)
+       for T in (1, 17, 300)]
+    + [(2, 130, 256, 16, torch.bfloat16, True, 256),
+       (1, 77, 512, 128, torch.bfloat16, False, 256),
+       (2, 65, 256, 4, torch.float32, False, 256)])
 
 
 def _sel_bwd_inputs(gen, B, T, D, N, dtype, reset=False, offset=7):
@@ -1124,30 +1137,56 @@ def _sel_bwd_cost(B, T, D, N, itemsize):
     return B * T * D * N, nbytes
 
 
+def _sel_bwd_levels(T, Q):
+    """How many times the kernel evaluates each exponential, on average
+    over the T steps, with chunks of Q steps: level 1 over every chunk but
+    the last, level 2 over every sub-chunk of a chunk but its last, level
+    3 over all."""
+    SC = ms.SEL_BWD_SUB
+    n = -(-T // Q)
+    steps = (n - 1) * Q
+    for k in range(n):
+        subs = min(Q // SC, -(-(T - k * Q) // SC))
+        steps += (subs - 1) * SC + min(subs * SC, T - k * Q)
+    return steps / T
+
+
 def phase_selective_scan_bwd(gen) -> dict:
     """The Mamba-1 scan's backward kernel against
-    ``ref.selective_scan_bwd_ref`` on ``SEL_BWD_CASES``; its plan against
-    the wrapper's mirror; two calls bit-identical; timed from a CUDA graph
-    at falcon-mamba-7b's training shape (B=4, T=2048, D=8192, N=16, bf16 x,
-    b, c) beside its plain version, its bound and its design's own floor
-    (three recompute levels, one exponential a state-step each, on the
+    ``ref.selective_scan_bwd_ref`` on ``SEL_BWD_CASES``, each case's plan
+    against the wrapper's mirror (and the TMA route asserted where the
+    case is meant to take it for every operand, or for none); two calls
+    bit-identical; timed from a CUDA graph at falcon-mamba-7b's training
+    shape (B=4, T=2048, D=8192, N=16, bf16 x, b, c, every operand through
+    TMA) beside its plain version, its bound and its design's own floor
+    (its exponential levels, one exponential a state-step each, on the
     special-function units).  No PyTorch call computes this function
     (library "none").  Also: under grad on the card ``selective_scan`` is
     the differentiable op (one forward and one backward launch), and
     ``mamba_scan``, which has no backward, raises."""
+    routes = {}
     for case in SEL_BWD_CASES:
-        args = _sel_bwd_inputs(gen, *case)
-        B, T, D, N, dtype, reset = case
-        tag = (B, T, D, N, str(dtype)[6:], "reset" if reset else "softplus")
+        B, T, D, N, dtype, reset, offset = case
+        args = _sel_bwd_inputs(gen, B, T, D, N, dtype, reset, offset)
+        dt, x, b, c, A, h0, dy, dh = args
+        plan = ms.kernel_selective_scan_bwd_plan(dt, x, b, c, dy)
+        if plan != ms.selective_scan_bwd_plan(B, T, D, N, dtype,
+                                              (dt, x, b, c, dy)):
+            raise AssertionError(f"the backward's plan {plan} at {case} is "
+                                 "not the wrapper's mirror of it")
+        xb = 2 if dtype == torch.bfloat16 else 4
+        want = (D % 4 == 0, D * xb % 16 == 0, D % 4 == 0, offset == 256,
+                offset == 256 and (offset + N) * xb % 16 == 0)
+        if plan.tma != want:
+            raise AssertionError(f"the backward at {case} loads "
+                                 f"{plan.tma} through TMA, not {want}")
+        routes[plan.tma] = routes.get(plan.tma, 0) + 1
+        tag = (B, T, D, N, str(dtype)[6:], "reset" if reset else "softplus",
+               offset)
         _hold_sel_bwd(tag, ms.selective_scan_bwd(*args), args)
-    for shape in (FALCON_TRAIN_SCAN, (2, 65, 203, 4), (1, 1, 40, 128),
-                  (3, 300, 96, 33)):
-        for dtype in (torch.float32, torch.bfloat16):
-            plan = ms.kernel_selective_scan_bwd_plan(*shape, dtype)
-            if plan != ms.selective_scan_bwd_plan(*shape):
-                raise AssertionError(f"the backward's plan {plan} at {shape}"
-                                     f", {dtype} is not the wrapper's "
-                                     "mirror of it")
+    log("selective_scan_bwd", check="routes",
+        cases=",".join(f"{''.join('T' if f else '-' for f in k)}:{v}"
+                       for k, v in routes.items()))
     args = _sel_bwd_inputs(gen, 1, 20, 16, 16, torch.bfloat16)
     ins = [t.clone().requires_grad_() for t in args[:6]]
     before = (ms.selective_scan.launches, ms.selective_scan_bwd.launches)
@@ -1168,8 +1207,14 @@ def phase_selective_scan_bwd(gen) -> dict:
                              "a backward")
     B, T, D, N = FALCON_TRAIN_SCAN
     args = _sel_bwd_inputs(gen, B, T, D, N, torch.bfloat16, offset=256)
+    dt, x, b, c, A, h0, dy, dh = args
+    plan = ms.kernel_selective_scan_bwd_plan(dt, x, b, c, dy)
+    if plan != ms.selective_scan_bwd_plan(B, T, D, N, torch.bfloat16,
+                                          (dt, x, b, c, dy)):
+        raise AssertionError(f"the backward's plan {plan} at falcon's shape "
+                             "is not the wrapper's mirror of it")
     got = ms.selective_scan_bwd(*args)
-    case = (B, T, D, N, "bfloat16", "softplus")
+    case = (B, T, D, N, "bfloat16", "softplus", 256)
     err = _hold_sel_bwd(case, got, args)
     again = ms.selective_scan_bwd(*args)
     torch.cuda.synchronize()
@@ -1186,14 +1231,16 @@ def phase_selective_scan_bwd(gen) -> dict:
     exps, nbytes = _sel_bwd_cost(B, T, D, N, 2)
     t_ops = exps / PEAK_SFU_OPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    plan = ms.selective_scan_bwd_plan(B, T, D, N)
+    levels = _sel_bwd_levels(T, plan.chunk)
     log("kernel-time", name="selective_scan_bwd",
         shape=f"B{B}_T{T}_D{D}_N{N}_bf16", timing="cuda_graph_device_time",
         ms=f"{ms_:.4f}", plain_ms=f"{plain_ms:.4f}", library_ms="none",
         plan=",".join(map(str, plan.as_ints())),
+        tma=",".join(n for n, f in zip(ms.SEL_BWD_OPERANDS, plan.tma) if f)
+        or "none",
         bound_ms=f"{max(t_ops, t_bytes):.4f}", sfu_bound_ms=f"{t_ops:.4f}",
-        bytes_bound_ms=f"{t_bytes:.4f}",
-        design_sfu_ms=f"{3 * t_ops:.4f}", mexp=f"{exps / 1e6:.1f}",
+        bytes_bound_ms=f"{t_bytes:.4f}", exp_levels=f"{levels:.4f}",
+        design_sfu_ms=f"{levels * t_ops:.4f}", mexp=f"{exps / 1e6:.1f}",
         mbytes=f"{nbytes / 1e6:.2f}",
         scratch_MB=f"{plan.scratch * 4 / 1e6:.1f}", max_abs_err=f"{err:.3e}")
     return {"name": "selective_scan_bwd", "route": "cuda",

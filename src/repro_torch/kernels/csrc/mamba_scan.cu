@@ -16,7 +16,8 @@
 //     share one recurrence core (recur below);
 //   * selective_scan_bwd: that form's gradient (ddt, dx, db, dc, dA, dh0
 //     from dy and dh_last), a reverse-time walk on the CUDA cores over
-//     states it recomputes, in selective_scan_fwd's lane layout (below at
+//     states it recomputes, in selective_scan_fwd's lane layout, its inputs
+//     through a ring of whole chunks loaded by TMA (below at
 //     "selective_scan_bwd");
 //   * mamba2_scan_fwd: the Mamba-2 form, as repro/models/ssm.py::mamba2_block
 //     computes it: a scalar decay exp(dt * A_h) a head, u = (dt * x) * b over
@@ -74,10 +75,11 @@
 //   * runs a short T (T <= DIRECT_T; decode is T = 1) without the ring: each
 //     lane reads its inputs straight from global memory, and h0 / h_last
 //     move as 16-byte vectors.
-// plan_selective below makes these choices; kernels/mamba_scan.py mirrors it
-// for the tests.  Neither of these two kernels, nor the Mamba-1 form's
-// backward, uses the tensor cores (only the Mamba-2 form's chunked paths
-// do); the measured times are in PERF.md.
+// plan_selective below makes these choices (plan_selective_bwd the
+// backward's: its ring's depth and which operands TMA loads);
+// kernels/mamba_scan.py mirrors both for the tests.  Neither of these two
+// kernels, nor the Mamba-1 form's backward, uses the tensor cores (only the
+// Mamba-2 form's chunked paths do); the measured times are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -510,15 +512,15 @@ selective_ring_kernel(const __grid_constant__ SelMaps maps, const SelArgs a) {
 }
 
 // A (B, T, D) operand as a 3-D tensor map (D, T, B), boxes of CH channels by
-// TS steps by one batch row, no swizzle.
+// `rows` steps by one batch row, no swizzle.
 bool map_operand(CUtensorMap* map, CUtensorMapDataType type, int itemsize,
                  const void* base, int B, int T, int D, long long sb,
-                 long long st, uint32_t ch) {
+                 long long st, uint32_t ch, uint32_t rows = TS) {
   const uint64_t dims[3] = {(uint64_t)D, (uint64_t)T, (uint64_t)B};
   const uint64_t bstride = B == 1 ? st * T : sb;   // unused when B == 1
   const uint64_t strides[2] = {(uint64_t)(st * itemsize),
                                bstride * itemsize};
-  const uint32_t box[3] = {ch, (uint32_t)TS, 1};
+  const uint32_t box[3] = {ch, rows, 1};
   return hopper_host::make_map(map, type, 3, base, dims, strides, box,
                                CU_TENSOR_MAP_SWIZZLE_NONE);
 }
@@ -3316,60 +3318,75 @@ cudaError_t launch_m2_bwd_chunked(const M2Bwd& a, const M2BwdPlan& pl,
 // never recovered by dividing by the decay (which underflows to 0: dt A =
 // -1000 is a test case), in three levels, each a forward pass with the
 // forward kernel's arithmetic (ex2 of dt A log2 e, one fma a state-step):
-//   1. over T, storing the state entering every SB_Q-step chunk in device
-//      memory (cb: a block's own slots, each read back only by the thread
-//      that wrote it);
-//   2. walking the chunks in reverse, over a chunk from its stored state,
+//   1. over chunks 0 .. n-2 of Q steps, storing the state entering each in
+//      device memory (cb: a block's own slots, each read back only by the
+//      thread that wrote it, into shared memory by cp.async one chunk
+//      before it is needed);
+//   2. walking the chunks in reverse, over a chunk from its entering state,
 //      keeping the state entering each SB_SC-step sub-chunk in shared
 //      memory (a thread's own slots);
 //   3. walking the sub-chunks in reverse, over a sub-chunk from its slot,
 //      keeping each step's state and decay in registers; then the reverse
 //      steps over them, with g in registers.
-// A sub-chunk's inputs (dt, x, dy of the block's channels; b, c padded to
-// NP = 8 P states with zeros) are staged in shared memory by the whole
-// block, the loads of its steps in flight together, into one of two
-// buffers, and fetched into registers one sub-chunk ahead so that the
-// loads run under the current sub-chunk's work (mamba2_bwd_kernel's
-// pattern); the rows of the sub-chunk after that are prefetched into L2
-// (a hint: no register, no wait), so that the fetch waits on L2, not on
-// device memory.  Steps past T and channels past D read zeros (dt = 0:
+// The inputs come through a ring of whole-chunk stages in shared memory
+// (dt, x, dy of the block's channels [Q][CH]; b, c over NP = S P states
+// [Q][NP], widened to f32, zeros past N), in the order the walk takes the
+// chunks: 0 .. n-2 for level 1 (dt, x, b), then n-1 .. 0 (all five).  One
+// staged chunk serves levels 2 and 3 and the reverse steps: nothing is
+// fetched twice and no register holds a load in flight.  There is no
+// producer warp (160 threads a block would fit three blocks an SM, not
+// four): thread 0 issues a chunk's TMA loads (cp.async.bulk.tensor) under
+// the stage's full mbarrier, DEPTH - 1 chunks ahead; an operand whose
+// base or strides TMA cannot take (16-byte aligned base, batch and time
+// strides multiples of 16 bytes) is loaded into the same place by the
+// block's threads with plain loads.  The block meets once a chunk, at one
+// __syncthreads after the chunk's full barrier, which also frees the
+// stage the chunk before it used: the next loads go there.  Steps past T
+// and channels past D read zeros (TMA's fill, or the threads'; dt = 0:
 // decay 1, u 0, no gradient), so every step runs unguarded.
 //
 // Sums.  dx and ddt sum over a channel's N states, which its P lanes hold
 // (log2 P xor shuffles).  db and dc sum over all D channels: each reverse
 // step reduce-scatters a lane's 2 S terms over the warp's channels with
-// xor shuffles (15 a step at P = 2, each lane left with one sum), the
-// warps' sums go to shared memory, and after the sub-chunk the block adds
-// its warps in a fixed order and writes one partial sum a (b, t, channel
-// block) to device memory; a second kernel adds the channel blocks in a
-// fixed order.  dA is summed over t in registers and written a batch row;
-// a third kernel adds the rows in order.  There are no float atomics: two
-// calls are bit-identical.
+// xor shuffles (15 a step at P = 2, each lane left with one sum; the first
+// round, db's term of a state against dc's, inside the step term by term,
+// so that the 2 S terms are never live together); the warps' sums of a
+// chunk go to shared memory, and after the next chunk's barrier the block
+// adds its warps in a fixed order, writes one partial sum a (b, t, channel
+// block) to device memory and frees them for the chunk (an mbarrier the
+// warps wait on before their first sum of the next); a second kernel adds
+// the channel blocks in a fixed order.  dA is summed over t in registers
+// and written a batch row; a third kernel adds the rows in order.  There
+// are no float atomics: two calls are bit-identical.  (A transpose of the
+// terms through shared memory, 16 loads and adds a lane a step in place of
+// the shuffles, ran slower: it moves twice the bytes through the shared
+// memory pipe; PERF.md.)
 //
 // What bounds the function at falcon-mamba-7b's training shape (B=4,
 // T=2048, D=8192, N=16, bf16 x, b, c): it reads dt, x, dy, b, c, A, h0,
 // dh_last and writes their gradients once, ~1.08 GB, 0.32 ms at 3.35 TB/s;
 // its B T D N = 1.07 G exponentials take 0.26 ms on the special-function
-// units.  This design evaluates each exponential once a level, three
-// times (0.77 ms on those units), and issues ~30 instructions a state-step
-// on the CUDA cores (three forward steps of ~4, the reverse step's ~9 and
-// its share of the shuffles).  The call has only B D P lanes of work
-// (65536 at that shape, ~15.5 warps an SM): SB_MINB = 4 caps the
-// registers at 128 so that its 512 blocks run as one wave (three an SM
-// ran as two and took ~1.5x as long).  The forms timed
-// (benchmarks/selective_scan_bwd_sweep.py) are in PERF.md.
+// units.  This design evaluates each exponential once a level: level 1 on
+// (n-1)/n of the steps, level 2 on (Q - SB_SC)/Q of them, level 3 on all,
+// 2.74 times at Q = 16 (0.70 ms on those units).  The call has only B D P
+// lanes of work (65536 at that shape, ~15.5 warps an SM): SB_MINB = 4 caps
+// the registers at 128 so that its 512 blocks run as one wave, and the
+// ring is as deep as four blocks' shared memory allows (two stages of 16
+// steps at N = 16: the level-1 states of 8-step chunks would take 0.27 GB
+// more scratch).  The forms timed (benchmarks/selective_scan_bwd_sweep.py)
+// are in PERF.md.
 
-constexpr int SB_Q = 16;                  // steps a chunk (level 1)
-constexpr int SB_SC = 4;                  // steps a sub-chunk (level 2)
+constexpr int SB_Q = 16;                  // steps a chunk: a ring stage
+constexpr int SB_SC = 4;                  // steps a sub-chunk (level 3)
+constexpr int SB_DEPTH = 3;               // ring stages, at most
 constexpr int SB_MINB = 4;                // blocks an SM (caps the registers)
-constexpr int SB_PREFETCH = 1;            // rows two sub-chunks ahead to L2
 constexpr int SB_NT = 128;                // threads a block
 constexpr int SB_NW = SB_NT / 32;
 constexpr int SB_S = 8;                   // states a lane
-constexpr int SB_SUBS = SB_Q / SB_SC;     // sub-chunks a chunk
 constexpr int SB_TILE = SB_S * SB_NT;     // floats of a block's state slot
+constexpr long long SM_SMEM = 233472;     // an SM's shared memory, bytes
 constexpr float LN2 = 0.6931471805599453f;
-static_assert(SB_Q % SB_SC == 0, "a chunk is whole sub-chunks");
+static_assert(SB_Q % (2 * SB_SC) == 0, "a chunk is whole sub-chunks");
 
 struct SelBwd {
   SelArgs f;              // the forward's operands (y, h_last unused)
@@ -3386,52 +3403,109 @@ struct SelBwd {
   float* dbp;             // db's and dc's partial sums a channel block
   float* dcp;             // (B, T, NB, N)
   int NB, nchunks;
+  int tma_dt, tma_x, tma_dy, tma_b, tma_c;   // from the plan
+};
+
+struct SelBwdMaps {
+  CUtensorMap dt, x, dy, b, c;
+};
+
+// The main kernel's shared memory, in bytes from a 128-byte boundary: the
+// ring's DEPTH stages of Q steps, each dt, x, dy [Q][CH] and b, c [Q][NP]
+// (as loaded when bf16, then widened to f32); the state slots (two
+// chunk-entry slots, then one a sub-chunk between the first and the last);
+// a chunk's warp sums of db and dc ([Q][warp][O]); the full barriers and
+// the one that frees the warp sums.  Q is SB_Q, or half of it (not below
+// 8) where even a two-stage ring of SB_Q steps would not let SB_MINB
+// blocks share an SM (1 KB of it reserved a block); DEPTH is the deepest
+// ring up to SB_DEPTH (at least 2) that does.
+template <typename TX, int P>
+struct SbLayout {
+  static constexpr int CH = SB_NT / P, NP = SB_S * P, O = 2 * NP;
+  static constexpr int XB = (int)sizeof(TX);
+  static constexpr long long stage(int q) {
+    return (long long)q * (CH * (8 + XB) + NP * (XB == 2 ? 12 : 8));
+  }
+  static constexpr long long bytes(int q, int d) {
+    const int slots = q / SB_SC > 2 ? q / SB_SC : 2;
+    return 128 + d * stage(q) + 4ll * SB_TILE * slots +
+           4ll * q * SB_NW * O + 8 * (SB_DEPTH + 1);
+  }
+  static constexpr bool fits(int q, int d) {
+    return SB_MINB * (bytes(q, d) + 1024) <= SM_SMEM;
+  }
+  static constexpr int Q = fits(SB_Q, 2) || SB_Q < 16 ? SB_Q : SB_Q / 2;
+  static constexpr int pick(int d) {
+    return d <= 2 || fits(Q, d) ? d : pick(d - 1);
+  }
+  static constexpr int DEPTH = pick(SB_DEPTH);
+  static constexpr int SUBS = Q / SB_SC;               // sub-chunks a chunk
+  static constexpr int NSLOT = SUBS > 2 ? SUBS : 2;
+  static constexpr uint32_t DT_BYTES = Q * CH * 4;    // dt's, and dy's
+  static constexpr uint32_t X_BYTES = Q * CH * XB;
+  static constexpr uint32_t BC_BYTES = Q * NP * XB;   // b's, and c's
+  static constexpr int RAW = XB == 2 ? (int)BC_BYTES : 0;
+  static constexpr int DT = 0, X = DT_BYTES, DY = X + X_BYTES,
+                       BR = DY + DT_BYTES, CR = BR + RAW, BF = CR + RAW,
+                       CF = BF + Q * NP * 4, STAGE = CF + Q * NP * 4;
+  static constexpr int REDSZ = Q * SB_NW * O;          // floats
+  static constexpr int SLOTS = DEPTH * STAGE,
+                       RED = SLOTS + 4 * NSLOT * SB_TILE,
+                       BAR = RED + 4 * REDSZ;
+  static constexpr long long SMEM = bytes(Q, DEPTH);
+  static_assert(STAGE == stage(Q) && BAR + 8 * (SB_DEPTH + 1) + 128 == SMEM,
+                "the layout is what bytes() counts");
+  static_assert(X % 128 == 0 && DY % 128 == 0 && BR % 128 == 0 &&
+                    CR % 128 == 0 && BF % 128 == 0 && CF % 128 == 0 &&
+                    STAGE % 128 == 0,
+                "TMA destinations stay 128-byte aligned");
+  static_assert(SB_DEPTH >= 2, "the ring loads a chunk ahead");
 };
 
 // How a backward call runs: S states a lane, P lanes a channel, CH
-// channels a block, NB channel blocks, chunks of SB_Q steps, the main
-// kernel's shared memory and the scratch the call needs, in floats.
+// channels a block, NB channel blocks, chunks of Q steps, the ring's
+// depth, the main kernel's shared memory (bytes), the scratch the call
+// needs (floats), and which of dt, x, dy, b, c come in through TMA.
 struct SelBwdPlan {
-  int S, P, CH, NB, nchunks;
+  int S, P, CH, NB, Q, nchunks, depth;
   long long smem, scratch;
+  int tma_dt, tma_x, tma_dy, tma_b, tma_c;
 };
 
-// The main kernel's shared memory: SB_SUBS state slots, two sub-chunks'
-// staged inputs (dt, x, dy [SB_SC][CH]; b, c [SB_SC][NP], as f32) and a
-// sub-chunk's warp sums of db and dc ([SB_SC][warp][db | dc][NP]).
-template <int P>
-struct SbStage {
-  static constexpr int CH = SB_NT / P, NP = SB_S * P;
-  static constexpr int DT = 0, X = SB_SC * CH, DY = 2 * SB_SC * CH,
-                       BV = 3 * SB_SC * CH, CV = BV + SB_SC * NP,
-                       SIZE = CV + SB_SC * NP;
-  // dt, x, dy (and b, c) a thread, the last load guarded where the stage
-  // is not whole loads of the block
-  static constexpr int XE = (SB_SC * CH + SB_NT - 1) / SB_NT;
-  static constexpr int BE = (SB_SC * NP + SB_NT - 1) / SB_NT;
-  static constexpr int RED = SB_SC * SB_NW * 2 * NP;
-  static constexpr long long SMEM =
-      4ll * (SB_SUBS * SB_TILE + 2 * SIZE + RED);
-  static_assert(BV % 4 == 0 && NP % 8 == 0 && SIZE % 4 == 0,
-                "b and c are read as 16-byte vectors");
-};
-
-long long sel_bwd_smem_bytes(int P) {
-  const int CH = SB_NT / P, NP = SB_S * P;
-  return 4ll * (SB_SUBS * SB_TILE + 2 * (3 * SB_SC * CH + 2 * SB_SC * NP) +
-                SB_SC * SB_NW * 2 * NP);
+template <typename TX>
+bool sel_bwd_layout(int P, int* q, int* depth, long long* smem) {
+#define SB_LAYOUT(P_)                   \
+  case P_:                              \
+    *q = SbLayout<TX, P_>::Q;           \
+    *depth = SbLayout<TX, P_>::DEPTH;   \
+    *smem = SbLayout<TX, P_>::SMEM;     \
+    return true;
+  switch (P) { SB_LAYOUT(1) SB_LAYOUT(2) SB_LAYOUT(4) SB_LAYOUT(8)
+               SB_LAYOUT(16) }
+#undef SB_LAYOUT
+  return false;
 }
 
-SelBwdPlan plan_selective_bwd(int B, int T, int D, int N) {
+// dy: the wrapper's contiguous (B, T, D) f32 (its base decides TMA)
+SelBwdPlan plan_selective_bwd(const SelArgs& f, const float* dy,
+                              int itemsize) {
   SelBwdPlan pl{};
   pl.S = SB_S;
-  pl.P = lanes_for(N, SB_S);
+  pl.P = lanes_for(f.N, SB_S);
   pl.CH = SB_NT / pl.P;
-  pl.NB = (D + pl.CH - 1) / pl.CH;
-  pl.nchunks = (T + SB_Q - 1) / SB_Q;
-  pl.smem = sel_bwd_smem_bytes(pl.P);
-  pl.scratch = (long long)B * pl.NB * pl.nchunks * SB_TILE +
-               (long long)B * D * N + 2ll * B * T * pl.NB * N;
+  pl.NB = (f.D + pl.CH - 1) / pl.CH;
+  if (itemsize == 2)
+    sel_bwd_layout<__nv_bfloat16>(pl.P, &pl.Q, &pl.depth, &pl.smem);
+  else
+    sel_bwd_layout<float>(pl.P, &pl.Q, &pl.depth, &pl.smem);
+  pl.nchunks = (f.T + pl.Q - 1) / pl.Q;
+  pl.scratch = (long long)f.B * pl.NB * pl.nchunks * SB_TILE +
+               (long long)f.B * f.D * f.N + 2ll * f.B * f.T * pl.NB * f.N;
+  pl.tma_dt = tma_ok(f.dt, f.dt_sb, f.dt_st, 4, f.B);
+  pl.tma_x = tma_ok(f.x, f.x_sb, f.x_st, itemsize, f.B);
+  pl.tma_dy = tma_ok(dy, (long long)f.T * f.D, f.D, 4, f.B);
+  pl.tma_b = tma_ok(f.b, f.b_sb, f.b_st, itemsize, f.B);
+  pl.tma_c = tma_ok(f.c, f.c_sb, f.c_st, itemsize, f.B);
   return pl;
 }
 
@@ -3450,9 +3524,39 @@ __device__ __forceinline__ void slot8_load(float (&h)[8], const float* s) {
   h[4] = w.x; h[5] = w.y; h[6] = w.z; h[7] = w.w;
 }
 
-// the cache line holding p into L2: a hint, no register, no wait
-__device__ __forceinline__ void prefetch_line(const void* p) {
-  asm volatile("prefetch.L2 [%0];" ::"l"(p));
+// a thread's slot from device memory into shared memory, asynchronously
+// (cp.async, 16 bytes at a time through L2); cp_async_wait waits for it
+__device__ __forceinline__ void slot8_prefetch(float* dst, const float* src) {
+  const float4* s = reinterpret_cast<const float4*>(src) + threadIdx.x;
+  float4* d = reinterpret_cast<float4*>(dst) + threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     hopper::smem_u32(d + i * SB_NT)),
+                 "l"(s + i * SB_NT)
+                 : "memory");
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// hopper::mbar_wait, except that a wait far longer than any load takes
+// (2^22 polls) traps: a launch error the wrapper reports, not a hang
+__device__ __forceinline__ void sb_wait(uint64_t* bar, uint32_t parity) {
+  for (int n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(hopper::smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == 1 << 22) __trap();
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void smem_read8(float (&v)[8], const float* p) {
@@ -3462,12 +3566,50 @@ __device__ __forceinline__ void smem_read8(float (&v)[8], const float* p) {
   v[4] = w.x; v[5] = w.y; v[6] = w.z; v[7] = w.w;
 }
 
+// Steps t0 .. t0 + Q - 1 of W columns of a (T, *) operand (rows `st`
+// elements apart, src at its first column; `cols` of the W real) into
+// dst [Q][W] by the block's threads, for an operand TMA cannot take;
+// zeros past T and past `cols`.  The loads of a thread are in flight
+// together.
+template <int Q, int W, typename TD, typename TS>
+__device__ __forceinline__ void sb_fill(TD* dst, const TS* src, long long st,
+                                        int t0, int T, int cols) {
+  constexpr int E = (Q * W + SB_NT - 1) / SB_NT;
+  TS v[E];
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    const int e = threadIdx.x + i * SB_NT, s = e / W, c = e % W;
+    v[i] = e < Q * W && t0 + s < T && c < cols ? src[(t0 + s) * st + c]
+                                               : TS(0.f);
+  }
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    const int e = threadIdx.x + i * SB_NT;
+    if (e < Q * W) {
+      if constexpr (sizeof(TD) == 4)
+        dst[e] = to_f(v[i]);
+      else
+        dst[e] = v[i];
+    }
+  }
+}
+
+// b or c of a chunk as TMA loaded it (bf16) into its f32 place
+template <int Q, int NP>
+__device__ __forceinline__ void sb_widen(float* dst,
+                                         const __nv_bfloat16* src) {
+#pragma unroll
+  for (int e = threadIdx.x; e < Q * NP; e += SB_NT)
+    dst[e] = __bfloat162float(src[e]);
+}
+
 // One reduce-scatter round over the lanes that differ in bit M: a lane
 // keeps the upper HALF of its values if its bit is set, else the lower,
-// adding its partner's; `off` tracks which of the 16 the kept ones are.
+// adding its partner's; `off` tracks which of the step's 2 S terms the
+// kept ones are.
 template <int HALF>
-__device__ __forceinline__ void rs_round(float (&v)[2 * SB_S], int lane,
-                                         int M, int& off) {
+__device__ __forceinline__ void rs_round(float (&v)[SB_S], int lane, int M,
+                                         int& off) {
   const bool hi = (lane & M) != 0;
 #pragma unroll
   for (int i = 0; i < HALF; ++i) {
@@ -3478,14 +3620,14 @@ __device__ __forceinline__ void rs_round(float (&v)[2 * SB_S], int lane,
   if (hi) off += HALF;
 }
 
-// A reverse step's db and dc terms (v[0..S) of db, v[S..2S) of dc, this
-// lane's states q*S ..) summed over the warp's 32 / P channels (lane bits
-// log2 P .. 4), into dst[db | dc][NP]; each sum is written once
+// A reverse step's db and dc terms summed over the warp's 32 / P channels
+// (lane bits log2 P .. 4) into dst[db | dc][NP]: the first round (bit 16,
+// db's term of state j against dc's) is taken in the step itself, term by
+// term, leaving v the S sums a lane kept and `off` = S where it kept dc's;
+// the other rounds here.  Each sum is written once.
 template <int P>
-__device__ __forceinline__ void channel_sums(float (&v)[2 * SB_S], float* dst,
-                                             int lane, int q) {
-  int off = 0;
-  rs_round<8>(v, lane, 16, off);
+__device__ __forceinline__ void channel_sums(float (&v)[SB_S], float* dst,
+                                             int lane, int q, int off) {
   if constexpr (P <= 8) rs_round<4>(v, lane, 8, off);
   if constexpr (P <= 4) rs_round<2>(v, lane, 4, off);
   if constexpr (P <= 2) rs_round<1>(v, lane, 2, off);
@@ -3501,236 +3643,285 @@ __device__ __forceinline__ void channel_sums(float (&v)[2 * SB_S], float* dst,
   }
 }
 
+// Where a thread sits: lane q of channel cl (states n0 = q S ..) of
+// channel block cblk, batch row bb.  Made from opaque copies of threadIdx
+// and blockIdx at the top of every chunk, so that ptxas derives the
+// addresses again there rather than hoisting them out of the walk and
+// spilling them (as mamba2_bwd_tile_kernel does).
+template <int P>
+struct SbPlace {
+  int tid, lane, warp, cl, q, n0, cblk, bb, d0;
+  __device__ __forceinline__ SbPlace() {
+    int t = threadIdx.x, x = blockIdx.x, y = blockIdx.y;
+    asm volatile("" : "+r"(t), "+r"(x), "+r"(y));
+    tid = t;
+    lane = t % 32;
+    warp = t / 32;
+    cl = t / P;
+    q = t % P;
+    n0 = q * SB_S;
+    cblk = x;
+    bb = y;
+    d0 = x * (SB_NT / P);
+  }
+};
+
 template <typename TX, int P>
 __global__ void __launch_bounds__(SB_NT, SB_MINB)
-selective_bwd_kernel(const SelBwd a) {
-  using St = SbStage<P>;
-  constexpr int S = SB_S, CH = St::CH, NP = St::NP, SC = SB_SC;
-  extern __shared__ __align__(16) float sel_bwd_smem[];
-  float* slots = sel_bwd_smem;                  // level 2: SB_SUBS slots
-  float* stage = slots + SB_SUBS * SB_TILE;     // two sub-chunks' inputs
-  float* red = stage + 2 * St::SIZE;            // a sub-chunk's warp sums
+selective_bwd_kernel(const __grid_constant__ SelBwdMaps maps,
+                     const SelBwd a) {
+  using L = SbLayout<TX, P>;
+  using Pl = SbPlace<P>;
+  constexpr int S = SB_S, CH = L::CH, NP = L::NP, O = L::O, SC = SB_SC,
+                Q = L::Q, DEPTH = L::DEPTH;
+  extern __shared__ unsigned char sel_bwd_smem[];
+  unsigned char* sm =
+      sel_bwd_smem +
+      ((128u - (hopper::smem_u32(sel_bwd_smem) & 127u)) & 127u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* red_free = full + SB_DEPTH;     // the warp sums flushed
+  float* slots = reinterpret_cast<float*>(sm + L::SLOTS);
+  float* red = reinterpret_cast<float*>(sm + L::RED);
   const SelArgs& f = a.f;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int cl = tid / P, q = tid % P, n0 = q * S;
-  const int cblk = blockIdx.x, bb = blockIdx.y, d0 = cblk * CH, d = d0 + cl;
-  const int T = f.T, D = f.D, N = f.N;
-  const bool live = d < D;
-  const int dl = live ? d : 0;
-  float* cb = a.cb + ((long long)bb * a.NB + cblk) * a.nchunks * SB_TILE;
-  const long long hoff = ((long long)bb * D + dl) * N + n0;
-  float A2[S];
-  load_states<S>(A2, f.A + (long long)dl * N + n0, n0, N, live, f.vec);
-#pragma unroll
-  for (int j = 0; j < S; ++j) A2[j] *= LOG2E;
-  const float* dtg = f.dt + bb * f.dt_sb + d0;
-  const TX* xg = static_cast<const TX*>(f.x) + bb * f.x_sb + d0;
-  const TX* bg = static_cast<const TX*>(f.b) + bb * f.b_sb;
-  const TX* cg = static_cast<const TX*>(f.c) + bb * f.c_sb;
-  const long long row0 = (long long)bb * T * D;  // dy's, dx's, ddt's row
-  const float* dyg = a.dy + row0 + d0;
-  TX* dxg = static_cast<TX*>(a.dx) + row0 + dl;
-  float* ddtg = a.ddt + row0 + dl;
+  const int T = f.T, D = f.D, N = f.N, nch = a.nchunks;
+  const int items = 2 * nch - 1;      // chunks 0 .. n-2, then n-1 .. 0
 
-  // the inputs of steps t0 .. t0 + SC - 1 (dy and c only for the reverse
-  // walk) into registers, fetched one sub-chunk ahead; put stages them
-  float rdt[St::XE], rx[St::XE], rdy[St::XE], rbv[St::BE], rcv[St::BE];
-  auto fetch = [&](int t0, bool reverse) {
-#pragma unroll
-    for (int i = 0; i < St::XE; ++i) {
-      const int e = tid + i * SB_NT, s = e / CH, c = e % CH;
-      const bool ok = e < SC * CH && t0 + s < T && d0 + c < D;
-      rdt[i] = ok ? __ldg(dtg + (t0 + s) * f.dt_st + c) : 0.f;
-      rx[i] = ok ? load(xg + (t0 + s) * f.x_st + c) : 0.f;
-      rdy[i] = ok && reverse ? __ldg(dyg + (long long)(t0 + s) * D + c)
-                             : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < St::BE; ++i) {
-      const int e = tid + i * SB_NT, s = e / NP, n = e % NP;
-      const bool ok = e < SC * NP && t0 + s < T && n < N;
-      rbv[i] = ok ? load(bg + (t0 + s) * f.b_st + n) : 0.f;
-      rcv[i] = ok && reverse ? load(cg + (t0 + s) * f.c_st + n) : 0.f;
-    }
+  auto chunk_of = [&](int i) { return i < nch - 1 ? i : 2 * nch - 2 - i; };
+  // the thread's first state of channel d in a (B, D, N) tensor
+  auto state_off = [&](const Pl& pc) {
+    const int d = pc.d0 + pc.cl;
+    return ((long long)pc.bb * D + (d < D ? d : 0)) * N + pc.n0;
   };
-  auto put = [&](float* st) {
-#pragma unroll
-    for (int i = 0; i < St::XE; ++i) {
-      const int e = tid + i * SB_NT;
-      if (e < SC * CH) {
-        st[St::DT + e] = rdt[i];
-        st[St::X + e] = rx[i];
-        st[St::DY + e] = rdy[i];
+  // item i's inputs into its stage: one thread's TMA loads under the
+  // stage's full barrier, the block's threads for the operands TMA cannot
+  // take; dy and c only for the reverse walk
+  auto issue = [&](int i, const Pl& pc) {
+    unsigned char* st = sm + (i % DEPTH) * L::STAGE;
+    const int t0 = chunk_of(i) * Q, d0 = pc.d0, bb = pc.bb;
+    const bool rev = i >= nch - 1;
+    constexpr int BT = sizeof(TX) == 2 ? L::BR : L::BF;   // TMA's b, c
+    constexpr int CT = sizeof(TX) == 2 ? L::CR : L::CF;
+    if (pc.tid == 0) {
+      uint64_t* bar = &full[i % DEPTH];
+      const uint32_t bytes = (a.tma_dt ? L::DT_BYTES : 0) +
+                             (a.tma_x ? L::X_BYTES : 0) +
+                             (a.tma_b ? L::BC_BYTES : 0) +
+                             (rev && a.tma_dy ? L::DT_BYTES : 0) +
+                             (rev && a.tma_c ? L::BC_BYTES : 0);
+      if (bytes == 0) {
+        hopper::mbar_arrive(bar);
+      } else {
+        hopper::mbar_arrive_expect_tx(bar, bytes);
+        if (a.tma_dt)
+          hopper::tma_load_3d(st + L::DT, &maps.dt, bar, d0, t0, bb);
+        if (a.tma_x) hopper::tma_load_3d(st + L::X, &maps.x, bar, d0, t0, bb);
+        if (a.tma_b) hopper::tma_load_3d(st + BT, &maps.b, bar, 0, t0, bb);
+        if (rev && a.tma_dy)
+          hopper::tma_load_3d(st + L::DY, &maps.dy, bar, d0, t0, bb);
+        if (rev && a.tma_c)
+          hopper::tma_load_3d(st + CT, &maps.c, bar, 0, t0, bb);
       }
     }
+    if (!a.tma_dt)
+      sb_fill<Q, CH>(reinterpret_cast<float*>(st + L::DT),
+                     f.dt + bb * f.dt_sb + d0, f.dt_st, t0, T, D - d0);
+    if (!a.tma_x)
+      sb_fill<Q, CH>(reinterpret_cast<TX*>(st + L::X),
+                     static_cast<const TX*>(f.x) + bb * f.x_sb + d0, f.x_st,
+                     t0, T, D - d0);
+    if (!a.tma_b)
+      sb_fill<Q, NP>(reinterpret_cast<float*>(st + L::BF),
+                     static_cast<const TX*>(f.b) + bb * f.b_sb, f.b_st, t0,
+                     T, N);
+    if (rev && !a.tma_dy)
+      sb_fill<Q, CH>(reinterpret_cast<float*>(st + L::DY),
+                     a.dy + (long long)bb * T * D + d0, (long long)D, t0, T,
+                     D - d0);
+    if (rev && !a.tma_c)
+      sb_fill<Q, NP>(reinterpret_cast<float*>(st + L::CF),
+                     static_cast<const TX*>(f.c) + bb * f.c_sb, f.c_st, t0,
+                     T, N);
+  };
+  // the block's partial sums of db and dc over chunk k's steps (its warps'
+  // sums, added in a fixed order), then red is free again
+  auto flush = [&](int k, const Pl& pc) {
+    const int t0 = k * Q, steps = min(Q, T - t0);
+    for (int e = pc.tid; e < steps * O; e += SB_NT) {
+      const int s = e / O, o = e % O, n = o % NP;
+      const float* w = red + s * SB_NW * O + o;
+      float sum = 0.f;
 #pragma unroll
-    for (int i = 0; i < St::BE; ++i) {
-      const int e = tid + i * SB_NT;
-      if (e < SC * NP) {
-        st[St::BV + e] = rbv[i];
-        st[St::CV + e] = rcv[i];
+      for (int k2 = 0; k2 < SB_NW; ++k2) sum += w[k2 * O];
+      if (n < N) {
+        const long long row =
+            ((long long)pc.bb * T + t0 + s) * a.NB + pc.cblk;
+        (o < NP ? a.dbp : a.dcp)[row * N + n] = sum;
       }
     }
+    __syncwarp();
+    if (pc.lane == 0) hopper::mbar_arrive(red_free);
   };
-  // the sub-chunks in the order they run: chunk k's forward sub-chunks
-  // (all but its last, from the chunk state), then its sub-chunks in
-  // reverse; a chunk of one sub-chunk has only the reverse one
-  auto nsub_of = [&](int k) {
-    return min(SB_SUBS, (T - k * SB_Q + SC - 1) / SC);
-  };
-  auto fetch_chunk = [&](int k) { fetch(k * SB_Q, nsub_of(k) == 1); };
-  // the rows of steps t0 .. t0 + SC - 1 into L2, one step a thread, for
-  // the fetch after the next (the sub-chunk two runs ahead, or a guess at
-  // it: a hint costs no wait), so that fetch waits for L2, not DRAM
-  auto prefetch = [&](int t0) {
-    const int t = t0 + tid;
-    if (!SB_PREFETCH || tid >= SC || t < 0 || t >= T) return;
-    constexpr int XL = 128 / (int)sizeof(TX);       // x's elements a line
+  // h = decay_t h + (dt_t x_t) b_t over staged steps s0 .. s0 + SC - 1
+  auto forward = [&](float (&hh)[S], const float (&A2)[S],
+                     const unsigned char* st, int s0, const Pl& pc) {
+    const float* sdt = reinterpret_cast<const float*>(st + L::DT) + pc.cl;
+    const TX* sx = reinterpret_cast<const TX*>(st + L::X) + pc.cl;
+    const float* sbv = reinterpret_cast<const float*>(st + L::BF) + pc.n0;
 #pragma unroll
-    for (int o = 0; o < CH; o += 32) {
-      prefetch_line(dtg + t * f.dt_st + o);
-      prefetch_line(dyg + (long long)t * D + o);
-    }
-#pragma unroll
-    for (int o = 0; o < CH; o += XL) prefetch_line(xg + t * f.x_st + o);
-    prefetch_line(bg + t * f.b_st);
-    prefetch_line(cg + t * f.c_st);
-  };
-  // h = decay_t h + (dt_t x_t) b_t over the staged steps
-  auto forward = [&](float (&h)[S], const float* st) {
-#pragma unroll
-    for (int s = 0; s < SC; ++s) {
-      const float dt = st[St::DT + s * CH + cl];
-      const float dx = dt * st[St::X + s * CH + cl];
+    for (int u = 0; u < SC; ++u) {
+      const int s = s0 + u;
+      const float dt = sdt[s * CH];
+      const float dx = dt * to_f(sx[s * CH]);
       float bv[S];
-      smem_read8(bv, st + St::BV + s * NP + n0);
+      smem_read8(bv, sbv + s * NP);
 #pragma unroll
       for (int j = 0; j < S; ++j)
-        h[j] = fmaf(hopper::ex2(dt * A2[j]), h[j], dx * bv[j]);
+        hh[j] = fmaf(hopper::ex2(dt * A2[j]), hh[j], dx * bv[j]);
     }
   };
 
-  // 1. the state entering every chunk
-  float h[S], g[S], dAr[S];
-  load_states<S>(h, f.h0 + hoff, n0, N, live, f.vec);
-  int buf = 0;
-  const int nfwd = (a.nchunks - 1) * SB_SUBS;   // sub-chunks before the last
-  if (nfwd > 0)
-    fetch(0, false);
-  else
-    fetch_chunk(0);
-  for (int i = 0; i < nfwd; ++i, buf ^= 1) {
-    if (i % SB_SUBS == 0) slot8_store(cb + (i / SB_SUBS) * SB_TILE, h);
-    float* st = stage + buf * St::SIZE;
-    put(st);
-    __syncthreads();
-    if (i + 1 < nfwd)
-      fetch((i + 1) * SC, false);
-    else
-      fetch_chunk(a.nchunks - 1);
-    prefetch((i + 2) * SC);
-    forward(h, st);
-  }
-  slot8_store(cb + (a.nchunks - 1) * SB_TILE, h);
-
-  load_states<S>(g, a.dh_last + hoff, n0, N, live, f.vec);
+  float A2[S], h[S], g[S], dAr[S];
+  {
+    const Pl pc;
+    const bool live = pc.d0 + pc.cl < D;
+    const int dl = live ? pc.d0 + pc.cl : 0;
+    load_states<S>(A2, f.A + (long long)dl * N + pc.n0, pc.n0, N, live,
+                   f.vec);
 #pragma unroll
-  for (int j = 0; j < S; ++j) dAr[j] = 0.f;
-  for (int k = a.nchunks - 1; k >= 0; --k) {
-    // 2. the state entering every sub-chunk of chunk k
-    const int c0 = k * SB_Q, nsub = nsub_of(k);
-    slot8_load(h, cb + k * SB_TILE);
-    for (int j = 0; j + 1 < nsub; ++j, buf ^= 1) {
-      slot8_store(slots + j * SB_TILE, h);
-      float* st = stage + buf * St::SIZE;
-      put(st);
-      __syncthreads();
-      if (j + 2 < nsub)
-        fetch(c0 + (j + 1) * SC, false);
-      else
-        fetch(c0 + (nsub - 1) * SC, true);
-      prefetch(c0 + (j + 2 < nsub ? j + 2 : nsub - 2) * SC);
-      forward(h, st);
+    for (int j = 0; j < S; ++j) A2[j] *= LOG2E;
+    load_states<S>(h, f.h0 + state_off(pc), pc.n0, N, live, f.vec);
+    if (pc.tid == 0) {
+      for (int k = 0; k < DEPTH; ++k) hopper::mbar_init(&full[k], 1);
+      hopper::mbar_init(red_free, SB_NW);
+      hopper::mbar_fence_init();
     }
-    for (int j = nsub - 1; j >= 0; --j, buf ^= 1) {
+    __syncthreads();
+    for (int i = 0; i + 1 < DEPTH && i < items; ++i) issue(i, pc);
+  }
+  for (int i = 0; i < items; ++i) {
+    const Pl pc;
+    const int k = chunk_of(i);
+    const bool rev = i >= nch - 1;
+    const unsigned char* st = sm + (i % DEPTH) * L::STAGE;
+    float* cb = a.cb + ((long long)pc.bb * a.NB + pc.cblk) * nch * SB_TILE;
+    sb_wait(&full[i % DEPTH], (i / DEPTH) & 1);
+    if constexpr (sizeof(TX) == 2) {
+      unsigned char* sw = sm + (i % DEPTH) * L::STAGE;
+      if (a.tma_b)
+        sb_widen<Q, NP>(reinterpret_cast<float*>(sw + L::BF),
+                        reinterpret_cast<const __nv_bfloat16*>(sw + L::BR));
+      if (rev && a.tma_c)
+        sb_widen<Q, NP>(reinterpret_cast<float*>(sw + L::CF),
+                        reinterpret_cast<const __nv_bfloat16*>(sw + L::CR));
+    }
+    // the block's one meeting a chunk: this chunk's stage is whole, the
+    // last chunk's stage is free and its warp sums are in
+    __syncthreads();
+    if (i + DEPTH - 1 < items) issue(i + DEPTH - 1, pc);
+    if (i >= nch) flush(chunk_of(i - 1), pc);
+    if (!rev) {
+      // 1. the state entering chunk k, then the chunk
+      slot8_store(cb + k * SB_TILE, h);
+      for (int j = 0; j < L::SUBS; ++j) forward(h, A2, st, j * SC, pc);
+      continue;
+    }
+    // the state entering chunk k: h itself for the last chunk, else the
+    // slot prefetched during the chunk after it; chunk k - 1's next
+    const int t0 = k * Q, nsub = min(L::SUBS, (T - t0 + SC - 1) / SC);
+    float* entry = slots + (k & 1) * SB_TILE;
+    float* mid = slots + 2 * SB_TILE;     // sub-chunks 1 .. SUBS - 2
+    if (k == nch - 1) {
+      const bool live = pc.d0 + pc.cl < D;
+      load_states<S>(g, a.dh_last + state_off(pc), pc.n0, N, live, f.vec);
+#pragma unroll
+      for (int j = 0; j < S; ++j) dAr[j] = 0.f;
+      slot8_store(entry, h);
+    } else {
+      cp_async_wait();
+      slot8_load(h, entry);
+    }
+    if (k > 0) slot8_prefetch(slots + ((k - 1) & 1) * SB_TILE,
+                              cb + (k - 1) * SB_TILE);
+    // 2. the state entering every sub-chunk of chunk k
+    for (int j = 0; j + 1 < nsub; ++j) {
+      if (j > 0) slot8_store(mid + (j - 1) * SB_TILE, h);
+      forward(h, A2, st, j * SC, pc);
+    }
+    // the last chunk's warp sums are out of red before any goes in
+    if (i >= nch) sb_wait(red_free, (i - nch) & 1);
+    for (int j = nsub - 1; j >= 0; --j) {
       // 3. the sub-chunk's states and decays into registers (hs[s] is
       // h_{t0+s-1}), then the reverse walk over them
-      const int t0 = c0 + j * SC;
-      float* st = stage + buf * St::SIZE;
-      if (j < nsub - 1) slot8_load(h, slots + j * SB_TILE);
-      put(st);
-      __syncthreads();
-      if (j > 0)
-        fetch(t0 - SC, true);
-      else if (k > 0)
-        fetch_chunk(k - 1);
-      prefetch(j > 1 ? t0 - 2 * SC : (k - 1) * SB_Q + (j ? 0 : SC));
+      const Pl pw;
+      const float* sdt = reinterpret_cast<const float*>(st + L::DT) + pw.cl;
+      const TX* sx = reinterpret_cast<const TX*>(st + L::X) + pw.cl;
+      const float* sdy = reinterpret_cast<const float*>(st + L::DY) + pw.cl;
+      const float* sbv = reinterpret_cast<const float*>(st + L::BF) + pw.n0;
+      const float* scv = reinterpret_cast<const float*>(st + L::CF) + pw.n0;
+      if (j < nsub - 1) slot8_load(h, j == 0 ? entry : mid + (j - 1) * SB_TILE);
       float hs[SC + 1][S], dec[SC][S];
 #pragma unroll
       for (int jj = 0; jj < S; ++jj) hs[0][jj] = h[jj];
 #pragma unroll
-      for (int s = 0; s < SC; ++s) {
-        const float dt = st[St::DT + s * CH + cl];
-        const float dx = dt * st[St::X + s * CH + cl];
+      for (int u = 0; u < SC; ++u) {
+        const int s = j * SC + u;
+        const float dt = sdt[s * CH];
+        const float dx = dt * to_f(sx[s * CH]);
         float bv[S];
-        smem_read8(bv, st + St::BV + s * NP + n0);
+        smem_read8(bv, sbv + s * NP);
 #pragma unroll
         for (int jj = 0; jj < S; ++jj) {
-          dec[s][jj] = hopper::ex2(dt * A2[jj]);
-          hs[s + 1][jj] = fmaf(dec[s][jj], hs[s][jj], dx * bv[jj]);
+          dec[u][jj] = hopper::ex2(dt * A2[jj]);
+          hs[u + 1][jj] = fmaf(dec[u][jj], hs[u][jj], dx * bv[jj]);
         }
       }
+      const bool hi = (pw.lane & 16) != 0;
 #pragma unroll
-      for (int s = SC - 1; s >= 0; --s) {
-        const float dt = st[St::DT + s * CH + cl];
-        const float xv = st[St::X + s * CH + cl];
-        const float dyv = st[St::DY + s * CH + cl];
+      for (int u = SC - 1; u >= 0; --u) {
+        const int s = j * SC + u;
+        const float dt = sdt[s * CH];
+        const float xv = to_f(sx[s * CH]);
+        const float dyv = sdy[s * CH];
         const float dtx = dt * xv;
-        float bv[S], cv[S], v[2 * S];
-        smem_read8(bv, st + St::BV + s * NP + n0);
-        smem_read8(cv, st + St::CV + s * NP + n0);
+        float bv[S], cv[S], v[S];
+        smem_read8(bv, sbv + s * NP);
+        smem_read8(cv, scv + s * NP);
         float gb = 0.f, ada = 0.f;     // <g_t, b_t> and <A log2 e, da_t>
 #pragma unroll
         for (int jj = 0; jj < S; ++jj) {
           g[jj] = fmaf(dyv, cv[jj], g[jj]);                 // g_t
           gb = fmaf(g[jj], bv[jj], gb);
-          const float da = dec[s][jj] * g[jj] * hs[s][jj];
+          const float da = dec[u][jj] * g[jj] * hs[u][jj];
           ada = fmaf(A2[jj], da, ada);
           dAr[jj] = fmaf(dt, da, dAr[jj]);
-          v[jj] = dtx * g[jj];                               // db's term
-          v[S + jj] = dyv * hs[s + 1][jj];                   // dc's term
-          g[jj] *= dec[s][jj];                               // decay_t g_t
+          // db's and dc's terms, the first round of their sums over the
+          // warp's channels at once: the lane keeps dc's if bit 16 is set
+          const float tb = dtx * g[jj], tc = dyv * hs[u + 1][jj];
+          v[jj] = (hi ? tc : tb) + __shfl_xor_sync(FULL, hi ? tb : tc, 16);
+          g[jj] *= dec[u][jj];                               // decay_t g_t
         }
 #pragma unroll
         for (int o = P / 2; o > 0; o >>= 1) {
           gb += __shfl_xor_sync(FULL, gb, o);
           ada += __shfl_xor_sync(FULL, ada, o);
         }
-        const int t = t0 + s;
-        if (live && q == 0 && t < T) {
-          store_as(dxg + (long long)t * D, dt * gb);
-          ddtg[(long long)t * D] = fmaf(LN2, ada, xv * gb);
+        const int t = t0 + s, d = pw.d0 + pw.cl;
+        if (d < D && pw.q == 0 && t < T) {
+          const long long row = ((long long)pw.bb * T + t) * D + d;
+          store_as(static_cast<TX*>(a.dx) + row, dt * gb);
+          a.ddt[row] = fmaf(LN2, ada, xv * gb);
         }
-        channel_sums<P>(v, red + (s * SB_NW + warp) * 2 * NP, lane, q);
-      }
-      __syncthreads();
-      // the block's partial sums of db and dc, its warps in a fixed order
-      const int steps = min(SC, T - t0);
-      for (int e = tid; e < steps * 2 * NP; e += SB_NT) {
-        const int s = e / (2 * NP), v = e % (2 * NP), n = v % NP;
-        const float* w = red + s * SB_NW * 2 * NP + v;
-        float sum = 0.f;
-#pragma unroll
-        for (int k2 = 0; k2 < SB_NW; ++k2) sum += w[k2 * 2 * NP];
-        if (n < N) {
-          const long long row = ((long long)bb * T + t0 + s) * a.NB + cblk;
-          (v < NP ? a.dbp : a.dcp)[row * N + n] = sum;
-        }
+        channel_sums<P>(v, red + (s * SB_NW + pw.warp) * O, pw.lane, pw.q,
+                        hi ? S : 0);
       }
     }
   }
-  store_states<S>(g, a.dh0 + hoff, n0, N, live, f.vec);   // decay_0 g_0
-  store_states<S>(dAr, a.dAp + hoff, n0, N, live, f.vec);
+  __syncthreads();
+  const Pl pc;
+  flush(0, pc);
+  const bool live = pc.d0 + pc.cl < D;
+  store_states<S>(g, a.dh0 + state_off(pc), pc.n0, N, live, f.vec);
+  store_states<S>(dAr, a.dAp + state_off(pc), pc.n0, N, live, f.vec);
 }
 
 // db, dc (B, T, N): each the sum of its NB channel blocks' partial sums,
@@ -3764,15 +3955,33 @@ __global__ void __launch_bounds__(256) selective_bwd_A_kernel(const SelBwd a) {
 template <typename TX, int P>
 cudaError_t launch_sel_bwd(const SelBwd& a, const SelBwdPlan& pl,
                            cudaStream_t st) {
-  using Sg = SbStage<P>;
-  if (pl.smem != Sg::SMEM) return cudaErrorInvalidValue;
+  using L = SbLayout<TX, P>;
+  if (pl.smem != L::SMEM || pl.depth != L::DEPTH || pl.Q != L::Q)
+    return cudaErrorInvalidValue;
+  const SelArgs& f = a.f;
+  SelBwdMaps maps;
+  memset(&maps, 0, sizeof maps);
+  const auto f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const auto tx_type = sizeof(TX) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const int xb = (int)sizeof(TX);
+  if ((a.tma_dt && !map_operand(&maps.dt, f32, 4, f.dt, f.B, f.T, f.D,
+                                f.dt_sb, f.dt_st, L::CH, L::Q)) ||
+      (a.tma_x && !map_operand(&maps.x, tx_type, xb, f.x, f.B, f.T, f.D,
+                               f.x_sb, f.x_st, L::CH, L::Q)) ||
+      (a.tma_dy && !map_operand(&maps.dy, f32, 4, a.dy, f.B, f.T, f.D,
+                                (long long)f.T * f.D, f.D, L::CH, L::Q)) ||
+      (a.tma_b && !map_operand(&maps.b, tx_type, xb, f.b, f.B, f.T, f.N,
+                               f.b_sb, f.b_st, L::NP, L::Q)) ||
+      (a.tma_c && !map_operand(&maps.c, tx_type, xb, f.c, f.B, f.T, f.N,
+                               f.c_sb, f.c_st, L::NP, L::Q)))
+    return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       selective_bwd_kernel<TX, P>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sg::SMEM);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
   if (e != cudaSuccess) return e;
-  const SelArgs& f = a.f;
   selective_bwd_kernel<TX, P>
-      <<<dim3(pl.NB, f.B), SB_NT, Sg::SMEM, st>>>(a);
+      <<<dim3(pl.NB, f.B), SB_NT, L::SMEM, st>>>(maps, a);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const long long btn = (long long)f.B * f.T * f.N;
   const long long dn = (long long)f.D * f.N;
@@ -4010,8 +4219,13 @@ int selective_scan_bwd(const float* dt, const void* x, const void* b,
                 N, dt_sb, dt_st, x_sb, x_st, b_sb, b_st, c_sb, c_st,
                 &itemsize))
     return (int)cudaErrorInvalidValue;
-  const SelBwdPlan pl = plan_selective_bwd(B, T, D, N);
+  const SelBwdPlan pl = plan_selective_bwd(a.f, dy, itemsize);
   if (scratch_floats < pl.scratch) return (int)cudaErrorInvalidValue;
+  a.tma_dt = pl.tma_dt;
+  a.tma_x = pl.tma_x;
+  a.tma_dy = pl.tma_dy;
+  a.tma_b = pl.tma_b;
+  a.tma_c = pl.tma_c;
   a.dy = dy;
   a.dh_last = dh_last;
   a.ddt = ddt;
@@ -4034,19 +4248,31 @@ int selective_scan_bwd(const float* dt, const void* x, const void* b,
                           : dispatch_sel_bwd<__nv_bfloat16>(a, pl, s));
 }
 
-// The plan selective_scan_bwd makes for a (B, T, D, N) call with x, b, c
-// in dtype (0 float32, 1 bfloat16), into out[0..6]: S, P, CH, channel
-// blocks, chunks, shared memory bytes, scratch floats.  Launches nothing;
-// returns 0, or cudaErrorInvalidValue for a shape the kernel does not take.
-int selective_scan_bwd_plan(int B, int T, int D, int N, int dtype,
-                            long long* out) {
-  if (B <= 0 || T <= 0 || D <= 0 || N <= 0 || N > MAX_N || B > 65535 ||
-      (dtype != 0 && dtype != 1))
+// The plan selective_scan_bwd makes for these operands (dt, x, b, c and
+// their strides as it takes them, dy the (B, T, D) f32 it gets), into
+// out[0..13]: S, P, CH, channel blocks, steps a chunk, chunks, ring
+// depth, shared memory bytes, scratch floats, then 1 where TMA loads dt,
+// x, dy, b, c (0 where the block's threads do).  Launches nothing;
+// returns 0, or cudaErrorInvalidValue for a shape the kernel does not
+// take.
+int selective_scan_bwd_plan(const float* dt, const void* x, const void* b,
+                            const void* c, const float* dy, int dtype, int B,
+                            int T, int D, int N, long long dt_sb,
+                            long long dt_st, long long x_sb, long long x_st,
+                            long long b_sb, long long b_st, long long c_sb,
+                            long long c_st, long long* out) {
+  SelArgs f;
+  int itemsize;
+  if (!sel_args(&f, dt, x, b, c, nullptr, nullptr, nullptr, nullptr, dtype,
+                B, T, D, N, dt_sb, dt_st, x_sb, x_st, b_sb, b_st, c_sb, c_st,
+                &itemsize))
     return (int)cudaErrorInvalidValue;
-  const SelBwdPlan pl = plan_selective_bwd(B, T, D, N);
-  const long long v[7] = {pl.S, pl.P, pl.CH, pl.NB, pl.nchunks, pl.smem,
-                          pl.scratch};
-  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  const SelBwdPlan pl = plan_selective_bwd(f, dy, itemsize);
+  const long long v[14] = {pl.S,      pl.P,       pl.CH,    pl.NB,
+                           pl.Q,      pl.nchunks, pl.depth, pl.smem,
+                           pl.scratch, pl.tma_dt, pl.tma_x, pl.tma_dy,
+                           pl.tma_b,  pl.tma_c};
+  for (int i = 0; i < 14; ++i) out[i] = v[i];
   return 0;
 }
 

@@ -10,7 +10,8 @@ through its C interface, with these entry points:
   registers and never stores the (B, T, D, N) products;
 * ``selective_scan_bwd(dt, x, b, c, A, h0, dy, dh_last)``: the Mamba-1
   form's gradient, whose plain counterpart is ``ref.selective_scan_bwd_ref``:
-  a reverse-time walk on the CUDA cores over states it recomputes;
+  a reverse-time walk on the CUDA cores over states it recomputes, its
+  inputs through a ring of whole chunks loaded by TMA;
 * ``mamba2_scan(dt, x, b, c, A, h0)``: the Mamba-2 form that
   ``models/ssm.py::mamba2_block`` calls: a scalar decay a head, b and c
   shared by every head, a (P, N) state a head.  A bf16 prefill runs as the
@@ -38,8 +39,9 @@ raises under grad rather than return an output that autograd cannot follow.
 count for its three to six launches).  ``selective_plan``,
 ``selective_scan_bwd_plan`` and ``mamba2_bwd_plan`` mirror how the kernel's
 host code runs a Mamba-1 call (lanes a channel, direct or ring path, TMA or
-lane loads, grid), a Mamba-1 backward (lanes, channel blocks, chunks,
-scratch) and a Mamba-2 backward (path, lanes, rows, scratch), so that the
+lane loads, grid), a Mamba-1 backward (lanes, channel blocks, chunks, the
+ring's depth, shared memory, scratch, TMA or thread loads) and a Mamba-2
+backward (path, lanes, rows, scratch), so that the
 choice can be tested without a card; ``kernel_plan``,
 ``kernel_selective_scan_bwd_plan``, ``kernel_mamba2_plan`` and
 ``kernel_mamba2_bwd_plan`` ask the built library.
@@ -80,7 +82,7 @@ def _lib() -> ctypes.CDLL:
     lib.selective_scan_bwd.argtypes = ([p] * 15 + [ll] + [i] * 5 + [ll] * 8
                                        + [p])
     lib.selective_scan_bwd.restype = i
-    lib.selective_scan_bwd_plan.argtypes = [i] * 5 + [p]
+    lib.selective_scan_bwd_plan.argtypes = [p] * 5 + [i] * 5 + [ll] * 8 + [p]
     lib.selective_scan_bwd_plan.restype = i
     lib.mamba2_scan_fwd.argtypes = [p] * 8 + [i] * 6 + [ll] * 9 + [p]
     lib.mamba2_scan_fwd.restype = i
@@ -316,8 +318,12 @@ selective_scan.launches = 0
 
 SEL_BWD_THREADS = 128           # csrc's SB_NT: threads a block
 SEL_BWD_STATES = 8              # csrc's SB_S: states a lane
-SEL_BWD_CHUNK = 16              # csrc's SB_Q: steps a chunk (level 1)
-SEL_BWD_SUB = 4                 # csrc's SB_SC: steps a sub-chunk (level 2)
+SEL_BWD_CHUNK = 16              # csrc's SB_Q: steps a chunk, a ring stage
+SEL_BWD_SUB = 4                 # csrc's SB_SC: steps a sub-chunk (level 3)
+SEL_BWD_DEPTH = 3               # csrc's SB_DEPTH: ring stages, at most
+SEL_BWD_BLOCKS = 4              # csrc's SB_MINB: blocks an SM
+SM_SMEM = 233472                # an SM's shared memory, bytes
+SEL_BWD_OPERANDS = ("dt", "x", "dy", "b", "c")   # the plan's TMA flags
 
 
 @dataclasses.dataclass(frozen=True)
@@ -327,47 +333,88 @@ class SelectiveBwdPlan:
     lanes: int           # P: lanes a channel
     channels: int        # CH: channels a block
     channel_blocks: int  # NB: blocks a batch row
-    chunks: int          # chunks of SEL_BWD_CHUNK steps
+    chunk: int           # Q: steps a chunk, a stage of the ring
+    chunks: int          # chunks of Q steps
+    depth: int           # stages of the ring
     smem: int            # the main kernel's shared memory, bytes
     scratch: int         # floats of scratch the call needs
+    tma: tuple[bool, ...] = (False,) * 5   # SEL_BWD_OPERANDS through TMA
 
     def as_ints(self) -> list[int]:
         return [self.states, self.lanes, self.channels, self.channel_blocks,
-                self.chunks, self.smem, self.scratch]
+                self.chunk, self.chunks, self.depth, self.smem,
+                self.scratch, *map(int, self.tma)]
 
 
-def selective_scan_bwd_plan(B: int, T: int, D: int, N: int
-                            ) -> SelectiveBwdPlan:
-    """The plan ``csrc/mamba_scan.cu::plan_selective_bwd`` makes.
+def _sel_bwd_smem(CH: int, NP: int, xb: int, q: int, depth: int) -> int:
+    """csrc's SbLayout::bytes: the ring's ``depth`` stages of ``q`` steps
+    (dt, x, dy a channel; b, c over NP states as f32, and as loaded when
+    bf16), the state slots (two chunk-entry slots and one a sub-chunk
+    between a chunk's first and last, S floats a thread each), a chunk's
+    warp sums of db and dc ([q][warp][2 NP]) and SEL_BWD_DEPTH + 1
+    barriers, from a 128-byte boundary."""
+    stage = q * (CH * (8 + xb) + NP * (12 if xb == 2 else 8))
+    slots = max(q // SEL_BWD_SUB, 2) * SEL_BWD_STATES * SEL_BWD_THREADS
+    return (128 + depth * stage + 4 * slots
+            + 4 * q * (SEL_BWD_THREADS // 32) * 2 * NP
+            + 8 * (SEL_BWD_DEPTH + 1))
+
+
+def selective_scan_bwd_plan(B: int, T: int, D: int, N: int,
+                            dtype: torch.dtype = torch.float32,
+                            operands=None) -> SelectiveBwdPlan:
+    """The plan ``csrc/mamba_scan.cu::plan_selective_bwd`` makes for x, b,
+    c in ``dtype``; ``operands``, (dt, x, b, c, dy) as the kernel gets
+    them, give its TMA choices (without them, none).
 
     S = 8 states a lane, P = next_pow2(N / 8) lanes a channel and
     SEL_BWD_THREADS / P channels a block, one block a channel block and
-    batch row; chunks of SEL_BWD_CHUNK steps.  Shared memory: a state slot
-    (S floats a thread) for each SEL_BWD_SUB-step sub-chunk of a chunk, two
-    sub-chunks' staged inputs (dt, x, dy a channel, b and c over NP = S P
-    states) and a sub-chunk's warp sums of db and dc.  Scratch: a state
-    slot a block and chunk, dA's partial sums a batch row (B, D, N), and
-    db's and dc's a channel block (B, T, NB, N) each."""
-    S, NT, SC = SEL_BWD_STATES, SEL_BWD_THREADS, SEL_BWD_SUB
+    batch row.  A chunk, a stage of the ring, is SEL_BWD_CHUNK steps, or
+    half of that (not below 8) where even a two-stage ring would not let
+    SEL_BWD_BLOCKS blocks share an SM's SM_SMEM bytes (1 KB reserved a
+    block; shared memory as ``_sel_bwd_smem`` counts it); the ring is the
+    deepest up to SEL_BWD_DEPTH (at least 2) that does.  Scratch: a state
+    slot (S floats a thread) a block and chunk, dA's partial sums a batch
+    row (B, D, N), and db's and dc's a channel block (B, T, NB, N) each.
+    An operand goes
+    through TMA where ``_tma_ok`` (dy: the wrapper's contiguous float32),
+    else the block's threads load it."""
+    S, NT = SEL_BWD_STATES, SEL_BWD_THREADS
     P = 1
     while S * P < N:
         P *= 2
     CH, NP = NT // P, S * P
-    NB, chunks = -(-D // CH), -(-T // SEL_BWD_CHUNK)
-    tile = S * NT
-    smem = 4 * (SEL_BWD_CHUNK // SC * tile + 2 * (3 * SC * CH + 2 * SC * NP)
-                + SC * (NT // 32) * 2 * NP)
-    scratch = B * NB * chunks * tile + B * D * N + 2 * B * T * NB * N
-    return SelectiveBwdPlan(S, P, CH, NB, chunks, smem, scratch)
+    xb = 2 if dtype == torch.bfloat16 else 4
+
+    def fits(q, depth):
+        return (SEL_BWD_BLOCKS * (_sel_bwd_smem(CH, NP, xb, q, depth) + 1024)
+                <= SM_SMEM)
+
+    Q = SEL_BWD_CHUNK
+    if SEL_BWD_CHUNK >= 16 and not fits(SEL_BWD_CHUNK, 2):
+        Q //= 2
+    depth = SEL_BWD_DEPTH
+    while depth > 2 and not fits(Q, depth):
+        depth -= 1
+    NB, chunks = -(-D // CH), -(-T // Q)
+    scratch = B * NB * chunks * S * NT + B * D * N + 2 * B * T * NB * N
+    tma = (False,) * 5
+    if operands is not None:
+        dt, x, b, c, dy = operands
+        tma = tuple(map(_tma_ok, (dt, x, dy, b, c)))
+    return SelectiveBwdPlan(S, P, CH, NB, Q, chunks, depth,
+                            _sel_bwd_smem(CH, NP, xb, Q, depth), scratch, tma)
 
 
-def kernel_selective_scan_bwd_plan(B: int, T: int, D: int, N: int,
-                                   dtype: torch.dtype) -> SelectiveBwdPlan:
-    """The plan the built kernel's host code makes (a card's library)."""
-    out = (ctypes.c_longlong * 7)()
-    _raise_on(_lib().selective_scan_bwd_plan(B, T, D, N, _DTYPES[dtype], out),
-              "selective_scan_bwd_plan")
-    return SelectiveBwdPlan(*map(int, out))
+def kernel_selective_scan_bwd_plan(dt, x, b, c, dy) -> SelectiveBwdPlan:
+    """The plan the built kernel's host code makes for these operands (dy
+    the (B, T, D) float32 it gets), from a card's library."""
+    out = (ctypes.c_longlong * 14)()
+    args = _selective_args(dt, x, b, c, dt, dt, dt, dt)
+    _raise_on(_lib().selective_scan_bwd_plan(
+        *args[:4], dy.data_ptr(), *args[8:], out), "selective_scan_bwd_plan")
+    v = list(map(int, out))
+    return SelectiveBwdPlan(*v[:9], tuple(map(bool, v[9:])))
 
 
 def selective_scan_bwd(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
@@ -394,7 +441,7 @@ def selective_scan_bwd(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
         raise ValueError("dy, dh_last and the operands on different devices")
     dy = dy.float().contiguous()
     dh_last = dh_last.float().contiguous()
-    plan = selective_scan_bwd_plan(B, T, D, N)
+    plan = selective_scan_bwd_plan(B, T, D, N, x.dtype)
     f32, dev = torch.float32, dt.device
     ddt = torch.empty((B, T, D), dtype=f32, device=dev)
     dx = torch.empty((B, T, D), dtype=x.dtype, device=dev)

@@ -1789,14 +1789,39 @@ def _hold_sel_bwd(got, args):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("N", [4, 16, 128])
-@pytest.mark.parametrize("T", [1, 8, 9, 63, 64, 65, 300])
+@pytest.mark.parametrize("T", [1, 7, 8, 9, 15, 16, 17, 33, 63, 64, 65,
+                               300])
 def test_cuda_selective_scan_bwd_matches_plain_version(T, N, dtype):
     """chip_smoke.SEL_BWD_CASES: N of one, two and sixteen lanes a channel;
-    T of one step, at and past the forward's direct path, below, at and
-    past a 64-step chunk, and 300; D = 203 leaves every channel block
-    ragged; b and c at an odd column; h0 and dh_last nonzero."""
+    T of one step, around the kernel's chunk (16 steps at N = 16, 8 at N =
+    4 and 128) and two of them (one chunk, a ragged chunk, a ragged
+    sub-chunk), below, at and past 64, and 300; D = 203 leaves every
+    channel block ragged and b and c sit at an odd column, so the block's
+    threads load every operand; h0 and dh_last nonzero."""
     _cuda_or_skip()
     args = _cuda_sel_bwd(2, T, 203, N, getattr(torch, dtype), T + N)
+    dt, x, b, c, _, _, dy, _ = args
+    assert ms.kernel_selective_scan_bwd_plan(dt, x, b, c, dy).tma == (
+        False,) * 5
+    _hold_sel_bwd(ms.selective_scan_bwd(*args), args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,N,dtype", [
+    (2, 1, 256, 16, "float32"), (2, 17, 256, 16, "float32"),
+    (2, 300, 256, 16, "float32"), (2, 1, 256, 16, "bfloat16"),
+    (2, 17, 256, 16, "bfloat16"), (2, 300, 256, 16, "bfloat16"),
+    (1, 77, 512, 128, "bfloat16"), (2, 65, 256, 4, "float32")])
+def test_cuda_selective_scan_bwd_through_tma(B, T, D, N, dtype):
+    """Every operand through TMA, as falcon-mamba's are: D a multiple of 8
+    and b and c at a 16-byte aligned column of the projection (N = 4: b
+    and c boxes of the ring's 8 states over a 4-wide operand)."""
+    _cuda_or_skip()
+    args = _cuda_sel_bwd(B, T, D, N, getattr(torch, dtype), T + N + 5,
+                         offset=256)
+    dt, x, b, c, _, _, dy, _ = args
+    assert ms.kernel_selective_scan_bwd_plan(dt, x, b, c, dy).tma == (
+        True,) * 5
     _hold_sel_bwd(ms.selective_scan_bwd(*args), args)
 
 
@@ -1827,13 +1852,20 @@ def test_cuda_selective_scan_bwd_is_deterministic():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [7, 256])
 @pytest.mark.parametrize("shape", [(4, 2048, 8192, 16), (2, 65, 203, 4),
                                    (1, 1, 40, 128), (3, 300, 96, 33)])
-def test_cuda_selective_scan_bwd_plan_matches_the_mirror(shape):
+def test_cuda_selective_scan_bwd_plan_matches_the_mirror(shape, offset):
+    """The library's plan (lanes, blocks, chunks, ring depth, shared
+    memory, scratch, TMA choices) is the wrapper's mirror of it, b and c
+    at an odd and at an aligned column."""
     _cuda_or_skip()
     for dtype in (torch.float32, torch.bfloat16):
-        assert (ms.kernel_selective_scan_bwd_plan(*shape, dtype)
-                == ms.selective_scan_bwd_plan(*shape))
+        dt, x, b, c, _, _, dy, _ = _cuda_sel_bwd(*shape, dtype, 3,
+                                                 offset=offset)
+        assert (ms.kernel_selective_scan_bwd_plan(dt, x, b, c, dy)
+                == ms.selective_scan_bwd_plan(*shape, dtype,
+                                              (dt, x, b, c, dy)))
 
 
 def test_scans_without_a_backward_run_their_plain_versions_under_grad():

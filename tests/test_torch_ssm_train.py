@@ -217,29 +217,80 @@ def test_op_backward_without_dh_last_takes_zeros():
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("B,T,D,N,P,NB,chunks", [
-    (4, 2048, 8192, 16, 2, 128, 128),   # falcon-mamba-7b's training shape
-    (2, 65, 203, 4, 1, 2, 5), (1, 1, 40, 128, 16, 5, 1),
-    (3, 300, 96, 33, 8, 6, 19), (2, 16, 64, 9, 2, 1, 1)])
-def test_bwd_plan_mirror(B, T, D, N, P, NB, chunks):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,D,N,P,NB,Q,chunks", [
+    (4, 2048, 8192, 16, 2, 128, 16, 128),   # falcon-mamba-7b's training
+    (2, 65, 203, 4, 1, 2, 8, 9), (1, 1, 40, 128, 16, 5, 8, 1),
+    (3, 300, 96, 33, 8, 6, 8, 38), (2, 16, 64, 9, 2, 1, 16, 1)])
+def test_bwd_plan_mirror(B, T, D, N, P, NB, Q, chunks, dtype):
     """The wrapper's mirror of the backward's plan (its scratch is what the
     wrapper allocates): 8 states a lane, P = next_pow2(N / 8) lanes a
-    channel and 128 / P channels a block, 16-step chunks; shared memory
-    for a state slot a 4-step sub-chunk of a chunk, two sub-chunks' staged
-    inputs and a sub-chunk's warp sums; scratch for a state slot a block
-    and chunk, dA's partial sums a batch row and db's and dc's a channel
-    block."""
-    plan = ms.selective_scan_bwd_plan(B, T, D, N)
+    channel and 128 / P channels a block; chunks of 16 steps, 8 where a
+    two-stage ring of 16 would not let four blocks share an SM's 228 KB
+    (1 KB reserved a block).  Shared memory: the ring's stages (a chunk's
+    dt, x, dy a channel and b, c over NP = 8 P states as f32, bf16 b and c
+    also as loaded), two chunk-entry state slots and one a 4-step
+    sub-chunk between a chunk's first and last, a chunk's warp sums of db
+    and dc and four barriers; the ring three stages deep where four blocks
+    still fit, else two.  Scratch: a state slot a block and chunk, dA's
+    partial sums a batch row and db's and dc's a channel block.  No
+    operand through TMA without the operands."""
+    plan = ms.selective_scan_bwd_plan(B, T, D, N, dtype)
     CH, NP, tile = 128 // P, 8 * P, 8 * 128
+    xb = 2 if dtype == torch.bfloat16 else 4
     assert (plan.states, plan.lanes, plan.channels, plan.channel_blocks,
-            plan.chunks) == (8, P, CH, NB, chunks)
-    assert plan.smem == 4 * (4 * tile + 2 * (12 * CH + 8 * NP) + 32 * NP)
+            plan.chunk, plan.chunks) == (8, P, CH, NB, Q, chunks)
+
+    def smem(q, depth):
+        stage = q * CH * (4 + xb + 4) + q * NP * 4 * 2
+        if xb == 2:
+            stage += q * NP * 2 * 2
+        assert stage % 128 == 0
+        return (128 + depth * stage + 4 * max(q // 4, 2) * tile
+                + 4 * q * 4 * 2 * NP + 4 * 8)
+
+    def fits(q, depth):
+        return 4 * (smem(q, depth) + 1024) <= 228 * 1024
+
+    assert Q == (16 if fits(16, 2) else 8)
+    assert plan.depth == (3 if fits(Q, 3) else 2)
+    assert plan.smem == smem(Q, plan.depth)
     assert plan.scratch == (B * NB * chunks * tile + B * D * N
                             + 2 * B * T * NB * N)
-    assert plan.as_ints() == [8, P, CH, NB, chunks, plan.smem, plan.scratch]
+    assert plan.tma == (False,) * 5
+    assert plan.as_ints() == [8, P, CH, NB, Q, chunks, plan.depth, plan.smem,
+                              plan.scratch, 0, 0, 0, 0, 0]
     assert plan.smem <= 227 * 1024
     if N <= 16:                     # the model's state: four blocks an SM
-        assert 4 * (plan.smem + 1024) <= 228 * 1024
+        assert fits(Q, plan.depth)
+    if N == 16:                     # falcon's: two stages of 16 steps
+        assert (plan.chunk, plan.depth) == (16, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,offset,want", [
+    (256, 256, (True,) * 5),            # falcon's layout: every operand
+    (203, 256, (False, False, False, True, True)),   # rows of 203
+    (256, 7, (True, True, True, False, False)),      # b, c at column 7
+    (40, 0, (True, True, True, True, True))])
+def test_bwd_plan_tma_choices(D, offset, want, dtype):
+    """Which operands the backward's plan loads through TMA: a 16-byte
+    aligned base and batch and time strides that are multiples of 16 bytes
+    (dt, x, b, c as the model passes them, b and c slices of one
+    projection ``offset`` columns in; dy the wrapper's contiguous float32),
+    the others by the block's threads."""
+    B, T, N = 2, 20, 16
+    dt = torch.zeros((B, T, D))
+    x = torch.zeros((B, T, D), dtype=dtype)
+    proj = torch.zeros((B, T, offset + 2 * N), dtype=dtype)
+    b, c = proj[..., offset:offset + N], proj[..., offset + N:]
+    dy = torch.zeros((B, T, D))
+    plan = ms.selective_scan_bwd_plan(B, T, D, N, dtype, (dt, x, b, c, dy))
+    want = tuple(w and (t.data_ptr() % 16 == 0)
+                 for w, t in zip(want, (dt, x, dy, b, c)))
+    assert plan.tma == want
+    assert plan == dataclasses.replace(
+        ms.selective_scan_bwd_plan(B, T, D, N, dtype), tma=want)
 
 
 def test_scan_bwd_wrapper_never_falls_back_off_the_cpu():
