@@ -145,7 +145,25 @@ Phases, each printing what it found; any failure raises and exits non-zero:
     (per step 64 + 64 ``selective_scan`` and 64 ``selective_scan_bwd``
     launches);
 19. train_grad_vs_plain for falcon-mamba-7b at full width and 2 layers,
-    the scan backward swapped for its plain version.
+    the scan backward swapped for its plain version;
+20. pluto: the pLUTo LUT ALU (``core/pluto_alu.py``) and the paper's Fig-8
+    applications (``core/executor.py``) on the card at the paper's sizes:
+    MM 200 x 200 x 200, PMM n = 300, NTT n = 512 (q = 7681) and BFS over
+    the complete 1000-node graph and a random sparse one, each bit for bit
+    against its NumPy oracle and timed (wall clock to a synchronize, the
+    card's name and power limit beside it); ``pluto_add``, ``pluto_mul``
+    and ``pluto_sub`` on 2^20 random uint32 pairs and the width sweep
+    4-32 likewise;
+21. overlap: the distributed layer in an NCCL process group of one rank
+    (a ``FileStore`` under ``build/``): ``ag_matmul``, ``matmul_rs`` and
+    ``overlapped_ffn`` against the unsharded products (1e-5, 1e-4),
+    ``psum_compressed`` (the codes on the link byte for byte against
+    ``quantize``, the mean against the dequantized gradient), the
+    pipeline with one stage against the sequential oracle, and one
+    compressed train step on a 'pod' mesh of one at a reduced width
+    against the same step averaged uncompressed.  A group of one posts no
+    ``isend``/``irecv``: the ring's hand-off is held over gloo on several
+    ranks by ``tests/test_torch_distributed.py``, not here.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -156,6 +174,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import gc
 import json
 import pathlib
@@ -165,7 +184,9 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -173,6 +194,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import tree  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
+from repro_torch.core import executor  # noqa: E402
+from repro_torch.core import pluto_alu as alu  # noqa: E402
+from repro_torch.core.overlap import collective_matmul as cm  # noqa: E402
+from repro_torch.core.overlap import compression  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticCorpus  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -184,6 +209,7 @@ from repro_torch.models import layers, moe  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
+from repro_torch.train import pipeline as pipe  # noqa: E402
 from repro_torch.train import train_step  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
@@ -2294,6 +2320,262 @@ def phase_train_grad_vs_plain(arch: str) -> None:
                              f"{worst} > {GRAD_REL_L2}")
 
 
+# ---- the pLUTo ALU and the Fig-8 applications ------------------------------
+
+# the paper's sizes: the defaults of the reference's task graphs (MM n=200,
+# PMM n=300, NTT n=512, BFS over 1000 nodes, fully connected in the paper's
+# graph); the NTT's modulus (7681 = 15 * 512 + 1)
+PLUTO_MM, PLUTO_PMM, PLUTO_NTT, PLUTO_BFS = 200, 300, 512, 1000
+PLUTO_Q = 7681
+PLUTO_LANES = 1 << 20
+U32 = 0xFFFFFFFF
+
+
+def _lanes_on_card(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(a.astype(np.int64)).cuda()
+
+
+def _timed_host(fn):
+    """(result, ms): wall clock of ``fn`` to a synchronize (the ALU's
+    work is thousands of small launches from the host)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _bit_equal(name: str, got, want: np.ndarray) -> None:
+    got = got if isinstance(got, np.ndarray) else got.cpu().numpy()
+    if got.dtype != np.uint32 or not np.array_equal(got,
+                                                    want.astype(np.uint32)):
+        bad = int(np.count_nonzero(got.astype(np.uint64)
+                                   != want.astype(np.uint64)))
+        raise AssertionError(f"pluto {name}: {bad} of {want.size} lanes "
+                             "differ from the oracle")
+
+
+def _aten_ops(fn) -> int:
+    """The ATen operations ``fn`` dispatches (each a kernel launch on the
+    card, or a view)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def phase_pluto(smi: str) -> None:
+    rng = np.random.default_rng(25)
+    x = rng.integers(0, 2**32, PLUTO_LANES, dtype=np.uint64)
+    y = rng.integers(0, 2**32, PLUTO_LANES, dtype=np.uint64)
+    tx, ty = _lanes_on_card(x), _lanes_on_card(y)
+    for name, fn, want in (("add", alu.pluto_add, (x + y) & U32),
+                           ("mul", alu.pluto_mul, (x * y) & U32),
+                           ("sub", alu.pluto_sub, (x - y) & U32)):
+        got, ms_ = _timed_host(lambda: fn(tx, ty))
+        _bit_equal(name, got, want)
+        log("pluto", op=name, lanes=PLUTO_LANES, bits=32, ms=f"{ms_:.2f}",
+            bit_equal=True, card=repr(smi))
+    for bits in (4, 8, 16, 24, 32):
+        m = (1 << bits) - 1
+        xb, yb = x & m, y & m
+        for name, fn, want in (("add", alu.pluto_add, (xb + yb) & m),
+                               ("mul", alu.pluto_mul, (xb * yb) & m)):
+            _bit_equal(f"{name}{bits}", fn(_lanes_on_card(xb),
+                                           _lanes_on_card(yb), bits=bits),
+                       want)
+    log("pluto", width_sweep="4,8,16,24,32", ops="add,mul", bit_equal=True)
+
+    n = PLUTO_MM
+    a = rng.integers(0, 2**32, (n, n), dtype=np.uint64)
+    b = rng.integers(0, 2**32, (n, n), dtype=np.uint64)
+    got, ms_ = _timed_host(lambda: executor.matmul(_lanes_on_card(a),
+                                                   _lanes_on_card(b)))
+    # uint64 wraps mod 2^64, so its low 32 bits are exact mod 2^32
+    _bit_equal("MM", got, (a @ b) & U32)
+    # one step of the k loop (a column x row product, its accumulation):
+    # the ops of the whole run are n times these
+    ta, tb = _lanes_on_card(a), _lanes_on_card(b)
+    acc = torch.zeros((n, n), dtype=torch.int64, device="cuda")
+    ops_k = _aten_ops(lambda: alu._add(acc, alu._mul(
+        ta[:, 0][:, None], tb[0, :][None, :], 32), 32))
+    log("pluto", app="MM", n=n, ms=f"{ms_:.1f}", bit_equal=True,
+        aten_ops=n * ops_k, us_per_op=f"{ms_ * 1e3 / (n * ops_k):.2f}",
+        card=repr(smi))
+
+    n = PLUTO_PMM
+    a = rng.integers(0, 2**32, n, dtype=np.uint64)
+    b = rng.integers(0, 2**32, n, dtype=np.uint64)
+    got, ms_ = _timed_host(lambda: executor.pmm(_lanes_on_card(a),
+                                                _lanes_on_card(b)))
+    want = np.zeros(2 * n - 1, dtype=np.uint64)
+    for i in range(n):
+        want[i:i + n] = (want[i:i + n] + a[i] * b) & U32
+    _bit_equal("PMM", got, want)
+    log("pluto", app="PMM", n=n, ms=f"{ms_:.1f}", bit_equal=True,
+        card=repr(smi))
+
+    n, q = PLUTO_NTT, PLUTO_Q
+    root = next(c for c in range(2, q)
+                if pow(c, n, q) == 1 and pow(c, n // 2, q) != 1)
+    xs = rng.integers(0, q, n, dtype=np.uint32)
+    got, ms_ = _timed_host(lambda: executor.ntt(xs, q=q, root=root,
+                                                device="cuda"))
+    _bit_equal("NTT", got, executor.ntt_oracle(xs, q=q, root=root))
+    log("pluto", app="NTT", n=n, q=q, root=root, ms=f"{ms_:.1f}",
+        bit_equal=True, card=repr(smi))
+
+    n = PLUTO_BFS
+    sparse = rng.random((n, n)) < 0.004
+    sparse |= sparse.T
+    np.fill_diagonal(sparse, False)
+    for graph, adj in (("complete", ~np.eye(n, dtype=bool)),
+                       ("random-sparse", sparse)):
+        adj = adj.astype(np.uint8)
+        got, ms_ = _timed_host(lambda: executor.bfs(adj, device="cuda"))
+        want = executor.bfs_oracle(adj)
+        _bit_equal(f"BFS {graph}", got, want)
+        reached = want != U32
+        log("pluto", app="BFS", graph=graph, nodes=n,
+            edges=int(adj.sum()) // 2, levels=int(want[reached].max()),
+            reached=int(reached.sum()), ms=f"{ms_:.1f}", bit_equal=True,
+            card=repr(smi))
+
+
+# ---- the distributed layer in a group of one -------------------------------
+
+OVERLAP_SHAPE = (2, 64, 32, 48)      # B, T, D, F: check_overlap.py's
+OVERLAP_TOL = {"ag": 1e-5, "rs": 1e-4}
+
+
+def _held_close(name: str, got, want, tol: float) -> None:
+    if not torch.allclose(got, want, rtol=tol, atol=tol):
+        err = (got - want).abs().max().item()
+        raise AssertionError(f"overlap {name}: max |err| {err} > {tol}")
+    log("overlap", check=name, max_abs_err=f"{(got - want).abs().max():.3e}",
+        tol=tol)
+
+
+def _pod_step_check(mesh) -> None:
+    """One compressed step of reduced granite-3-2b (head_dim 64, the flash
+    kernel's) on the 'pod' mesh against the same step with the gradients
+    averaged uncompressed: loss equal, every parameter within
+    lr * |residual| / eps of it (Adam's first step is 1/eps-Lipschitz in
+    the gradient; ``tests/test_torch_distributed.py`` derives the bound)."""
+    cfg = dataclasses.replace(registry.get("granite-3-2b").reduced(),
+                              head_dim=64, dtype="float32")
+    model = model_lib.build(cfg, "cuda")
+    opt = adamw.AdamWConfig(lr=1e-2, warmup_steps=1, grad_clip=0.0, eps=1e-3)
+    settings = train_step.TrainSettings(compress_pod_grads=True)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 128),
+                           generator=torch.Generator().manual_seed(5))
+    batch = {"tokens": tokens}
+    state = train_step.make_train_state(
+        model, opt, torch.Generator(device="cuda").manual_seed(0), settings,
+        mesh)
+    state, metrics = train_step.make_train_step(model, opt, settings, mesh)(
+        state, batch)
+    plain = train_step.make_train_state(
+        model, opt, torch.Generator(device="cuda").manual_seed(0))
+    plain, pm = train_step.make_train_step(model, opt)(plain, batch)
+    if metrics["loss"].item() != pm["loss"].item():
+        raise AssertionError(f"pod step loss {metrics['loss'].item()} != "
+                             f"{pm['loss'].item()}")
+    worst = 0.0
+    for (path, p), q, e in zip(tree.items(state["params"]),
+                               tree.leaves(plain["params"]),
+                               tree.leaves(state["grad_err"])):
+        lim = opt.lr * e.abs().float() / opt.eps + 1e-6
+        over = ((p - q).abs() - lim).max().item()
+        worst = max(worst, (p - q).abs().max().item())
+        if over > 0:
+            raise AssertionError(f"pod step {path}: beyond the int8 bound "
+                                 f"by {over}")
+    log("overlap", check="pod-compressed-step",
+        loss=f"{pm['loss'].item():.6f}", max_param_diff=f"{worst:.3e}",
+        leaves=len(tree.leaves(plain["params"])))
+
+
+def phase_overlap() -> None:
+    from torch.distributed.device_mesh import init_device_mesh
+
+    store = ROOT / "build" / "overlap_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(25)
+        B, T, D, Fd = OVERLAP_SHAPE
+        x, w1 = _rand(gen, (B, T, D), torch.float32), \
+            _rand(gen, (D, Fd), torch.float32)
+        w2, h = _rand(gen, (Fd, D), torch.float32), \
+            _rand(gen, (B, T, Fd), torch.float32)
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("model",))
+        _held_close("ag_matmul", cm.ag_matmul(x, w1, mesh), x @ w1,
+                    OVERLAP_TOL["ag"])
+        _held_close("matmul_rs", cm.matmul_rs(h, w2, mesh), h @ w2,
+                    OVERLAP_TOL["rs"])
+        a = x @ w1
+        _held_close("overlapped_ffn",
+                    cm.overlapped_ffn(x, w1, w1, w2, mesh, F.silu),
+                    (F.silu(a) * a) @ w2, OVERLAP_TOL["rs"])
+
+        g = _rand(gen, (8, 128), torch.float32)
+        gathered = []
+        real = dist.all_gather
+
+        def recording(tensors, tensor, group=None, async_op=False):
+            res = real(tensors, tensor, group=group, async_op=async_op)
+            gathered.append(torch.stack(tensors).clone())
+            return res
+
+        dist.all_gather = recording
+        try:
+            mean, _ = compression.psum_compressed(
+                g, torch.zeros_like(g), mesh.get_group("model"))
+        finally:
+            dist.all_gather = real
+        codes, scale = compression.quantize(g)
+        if not (torch.equal(gathered[0][0], codes)
+                and torch.equal(gathered[1][0], scale)):
+            raise AssertionError("psum_compressed: the codes on the link "
+                                 "differ from quantize's")
+        _held_close("psum_compressed", mean, compression.dequantize(
+            codes, scale, tuple(g.shape), torch.float32), OVERLAP_TOL["ag"])
+
+        pmesh = init_device_mesh("cuda", (1,), mesh_dim_names=("pipe",))
+        w = _rand(gen, (16, 16), torch.float32) * 0.3
+        bias = _rand(gen, (16,), torch.float32) * 0.1
+        xs = _rand(gen, (6, 2, 16), torch.float32)
+
+        def stage(p, v):
+            return torch.tanh(v @ p["w"] + p["b"])
+
+        _held_close("pipeline-1-stage",
+                    pipe.pipeline(stage, {"w": w, "b": bias}, xs, pmesh),
+                    stage({"w": w, "b": bias}, xs), OVERLAP_TOL["ag"])
+        _pod_step_check(init_device_mesh("cuda", (1,),
+                                         mesh_dim_names=("pod",)))
+        print("[overlap] note: a group of one posts no isend/irecv, so the "
+              "ring's hand-off is not exercised on the card; the multi-rank "
+              "parity (8 ranks for the rings, 4 for the pipeline, 2 for the "
+              "pod step) is in tests/test_torch_distributed.py over gloo",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
 def run_arch(arch, gen) -> tuple:
     """Serve, decode against forward and profile one model (and, for the
     Mamba-1 model, drive the entry points no model calls); its weights are
@@ -2379,6 +2661,8 @@ def main() -> None:
     phase_train_grad_vs_plain("falcon-mamba-7b")
     gc.collect()
     torch.cuda.empty_cache()
+    phase_pluto(smi)
+    phase_overlap()
     missing = [r["name"] for r in records if not r["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on a path: {missing}")

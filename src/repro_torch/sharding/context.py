@@ -1,0 +1,61 @@
+"""Ambient mesh context so model code can apply sharding constraints
+without threading a mesh through every call signature (PyTorch port of
+``repro/sharding/context.py``).
+
+``constrain(x, *spec)`` is the identity when no mesh is active.  Under an
+active ``DeviceMesh`` it redistributes a ``DTensor`` to the spec's
+placements; a plain local tensor passes through unchanged, since eager
+PyTorch has no GSPMD to hand a layout constraint to.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+
+import torch
+
+from repro_torch.sharding import partition
+
+_state = threading.local()
+
+
+def current_mesh():
+    return getattr(_state, "mesh", None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    prev = current_mesh()
+    _state.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _state.mesh = prev
+
+
+def constrain(x: torch.Tensor, *spec) -> torch.Tensor:
+    """Apply a spec constraint if a mesh is active and ``x`` is a DTensor.
+
+    Spec entries may name axes that don't exist on the active mesh; they are
+    dropped (so model code can say ("pod", "data") and work on both meshes).
+    """
+    mesh = current_mesh()
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    names = set(partition.axis_sizes(mesh))
+
+    def keep(e):
+        if e is None:
+            return None
+        if isinstance(e, (tuple, list)):
+            kept = tuple(a for a in e if a in names)
+            return kept if kept else None
+        return e if e in names else None
+
+    cleaned = partition.spec(*(keep(e) for e in spec))
+    return x.redistribute(mesh, partition.to_placements(cleaned, mesh))

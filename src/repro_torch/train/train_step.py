@@ -1,9 +1,13 @@
-"""Train step: loss + grads + optimizer, with microbatching (PyTorch port of
+"""Train step: loss + grads + optimizer, microbatching, and the optional
+cross-pod compressed gradient reduction (PyTorch port of
 ``repro/train/train_step.py``).
 
-One card, no mesh: the cross-pod compressed gradient reduction
-(``compress_pod_grads``) needs a 'pod' mesh axis and raises, as the
-reference does without one; its port belongs to the distributed slice.
+``compress_pod_grads`` needs a ``DeviceMesh`` with a 'pod' dimension and
+raises without one, as the reference does.  With one, each rank of the
+'pod' group runs the step on its own shard of the batch (the reference's
+``P("pod")`` batch spec): the loss is averaged over 'pod' and the gradients
+are exchanged as int8 codes with error feedback
+(``compression.tree_psum_compressed``), kept in the state's ``grad_err``.
 """
 
 from __future__ import annotations
@@ -11,8 +15,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree
+from repro_torch.core.overlap import compression
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw
 
@@ -23,16 +29,28 @@ class TrainSettings:
     compress_pod_grads: bool = False   # int8 error-feedback across 'pod'
 
 
-def make_train_state(model: Model, opt_cfg: adamw.AdamWConfig,
-                     gen: torch.Generator,
-                     settings: TrainSettings | None = None) -> dict:
-    if settings and settings.compress_pod_grads:
+def _pod_group(mesh):
+    """The 'pod' dimension's process group; raises without one."""
+    if mesh is None or "pod" not in (mesh.mesh_dim_names or ()):
         raise ValueError("compress_pod_grads requires a mesh with a 'pod' "
                          "axis")
+    return mesh.get_group("pod")
+
+
+def make_train_state(model: Model, opt_cfg: adamw.AdamWConfig,
+                     gen: torch.Generator,
+                     settings: TrainSettings | None = None,
+                     mesh=None) -> dict:
+    compress = bool(settings and settings.compress_pod_grads)
+    if compress:
+        _pod_group(mesh)
     params = model.init(gen)
-    return {"params": params,
-            "opt": adamw.init_state(opt_cfg, params),
-            "step": torch.zeros((), dtype=torch.int32, device=model.device)}
+    state = {"params": params,
+             "opt": adamw.init_state(opt_cfg, params),
+             "step": torch.zeros((), dtype=torch.int32, device=model.device)}
+    if compress:
+        state["grad_err"] = compression.init_error_state(params)
+    return state
 
 
 def _split_microbatches(batch: dict, n: int) -> list[dict]:
@@ -69,7 +87,7 @@ def _loss_and_grads(model: Model, params, batch, n_micro: int):
 
 
 def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
-                    settings: TrainSettings = TrainSettings()):
+                    settings: TrainSettings = TrainSettings(), mesh=None):
     """The train step ``(state, batch) -> (state, metrics)``.
 
     ``batch`` holds numpy or torch ``tokens`` (B, T).  The loss and all
@@ -98,19 +116,23 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     its input.  ``media @ media_proj`` runs once a step outside the groups
     and, an ``mm``, is kept.
     """
-    if settings.compress_pod_grads:
-        raise ValueError("compress_pod_grads requires a mesh with a 'pod' "
-                         "axis")
+    pod = _pod_group(mesh) if settings.compress_pod_grads else None
 
     def step(state, batch):
         batch = {k: torch.as_tensor(v, device=model.device)
                  for k, v in batch.items()}
         loss, grads = _loss_and_grads(model, state["params"], batch,
                                       settings.microbatches)
+        new_state = dict(state)
+        if pod is not None:
+            loss = loss.clone()
+            dist.all_reduce(loss, group=pod)
+            loss = loss / dist.get_world_size(pod)
+            grads, new_state["grad_err"] = compression.tree_psum_compressed(
+                grads, state["grad_err"], pod)
         params, opt, metrics = adamw.apply_updates(
             opt_cfg, state["params"], grads, state["opt"])
-        new_state = dict(state, params=params, opt=opt,
-                         step=state["step"] + 1)
+        new_state.update(params=params, opt=opt, step=state["step"] + 1)
         return new_state, {"loss": loss, **metrics}
 
     return step
