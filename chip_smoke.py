@@ -163,7 +163,30 @@ Phases, each printing what it found; any failure raises and exits non-zero:
     compressed train step on a 'pod' mesh of one at a reduced width
     against the same step averaged uncompressed.  A group of one posts no
     ``isend``/``irecv``: the ring's hand-off is held over gloo on several
-    ranks by ``tests/test_torch_distributed.py``, not here.
+    ranks by ``tests/test_torch_distributed.py``, not here.  Then the
+    gradients of every input through ``ag_matmul``, ``matmul_rs``,
+    ``overlapped_ffn`` and the one-stage pipeline against autograd of the
+    plain products (1e-4);
+22. mesh-train: granite-3-2b at full width and ``MESH_TRAIN_LAYERS``
+    layers under a one-card ``DeviceMesh`` ('data' x 'model' = 1 x 1, an
+    NCCL group of one), DTensor parameters and batch, ``overlap
+    ="shared_bus"``, ``constrain_activations`` and ``constrain_internals``:
+    two steps (loss, every gradient leaf, AdamW) against the same steps
+    with plain parameters and no mesh; the flash forward and backward
+    launch counts of each mesh step asserted (the kernels run on the local
+    shards through the ops' DTensor sharding rules);
+23. planner: the dry-run planner (``launch/dryrun.py``) held against the
+    card on granite-3-2b at full width and ``PLANNER_LAYERS`` layers, one
+    train step of 4 x 2048 on a 1 x 1 mesh: its ``MemTracker`` peak within
+    ``PLANNER_MEM_RTOL`` of ``torch.cuda.max_memory_allocated`` of the
+    same step run for real, its FLOPs equal to ``FlopCounterMode`` over
+    the plain step;
+24. dryrun: ``python -m repro_torch.launch.dryrun`` in subprocesses on
+    ``DRYRUN_CELLS`` (granite-3-2b train_4k on the 256- and 512-rank
+    meshes, glm4-9b decode_32k on the 256-rank one; a fake process group
+    and fake CUDA tensors), every cell ``ok``, each cell's per-device
+    planner counts printed (counts for cards this machine does not have,
+    not timings).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -177,6 +200,7 @@ import dataclasses
 import datetime
 import gc
 import json
+import os
 import pathlib
 import shutil
 import statistics
@@ -204,11 +228,15 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import lut_matmul as lm  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models import layers, moe  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
+from repro_torch.sharding import partition  # noqa: E402
+from repro_torch.sharding.context import use_mesh  # noqa: E402
 from repro_torch.train import pipeline as pipe  # noqa: E402
 from repro_torch.train import train_step  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
@@ -2452,6 +2480,19 @@ def phase_pluto(smi: str) -> None:
 
 # ---- the distributed layer in a group of one -------------------------------
 
+# granite-3-2b under a one-card mesh: full width, 4 of its 40 layers
+MESH_TRAIN_LAYERS = 4
+# bf16 on a mesh of one against no mesh: the same kernels, the loss summed
+# in another order (``model._sharded_xent``)
+MESH_LOSS_RTOL = 1e-3
+# the planner against the card: granite-3-2b at full width, 2 layers
+PLANNER_LAYERS = 2
+PLANNER_MEM_RTOL = 0.10
+DRYRUN_CELLS = (("--arch", "granite-3-2b", "--shape", "train_4k",
+                 "--mesh", "both"),
+                ("--arch", "glm4-9b", "--shape", "decode_32k",
+                 "--mesh", "single"))
+DRYRUN_TIMEOUT_S = 300
 OVERLAP_SHAPE = (2, 64, 32, 48)      # B, T, D, F: check_overlap.py's
 OVERLAP_TOL = {"ag": 1e-5, "rs": 1e-4}
 
@@ -2479,8 +2520,7 @@ def _pod_step_check(mesh) -> None:
                            generator=torch.Generator().manual_seed(5))
     batch = {"tokens": tokens}
     state = train_step.make_train_state(
-        model, opt, torch.Generator(device="cuda").manual_seed(0), settings,
-        mesh)
+        model, opt, torch.Generator(device="cuda").manual_seed(0), settings)
     state, metrics = train_step.make_train_step(model, opt, settings, mesh)(
         state, batch)
     plain = train_step.make_train_state(
@@ -2502,6 +2542,45 @@ def _pod_step_check(mesh) -> None:
     log("overlap", check="pod-compressed-step",
         loss=f"{pm['loss'].item():.6f}", max_param_diff=f"{worst:.3e}",
         leaves=len(tree.leaves(plain["params"])))
+
+
+def _grads(fn, inputs, cot):
+    ins = [t.detach().clone().requires_grad_() for t in inputs]
+    return torch.autograd.grad((fn(*ins) * cot).sum(), ins)
+
+
+def _overlap_grads(gen, mesh, pmesh, stage) -> None:
+    """The gradients of every input (x and the weights, the stage's
+    parameters and the microbatches) through ``ag_matmul``, ``matmul_rs``,
+    ``overlapped_ffn`` and the one-stage pipeline against autograd of the
+    plain products."""
+    B, T, D, Fd = OVERLAP_SHAPE
+    x, wg, wu = (_rand(gen, s, torch.float32) for s in
+                 ((B, T, D), (D, Fd), (D, Fd)))
+    wo, h = _rand(gen, (Fd, D), torch.float32), \
+        _rand(gen, (B, T, Fd), torch.float32)
+    cot_f, cot_d = _rand(gen, (B, T, Fd), torch.float32), \
+        _rand(gen, (B, T, D), torch.float32)
+    w, bias = _rand(gen, (16, 16), torch.float32) * 0.3, \
+        _rand(gen, (16,), torch.float32) * 0.1
+    xs, cot_p = _rand(gen, (6, 2, 16), torch.float32), \
+        _rand(gen, (6, 2, 16), torch.float32)
+    cases = (
+        ("ag_matmul", lambda x, w: cm.ag_matmul(x, w, mesh),
+         lambda x, w: x @ w, (x, wg), cot_f),
+        ("matmul_rs", lambda h, w: cm.matmul_rs(h, w, mesh),
+         lambda h, w: h @ w, (h, wo), cot_d),
+        ("overlapped_ffn",
+         lambda x, a, b, c: cm.overlapped_ffn(x, a, b, c, mesh, F.silu),
+         lambda x, a, b, c: (F.silu(x @ a) * (x @ b)) @ c,
+         (x, wg, wu, wo), cot_d),
+        ("pipeline-1-stage",
+         lambda v, w, b: pipe.pipeline(stage, {"w": w, "b": b}, v, pmesh),
+         lambda v, w, b: stage({"w": w, "b": b}, v), (xs, w, bias), cot_p))
+    for name, ring, plain, inputs, cot in cases:
+        for i, (g, want) in enumerate(zip(_grads(ring, inputs, cot),
+                                          _grads(plain, inputs, cot))):
+            _held_close(f"{name}-grad{i}", g, want, OVERLAP_TOL["rs"])
 
 
 def phase_overlap() -> None:
@@ -2565,6 +2644,7 @@ def phase_overlap() -> None:
         _held_close("pipeline-1-stage",
                     pipe.pipeline(stage, {"w": w, "b": bias}, xs, pmesh),
                     stage({"w": w, "b": bias}, xs), OVERLAP_TOL["ag"])
+        _overlap_grads(gen, mesh, pmesh, stage)
         _pod_step_check(init_device_mesh("cuda", (1,),
                                          mesh_dim_names=("pod",)))
         print("[overlap] note: a group of one posts no isend/irecv, so the "
@@ -2574,6 +2654,219 @@ def phase_overlap() -> None:
               flush=True)
     finally:
         dist.destroy_process_group()
+
+
+def _one_rank_group(name: str) -> None:
+    store = ROOT / "build" / name
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def phase_mesh_train() -> None:
+    """granite-3-2b at full width and ``MESH_TRAIN_LAYERS`` layers under a
+    one-card ``DeviceMesh`` ('data' x 'model' = 1 x 1, an NCCL group of one
+    rank), its parameters and batch DTensors, with ``overlap="shared_bus"``,
+    ``constrain_activations`` and ``constrain_internals`` on: two train
+    steps (loss and gradients, then the AdamW update) held to the same
+    steps with plain parameters and no mesh.  The flash forward and
+    backward launch counts of each mesh step are asserted: the kernels ran
+    on the DTensors' local shards through the ops' sharding rules."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    _one_rank_group("mesh_train_store")
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = dataclasses.replace(
+            registry.get("granite-3-2b"), n_layers=MESH_TRAIN_LAYERS,
+            overlap="shared_bus", constrain_activations=True,
+            constrain_internals=True)
+        model = model_lib.build(cfg, "cuda")
+        opt = adamw.AdamWConfig()
+        params = _init_params(model)
+        dparams = partition.distribute(
+            params, partition.param_shardings(params, mesh), mesh)
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+                 SyntheticCorpus(_data_cfg(cfg, TRAIN_BATCH)).batch_at(
+                     0).items()}
+        dbatch = partition.distribute(
+            batch, partition.batch_shardings(batch, mesh, TRAIN_BATCH), mesh)
+        states = {"mesh": (dparams, adamw.init_state(opt, dparams)),
+                  "plain": (params, adamw.init_state(opt, params))}
+        n_attn = _attention_layers(cfg)
+        for step in range(2):
+            out = {}
+            for name, (p, o) in states.items():
+                ctx = use_mesh(mesh) if name == "mesh" else \
+                    contextlib.nullcontext()
+                torch.cuda.synchronize()
+                zero_counts()
+                t0 = time.perf_counter()
+                with ctx:
+                    loss, grads = train_step._loss_and_grads(
+                        model, p, dbatch if name == "mesh" else batch, 1)
+                    adamw.apply_updates(opt, p, grads, o)
+                torch.cuda.synchronize()
+                out[name] = (loss, grads, read_counts(),
+                             (time.perf_counter() - t0) * 1e3)
+            (dl, dg, dc, dms), (pl, pg, pc, pms) = out["mesh"], out["plain"]
+            if not (dc["flash_attention_bwd"] == n_attn
+                    and dc["flash_attention"] == pc["flash_attention"] > 0
+                    and dc == pc):
+                raise AssertionError(f"mesh step {step} launched {dc}, the "
+                                     f"plain one {pc}")
+            dl = dl.full_tensor()
+            worst, where = 0.0, ""
+            for (path, g), w in zip(tree.items(dg), tree.leaves(pg)):
+                g = g.full_tensor()
+                if not bool(torch.isfinite(g.float()).all()):
+                    raise AssertionError(f"non-finite gradient at {path}")
+                rel = _rel_l2(g, w)
+                if rel > worst:
+                    worst, where = rel, path
+            loss_rel = abs(dl.item() - pl.item()) / abs(pl.item())
+            log("mesh-train", step=step, arch=cfg.name, layers=cfg.n_layers,
+                mesh="1x1 (data, model)", loss=f"{dl.item():.6f}",
+                plain_loss=f"{pl.item():.6f}", loss_rel=f"{loss_rel:.3e}",
+                worst_grad_rel_l2=f"{worst:.3e}", worst_leaf=where,
+                flash_fwd=dc["flash_attention"],
+                flash_bwd=dc["flash_attention_bwd"], mesh_ms=f"{dms:.1f}",
+                plain_ms=f"{pms:.1f}")
+            if not (loss_rel <= MESH_LOSS_RTOL and worst <= GRAD_REL_L2):
+                raise AssertionError(
+                    f"mesh step {step}: loss off by {loss_rel} (limit "
+                    f"{MESH_LOSS_RTOL}), gradient {where} by {worst} (limit "
+                    f"{GRAD_REL_L2})")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_planner(smi: str) -> None:
+    """The dry-run planner held against the card once: granite-3-2b at
+    full width and ``PLANNER_LAYERS`` layers, one train step of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens on a 1 x 1 mesh (a ``fake``
+    group of one rank).  The planner's peak (``MemTracker``, fake tensors)
+    against ``torch.cuda.max_memory_allocated`` of the same step run for
+    real on the same mesh, within ``PLANNER_MEM_RTOL``; its FLOPs equal to
+    ``FlopCounterMode`` over the plain step (no mesh, real tensors)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.utils.flop_counter import FlopCounterMode
+
+    cfg = dataclasses.replace(registry.get("granite-3-2b"),
+                              n_layers=PLANNER_LAYERS)
+    shape = ShapeConfig("smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    dryrun.fake_world(1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        t0 = time.perf_counter()
+        with FakeTensorMode():
+            fn, args = dryrun.build_cell(cfg, shape, mesh, "cuda")
+            planned = dryrun.measure(fn, args, mesh)
+        plan_s = time.perf_counter() - t0
+        del fn, args
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = model_lib.Model(cfg, torch.device("cuda"))
+        opt = adamw.AdamWConfig()
+        step = train_step.make_train_step(model, opt)
+        tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                               generator=torch.Generator(device="cuda")
+                               .manual_seed(1), device="cuda",
+                               dtype=torch.int32)
+
+        def new_state():
+            return train_step.make_train_state(
+                model, opt, torch.Generator(device="cuda").manual_seed(0))
+
+        counter = FlopCounterMode(display=False)
+        with counter:
+            step(new_state(), {"tokens": tokens})
+        flops = counter.get_total_flops()
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        state = new_state()
+        dstate = partition.distribute(
+            state, partition.param_shardings(state, mesh), mesh)
+        del state
+        dbatch = partition.distribute(
+            {"tokens": tokens}, partition.batch_shardings(
+                {"tokens": tokens}, mesh, TRAIN_BATCH), mesh)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with use_mesh(mesh):
+            step(dstate, dbatch)
+        torch.cuda.synchronize()
+        # above what was held before: the distributed state and batch (the
+        # planner's arguments) and the step's own
+        real_peak = torch.cuda.max_memory_allocated() - base
+        del dstate, dbatch
+    finally:
+        dist.destroy_process_group()
+    peak = planned["mem"]["peak_hbm_bytes"]
+    rel = abs(peak - real_peak) / real_peak
+    log("planner", arch=cfg.name, layers=cfg.n_layers,
+        step=f"{TRAIN_BATCH}x{TRAIN_SEQ}", mesh="1x1 (fake group)",
+        planner_peak_GiB=f"{peak / 2**30:.3f}",
+        card_peak_GiB=f"{real_peak / 2**30:.3f}", peak_rel=f"{rel:.3e}",
+        planner_flops=f"{planned['flops']:.6e}",
+        flop_counter=f"{flops:.6e}", plan_s=f"{plan_s:.1f}", card=smi)
+    if not rel <= PLANNER_MEM_RTOL:
+        raise AssertionError(f"planner peak {peak} vs the card's {real_peak}"
+                             f": {rel} > {PLANNER_MEM_RTOL}")
+    if planned["flops"] != flops:
+        raise AssertionError(f"planner FLOPs {planned['flops']} != "
+                             f"FlopCounterMode's {flops}")
+
+
+def phase_dryrun() -> None:
+    """``python -m repro_torch.launch.dryrun`` in subprocesses (a fake
+    process group of 256 or 512 ranks each, fake CUDA tensors) on
+    ``DRYRUN_CELLS``, each within ``DRYRUN_TIMEOUT_S``; every cell must come
+    out ``ok``.  Prints each cell's per-device planner counts: counts for a
+    mesh of cards this machine does not have, not timings."""
+    report = ROOT / "build" / "dryrun_smoke.json"
+    report.parent.mkdir(parents=True, exist_ok=True)
+    report.unlink(missing_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    for argv in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+             "--report", str(report)], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+        log("dryrun", args=" ".join(argv), rc=res.returncode,
+            seconds=f"{time.perf_counter() - t0:.1f}")
+        if res.returncode != 0:
+            print(res.stdout[-4000:], res.stderr[-4000:], flush=True)
+            raise AssertionError(f"dryrun {argv} exited {res.returncode}")
+    cells = json.loads(report.read_text())
+    for key, cell in sorted(cells.items()):
+        if cell["status"] != "ok":
+            raise AssertionError(f"dryrun cell {key}: {cell}")
+        pd, cost = cell["per_device"], cell["per_device_cost"]
+        log("dryrun", cell=key, planner_counts="per device",
+            devices=cell["devices"],
+            peak_GiB=f"{pd['peak_hbm_bytes'] / 2**30:.3f}",
+            argument_GiB=f"{pd['argument_bytes'] / 2**30:.3f}",
+            flops=f"{cost['flops']:.4e}",
+            bytes_accessed=f"{cost['bytes_accessed']:.4e}",
+            collective_bytes=f"{cost['collective_bytes']:.4e}",
+            collectives={k: v["count"] for k, v in
+                         cell["raw_cost"]["collectives"].items()},
+            run_s=cell["compile_s"])
 
 
 def run_arch(arch, gen) -> tuple:
@@ -2663,6 +2956,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_pluto(smi)
     phase_overlap()
+    phase_mesh_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_planner(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_dryrun()
     missing = [r["name"] for r in records if not r["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on a path: {missing}")

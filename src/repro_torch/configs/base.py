@@ -1,4 +1,6 @@
-"""Model configuration: a copy of ``repro/configs/base.py`` ``ModelConfig``.
+"""Model configuration: a copy of ``repro/configs/base.py`` ``ModelConfig``,
+and of its dry-run shapes (``ShapeConfig``, ``SHAPES``,
+``shape_applicable``).
 
 The port keeps its own copy so that it imports nothing of the reference
 package.  Fields and ``reduced()`` are the reference's, unchanged, so a
@@ -126,3 +128,27 @@ class ModelConfig:
             if self.n_media_tokens else 0,
             media_embed_dim=32 if self.media_embed_dim else 0,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether an (arch, shape) cell runs; reason recorded in EXPERIMENTS.md."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, ("SKIP: pure full-attention architecture; 500k context "
+                       "requires sub-quadratic attention (DESIGN.md Sec 5)")
+    return True, "ok"

@@ -19,6 +19,11 @@ take a ``DeviceMesh`` and the name of its dimension, as the reference takes
 a mesh and an axis name, and are called with the local shards too (eager
 PyTorch has no shard_map to split global arrays).  The products stay plain
 ``torch.einsum``, as the reference's are plain ``jnp``.
+
+Both are differentiable: every ring hand-off is ``sharedbus.shift``, whose
+backward is the reverse hand-off.  So ``ag_matmul``'s input gradient
+reduce-scatters along the ring back to each chunk's owner, and
+``matmul_rs``'s backward all-gathers the output cotangent along it.
 """
 
 from __future__ import annotations
@@ -69,13 +74,13 @@ def matmul_rs_body(x: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
         return torch.einsum("btf,fd->btd", x[:, idx * t:(idx + 1) * t], w)
 
     acc = part(0)
-    recv = torch.empty_like(acc)
     for i in range(1, n):
-        works = sharedbus.shift_start([acc], [recv], [1], group)
+        works: list = []
+        recv = sharedbus.shift(acc, 1, group, works)
         p = part(i)                      # overlapped with the hand-off
         for wk in works:
             wk.wait()
-        acc, recv = recv + p, acc
+        acc = recv + p
     return acc
 
 

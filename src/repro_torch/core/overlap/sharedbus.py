@@ -15,6 +15,11 @@ The functions run on every rank of ``group`` (``None``: the default group)
 with that rank's local chunk, the shard_map body's contract in the
 reference.  The last step starts no transfer (the reference's last hop
 carries a chunk nobody reads), so a group of one sends nothing.
+
+Every hand-off is differentiable (``shift``): the transpose of a +shift
+send is a -shift send, so a gradient that reaches a received chunk travels
+back to the rank that sent it, as JAX transposes the reference's
+``ppermute``.  The backward's hand-offs are blocking.
 """
 
 from __future__ import annotations
@@ -35,16 +40,17 @@ def global_rank(group, rank: int) -> int:
     return rank if group is None else dist.get_global_rank(group, rank)
 
 
-def shift_start(sends, recvs, shifts, group) -> list:
+def shift_start(sends, recvs, shifts, group, tag0: int = 0) -> list:
     """Start sending each ``sends[j]`` to the rank ``shifts[j]`` ahead on the
-    ring and receiving ``recvs[j]`` from the rank ``shifts[j]`` behind;
-    returns the requests to wait on (none in a group of one)."""
+    ring and receiving ``recvs[j]`` from the rank ``shifts[j]`` behind (tag
+    ``tag0 + j``); returns the requests to wait on (none in a group of
+    one)."""
     n = dist.get_world_size(group)
     if n == 1:
         return []
     me = dist.get_rank(group)
     ops = []
-    for tag, (s, r, shift) in enumerate(zip(sends, recvs, shifts)):
+    for tag, (s, r, shift) in enumerate(zip(sends, recvs, shifts), tag0):
         dst = global_rank(group, dict(ring_perm(group, shift))[me])
         src = global_rank(group, dict(ring_perm(group, -shift))[me])
         ops.append(dist.P2POp(dist.isend, s, dst, group, tag))
@@ -52,28 +58,59 @@ def shift_start(sends, recvs, shifts, group) -> list:
     return dist.batch_isend_irecv(ops)
 
 
+class _Shift(torch.autograd.Function):
+    """Post the send of ``x`` to the rank ``shift`` ahead and the receive
+    of the same shape from the rank ``shift`` behind; returns the receiving
+    buffer, which holds the neighbour's chunk once the requests appended to
+    ``works`` are waited on.  Backward: the -shift hand-off of the
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, shift, group, works, tag):
+        recv = torch.empty_like(x)
+        works.extend(shift_start([x.contiguous()], [recv], [shift], group,
+                                 tag))
+        ctx.shift, ctx.group, ctx.tag = shift, group, tag
+        return recv
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = torch.empty_like(grad)
+        for w in shift_start([grad.contiguous()], [out], [-ctx.shift],
+                             ctx.group, ctx.tag):
+            w.wait()
+        return out, None, None, None, None
+
+
+def shift(x: torch.Tensor, shift: int, group, works: list,
+          tag: int = 0) -> torch.Tensor:
+    """The differentiable hand-off: start moving ``x`` ``shift`` ranks
+    ahead on the ring and return the buffer that receives the chunk of the
+    rank ``shift`` behind; it is valid once every request appended to
+    ``works`` has been waited on."""
+    return _Shift.apply(x, shift, group, works, tag)
+
+
 def _ring(chunks: list[torch.Tensor], shifts: list[int], group,
           consume: Callable, carry):
     """n steps of ``carry = consume(carry, i, residents)``, each overlapped
-    with the transfer of the next chunks into the receiving buffers.  The
-    caller's chunks are never written: the buffers they leave are new."""
+    with the transfer of the next chunks into new receiving buffers (a
+    consumed buffer may be saved for a backward, so none is reused).  The
+    caller's chunks are never written."""
     n = dist.get_world_size(group)
     resident = [c.contiguous() for c in chunks]
-    spare: list = [None] * len(chunks)
     for i in range(n):
         last = i == n - 1
-        recv = [] if last else [
-            s if s is not None else torch.empty_like(r)
-            for s, r in zip(spare, resident)]
+        works: list = []
         # launch the transfer of the NEXT chunk (fills the receiving row) ...
-        works = [] if last else shift_start(resident, recv, shifts, group)
+        recv = [] if last else [shift(r, s, group, works, tag)
+                                for tag, (r, s) in enumerate(
+                                    zip(resident, shifts))]
         # ... while consuming the resident one (NOP, not STALL)
         carry = consume(carry, i, resident)
         for w in works:
             w.wait()
         if not last:
-            spare = [r if not any(r is c for c in chunks) else None
-                     for r in resident]
             resident = recv
     return carry
 

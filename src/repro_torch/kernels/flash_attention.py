@@ -17,6 +17,12 @@ and saves q, k, v, o and the LSE, and whose autograd formula is the
 activation checkpointing sees them.  Otherwise (serving) the forward writes
 no LSE and saves nothing.  ``flash_attention_gqa.launches`` and
 ``flash_attention_bwd.launches`` count kernel launches.
+
+A DTensor or fake input goes to the op as well (``_symbolic``): both ops
+have fake implementations, and sharding rules that take the batch, or the
+heads when both q's and k's head counts divide the mesh dimension, and
+replicate otherwise (``_gqa_layout`` puts q, k and v there first, since a
+kv head serves the ``H // K`` query heads beside it).
 """
 
 from __future__ import annotations
@@ -25,8 +31,11 @@ import ctypes
 import functools
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _symbolic
 from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                      flash_attention_gqa_ref,
                                      flash_attention_ref)
@@ -137,8 +146,13 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     longer KV cache needs no copy.  Differentiable: under grad mode with an
     input that requires grad this is the ``repro_torch::flash_attn`` op.
     """
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    if _symbolic.is_dtensor(q):
+        grouped = _head_groups(q, k, v, causal, window, softcap)
+        if grouped is not None:
+            return grouped
+    if _symbolic.symbolic(q, k, v) or torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        q, k, v = _gqa_layout(q, k, v)
         return torch.ops.repro_torch.flash_attn(
             q, k, v, bool(causal), int(window), float(softcap))[0]
     if q.device.type == "cpu":
@@ -247,12 +261,74 @@ flash_attention_bwd.launches = 0
 
 # --- the differentiable op ---------------------------------------------------
 
+def _head_groups(q, k, v, causal, window, softcap):
+    """Attention with q's heads sharded over a mesh dimension of size n
+    that divides H but not K, where a rank's H / n query heads share
+    whole kv heads (G = H // K a multiple of H / n, or H / n a multiple
+    of G): each rank runs the kernel on its query heads and the slice of
+    the (gathered) kv heads they read, and k's and v's gradients are
+    partial sums over the ranks.  None where that does not hold (the op's
+    sharding rule then takes the call)."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    mesh = q.device_mesh
+    dims = [i for i, p in enumerate(q.placements)
+            if isinstance(p, Shard) and p.dim == 2]
+    H, K = q.shape[2], k.shape[2]
+    if len(dims) != 1:
+        return None
+    i = dims[0]
+    n, G = mesh.size(i), H // K
+    Hn = H // n
+    if H % n or K % n == 0 or (Hn % G and G % Hn):
+        return None
+    kvn = max(Hn // G, 1)
+    kv0 = mesh.get_coordinate()[i] * Hn // G
+    batch = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+             for p in q.placements]
+    want_q = [Shard(2) if j == i else p for j, p in enumerate(batch)]
+    q, k, v = (_symbolic.to_layout(t, mesh, pl) for t, pl in
+               ((q, want_q), (k, batch), (v, batch)))
+    grad_kv = [Partial() if j == i else p for j, p in enumerate(batch)]
+    o = flash_attention_gqa(
+        q.to_local(), *(t.to_local(grad_placements=grad_kv)[
+            :, :, kv0:kv0 + kvn] for t in (k, v)),
+        causal=causal, window=window, softcap=softcap)
+    return DTensor.from_local(o, mesh, want_q, run_check=False,
+                              shape=q.shape, stride=q.stride())
+
+
+def _gqa_layout(q, k, v):
+    """DTensor q, k, v on placements the op's rule takes: on each mesh
+    dimension the batch stays sharded if q's is; the heads stay sharded if
+    q's are and both H and K divide the dimension (so a rank's query heads
+    find their kv heads among its own); anything else is replicated.
+    Plain tensors pass through."""
+    if not _symbolic.is_dtensor(q):
+        return q, k, v
+    mesh = q.device_mesh
+    H, K = q.shape[2], k.shape[2]
+    want = []
+    for i, p in enumerate(q.placements):
+        n = mesh.size(i)
+        if isinstance(p, Shard) and p.dim == 0:
+            want.append(Shard(0))
+        elif (isinstance(p, Shard) and p.dim == 2 and H % n == 0
+              and K % n == 0):
+            want.append(Shard(2))
+        else:
+            want.append(Replicate())
+
+    return tuple(_symbolic.to_layout(t, mesh, want) for t in (q, k, v))
+
 @torch.library.custom_op("repro_torch::flash_attn", mutates_args=())
 def _flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 causal: bool, window: int, softcap: float
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    return flash_attention_lse(q, k, v, causal=causal, window=window,
-                               softcap=softcap)
+    # contiguous, as the fake implementation says (the plain version's o
+    # is a permuted view)
+    return tuple(t.contiguous() for t in flash_attention_lse(
+        q, k, v, causal=causal, window=window, softcap=softcap))
 
 
 @torch.library.custom_op("repro_torch::flash_attn_bwd", mutates_args=())
@@ -260,8 +336,8 @@ def _flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                     causal: bool, window: int, softcap: float
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    return flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
-                               window=window, softcap=softcap)
+    return tuple(t.contiguous() for t in flash_attention_bwd(
+        q, k, v, o, lse, do, causal=causal, window=window, softcap=softcap))
 
 
 def _setup_context(ctx, inputs, output):
@@ -273,12 +349,60 @@ def _setup_context(ctx, inputs, output):
 
 def _backward(ctx, do, _dlse):
     q, k, v, o, lse = ctx.saved_tensors
+    if _symbolic.is_dtensor(do) and do.placements != o.placements:
+        do = do.redistribute(o.device_mesh, o.placements)
     dq, dk, dv = torch.ops.repro_torch.flash_attn_bwd(
         q, k, v, o, lse, do, *ctx.attrs)
     return dq, dk, dv, None, None, None
 
 
 _flash_attn.register_autograd(_backward, setup_context=_setup_context)
+
+
+@_flash_attn.register_fake
+def _flash_attn_fake(q, k, v, causal, window, softcap):
+    B, Tq, H, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((B, H, Tq), dtype=torch.float32))
+
+
+@_flash_attn_bwd.register_fake
+def _flash_attn_bwd_fake(q, k, v, o, lse, do, causal, window, softcap):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@register_sharding(torch.ops.repro_torch.flash_attn.default)
+def _flash_rules(q, k, v, causal, window, softcap):
+    R, S = Replicate(), Shard
+    flags = [None] * 3
+    return [([R, R], [R, R, R, *flags]),
+            ([S(0), S(0)], [S(0), S(0), S(0), *flags]),
+            ([S(2), S(1)], [S(2), S(2), S(2), *flags])]
+
+
+@register_sharding(torch.ops.repro_torch.flash_attn_bwd.default)
+def _flash_bwd_rules(q, k, v, o, lse, do, causal, window, softcap):
+    R, S = Replicate(), Shard
+    flags = [None] * 3
+    return [([R] * 3, [R] * 6 + flags),
+            ([S(0)] * 3, [S(0)] * 6 + flags),
+            ([S(2)] * 3, [S(2), S(2), S(2), S(2), S(1), S(2), *flags])]
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attn)
+def _attn_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    """Two products a head, Q K^T and P V: 4 B H Tq Tk D (the full
+    rectangle, causal or not, as ``FlopCounterMode`` counts SDPA)."""
+    B, Tq, H, D = q_shape
+    return 4 * B * H * Tq * k_shape[1] * D
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attn_bwd)
+def _attn_bwd_flops(q_shape, k_shape, *args, out_shape=None,
+                    **kwargs) -> int:
+    """Five products: Q K^T again, dO V^T, P^T dO, dS K and dS^T Q."""
+    B, Tq, H, D = q_shape
+    return 10 * B * H * Tq * k_shape[1] * D
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -45,6 +45,9 @@ backward (path, lanes, rows, scratch), so that the
 choice can be tested without a card; ``kernel_plan``,
 ``kernel_selective_scan_bwd_plan``, ``kernel_mamba2_plan`` and
 ``kernel_mamba2_bwd_plan`` ask the built library.
+
+A DTensor or fake input goes to the ops too (``_symbolic``); each op has a
+fake implementation and a DTensor sharding rule (at the end of this file).
 """
 
 from __future__ import annotations
@@ -54,8 +57,10 @@ import dataclasses
 import functools
 
 import torch
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _symbolic
 from repro_torch.kernels.ref import (mamba2_scan_bwd_ref, mamba2_scan_ref,
                                      mamba_scan_ref, selective_scan_bwd_ref,
                                      selective_scan_ref)
@@ -285,8 +290,8 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
     input that requires grad this is the ``repro_torch::selective_scan``
     op.
     """
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (dt, x, b, c, A, h0)):
+    if _symbolic.symbolic(dt, x, b, c, A, h0) or torch.is_grad_enabled() \
+            and any(t.requires_grad for t in (dt, x, b, c, A, h0)):
         return tuple(torch.ops.repro_torch.selective_scan(dt, x, b, c, A, h0))
     return _selective_forward(dt, x, b, c, A, h0)
 
@@ -566,8 +571,8 @@ def mamba2_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
     Differentiable: under grad mode with an input that requires grad this
     is the ``repro_torch::mamba2_scan`` op.
     """
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (dt, x, b, c, A, h0)):
+    if _symbolic.symbolic(dt, x, b, c, A, h0) or torch.is_grad_enabled() \
+            and any(t.requires_grad for t in (dt, x, b, c, A, h0)):
         return tuple(torch.ops.repro_torch.mamba2_scan(dt, x, b, c, A, h0))
     return _mamba2_forward(dt, x, b, c, A, h0)
 
@@ -732,7 +737,7 @@ mamba2_scan_bwd.launches = 0
 def _mamba2_scan_op(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
                     c: torch.Tensor, A: torch.Tensor, h0: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    return _mamba2_forward(dt, x, b, c, A, h0)
+    return tuple(t.contiguous() for t in _mamba2_forward(dt, x, b, c, A, h0))
 
 
 @torch.library.custom_op("repro_torch::mamba2_scan_bwd", mutates_args=())
@@ -741,7 +746,8 @@ def _mamba2_scan_bwd_op(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
                         dy: torch.Tensor, dh_last: torch.Tensor
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                    torch.Tensor, torch.Tensor, torch.Tensor]:
-    return mamba2_scan_bwd(dt, x, b, c, A, h0, dy, dh_last)
+    return tuple(t.contiguous()
+                 for t in mamba2_scan_bwd(dt, x, b, c, A, h0, dy, dh_last))
 
 
 def _scan_setup_context(ctx, inputs, output):
@@ -766,7 +772,8 @@ _mamba2_scan_op.register_autograd(_mamba2_backward,
 def _selective_scan_op(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
                        c: torch.Tensor, A: torch.Tensor, h0: torch.Tensor
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    return _selective_forward(dt, x, b, c, A, h0)
+    return tuple(t.contiguous()
+                 for t in _selective_forward(dt, x, b, c, A, h0))
 
 
 @torch.library.custom_op("repro_torch::selective_scan_bwd", mutates_args=())
@@ -777,7 +784,8 @@ def _selective_scan_bwd_op(dt: torch.Tensor, x: torch.Tensor,
                            ) -> tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor, torch.Tensor,
                                       torch.Tensor, torch.Tensor]:
-    return selective_scan_bwd(dt, x, b, c, A, h0, dy, dh_last)
+    return tuple(t.contiguous()
+                 for t in selective_scan_bwd(dt, x, b, c, A, h0, dy, dh_last))
 
 
 def _selective_backward(ctx, dy, dh_last):
@@ -792,3 +800,51 @@ def _selective_backward(ctx, dy, dh_last):
 
 _selective_scan_op.register_autograd(_selective_backward,
                                      setup_context=_scan_setup_context)
+
+
+# --- fake implementations and sharding rules ----------------------------------
+# The outputs' shapes and dtypes of each op, and its DTensor rules: sharded
+# on the batch (dA summed over it: Partial) or on the channels / heads
+# (A and the state with them, b and c replicated; db and dc summed over
+# them: Partial), or replicated.
+
+def _f32(t, shape):
+    return t.new_empty(shape, dtype=torch.float32)
+
+
+@_selective_scan_op.register_fake
+def _selective_scan_fake(dt, x, b, c, A, h0):
+    return _f32(dt, dt.shape), _f32(h0, h0.shape)
+
+
+@_mamba2_scan_op.register_fake
+def _mamba2_scan_fake(dt, x, b, c, A, h0):
+    return _f32(x, x.shape), _f32(h0, h0.shape)
+
+
+def _bwd_fake(dt, x, b, c, A, h0, dy, dh_last):
+    return (_f32(dt, dt.shape), torch.empty_like(x), torch.empty_like(b),
+            torch.empty_like(c), _f32(A, A.shape), _f32(h0, h0.shape))
+
+
+_selective_scan_bwd_op.register_fake(_bwd_fake)
+_mamba2_scan_bwd_op.register_fake(_bwd_fake)
+
+
+@register_sharding([torch.ops.repro_torch.selective_scan.default,
+                    torch.ops.repro_torch.mamba2_scan.default])
+def _scan_rules(dt, x, b, c, A, h0):
+    R, S = Replicate(), Shard
+    return [([R, R], [R] * 6),
+            ([S(0), S(0)], [S(0)] * 4 + [R, S(0)]),
+            ([S(2), S(1)], [S(2), S(2), R, R, S(0), S(1)])]
+
+
+@register_sharding([torch.ops.repro_torch.selective_scan_bwd.default,
+                    torch.ops.repro_torch.mamba2_scan_bwd.default])
+def _scan_bwd_rules(dt, x, b, c, A, h0, dy, dh_last):
+    R, S, P = Replicate(), Shard, Partial()
+    return [([R] * 6, [R] * 8),
+            ([S(0)] * 4 + [P, S(0)], [S(0)] * 4 + [R] + [S(0)] * 3),
+            ([S(2), S(2), P, P, S(0), S(1)],
+             [S(2), S(2), R, R, S(0), S(1), S(2), S(1)])]

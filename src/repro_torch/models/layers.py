@@ -11,20 +11,31 @@ sequence) goes to ``kernels.ops.gqa_flash_attention``;
 decode (``Tq`` new tokens at ``q_offset = pos > 0`` against the cache,
 masked at ``kv_len``) has no TPU kernel in the reference and stays on
 ``attention`` below, the plain translation of the reference's scan.
+
+Under a ``DeviceMesh`` (``sharding.context.use_mesh``) the tensors are
+DTensors: ``constrain_dp`` pins q, k, v and the MLP's hidden activations
+to the batch axes, ``mlp_block(overlap=True)`` runs the tensor-parallel
+FFN as the Shared-PIM rings (``core/overlap/collective_matmul``) on each
+rank's shards, and a cache sharded along its sequence is written shard by
+shard.  Without a mesh every pin is the identity.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from collections.abc import Mapping
 from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                    create_selective_checkpoint_contexts)
+                                    create_selective_checkpoint_contexts,
+                                    set_checkpoint_early_stop)
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import _symbolic, ops
+from repro_torch.sharding import partition
+from repro_torch.sharding.context import constrain, current_mesh
 
 Params = dict[str, Any]
 
@@ -50,7 +61,9 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     dt = x.dtype
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
-    out = x * torch.rsqrt(var + eps) * (1.0 + weight.float())
+    # a sharded norm weight is gathered whole (it is one row), so the
+    # activation keeps its layout
+    out = x * torch.rsqrt(var + eps) * (1.0 + _replicated(weight).float())
     return out.to(dt)
 
 
@@ -99,6 +112,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Tq, H, Dh = q.shape
     Tk, K = k.shape[1], k.shape[2]
     G = H // K
+    if _symbolic.is_dtensor(k):
+        # a cache sharded along its sequence: gather it once, not a block
+        # at a time
+        k, v = _replicated_dim(k, 1), _replicated_dim(v, 1)
     blk = min(spec.kv_block, Tk)
     nblk = -(-Tk // blk)
     dev = q.device
@@ -132,6 +149,92 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_new
     out = acc / torch.clamp(lsum, min=1e-30)[..., None]
     return out.reshape(B, Tq, H, Dh).to(q.dtype)
+
+
+def _replicated(w: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole on every rank; a plain tensor as it is."""
+    if not _symbolic.is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    want = [Replicate()] * w.device_mesh.ndim
+    return w if list(w.placements) == want else \
+        w.redistribute(w.device_mesh, want)
+
+
+def fsdp(w: torch.Tensor) -> torch.Tensor:
+    """A weight with its shards over the batch axes ('pod', 'data')
+    gathered: FSDP's all-gather before use, so a projection multiplies a
+    batch-sharded activation by a weight sharded over 'model' only (eager
+    DTensor would otherwise pick the matmul's layouts itself, and some of
+    them shard the batch and the sequence together).  The identity on a
+    plain tensor."""
+    if not _symbolic.is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = w.device_mesh.mesh_dim_names or ()
+    want = [Replicate() if isinstance(p, Shard) and names[i] != "model"
+            else p for i, p in enumerate(w.placements)]
+    return w if want == list(w.placements) else \
+        w.redistribute(w.device_mesh, want)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  On DTensors each rank looks its own tokens up in
+    the whole table (gathered: one (vocab, d_model) row set) and the rows
+    keep the tokens' layout; the table's gradient is then a partial sum
+    over the ranks that hold other tokens.  DTensor's own gather rules
+    for a sharded table differ across torch versions (and some fail in
+    the backward)."""
+    if not _symbolic.is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    tokens = _symbolic.to_layout(tokens, mesh)
+    grad = [Partial() if isinstance(p, Shard) else Replicate()
+            for p in tokens.placements]
+    rows = _replicated(table).to_local(grad_placements=grad)[
+        tokens.to_local()]
+    shape = (*tokens.shape, table.shape[-1])
+    return DTensor.from_local(rows, mesh, tokens.placements, run_check=False,
+                              shape=shape,
+                              stride=partition.contiguous_strides(shape))
+
+
+def _unsharded(placements, dim: int) -> list:
+    """``placements`` with every ``Shard(dim)`` made ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+            for p in placements]
+
+
+def _replicated_dim(t, dim: int):
+    """The DTensor ``t`` with dimension ``dim`` gathered on every mesh
+    dimension that shards it."""
+    want = _unsharded(t.placements, dim)
+    return t if want == list(t.placements) else \
+        t.redistribute(t.device_mesh, want)
+
+
+def _write_cache(c: torch.Tensor, new: torch.Tensor, pos: int) -> None:
+    """``c[:, pos:pos + T] = new`` in place.  On a DTensor cache each rank
+    writes the rows of its own shard (a slice of a sequence-sharded
+    DTensor would be a gathered copy, and the write would be lost)."""
+    T = new.shape[1]
+    if not _symbolic.is_dtensor(c):
+        c[:, pos:pos + T] = new.to(c.dtype)
+        return
+    mesh = c.device_mesh
+    new = _symbolic.to_layout(new.to(c.dtype), mesh,
+                              _unsharded(c.placements, 1)).to_local()
+    shape, off = partition.local_shape_and_offset(c.shape, mesh,
+                                                  c.placements)
+    lo, hi = max(pos, off[1]), min(pos + T, off[1] + shape[1])
+    if lo < hi:
+        c.to_local()[:, lo - off[1]:hi - off[1]] = new[:, lo - pos:hi - pos]
 
 
 def init_attn_params(gen: torch.Generator, d_model: int, spec: AttnSpec,
@@ -172,18 +275,22 @@ def attn_block(params: Params, x: torch.Tensor, spec: AttnSpec, *,
       key/value source; every query attends to all S keys through the
       kernel, non-causally, which is what the reference's
       ``q_offset=S`` leaves of its causal test.  Returns (k, v) of xkv.
-    * ``constrain_dp`` pins sharding in the reference; serving on one card
-      has none, so it is accepted and ignored.
+    * ``constrain_dp`` pins q, k and v to the batch axes (DP-stationary
+      projections), the identity without a mesh.
     """
-    del norm_eps, constrain_dp
+    del norm_eps
     B, T, _ = x.shape
     H, K, Dh = spec.n_heads, spec.n_kv_heads, spec.head_dim
     d = x.shape[-1]
     src = x if xkv is None else xkv
     S = src.shape[1]
-    q = (x @ params["wq"].reshape(d, H * Dh)).view(B, T, H, Dh)
-    k = (src @ params["wk"].reshape(d, K * Dh)).view(B, S, K, Dh)
-    v = (src @ params["wv"].reshape(d, K * Dh)).view(B, S, K, Dh)
+    q = (x @ fsdp(params["wq"]).reshape(d, H * Dh)).view(B, T, H, Dh)
+    k = (src @ fsdp(params["wk"]).reshape(d, K * Dh)).view(B, S, K, Dh)
+    v = (src @ fsdp(params["wv"]).reshape(d, K * Dh)).view(B, S, K, Dh)
+    if constrain_dp:
+        q = constrain(q, ("pod", "data"), None, None, None)
+        k = constrain(k, ("pod", "data"), None, None, None)
+        v = constrain(v, ("pod", "data"), None, None, None)
     if "q_norm" in params:
         q = rms_norm(q, params["q_norm"], 1e-6)
         k = rms_norm(k, params["k_norm"], 1e-6)
@@ -195,8 +302,8 @@ def attn_block(params: Params, x: torch.Tensor, spec: AttnSpec, *,
     if kv_cache is not None:
         ck, cv = kv_cache
         pos = 0 if cache_len is None else int(cache_len)
-        ck[:, pos:pos + T] = k.to(ck.dtype)
-        cv[:, pos:pos + T] = v.to(cv.dtype)
+        _write_cache(ck, k, pos)
+        _write_cache(cv, v, pos)
         if pos == 0:
             out = ops.gqa_flash_attention(q, ck[:, :T], cv[:, :T], causal=True,
                                           window=window, softcap=spec.softcap)
@@ -212,7 +319,7 @@ def attn_block(params: Params, x: torch.Tensor, spec: AttnSpec, *,
         out = ops.gqa_flash_attention(q, k, v, causal=True, window=window,
                                       softcap=spec.softcap)
         k_all, v_all = k, v
-    out = out.reshape(B, T, H * Dh) @ params["wo"].reshape(H * Dh, d)
+    out = out.reshape(B, T, H * Dh) @ fsdp(params["wo"]).reshape(H * Dh, d)
     return out, (k_all, v_all)
 
 
@@ -237,15 +344,71 @@ def mlp_block(params: Params, x: torch.Tensor, act: str,
               ) -> torch.Tensor:
     """(Sw/Ge)GLU FFN.
 
-    ``overlap`` (tensor-parallel collective rings over a mesh) and
-    ``constrain_dp`` (sharding pins) do nothing on one card: both are
-    accepted and ignored, which is the reference's own ``overlap=True``
-    behaviour without a mesh.
+    With ``overlap`` (config.overlap == "shared_bus") under a mesh whose
+    'model' dimension has size tp > 1 dividing both T and F, the two
+    products run as Shared-PIM rings (``overlapped_ffn``) on each rank's
+    sequence chunk and weight shards, the reference's rule; otherwise, and
+    without a mesh, the plain path.  ``constrain_dp`` pins g and u to the
+    batch axes.
     """
-    del overlap, constrain_dp
-    g = _act(x @ params["wi_gate"], act)
-    u = x @ params["wi_up"]
-    return (g * u) @ params["wo"]
+    if overlap:
+        y = _overlapped_ffn(params, x, act)
+        if y is not None:
+            return y
+    # pure DP with constrain_dp (the reference's pin on g and u);
+    # otherwise, under a mesh, the hidden units over 'model' (eager DTensor
+    # needs a layout here, for the products and their gradients: one it
+    # picks for itself can shard the batch and the sequence together,
+    # which the next matmul cannot take)
+    hidden = None if constrain_dp else "model"
+
+    def project(w):
+        return constrain(x @ fsdp(w), ("pod", "data"), None, hidden)
+
+    g = _act(project(params["wi_gate"]), act)
+    u = project(params["wi_up"])
+    return (g * u) @ fsdp(params["wo"])
+
+
+def _overlapped_ffn(params: Params, x: torch.Tensor, act: str):
+    """The FFN through ``collective_matmul.overlapped_ffn`` on this rank's
+    shards, as a DTensor sequence-sharded over 'model'; None where the
+    reference's rule leaves the plain path."""
+    mesh = current_mesh()
+    if mesh is None or isinstance(mesh, Mapping):
+        return None
+    tp = partition.axis_sizes(mesh).get("model", 1)
+    F_ = params["wi_gate"].shape[-1]
+    if not (tp > 1 and x.shape[1] % tp == 0 and F_ % tp == 0):
+        return None
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core.overlap.collective_matmul import overlapped_ffn
+
+    bspec = partition.batch_spec(mesh, x.shape[0])
+    seq = partition.to_placements(
+        partition.spec(bspec[0] if bspec else None, "model", None), mesh)
+    col = partition.to_placements(partition.spec(None, "model"), mesh)
+    row = partition.to_placements(partition.spec("model", None), mesh)
+
+    def local(t, placements, weight=False):
+        t = _symbolic.to_layout(t, mesh, placements)
+        if not weight:
+            return t.to_local()
+        # a weight replicated over the batch axes serves each rank's batch
+        # shard: its gradient there is a partial sum
+        from torch.distributed.tensor import Partial, Shard
+
+        grad = [Partial() if isinstance(b, Shard) and b.dim == 0 else p
+                for b, p in zip(seq, placements)]
+        return t.to_local(grad_placements=grad)
+
+    y = overlapped_ffn(local(x, seq), local(params["wi_gate"], col, True),
+                       local(params["wi_up"], col, True),
+                       local(params["wo"], row, True),
+                       mesh, lambda v: _act(v, act))
+    return DTensor.from_local(y, mesh, seq, run_check=False,
+                              shape=x.shape, stride=x.stride())
 
 
 # --- remat policies ---------------------------------------------------------------
@@ -287,6 +450,12 @@ def maybe_remat(fn: Callable, policy_name: str) -> Callable:
     kw = {} if context_fn is None else {"context_fn": context_fn}
 
     def wrapped(*args, **kwargs):
-        return checkpoint(fn, *args, use_reentrant=False, **kw, **kwargs)
+        if current_mesh() is None:
+            return checkpoint(fn, *args, use_reentrant=False, **kw, **kwargs)
+        # under a mesh the recompute runs collectives and ring hand-offs:
+        # it must run to its end on every rank, or a hand-off it posts and
+        # never waits on would pair with one of the backward's
+        with set_checkpoint_early_stop(False):
+            return checkpoint(fn, *args, use_reentrant=False, **kw, **kwargs)
 
     return wrapped

@@ -56,9 +56,11 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
-from repro_torch.kernels import ops
+from repro_torch.kernels import _symbolic, ops
 from repro_torch.models import layers, moe, ssm
 from repro_torch.models.layers import AttnSpec, Params
+from repro_torch.sharding import partition
+from repro_torch.sharding.context import constrain
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -98,6 +100,69 @@ def _unstack(params: Params, n: int) -> list[Params]:
     would each add a zero-filled gradient of the whole stack."""
     parts = tree.map_leaves(lambda a: a.unbind(0), params)
     return [tree.map_leaves(lambda t: t[i], parts) for i in range(n)]
+
+
+def _branch(a: torch.Tensor) -> torch.Tensor:
+    """A residual branch's output (attention, MLP, MoE, Mamba mixer, cross
+    block), pinned to the batch axes before it joins the residual stream,
+    and its gradient pinned there too: the identity without a mesh.  Under
+    one, eager DTensor would otherwise reduce-scatter a partial sum along
+    the sequence, and the next projection would flatten a (batch x
+    sequence)-sharded activation into a strided shard, which its matmul
+    cannot take; a gradient in another layout makes the branch's backward
+    gather its weights whole (the reference leaves these layouts to
+    GSPMD)."""
+    a = constrain(a, ("pod", "data"), None, None)
+    return _GradLayout.apply(a) if _symbolic.is_dtensor(a) else a
+
+
+class _GradLayout(torch.autograd.Function):
+    """The identity on a DTensor whose backward puts the gradient on the
+    input's placements (a partial sum's as replicated)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import Replicate
+
+        ctx.layout = (x.device_mesh, [p if not p.is_partial() else
+                                      Replicate() for p in x.placements])
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, placements = ctx.layout
+        if list(grad.placements) == placements:
+            return grad
+        return grad.redistribute(mesh, placements)
+
+
+def _sharded_xent(lg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logsumexp(lg) - lg[label] over a vocabulary sharded across ranks
+    (DTensors), in ops whose backward stays on each rank's shard: the max
+    and the sums reduce across ranks, and the gold logit is picked by a
+    mask (a gather's backward would build the whole logit gradient)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    m = lg.detach().amax(dim=-1, keepdim=True)
+    # each (B, T, V) term keeps lg's layout in the backward too (a sum's
+    # gradient comes back replicated over the vocabulary, and DTensor
+    # would gather the term to meet it)
+    logz = torch.log(_GradLayout.apply(torch.exp(lg - m)).sum(dim=-1)) + \
+        m[..., 0]
+    # the vocabulary's ids sharded as lg's last dimension is, so the mask
+    # and the pick stay on each rank's shard
+    mesh, V = lg.device_mesh, lg.shape[-1]
+    pl = [Shard(0) if isinstance(p, Shard) and p.dim == lg.dim() - 1
+          else Replicate() for p in lg.placements]
+    ids = partition.local_shard(torch.arange(V, device=lg.device), mesh, pl)
+    vocab = DTensor.from_local(ids, mesh, pl, run_check=False, shape=(V,),
+                               stride=(1,))
+    gold = _GradLayout.apply(
+        torch.where(vocab == labels[..., None], lg, 0.0)).sum(dim=-1)
+    # pinned to the batch axes: the backward's (B, T) gradient then reaches
+    # the (B, T, V) ops sharded, not as a replicated view whose reshard
+    # would copy it whole
+    return constrain(logz - gold, ("pod", "data"), None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,7 +298,7 @@ class Model:
     def _embed_tokens(self, params: Params, tokens: torch.Tensor
                       ) -> torch.Tensor:
         cfg = self.cfg
-        x = params["embed"][tokens]
+        x = layers.embed_lookup(params["embed"], tokens)
         if cfg.family == "dense" and cfg.tie_embeddings or \
                 cfg.family == "audio":
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
@@ -243,7 +308,7 @@ class Model:
                       dtype: torch.dtype) -> torch.Tensor:
         """(B, n_media_tokens, media_embed_dim) stub frontend output ->
         (B, n_media_tokens, d_model) in the model dtype."""
-        return media.to(dtype) @ params["media_proj"]
+        return media.to(dtype) @ layers.fsdp(params["media_proj"])
 
     def embed_inputs(self, params: Params, batch: dict) -> torch.Tensor:
         """Token embeddings (scaled by sqrt(d) for tied dense and audio);
@@ -275,27 +340,39 @@ class Model:
     def _unembed(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-        logits = x @ w.to(x.dtype)
+        logits = x @ layers.fsdp(w).to(x.dtype)
         if cfg.final_logit_softcap:
             logits = (cfg.final_logit_softcap
                       * torch.tanh(logits / cfg.final_logit_softcap))
         return logits
 
+    def _constrain_residual(self, x):
+        """With ``cfg.constrain_activations``, pin the residual stream to
+        the batch axes at layer boundaries (the identity without a
+        mesh)."""
+        if not self.cfg.constrain_activations:
+            return x
+        return constrain(x, ("pod", "data"), None, None)
+
     def _decoder_layer(self, blk: Params, x, positions, is_global: bool,
                        kv_cache=None, cache_len=None):
         cfg = self.cfg
+        x = self._constrain_residual(x)
         h = layers.rms_norm(x, blk["ln1"], cfg.norm_eps)
         a, kv = layers.attn_block(
             blk["attn"], h, self._attn_spec(), rope_theta=cfg.rope_theta,
             norm_eps=cfg.norm_eps, positions=positions, is_global=is_global,
             kv_cache=kv_cache, cache_len=cache_len,
-            use_rope=cfg.family != "audio")
-        x = x + a
+            use_rope=cfg.family != "audio",
+            constrain_dp=cfg.constrain_internals)
+        x = x + _branch(a)
         h = layers.rms_norm(x, blk["ln2"], cfg.norm_eps)
         if "moe" in blk:
-            x = x + moe.moe_block(blk["moe"], h, cfg)
+            x = x + _branch(moe.moe_block(blk["moe"], h, cfg))
         else:
-            x = x + layers.mlp_block(blk["mlp"], h, cfg.act)
+            x = x + _branch(layers.mlp_block(
+                blk["mlp"], h, cfg.act, overlap=cfg.overlap == "shared_bus",
+                constrain_dp=cfg.constrain_internals))
         return x, kv
 
     def _cross_layer(self, blk: Params, x, mtok=None, media_kv=None):
@@ -315,12 +392,12 @@ class Model:
         else:
             B, T, d = h.shape
             H, Dh = spec.n_heads, spec.head_dim
-            q = (h @ blk["attn"]["wq"].reshape(d, H * Dh)).view(B, T, H, Dh)
+            q = (h @ layers.fsdp(blk["attn"]["wq"]).reshape(d, H * Dh)).view(B, T, H, Dh)
             out = ops.gqa_flash_attention(q, *media_kv, causal=False,
                                           softcap=spec.softcap)
-            a = out.reshape(B, T, H * Dh) @ blk["attn"]["wo"].reshape(
+            a = out.reshape(B, T, H * Dh) @ layers.fsdp(blk["attn"]["wo"]).reshape(
                 H * Dh, d)
-        return x + torch.tanh(blk["gate"]).to(x.dtype) * a
+        return x + torch.tanh(blk["gate"]).to(x.dtype) * _branch(a)
 
     def _layer_groups(self, params, grad: bool) -> list[list[tuple]]:
         """The decoder layers in run order, as groups of (layer params,
@@ -402,9 +479,10 @@ class Model:
         cfg = self.cfg
         mixer = ssm.mamba1_block if cfg.mamba_version == 1 else \
             ssm.mamba2_block
+        x = self._constrain_residual(x)
         h = layers.rms_norm(x, blk["ln"], cfg.norm_eps)
         y, new_state = mixer(blk["mixer"], h, cfg, state=state)
-        return x + y, new_state
+        return x + _branch(y), new_state
 
     def _run_ssm(self, params, x, cache=None, indices=None):
         """Mamba layers ``indices`` (default all) over x; with a cache,
@@ -438,9 +516,10 @@ class Model:
             sa["attn"], h, self._attn_spec(), rope_theta=cfg.rope_theta,
             norm_eps=cfg.norm_eps, positions=positions, kv_cache=kv_cache,
             cache_len=cache_len)
-        x = x + a
+        x = x + _branch(a)
         h = layers.rms_norm(x, sa["ln2"], cfg.norm_eps)
-        return x + layers.mlp_block(sa["mlp"], h, cfg.act)
+        return x + _branch(layers.mlp_block(
+            sa["mlp"], h, cfg.act, overlap=cfg.overlap == "shared_bus"))
 
     def _run_hybrid(self, params, x, positions, cache=None, cache_len=None):
         """Group g runs Mamba layers g*k .. g*k+k-1 (k = ``attn_every``),
@@ -477,10 +556,21 @@ class Model:
 
     def train_loss(self, params: Params, batch: dict) -> torch.Tensor:
         """Mean next-token cross-entropy over B x (T - 1), from float32
-        logits (the reference's sharding pins are no-ops on one card)."""
+        logits, pinned to (batch, -, 'model') before and after the cast so
+        the vocabulary stays sharded (the identity without a mesh)."""
         logits = self.forward(params, batch)
+        logits = constrain(logits, ("pod", "data"), None, "model")
+        if _symbolic.is_dtensor(logits):
+            # every position's loss against the next token (the last one's
+            # against a wrapped label) and the last dropped: a slice of the
+            # (B, T, V) logits would gather the vocabulary in its backward
+            tokens = batch["tokens"].long()
+            labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+            lg = constrain(logits.float(), ("pod", "data"), None, "model")
+            return torch.mean(_sharded_xent(lg, labels)[:, :-1])
         labels = batch["tokens"][:, 1:].long()
-        lg = logits[:, :-1].float()
+        lg = constrain(logits[:, :-1].float(), ("pod", "data"), None,
+                       "model")
         logz = torch.logsumexp(lg, dim=-1)
         gold = torch.take_along_dim(lg, labels[..., None], dim=-1)[..., 0]
         return torch.mean(logz - gold)
@@ -530,7 +620,7 @@ class Model:
             for name, w in (("media_k", attn["wk"][g]),
                             ("media_v", attn["wv"][g])):
                 cache[name][g].copy_(
-                    (mtok @ w.reshape(d, K * Dh)).view(B, M, K, Dh))
+                    (mtok @ layers.fsdp(w).reshape(d, K * Dh)).view(B, M, K, Dh))
 
     # ---------------- decode ----------------
 

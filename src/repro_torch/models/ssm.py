@@ -18,7 +18,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import Params, dense_init, rms_norm
+from repro_torch.models.layers import Params, dense_init, fsdp, rms_norm
+from repro_torch.sharding.context import constrain
+
+
+def _channels(xz: torch.Tensor) -> torch.Tensor:
+    """The input projection's output pinned to (batch, -, 'model') under a
+    mesh (the identity without one): its gradient then comes back in that
+    layout, where the conv's backward along the sequence would leave it
+    sequence-sharded, a strided shard once the projection's weight
+    gradient flattens (batch, sequence)."""
+    return constrain(xz, ("pod", "data"), None, "model")
 
 CHUNK = 256
 
@@ -116,14 +126,14 @@ def mamba1_block(p: Params, x: torch.Tensor, cfg,
     dt_rank = max(1, cfg.d_model // 16)
     conv_state, h0 = state if state is not None else (None, None)
 
-    xz = x @ p["in_proj"]
+    xz = _channels(x @ fsdp(p["in_proj"]))
     xs, z = xz.split(di, dim=-1)
     xs, conv_state = causal_conv1d(xs, p["conv_w"], p["conv_b"], conv_state)
     xs = F.silu(xs)
 
-    proj = xs @ p["x_proj"]
+    proj = xs @ fsdp(p["x_proj"])
     dt_in, Bc, Cc = proj.split([dt_rank, n, n], dim=-1)
-    dt = F.softplus(dt_in.float() @ p["dt_proj"] + p["dt_bias"])  # (B,T,di)
+    dt = F.softplus(dt_in.float() @ fsdp(p["dt_proj"]) + p["dt_bias"])  # (B,T,di)
     A = -torch.exp(p["A_log"])                                     # (di, n)
     if h0 is None:
         h0 = torch.zeros((x.shape[0], di, n), dtype=torch.float32,
@@ -132,7 +142,7 @@ def mamba1_block(p: Params, x: torch.Tensor, cfg,
     y, h_last = ops.selective_scan(dt, xs, Bc, Cc, A, h0)
     y = y + p["D"] * xs.float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    return y @ p["out_proj"], (conv_state, h_last)
+    return y @ fsdp(p["out_proj"]), (conv_state, h_last)
 
 
 def mamba2_block(p: Params, x: torch.Tensor, cfg,
@@ -146,13 +156,13 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg,
     B, T, _ = x.shape
     conv_state, h0 = state if state is not None else (None, None)
 
-    xz = x @ p["in_proj"]
+    xz = _channels(x @ fsdp(p["in_proj"]))
     xs, z = xz.split(di, dim=-1)
     xs, conv_state = causal_conv1d(xs, p["conv_w"], p["conv_b"], conv_state)
     xs = F.silu(xs)
 
-    Bc, Cc = (x @ p["bc_proj"]).split(n, dim=-1)              # (B,T,n) each
-    dt = F.softplus(x.float() @ p["dt_proj_h"] + p["dt_bias"])  # (B,T,H)
+    Bc, Cc = (x @ fsdp(p["bc_proj"])).split(n, dim=-1)              # (B,T,n) each
+    dt = F.softplus(x.float() @ fsdp(p["dt_proj_h"]) + p["dt_bias"])  # (B,T,H)
     A = -torch.exp(p["A_log"])                                  # (H,)
     xh = xs.view(B, T, H, hd)
     if h0 is None:
@@ -161,4 +171,4 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg,
     y, h_last = ops.mamba2_scan(dt, xh, Bc, Cc, A, h0)
     y = (y + p["D"][:, None] * xh.float()).reshape(B, T, di)
     y = rms_norm(y * F.silu(z.float()), p["norm_w"], cfg.norm_eps).to(x.dtype)
-    return y @ p["out_proj"], (conv_state, h_last)
+    return y @ fsdp(p["out_proj"]), (conv_state, h_last)

@@ -14,6 +14,11 @@ temporary of its largest stacked leaf (40 x 2048 x 8192) is 2.7 GB.  So a
 failure once the writes have begun leaves a state that mixes two steps:
 ``apply_updates`` then raises ``PartialUpdateError``, which must not be
 retried on that state.
+
+DTensor parameters (a model under a ``DeviceMesh``) get DTensor moments of
+the same placements; the update runs on each rank's local shards, the
+gradient first redistributed to its parameter's placements, and the global
+norm is summed over every rank's shards.
 """
 
 from __future__ import annotations
@@ -71,7 +76,9 @@ def _zeros_q(p: torch.Tensor) -> dict:
 
 def init_state(cfg: AdamWConfig, params: Params) -> dict:
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        # zeros_like: a DTensor parameter gets a moment of its placements
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
 
     make = _zeros_q if cfg.state_bits == 8 else zeros
     dev = tree.leaves(params)[0].device
@@ -95,11 +102,55 @@ def _chunks(p: torch.Tensor, align: int = 1) -> Iterator[tuple[slice, int]]:
         yield slice(r0, min(rows, r0 + per)), r0 * row
 
 
+def _local(t: torch.Tensor, like: torch.Tensor | None = None
+           ) -> torch.Tensor:
+    """The local shard of a DTensor (first redistributed to ``like``'s
+    placements); a plain tensor as it is."""
+    from repro_torch.kernels._symbolic import is_dtensor
+
+    if not is_dtensor(t):
+        return t
+    if like is not None and t.placements != like.placements:
+        t = t.redistribute(like.device_mesh, like.placements)
+    return t.to_local()
+
+
+def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``g`` on ``p``'s placements when both are DTensors."""
+    from repro_torch.kernels._symbolic import is_dtensor
+
+    if is_dtensor(g) and is_dtensor(p) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _square_sum(g: torch.Tensor) -> torch.Tensor:
+    """sum(g^2) in float32, chunk by chunk; for a DTensor over its local
+    shard, then summed over the ranks that hold other shards."""
+    from repro_torch.kernels._symbolic import is_dtensor
+
+    if not is_dtensor(g):
+        total = 0
+        for sl, _ in _chunks(g):
+            total = total + torch.sum(torch.square(g[sl].float()))
+        return total
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = g.device_mesh
+    g = g.redistribute(mesh, [Replicate() if p.is_partial() else p
+                              for p in g.placements])
+    local = _square_sum(g.to_local())
+    if not isinstance(local, torch.Tensor):
+        local = torch.zeros((), dtype=torch.float32, device=g.device)
+    return DTensor.from_local(
+        local, mesh, [Partial() if p.is_shard() else Replicate()
+                      for p in g.placements], run_check=False).full_tensor()
+
+
 def global_norm(grads) -> torch.Tensor:
     total = 0
     for g in tree.leaves(grads):
-        for sl, _ in _chunks(g):
-            total = total + torch.sum(torch.square(g[sl].float()))
+        total = total + _square_sum(g)
     return torch.sqrt(total)
 
 
@@ -125,7 +176,11 @@ def apply_updates(cfg: AdamWConfig, params: Params, grads: Params,
     same parameter and moment tensors, updated, and a new step counter.
     A failure in the gradient norm leaves the state as it was; one in the
     leaf-by-leaf update raises ``PartialUpdateError``."""
-    step = state["step"] + 1
+    step = _local(state["step"]) + 1       # a replicated DTensor: its copy
+    # a DTensor gradient (a partial sum, or another layout) takes its
+    # parameter's placements first: a reduce-scatter, not a gather
+    grads = tree.unflatten(grads, [_like(g, p) for g, p in zip(
+        tree.leaves(grads), tree.leaves(params))])
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0) \
         if cfg.grad_clip > 0 else 1.0
@@ -161,7 +216,10 @@ def apply_updates(cfg: AdamWConfig, params: Params, grads: Params,
     for i, (p, g, (m, v)) in enumerate(zip(flat_p, tree.leaves(grads),
                                            moments)):
         try:
-            upd(p, g, m, v)
+            if eight:
+                upd(p, g, m, v)
+            else:
+                upd(_local(p), _local(g, p), _local(m), _local(v))
         except Exception as e:
             raise PartialUpdateError(
                 f"AdamW failed at leaf {i} of {len(flat_p)}: the leaves "

@@ -6,12 +6,17 @@ without threading a mesh through every call signature (PyTorch port of
 active ``DeviceMesh`` it redistributes a ``DTensor`` to the spec's
 placements; a plain local tensor passes through unchanged, since eager
 PyTorch has no GSPMD to hand a layout constraint to.
+
+Under ``use_mesh`` with a ``DeviceMesh``, plain tensors that meet DTensors
+in an op (positions, masks, scalars the model makes) count as replicated
+(``implicit_replication``), as XLA treats an unsharded constant.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+from collections.abc import Mapping
 
 import torch
 
@@ -29,7 +34,14 @@ def use_mesh(mesh):
     prev = current_mesh()
     _state.mesh = mesh
     try:
-        yield mesh
+        if mesh is None or isinstance(mesh, Mapping):
+            yield mesh
+        else:
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+
+            with implicit_replication():
+                yield mesh
     finally:
         _state.mesh = prev
 

@@ -22,6 +22,12 @@ writes a one-name tuple as the name).  ``to_placements`` turns one into
 DTensor placements.  A leaf's path is the port's tree path
 (``"/blocks/attn/wq"``, as ``repro_torch.tree.items`` gives it) or a
 sequence of its keys.
+
+``param_shardings``, ``batch_shardings`` and ``cache_shardings`` map a tree
+of tensors (real or fake) to a tree of DTensor placements on a
+``DeviceMesh``, as the reference's map a tree to ``NamedSharding``s;
+``distribute`` builds the DTensors, each from its rank's local shard
+(``DTensor.from_local``), so distributing a fake tree runs no collective.
 """
 
 from __future__ import annotations
@@ -209,6 +215,111 @@ def activation_spec(mesh) -> Spec:
     names = axis_sizes(mesh)
     return spec(batch_axes(mesh) or None,
                 "model" if "model" in names else None, None)
+
+
+def _map_paths(fn, t, prefix: str = ""):
+    if isinstance(t, dict):
+        return {k: _map_paths(fn, v, f"{prefix}/{k}") for k, v in t.items()}
+    return fn(prefix or "/", t)
+
+
+def _is_tensor(leaf) -> bool:
+    import torch
+
+    return isinstance(leaf, torch.Tensor)
+
+
+def param_shardings(params, mesh):
+    """Placements of every leaf of a parameter (or train state) tree;
+    a leaf that is not a tensor maps to None."""
+    return _map_paths(
+        lambda path, leaf: to_placements(
+            param_spec(path, leaf.shape, mesh), mesh)
+        if _is_tensor(leaf) else None, params)
+
+
+def batch_shardings(batch, mesh, global_batch: int):
+    """Placements of every leaf of a batch: the batch spec on a leaf whose
+    leading dimension is the global batch, replicated otherwise."""
+    bspec = batch_spec(mesh, global_batch)
+    return _map_paths(
+        lambda path, leaf: to_placements(
+            bspec if leaf.dim() and leaf.shape[0] == global_batch
+            else spec(), mesh) if _is_tensor(leaf) else None, batch)
+
+
+def cache_shardings(cache, mesh, batch_size: int):
+    """Placements of every leaf of a decode cache (its ``pos``, a Python
+    int, maps to None)."""
+    return _map_paths(
+        lambda path, leaf: to_placements(
+            cache_spec(path, leaf.shape, mesh, batch_size)
+            if leaf.dim() else spec(), mesh)
+        if _is_tensor(leaf) else None, cache)
+
+
+def local_shape_and_offset(shape, mesh, placements
+                           ) -> tuple[list[int], list[int]]:
+    """This rank's shard of a tensor of global ``shape`` under
+    ``placements``: its shape and its offset in the global tensor.  Mesh
+    dimensions shard in order, each as ``torch.chunk`` cuts (so shards may
+    be uneven or empty), DTensor's layout; plain ints, so it runs under a
+    ``FakeTensorMode`` too."""
+    from torch.distributed.tensor import Shard
+
+    size, off = list(shape), [0] * len(shape)
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if not isinstance(p, Shard):
+            continue
+        n, c, d = mesh.size(i), coord[i], p.dim
+        chunk = -(-size[d] // n)
+        lo = min(c * chunk, size[d])
+        off[d] += lo
+        size[d] = min(size[d], lo + chunk) - lo
+    return size, off
+
+
+def local_shard(t, mesh, placements):
+    """This rank's shard of the global tensor ``t`` under ``placements``
+    (a narrowed view)."""
+    shape, offset = local_shape_and_offset(t.shape, mesh, placements)
+    for d, (n, o) in enumerate(zip(shape, offset)):
+        if n != t.shape[d]:
+            t = t.narrow(d, o, n)
+    return t
+
+
+def distribute(t, placements, mesh):
+    """A tree of DTensors: each tensor leaf of ``t`` with its placements
+    from the tree ``placements`` (``param_shardings`` and the like), built
+    by ``DTensor.from_local`` on a contiguous copy of this rank's shard of
+    the leaf (so the DTensors never alias ``t``).  Non-tensor leaves pass
+    through."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    def one(leaf, pl):
+        if not _is_tensor(leaf) or pl is None:
+            return leaf
+        local = local_shard(leaf.detach(), mesh, pl).clone(
+            memory_format=torch.contiguous_format)
+        out = DTensor.from_local(local, mesh, pl, run_check=False,
+                                 shape=leaf.shape,
+                                 stride=contiguous_strides(leaf.shape))
+        return out.requires_grad_(leaf.requires_grad)
+
+    if isinstance(t, dict):
+        return {k: distribute(v, placements[k], mesh) for k, v in t.items()}
+    return one(t, placements)
+
+
+def contiguous_strides(shape) -> tuple[int, ...]:
+    out, acc = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= max(int(n), 1)
+    return tuple(reversed(out))
 
 
 def to_placements(entries: Spec, mesh) -> tuple:

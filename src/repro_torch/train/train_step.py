@@ -2,8 +2,9 @@
 cross-pod compressed gradient reduction (PyTorch port of
 ``repro/train/train_step.py``).
 
-``compress_pod_grads`` needs a ``DeviceMesh`` with a 'pod' dimension and
-raises without one, as the reference does.  With one, each rank of the
+``compress_pod_grads`` needs a ``DeviceMesh`` with a 'pod' dimension:
+``make_train_step`` raises without one, as the reference does
+(``make_train_state`` builds the error state either way).  With one, each rank of the
 'pod' group runs the step on its own shard of the batch (the reference's
 ``P("pod")`` batch spec): the loss is averaged over 'pod' and the gradients
 are exchanged as int8 codes with error feedback
@@ -19,6 +20,7 @@ import torch.distributed as dist
 
 from repro_torch import tree
 from repro_torch.core.overlap import compression
+from repro_torch.kernels import _symbolic
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw
 
@@ -39,11 +41,8 @@ def _pod_group(mesh):
 
 def make_train_state(model: Model, opt_cfg: adamw.AdamWConfig,
                      gen: torch.Generator,
-                     settings: TrainSettings | None = None,
-                     mesh=None) -> dict:
+                     settings: TrainSettings | None = None) -> dict:
     compress = bool(settings and settings.compress_pod_grads)
-    if compress:
-        _pod_group(mesh)
     params = model.init(gen)
     state = {"params": params,
              "opt": adamw.init_state(opt_cfg, params),
@@ -74,7 +73,8 @@ def _loss_and_grads(model: Model, params, batch, n_micro: int):
     if n_micro == 1:
         return _value_and_grad(model, params, batch)
     loss_acc = torch.zeros((), dtype=torch.float32, device=model.device)
-    grad_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    grad_acc = [torch.zeros_like(p, dtype=torch.float32,
+                                 memory_format=torch.contiguous_format)
                 for p in tree.leaves(params)]
     for mb in _split_microbatches(batch, n_micro):
         loss, grads = _value_and_grad(model, params, mb)
@@ -119,7 +119,8 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     pod = _pod_group(mesh) if settings.compress_pod_grads else None
 
     def step(state, batch):
-        batch = {k: torch.as_tensor(v, device=model.device)
+        batch = {k: v if _symbolic.symbolic(v) else
+                 torch.as_tensor(v, device=model.device)
                  for k, v in batch.items()}
         loss, grads = _loss_and_grads(model, state["params"], batch,
                                       settings.microbatches)

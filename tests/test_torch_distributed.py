@@ -352,8 +352,7 @@ def _job_pod_step(rank, world):
     settings = ts.TrainSettings(compress_pod_grads=True)
     batch = _pod_batch(rank, world)
     state = ts.make_train_state(model, POD_OPT,
-                                torch.Generator().manual_seed(0), settings,
-                                mesh)
+                                torch.Generator().manual_seed(0), settings)
     init = [p.clone() for p in tree.leaves(state["params"])]
     state, metrics = ts.make_train_step(model, POD_OPT, settings, mesh)(
         state, batch)
@@ -404,11 +403,16 @@ def test_compressed_pod_step_matches_the_uncompressed_one(tmp_path):
 
 
 def test_pod_step_raises_without_a_pod_mesh():
+    """The state is built with its error feedback (the reference's
+    ``make_train_state`` needs no mesh); the step refuses."""
     tm = tmodel.build(treg.get("granite-3-2b").reduced(), "cpu")
     settings = ts.TrainSettings(compress_pod_grads=True)
-    with pytest.raises(ValueError, match="pod"):
-        ts.make_train_state(tm, POD_OPT, torch.Generator().manual_seed(0),
-                            settings)
+    state = ts.make_train_state(tm, POD_OPT, torch.Generator().manual_seed(0),
+                                settings)
+    assert "grad_err" in state
+    for e, p in zip(tree.leaves(state["grad_err"]),
+                    tree.leaves(state["params"])):
+        assert e.shape == p.shape and not e.any()
     with pytest.raises(ValueError, match="pod"):
         ts.make_train_step(tm, POD_OPT, settings, mesh=None)
 

@@ -201,7 +201,8 @@ def test_port_imports_neither_jax_nor_reference():
                 "checkpoint/checkpointer", "launch/train", "tree",
                 "core/pluto_alu", "core/executor", "core/overlap/sharedbus",
                 "core/overlap/collective_matmul", "sharding/partition",
-                "sharding/context", "train/pipeline"):
+                "sharding/context", "train/pipeline", "launch/mesh",
+                "launch/specs", "launch/dryrun"):
         assert port / f"{mod}.py" in files, mod
     for f in files:
         for mod in _imports(f):
