@@ -167,14 +167,16 @@ Phases, each printing what it found; any failure raises and exits non-zero:
     gradients of every input through ``ag_matmul``, ``matmul_rs``,
     ``overlapped_ffn`` and the one-stage pipeline against autograd of the
     plain products (1e-4);
-22. mesh-train: granite-3-2b at full width and ``MESH_TRAIN_LAYERS``
-    layers under a one-card ``DeviceMesh`` ('data' x 'model' = 1 x 1, an
-    NCCL group of one), DTensor parameters and batch, ``overlap
-    ="shared_bus"``, ``constrain_activations`` and ``constrain_internals``:
-    two steps (loss, every gradient leaf, AdamW) against the same steps
-    with plain parameters and no mesh; the flash forward and backward
-    launch counts of each mesh step asserted (the kernels run on the local
-    shards through the ops' DTensor sharding rules);
+22. mesh-train: granite-3-2b (4 layers) and qwen2-moe-a2.7b (2 layers,
+    its MoE layers through ``moe_block``'s mesh path) at full width under
+    a one-card ``DeviceMesh`` ('data' x 'model' = 1 x 1, an NCCL group of
+    one), DTensor parameters and batch, ``overlap="shared_bus"``,
+    ``constrain_activations`` and ``constrain_internals``: two steps each
+    (loss, every gradient leaf, AdamW) against the same steps with plain
+    parameters and no mesh (each plain step from the mesh run's
+    parameters), with the ms of each step; the flash forward
+    and backward launch counts of each mesh step asserted (the kernels run
+    on the local shards through the ops' DTensor sharding rules);
 23. planner: the dry-run planner (``launch/dryrun.py``) held against the
     card on granite-3-2b at full width and ``PLANNER_LAYERS`` layers, one
     train step of 4 x 2048 on a 1 x 1 mesh: its ``MemTracker`` peak within
@@ -183,8 +185,9 @@ Phases, each printing what it found; any failure raises and exits non-zero:
     the plain step;
 24. dryrun: ``python -m repro_torch.launch.dryrun`` in subprocesses on
     ``DRYRUN_CELLS`` (granite-3-2b train_4k on the 256- and 512-rank
-    meshes, glm4-9b decode_32k on the 256-rank one; a fake process group
-    and fake CUDA tensors), every cell ``ok``, each cell's per-device
+    meshes; glm4-9b decode_32k, qwen2-moe-a2.7b train_4k and
+    llama4-maverick-400b-a17b decode_32k on the 256-rank one; a fake
+    process group and fake CUDA tensors), every cell ``ok``, each cell's per-device
     planner counts printed (counts for cards this machine does not have,
     not timings).
 
@@ -2480,18 +2483,28 @@ def phase_pluto(smi: str) -> None:
 
 # ---- the distributed layer in a group of one -------------------------------
 
-# granite-3-2b under a one-card mesh: full width, 4 of its 40 layers
-MESH_TRAIN_LAYERS = 4
+# under a one-card mesh at full width: granite-3-2b at 4 of its 40
+# layers, qwen2-moe-a2.7b (its MoE layers through moe_block's mesh path)
+# at 2 of its 24
+MESH_TRAIN = (("granite-3-2b", 4), ("qwen2-moe-a2.7b", 2))
 # bf16 on a mesh of one against no mesh: the same kernels, the loss summed
 # in another order (``model._sharded_xent``)
 MESH_LOSS_RTOL = 1e-3
+# AdamW on DTensor parameters against the plain AdamW of the same gradients
+# from the same state, on a mesh of one: the same arithmetic on the same
+# local tensors
+MESH_ADAMW_REL_L2 = 1e-6
 # the planner against the card: granite-3-2b at full width, 2 layers
 PLANNER_LAYERS = 2
 PLANNER_MEM_RTOL = 0.10
 DRYRUN_CELLS = (("--arch", "granite-3-2b", "--shape", "train_4k",
                  "--mesh", "both"),
                 ("--arch", "glm4-9b", "--shape", "decode_32k",
-                 "--mesh", "single"))
+                 "--mesh", "single"),
+                ("--arch", "qwen2-moe-a2.7b", "--shape", "train_4k",
+                 "--mesh", "single"),
+                ("--arch", "llama4-maverick-400b-a17b", "--shape",
+                 "decode_32k", "--mesh", "single"))
 DRYRUN_TIMEOUT_S = 300
 OVERLAP_SHAPE = (2, 64, 32, 48)      # B, T, D, F: check_overlap.py's
 OVERLAP_TOL = {"ag": 1e-5, "rs": 1e-4}
@@ -2672,82 +2685,191 @@ def _rel_l2(a, b) -> float:
 
 
 def phase_mesh_train() -> None:
-    """granite-3-2b at full width and ``MESH_TRAIN_LAYERS`` layers under a
-    one-card ``DeviceMesh`` ('data' x 'model' = 1 x 1, an NCCL group of one
-    rank), its parameters and batch DTensors, with ``overlap="shared_bus"``,
-    ``constrain_activations`` and ``constrain_internals`` on: two train
-    steps (loss and gradients, then the AdamW update) held to the same
-    steps with plain parameters and no mesh.  The flash forward and
+    """Each of ``MESH_TRAIN`` (granite-3-2b and qwen2-moe-a2.7b) at full
+    width and its number of layers under a one-card ``DeviceMesh`` ('data'
+    x 'model' = 1 x 1, an NCCL group of one rank), its parameters and batch
+    DTensors, with ``overlap="shared_bus"``, ``constrain_activations`` and
+    ``constrain_internals`` on: two train steps (loss and gradients, then
+    the AdamW update) held to the same steps with plain parameters and no
+    mesh, the two runs apart (``_mesh_train``).  The flash forward and
     backward launch counts of each mesh step are asserted: the kernels ran
-    on the DTensors' local shards through the ops' sharding rules."""
+    on the DTensors' local shards through the ops' sharding rules
+    (qwen2-moe's MoE layers through ``moe_block``'s mesh path)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     _one_rank_group("mesh_train_store")
     try:
         mesh = init_device_mesh("cuda", (1, 1),
                                 mesh_dim_names=("data", "model"))
-        cfg = dataclasses.replace(
-            registry.get("granite-3-2b"), n_layers=MESH_TRAIN_LAYERS,
-            overlap="shared_bus", constrain_activations=True,
-            constrain_internals=True)
-        model = model_lib.build(cfg, "cuda")
-        opt = adamw.AdamWConfig()
-        params = _init_params(model)
-        dparams = partition.distribute(
-            params, partition.param_shardings(params, mesh), mesh)
-        batch = {k: torch.as_tensor(v, device="cuda") for k, v in
-                 SyntheticCorpus(_data_cfg(cfg, TRAIN_BATCH)).batch_at(
-                     0).items()}
-        dbatch = partition.distribute(
-            batch, partition.batch_shardings(batch, mesh, TRAIN_BATCH), mesh)
-        states = {"mesh": (dparams, adamw.init_state(opt, dparams)),
-                  "plain": (params, adamw.init_state(opt, params))}
-        n_attn = _attention_layers(cfg)
-        for step in range(2):
-            out = {}
-            for name, (p, o) in states.items():
-                ctx = use_mesh(mesh) if name == "mesh" else \
-                    contextlib.nullcontext()
-                torch.cuda.synchronize()
-                zero_counts()
-                t0 = time.perf_counter()
-                with ctx:
-                    loss, grads = train_step._loss_and_grads(
-                        model, p, dbatch if name == "mesh" else batch, 1)
-                    adamw.apply_updates(opt, p, grads, o)
-                torch.cuda.synchronize()
-                out[name] = (loss, grads, read_counts(),
-                             (time.perf_counter() - t0) * 1e3)
-            (dl, dg, dc, dms), (pl, pg, pc, pms) = out["mesh"], out["plain"]
-            if not (dc["flash_attention_bwd"] == n_attn
-                    and dc["flash_attention"] == pc["flash_attention"] > 0
-                    and dc == pc):
-                raise AssertionError(f"mesh step {step} launched {dc}, the "
-                                     f"plain one {pc}")
-            dl = dl.full_tensor()
-            worst, where = 0.0, ""
-            for (path, g), w in zip(tree.items(dg), tree.leaves(pg)):
-                g = g.full_tensor()
-                if not bool(torch.isfinite(g.float()).all()):
-                    raise AssertionError(f"non-finite gradient at {path}")
-                rel = _rel_l2(g, w)
-                if rel > worst:
-                    worst, where = rel, path
-            loss_rel = abs(dl.item() - pl.item()) / abs(pl.item())
-            log("mesh-train", step=step, arch=cfg.name, layers=cfg.n_layers,
-                mesh="1x1 (data, model)", loss=f"{dl.item():.6f}",
-                plain_loss=f"{pl.item():.6f}", loss_rel=f"{loss_rel:.3e}",
-                worst_grad_rel_l2=f"{worst:.3e}", worst_leaf=where,
-                flash_fwd=dc["flash_attention"],
-                flash_bwd=dc["flash_attention_bwd"], mesh_ms=f"{dms:.1f}",
-                plain_ms=f"{pms:.1f}")
-            if not (loss_rel <= MESH_LOSS_RTOL and worst <= GRAD_REL_L2):
-                raise AssertionError(
-                    f"mesh step {step}: loss off by {loss_rel} (limit "
-                    f"{MESH_LOSS_RTOL}), gradient {where} by {worst} (limit "
-                    f"{GRAD_REL_L2})")
+        for arch, n_layers in MESH_TRAIN:
+            _mesh_train(mesh, arch, n_layers)
+            gc.collect()
+            torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
+
+
+def _routing_changes(a: list, b: list, E: int) -> tuple[int, int]:
+    """Two runs' ``moe.record_routing`` logs of the same tokens: (tokens
+    whose set of k experts differs, (token, expert) assignments made in
+    both whose kept-or-dropped differs), summed over the layers."""
+    topk = kept = 0
+    for (ea, ka), (eb, kb) in zip(a, b):
+        def mats(ex, keep):
+            z = torch.zeros((ex.shape[0], E), dtype=torch.bool,
+                            device=ex.device)
+            return (z.scatter(1, ex, True),
+                    z.scatter(1, ex, keep.view(ex.shape)))
+
+        (ca, ma), (cb, mb) = mats(ea, ka), mats(eb, kb)
+        topk += int((ca != cb).any(1).sum())
+        kept += int(((ma != mb) & ca & cb).sum())
+    return topk, kept
+
+
+def _worst_grad(dg, pg) -> tuple[float, str, float]:
+    """(worst relative L2 of a gradient leaf, its path, the router's
+    worst) of the mesh run's gradients ``dg`` against the plain ones."""
+    worst, where, router = 0.0, "", 0.0
+    for (path, g), w in zip(tree.items(dg), tree.leaves(pg)):
+        g = g.full_tensor()
+        if not bool(torch.isfinite(g.float()).all()):
+            raise AssertionError(f"non-finite gradient at {path}")
+        rel = _rel_l2(g, w)
+        if rel > worst:
+            worst, where = rel, path
+        if path.endswith("/router"):
+            router = max(router, rel)
+    return worst, where, router
+
+
+def _mesh_train(mesh, arch: str, n_layers: int) -> None:
+    """Two train steps of ``arch`` under ``mesh`` and without it.  The
+    runs go apart: each takes AdamW from its own gradients.  For an MoE
+    config the optimizer is also held on its own: at step 1 the two runs'
+    routings (top-k choices, capacity drops) are counted apart, the plain
+    run then takes the mesh run's parameters and moments and its step
+    again (the gradients held on that one), and the plain AdamW applied to
+    the mesh run's gathered gradients must equal the mesh update leaf for
+    leaf within ``MESH_ADAMW_REL_L2``."""
+    cfg = dataclasses.replace(
+        registry.get(arch), n_layers=n_layers, overlap="shared_bus",
+        constrain_activations=True, constrain_internals=True)
+    is_moe = cfg.family == "moe"
+    n_moe = cfg.n_layers // cfg.moe_every if is_moe else 0
+    model = model_lib.build(cfg, "cuda")
+    opt = adamw.AdamWConfig()
+    params = _init_params(model)
+    dparams = partition.distribute(
+        params, partition.param_shardings(params, mesh), mesh)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+             SyntheticCorpus(_data_cfg(cfg, TRAIN_BATCH)).batch_at(
+                 0).items()}
+    dbatch = partition.distribute(
+        batch, partition.batch_shardings(batch, mesh, TRAIN_BATCH), mesh)
+    states = {"mesh": [dparams, adamw.init_state(opt, dparams)],
+              "plain": [params, adamw.init_state(opt, params)]}
+    n_attn = _attention_layers(cfg)
+
+    def grads_of(name):
+        p = states[name][0]
+        ctx = use_mesh(mesh) if name == "mesh" else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        with ctx, moe.record_routing() as routing:
+            loss, grads = train_step._loss_and_grads(
+                model, p, dbatch if name == "mesh" else batch, 1)
+        torch.cuda.synchronize()
+        # a remat recompute logs the layers again: the forward's come first
+        return (loss, grads, read_counts(), (time.perf_counter() - t0) * 1e3,
+                routing[:n_moe])
+
+    def update(name, grads):
+        p, o = states[name]
+        ctx = use_mesh(mesh) if name == "mesh" else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctx:
+            _, states[name][1], _ = adamw.apply_updates(opt, p, grads, o)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for step in range(2):
+        out = {name: grads_of(name) for name in states}
+        extra = {}
+        if is_moe:
+            extra["drops"] = sum(int((~k).sum()) for _, k in out["mesh"][4])
+        if is_moe and step:
+            # the evidence: the plain run went on from its own step 0
+            topk, kept = _routing_changes(out["mesh"][4], out["plain"][4],
+                                          cfg.n_experts)
+            worst, where, router = _worst_grad(out["mesh"][1],
+                                               out["plain"][1])
+            extra.update(apart_topk_changed=topk, apart_kept_changed=kept,
+                         apart_worst_grad_rel_l2=f"{worst:.3e}",
+                         apart_worst_leaf=where,
+                         apart_router_grad_rel_l2=f"{router:.3e}")
+            del out["plain"]
+            with torch.no_grad():
+                for key in ("p", "m", "v"):
+                    src = states["mesh"][0] if key == "p" else \
+                        states["mesh"][1][key]
+                    dst = states["plain"][0] if key == "p" else \
+                        states["plain"][1][key]
+                    for d, w in zip(tree.leaves(src), tree.leaves(dst)):
+                        w.copy_(d.full_tensor())
+            out["plain"] = grads_of("plain")
+        (dl, dg, dc, dms, dr), (pl, pg, pc, pms, pr) = \
+            out["mesh"], out["plain"]
+        if not (dc["flash_attention_bwd"] == n_attn
+                and dc["flash_attention"] == pc["flash_attention"] > 0
+                and dc == pc):
+            raise AssertionError(f"{arch} mesh step {step} launched {dc}, "
+                                 f"the plain one {pc}")
+        if is_moe:
+            topk, kept = _routing_changes(dr, pr, cfg.n_experts)
+            extra.update(topk_changed=topk, kept_changed=kept)
+        dl = dl.full_tensor()
+        worst, where, _ = _worst_grad(dg, pg)
+        loss_rel = abs(dl.item() - pl.item()) / abs(pl.item())
+        if is_moe and step:
+            # the plain AdamW on the mesh run's gradients, from the same
+            # parameters and moments as the mesh update
+            gathered = tree.unflatten(pg, [g.full_tensor()
+                                           for g in tree.leaves(dg)])
+            del out, pg
+            pms += update("plain", gathered)
+            dms += update("mesh", dg)
+            adamw_worst, adamw_where = 0.0, ""
+            for (path, d), w in zip(tree.items(states["mesh"][0]),
+                                    tree.leaves(states["plain"][0])):
+                rel = _rel_l2(d.full_tensor(), w)
+                if rel > adamw_worst:
+                    adamw_worst, adamw_where = rel, path
+            extra.update(adamw_worst_rel_l2=f"{adamw_worst:.3e}",
+                         adamw_worst_leaf=adamw_where or "-")
+            if adamw_worst > MESH_ADAMW_REL_L2:
+                raise AssertionError(
+                    f"{arch} mesh step {step}: the AdamW update on DTensors "
+                    f"is off the plain one of the same gradients by "
+                    f"{adamw_worst} at {adamw_where} (limit "
+                    f"{MESH_ADAMW_REL_L2})")
+        else:
+            dms += update("mesh", dg)
+            pms += update("plain", pg)
+        log("mesh-train", step=step, arch=cfg.name, layers=cfg.n_layers,
+            mesh="1x1 (data, model)", loss=f"{dl.item():.6f}",
+            plain_loss=f"{pl.item():.6f}", loss_rel=f"{loss_rel:.3e}",
+            worst_grad_rel_l2=f"{worst:.3e}", worst_leaf=where,
+            flash_fwd=dc["flash_attention"],
+            flash_bwd=dc["flash_attention_bwd"], mesh_ms=f"{dms:.1f}",
+            plain_ms=f"{pms:.1f}", **extra)
+        if not (loss_rel <= MESH_LOSS_RTOL and worst <= GRAD_REL_L2):
+            raise AssertionError(
+                f"{arch} mesh step {step}: loss off by {loss_rel} (limit "
+                f"{MESH_LOSS_RTOL}), gradient {where} by {worst} (limit "
+                f"{GRAD_REL_L2})")
 
 
 def phase_planner(smi: str) -> None:

@@ -262,8 +262,15 @@ def build_cell(cfg, shape, mesh, device: str = "cuda") -> tuple:
             state_bits=8 if cfg.name.startswith("llama4") else 32)
         settings = ts.TrainSettings()
         state = ts.make_train_state(model, opt_cfg, gen, settings)
+        if opt_cfg.state_bits == 8:
+            del state["opt"]
         state = partition.distribute(
             state, partition.param_shardings(state, mesh), mesh)
+        if opt_cfg.state_bits == 8:
+            # 8-bit moments hold the blocks of each rank's shard of their
+            # parameter (``optim/adamw.py``), not the partition rules'
+            # layout of the whole leaf's blocks
+            state["opt"] = adamw.init_state(opt_cfg, state["params"])
         batch = specs.train_batch_specs(cfg, shape, device)
         batch = partition.distribute(
             batch, partition.batch_shardings(batch, mesh,

@@ -35,7 +35,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.kernels import _symbolic, ops
 from repro_torch.sharding import partition
-from repro_torch.sharding.context import constrain, current_mesh
+from repro_torch.sharding.context import constrain, current_mesh, use_mesh
 
 Params = dict[str, Any]
 
@@ -450,12 +450,23 @@ def maybe_remat(fn: Callable, policy_name: str) -> Callable:
     kw = {} if context_fn is None else {"context_fn": context_fn}
 
     def wrapped(*args, **kwargs):
-        if current_mesh() is None:
+        mesh = current_mesh()
+        if mesh is None:
             return checkpoint(fn, *args, use_reentrant=False, **kw, **kwargs)
+
+        def under_mesh(*a, **k):
+            # the recompute runs in the thread of the backward, which on a
+            # card is the autograd engine's own, where the caller's mesh
+            # (thread-local) is not set: without it the pins and the MoE
+            # mesh path would be skipped there
+            with use_mesh(mesh):
+                return fn(*a, **k)
+
         # under a mesh the recompute runs collectives and ring hand-offs:
         # it must run to its end on every rank, or a hand-off it posts and
         # never waits on would pair with one of the backward's
         with set_checkpoint_early_stop(False):
-            return checkpoint(fn, *args, use_reentrant=False, **kw, **kwargs)
+            return checkpoint(under_mesh, *args, use_reentrant=False, **kw,
+                              **kwargs)
 
     return wrapped

@@ -18,7 +18,14 @@ retried on that state.
 DTensor parameters (a model under a ``DeviceMesh``) get DTensor moments of
 the same placements; the update runs on each rank's local shards, the
 gradient first redistributed to its parameter's placements, and the global
-norm is summed over every rank's shards.
+norm is summed over every rank's shards.  An 8-bit moment of a DTensor
+parameter holds the blocks of each rank's local shard, in its local flat
+order (``_zeros_q_sharded``): the update then needs no collective.  Where
+a shard's contiguous runs are whole blocks (its last sharded dim's local
+extent times the dims after it a multiple of ``BLOCK``) these are the
+reference's blocks, and the step equals the step without a mesh;
+elsewhere a block that the reference's flat order would lay across two
+shards is two blocks here, each with its own scale.
 """
 
 from __future__ import annotations
@@ -68,10 +75,39 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 def _zeros_q(p: torch.Tensor) -> dict:
     """``quantize`` of zeros, built directly: zero codes, zero scales."""
-    n = -(-p.numel() // compression.BLOCK)
+    from repro_torch.kernels._symbolic import is_dtensor
+
+    if is_dtensor(p):
+        return _zeros_q_sharded(p)
+    return _zero_blocks(-(-p.numel() // compression.BLOCK), p.device)
+
+
+def _zero_blocks(n: int, device) -> dict:
     return {"c": torch.zeros((n, compression.BLOCK), dtype=torch.int8,
-                             device=p.device),
-            "s": torch.zeros((n,), dtype=torch.float32, device=p.device)}
+                             device=device),
+            "s": torch.zeros((n,), dtype=torch.float32, device=device)}
+
+
+def _zeros_q_sharded(p) -> dict:
+    """The 8-bit zero moment of the DTensor ``p``: on each rank the blocks
+    of its local shard (as many as the largest shard needs), as DTensors
+    sharded on dim 0 over every mesh dimension that shards ``p`` and
+    replicated over the others."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = p.device_mesh
+    size, n = list(p.shape), 1
+    for i, pl in enumerate(p.placements):
+        if pl.is_shard():
+            size[pl.dim] = -(-size[pl.dim] // mesh.size(i))
+            n *= mesh.size(i)
+    nb = -(-math.prod(size) // compression.BLOCK)
+    placements = [Shard(0) if pl.is_shard() else Replicate()
+                  for pl in p.placements]
+    local = _zero_blocks(nb, p.to_local().device)
+    return {k: DTensor.from_local(
+        t, mesh, placements, run_check=False, shape=(n * nb, *t.shape[1:]),
+        stride=t.stride()) for k, t in local.items()}
 
 
 def init_state(cfg: AdamWConfig, params: Params) -> dict:
@@ -217,15 +253,30 @@ def apply_updates(cfg: AdamWConfig, params: Params, grads: Params,
                                            moments)):
         try:
             if eight:
-                upd(p, g, m, v)
+                m, v = _local_q(m, p), _local_q(v, p)
             else:
-                upd(_local(p), _local(g, p), _local(m), _local(v))
+                m, v = _local(m), _local(v)
+            upd(_local(p), _local(g, p), m, v)
         except Exception as e:
             raise PartialUpdateError(
                 f"AdamW failed at leaf {i} of {len(flat_p)}: the leaves "
                 "before it, and part of it, may hold the new step") from e
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, {"m": state["m"], "v": state["v"], "step": step}, metrics
+
+
+def _local_q(q: dict, p: torch.Tensor) -> dict:
+    """The local codes and scales of the 8-bit moment of ``p``; for a
+    DTensor ``p`` they must hold its local shard's blocks
+    (``init_state`` from the DTensor parameters makes them so)."""
+    out = {k: _local(t) for k, t in q.items()}
+    need = -(-_local(p).numel() // compression.BLOCK)
+    if out["s"].shape[0] < need:
+        raise ValueError(
+            f"an 8-bit moment of {out['s'].shape[0]} blocks for a local "
+            f"shard of {need}: make the moments of DTensor parameters with "
+            "init_state from the DTensors")
+    return out
 
 
 def _moment_leaves(t, n: int, eight: bool) -> list:

@@ -23,6 +23,11 @@ import torch
 from repro_torch.sharding import partition
 
 _state = threading.local()
+# DTensor's ``implicit_replication`` flag is per thread (torch 2.11 and
+# 2.13) and not reentrant: leaving a block turns it off.  So each thread
+# counts its open ``use_mesh`` blocks (``_state.depth``) and enters one
+# ``implicit_replication`` for all of them (a card's backward runs in the
+# autograd engine's thread, and a remat recompute enters a block there)
 
 
 def current_mesh():
@@ -33,17 +38,33 @@ def current_mesh():
 def use_mesh(mesh):
     prev = current_mesh()
     _state.mesh = mesh
+    replicate = mesh is not None and not isinstance(mesh, Mapping)
+    if replicate:
+        _enter_replication()
     try:
-        if mesh is None or isinstance(mesh, Mapping):
-            yield mesh
-        else:
-            from torch.distributed.tensor.experimental import \
-                implicit_replication
-
-            with implicit_replication():
-                yield mesh
+        yield mesh
     finally:
         _state.mesh = prev
+        if replicate:
+            _exit_replication()
+
+
+def _enter_replication() -> None:
+    depth = getattr(_state, "depth", 0)
+    if depth == 0:
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        cm = implicit_replication()
+        cm.__enter__()
+        _state.replication = cm
+    _state.depth = depth + 1
+
+
+def _exit_replication() -> None:
+    _state.depth -= 1
+    if _state.depth == 0:
+        cm, _state.replication = _state.replication, None
+        cm.__exit__(None, None, None)
 
 
 def constrain(x: torch.Tensor, *spec) -> torch.Tensor:

@@ -163,17 +163,56 @@ def _redistribute_under_planner(mesh):
     assert planner.flops == 2 * 4 * 16 * 8          # the local (4, 16) @ w
 
 
+def _largest_shard_blocks(t, placements, mesh) -> int:
+    size = list(t.shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            size[p.dim] = -(-size[p.dim] // mesh.size(i))
+    return -(-int(np.prod(size)) // 256)
+
+
 def _local_bytes(t, placements, mesh) -> int:
     shape, _ = partition.local_shape_and_offset(t.shape, mesh, placements)
     return int(np.prod(shape)) * t.element_size()
 
 
+def _opt_cfg(cfg):
+    """The optimizer ``dryrun.build_cell`` gives ``cfg``."""
+    from repro_torch.optim import adamw
+
+    return adamw.AdamWConfig(
+        state_bits=8 if cfg.name.startswith("llama4") else 32)
+
+
+# the MoE archs under EP on the 2 x 4 mesh (reduced: 8 experts over 4)
+MOE_ARCHS = ["qwen2-moe-a2.7b", "llama4-maverick-400b-a17b"]
+
+
 @pytest.mark.parametrize("shape_name", ["train_4k", "decode_32k"])
-@pytest.mark.parametrize("arch", ["granite-3-2b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "falcon-mamba-7b",
+                                  *MOE_ARCHS])
 def test_run_cell_on_a_fake_2x4_mesh(arch, shape_name, monkeypatch):
     """A reduced-width cell runs ``ok``; its argument bytes are the local
     shards' bytes from the partition specs; the step moved data across
     ranks and did work."""
+    _cell_on_a_fake_2x4_mesh(arch, shape_name, monkeypatch)
+
+
+@pytest.mark.parametrize("shape_name", ["train_4k", "decode_32k"])
+def test_run_cell_moe_tp_on_a_fake_2x4_mesh(shape_name, monkeypatch):
+    """As above for reduced qwen2-moe with ``REPRO_MOE_TP=1``: its experts
+    split over the ffn (TP), not over the experts."""
+    monkeypatch.setenv("REPRO_MOE_TP", "1")
+    cfg = treg.get("qwen2-moe-a2.7b").reduced()
+    with fake_group(8):
+        spec = partition.param_spec("/blocks/moe/wi_gate",
+                                    (cfg.n_layers, cfg.n_experts, cfg.d_model,
+                                     cfg.moe_d_ff), _mesh((2, 4)))
+    assert spec == (None, None, "data", "model")
+    _cell_on_a_fake_2x4_mesh("qwen2-moe-a2.7b", shape_name, monkeypatch)
+
+
+def _cell_on_a_fake_2x4_mesh(arch, shape_name, monkeypatch):
     cfg = treg.get(arch).reduced()
     monkeypatch.setattr(dryrun.registry, "get", lambda a: cfg)
     with fake_group(8):
@@ -181,14 +220,25 @@ def test_run_cell_on_a_fake_2x4_mesh(arch, shape_name, monkeypatch):
         res = dryrun.run_cell(arch, shape_name, "single", "cpu", mesh=mesh)
         shape = SHAPES[shape_name]
         model = tmodel.Model(cfg, torch.device("cpu"))
+        extra = 0
         with FakeTensorMode():
             if shape.kind == "train":
-                from repro_torch.optim import adamw
                 from repro_torch.train import train_step as ts
 
+                opt = _opt_cfg(cfg)
                 state = ts.make_train_state(
-                    model, adamw.AdamWConfig(),
-                    torch.Generator().manual_seed(0))
+                    model, opt, torch.Generator().manual_seed(0))
+                if opt.state_bits == 8:
+                    # each rank's 8-bit moments: the blocks of its largest
+                    # shard of the parameter, codes and scales, m and v,
+                    # and the optimizer's step count
+                    del state["opt"]
+                    extra = 4 + sum(
+                        2 * _largest_shard_blocks(leaf, pl, mesh) * (256 + 4)
+                        for (_, leaf), (_, pl) in zip(
+                            tree.items(state["params"]),
+                            tree.items(partition.param_shardings(
+                                state["params"], mesh))))
                 batch = specs.train_batch_specs(cfg, shape, "cpu")
                 trees = [(state, partition.param_shardings(state, mesh)),
                          (batch, partition.batch_shardings(
@@ -205,7 +255,7 @@ def test_run_cell_on_a_fake_2x4_mesh(arch, shape_name, monkeypatch):
             want = sum(_local_bytes(leaf, pl, mesh) for t, pls in trees
                        for (_, leaf), (_, pl) in zip(tree.items(t),
                                                      tree.items(pls))
-                       if isinstance(leaf, torch.Tensor))
+                       if isinstance(leaf, torch.Tensor)) + extra
     assert res["status"] == "ok" and res["devices"] == 8
     pd = res["per_device"]
     assert pd["argument_bytes"] == want
@@ -237,14 +287,24 @@ def test_ring_handoffs_count_as_collective_permute(monkeypatch):
     assert permute["bytes"] == permute["count"] * chunk
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "falcon-mamba-7b",
+                                  *MOE_ARCHS])
 def test_run_cell_flops_on_a_mesh_of_one_equal_flop_counter(arch,
                                                             monkeypatch):
     """On a 1 x 1 mesh the planner's FLOPs equal ``FlopCounterMode`` over
     the same train step on plain fake tensors."""
+    _flops_on_a_mesh_of_one(arch, monkeypatch)
+
+
+def test_run_cell_flops_moe_tp_on_a_mesh_of_one(monkeypatch):
+    """As above for reduced qwen2-moe with ``REPRO_MOE_TP=1``."""
+    monkeypatch.setenv("REPRO_MOE_TP", "1")
+    _flops_on_a_mesh_of_one("qwen2-moe-a2.7b", monkeypatch)
+
+
+def _flops_on_a_mesh_of_one(arch, monkeypatch):
     from torch.utils.flop_counter import FlopCounterMode
 
-    from repro_torch.optim import adamw
     from repro_torch.train import train_step as ts
 
     cfg = treg.get(arch).reduced()
@@ -253,7 +313,7 @@ def test_run_cell_flops_on_a_mesh_of_one_equal_flop_counter(arch,
         res = dryrun.run_cell(arch, "train_4k", "single", "cpu",
                               mesh=_mesh((1, 1)))
     model = tmodel.Model(cfg, torch.device("cpu"))
-    opt = adamw.AdamWConfig()
+    opt = _opt_cfg(cfg)
     with FakeTensorMode():
         state = ts.make_train_state(model, opt,
                                     torch.Generator().manual_seed(0))
