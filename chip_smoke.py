@@ -37,12 +37,22 @@ Phases, each printing what it found; any failure raises and exits non-zero:
    timed from a CUDA graph at falcon-mamba-7b's training shape beside its
    bound and its design's SFU floor; no library call computes it; under grad
    ``selective_scan`` is the differentiable op and ``mamba_scan`` raises),
-   ``selective_scan`` also timed at T = 2048, and the LUT matmul;
+   ``selective_scan`` also timed at T = 2048, the LUT matmul, and the
+   MoE layer's grouped products (``grouped_mm``, both weight layouts, and
+   ``grouped_mm_wgrad``) against their plain versions on ``GMM_CASES``
+   (segments of length 0 and 1, drops, widths 88, 1408, 2048, 5120 and
+   8192, every row dropped, a decode step; float32 and bf16, two calls
+   bit-identical), held to them again and timed from a CUDA graph at
+   qwen2-moe's served and trained shapes beside the bound over the kept
+   rows and ``torch._grouped_mm`` with every row kept (the dX form and,
+   by its 2d x 2d form, the weight gradient too), whose output is held to
+   the kernel's with every row kept;
 4. moe-layer: ``moe.moe_block`` at qwen2-moe-a2.7b's layer width (N = 4400
    tokens, 60 experts, top-4, shared expert) in bf16 against a plain
    float32 loop over the experts with the same capacity rule, at the served
    capacity factor 1.25 and at 1.0, where experts overflow; equal routing
-   and kept assignments, timed beside the loop;
+   and kept assignments, timed beside the loop and beside its bound over
+   the kept assignments (and over every padded E x C slot, as before);
 5. for each served model, glm4-9b (40 layers), falcon-mamba-7b (64 Mamba-1
    layers), zamba2-2.7b (54 Mamba-2 layers and 9 applications of its 2
    shared attention blocks), qwen2-moe-a2.7b (24 MoE layers),
@@ -59,7 +69,8 @@ Phases, each printing what it found; any failure raises and exits non-zero:
       prefill, once per application of zamba2's shared blocks in prefill,
       and once per VLM cross block in prefill and in every decode step;
       the scan, ``selective_scan`` or ``mamba2_scan``, once per Mamba layer
-      in prefill and in every decode step); two calls at the same shapes
+      in prefill and in every decode step; ``grouped_mm`` three times per
+      MoE layer in prefill and in every decode step); two calls at the same shapes
       come first, so the served run reads a steady prefill, and their
       prefills are printed beside it (``_first_prefills``);
    b. decode against forward: the teacher-forced forward logits at the
@@ -80,9 +91,9 @@ Phases, each printing what it found; any failure raises and exits non-zero:
       media;
    c. profile: one prefill and one decode step under ``torch.profiler``,
       device time split into GEMMs (``aten::mm``), batched products
-      (``aten::bmm``: the experts' grouped FFN, and decode attention),
-      index ops (sort, top-k, gathers and scatters), flash, the scans and
-      the rest;
+      (``aten::bmm``: decode attention), the experts' grouped products
+      (``gmm_ms``), index ops (sort, top-k, gathers and scatters), flash,
+      the scans and the rest;
       for the VLM also its cross blocks' device time (CUDA events);
 6. the entry points no model calls: ``ops.quantize_weights`` +
    ``ops.lut_matmul`` on falcon-mamba's layer-0 ``in_proj`` and
@@ -114,8 +125,12 @@ Phases, each printing what it found; any failure raises and exits non-zero:
 10. train-moe: qwen2-moe-a2.7b at full width and 4 of its 24 layers (its
     full-depth state does not fit one card), the same 5 steps through
     ``make_train_step`` and the ``Trainer``, counted the same way (per
-    step: 4 + 4 flash forward launches, 4 backward launches);
-11. train_grad_vs_plain for qwen2-moe-a2.7b at full width and 2 layers;
+    step: 4 + 4 flash forward launches, 4 backward launches; 36
+    ``grouped_mm``, a layer's three products forward, recomputed and in
+    their dX form, and 12 ``grouped_mm_wgrad``);
+11. train_grad_vs_plain for qwen2-moe-a2.7b at full width and 2 layers,
+    the grouped products' backward (the dX form and the weight gradient)
+    also on their plain versions in the plain run;
 12. train-audio: musicgen-medium at full width and depth (48 layers,
     1.82 B parameters), the same 5 steps of 4 x 2048 tokens after 64
     random conditioning frames each (sequence 2112), counted the same way
@@ -176,7 +191,9 @@ Phases, each printing what it found; any failure raises and exits non-zero:
     parameters and no mesh (each plain step from the mesh run's
     parameters), with the ms of each step; the flash forward
     and backward launch counts of each mesh step asserted (the kernels run
-    on the local shards through the ops' DTensor sharding rules);
+    on the local shards through the ops' DTensor sharding rules), and
+    qwen2-moe's grouped products (9 ``grouped_mm`` and 3
+    ``grouped_mm_wgrad`` a MoE layer, on its rank's sorted rows);
 23. planner: the dry-run planner (``launch/dryrun.py``) held against the
     card on granite-3-2b at full width and ``PLANNER_LAYERS`` layers, one
     train step of 4 x 2048 on a 1 x 1 mesh: its ``MemTracker`` peak within
@@ -228,6 +245,7 @@ from repro_torch.core.overlap import compression  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticCorpus  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import grouped_mm as gm  # noqa: E402
 from repro_torch.kernels import lut_matmul as lm  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -400,7 +418,9 @@ COUNTED = {"flash_attention": fa.flash_attention_gqa,
            "mamba2_scan": ms.mamba2_scan,
            "selective_scan_bwd": ms.selective_scan_bwd,
            "mamba2_scan_bwd": ms.mamba2_scan_bwd,
-           "lut_matmul": lm.lut_matmul}
+           "lut_matmul": lm.lut_matmul,
+           "grouped_mm": gm.grouped_mm,
+           "grouped_mm_wgrad": gm.grouped_mm_wgrad}
 
 
 def zero_counts() -> None:
@@ -1364,6 +1384,239 @@ def phase_lut_matmul(gen) -> dict:
             "library_ms": library_ms}
 
 
+# grouped-mm cases: widths K x N (the transposed form reads W (G, N, K));
+# rows before the first segment and after the last (under EP, the other
+# experts' rows); each segment's length and its kept prefix.  Segments of
+# length 0 and 1, kept prefixes shorter than their segments, rows and
+# widths that are not tile multiples (qwen2-moe's TP shard of 88 columns,
+# its 1408-wide ffn, llama4's 5120 x 8192 experts under EP), every row
+# dropped, and a decode step's 16 rows over 60 experts
+GMM_CASES = {
+    "short_and_empty": dict(K=2048, N=1408, lead=0, tail=0,
+                            counts=(0, 1, 3, 0, 200, 129),
+                            kept=(0, 1, 3, 0, 200, 129)),
+    "drops": dict(K=1408, N=2048, lead=0, tail=0,
+                  counts=(300, 17, 129, 64, 1), kept=(128, 17, 0, 33, 1)),
+    "tp_shard": dict(K=2048, N=88, lead=0, tail=0,
+                     counts=tuple(e * 37 % 71 for e in range(60)),
+                     kept=tuple(min(e * 37 % 71, 40) for e in range(60))),
+    "ep": dict(K=5120, N=8192, lead=301, tail=77,
+               counts=(40, 0, 77, 1, 129, 3, 0, 255),
+               kept=(40, 0, 50, 1, 128, 3, 0, 200)),
+    "all_dropped": dict(K=1408, N=2048, lead=5, tail=3,
+                        counts=(10, 20, 5, 30), kept=(0, 0, 0, 0)),
+    "decode": dict(K=2048, N=1408, lead=0, tail=0,
+                   counts=tuple(2 if e % 15 == 0 else 1 if e % 7 == 3 else 0
+                                for e in range(60)),
+                   kept=tuple(min(1, int(e % 15 == 0 or e % 7 == 3))
+                              for e in range(60))),
+}
+# against the plain version on the same inputs: float32 differs by the
+# order of its sums, bf16 by one rounding of the output
+GMM_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+           torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def gmm_segments(case: str) -> tuple[int, torch.Tensor, torch.Tensor, int]:
+    """(R, start, kept, capacity) of a ``GMM_CASES`` entry: int64 on the
+    CPU; the capacity the largest kept prefix (at least 1)."""
+    c = GMM_CASES[case]
+    counts = torch.tensor(c["counts"], dtype=torch.int64)
+    start = c["lead"] + torch.cumsum(counts, 0) - counts
+    R = c["lead"] + int(counts.sum()) + c["tail"]
+    return R, start, torch.tensor(c["kept"], dtype=torch.int64), max(
+        1, max(c["kept"]))
+
+
+def _gmm_cost(R_kept, K, N, n_used, R, itemsize):
+    """FLOPs of the kept rows' products and the bytes the function must
+    move: the kept rows of x, the weights of the experts that keep a row,
+    the whole output (its zeros too)."""
+    flops = 2 * R_kept * K * N
+    nbytes = itemsize * (R_kept * K + n_used * K * N + R * N)
+    return flops, nbytes
+
+
+def _gmm_served(gen, N_tok, cf=1.25):
+    """qwen2-moe's segments for ``N_tok`` tokens: top-4 of 60 experts from
+    random router probabilities, sorted and cut at its capacity by the
+    layer's own ``moe.dispatch``; (R, start, kept, C, counts)."""
+    E, k = 60, 4
+    probs = torch.rand((N_tok, E), generator=gen, device="cuda")
+    experts = probs.topk(k, dim=-1).indices
+    C = moe.capacity(cf, k, N_tok, E)
+    _, _, (start, kept) = moe.dispatch(experts, E, C)
+    counts = torch.bincount(experts.reshape(-1), minlength=E)
+    return N_tok * k, start, kept, C, counts
+
+
+def _library_grouped_mm(x, w, counts, transposed=False):
+    """``torch._grouped_mm`` over the same segments with every row kept,
+    where this torch has it (else None): the weight handed over
+    column-major, as its CUTLASS path wants (a (G, N, K) weight read
+    transposed already is)."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    wt = (w.transpose(1, 2) if transposed
+          else w.transpose(1, 2).contiguous().transpose(1, 2))
+    return lambda: torch._grouped_mm(x, wt, offs=offs)
+
+
+def _library_grouped_mm_wgrad(a, b, counts):
+    """``torch._grouped_mm``'s 2d x 2d form, its groups along the shared
+    dim: ``a[seg].T @ b[seg]`` for every segment, every row kept (None
+    where this torch lacks it)."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    return lambda: torch._grouped_mm(a.t(), b, offs=offs)
+
+
+def _gmm_timed(name, shape, fn, plain, lib, full, flops, nbytes, tol):
+    """Time a grouped product at a full shape from a CUDA graph beside its
+    plain version and the library call; hold its output to the plain
+    version's and the library's (every row kept) to ``full``, the kernel's
+    with every row kept, at ``tol``.  Returns (ms, plain_ms, bound_ms,
+    bound_by, library_ms, max_abs_err)."""
+    got = fn()
+    want = plain()
+    err = _held(name, shape, got, want, tol)
+    del got, want
+    ms_ = graph_ms(fn)
+    plain_ms = cuda_ms(plain, iters=3, warmup=1)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    library_ms = lib_err = None
+    if lib is not None:
+        kernel_all = full()
+        lib_err = _held(f"{name}_vs_torch._grouped_mm", shape, lib(),
+                        kernel_all, tol)
+        del kernel_all
+        library_ms = graph_ms(lib)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    log("kernel-time", name=name, shape=shape, ms=f"{ms_:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{max(t_ops, t_bytes):.4f}",
+        bound_by=bound_by, gflop=f"{flops / 1e9:.2f}",
+        mbytes=f"{nbytes / 1e6:.2f}", tflops=f"{flops / ms_ / 1e9:.2f}",
+        max_abs_err=f"{err:.3e}",
+        library_ms=("none" if library_ms is None else f"{library_ms:.4f}"),
+        library_max_abs_diff=("none" if lib_err is None
+                              else f"{lib_err:.3e}"))
+    return ms_, plain_ms, max(t_ops, t_bytes), bound_by, library_ms, err
+
+
+def phase_grouped_mm(gen) -> list[dict]:
+    """``grouped_mm`` (both weight layouts) and ``grouped_mm_wgrad`` against
+    ``ref.grouped_mm_ref`` / ``ref.grouped_mm_wgrad_ref`` on ``GMM_CASES``
+    in float32 and bf16 (``GMM_TOL``), two calls bit-identical; then held
+    to the plain versions and timed from a CUDA graph at qwen2-moe's served
+    prefill (4 x 1100 tokens, R = 17,600: the gate/up product 2048 -> 1408
+    and the down product 1408 -> 2048) and trained shapes (4 x 2048 tokens,
+    R = 32,768: the forward, the dX form and the weight gradient), beside
+    the bound over the kept rows, the plain version and
+    ``torch._grouped_mm`` with every row kept, itself held to the kernel
+    with every row kept (none where this torch lacks it)."""
+    worst = {"grouped_mm": 0.0, "grouped_mm_wgrad": 0.0}
+    for case, c in GMM_CASES.items():
+        R, start, kept, cap = gmm_segments(case)
+        start, kept = start.cuda(), kept.cuda()
+        G = len(c["counts"])
+        for dtype in (torch.float32, torch.bfloat16):
+            K, N = c["K"], c["N"]
+            x = _rand(gen, (R, K), dtype)
+            dy = _rand(gen, (R, N), dtype)
+            for transposed in (False, True):
+                shape = (G, N, K) if transposed else (G, K, N)
+                w = (torch.randn(shape, generator=gen, device="cuda")
+                     * K ** -0.5).to(dtype)
+                got = gm.grouped_mm(x, w, start, kept, cap,
+                                    transposed=transposed)
+                again = gm.grouped_mm(x, w, start, kept, cap,
+                                      transposed=transposed)
+                want = ref.grouped_mm_ref(x, w, start, kept, transposed)
+                name = f"{case}_{str(dtype)[6:]}" + ("_T" if transposed
+                                                     else "")
+                err = _held("grouped_mm", name, got, want, GMM_TOL[dtype])
+                worst["grouped_mm"] = max(worst["grouped_mm"], err)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"grouped_mm {name}: two calls "
+                                         "differ")
+                del w, got, again, want
+            got = gm.grouped_mm_wgrad(x, dy, start, kept, cap)
+            again = gm.grouped_mm_wgrad(x, dy, start, kept, cap)
+            want = ref.grouped_mm_wgrad_ref(x, dy, start, kept)
+            err = _held("grouped_mm_wgrad", f"{case}_{str(dtype)[6:]}", got,
+                        want, GMM_TOL[dtype])
+            worst["grouped_mm_wgrad"] = max(worst["grouped_mm_wgrad"], err)
+            if not torch.equal(got, again):
+                raise AssertionError(f"grouped_mm_wgrad {case}: two calls "
+                                     "differ")
+            del x, dy, got, again, want
+    torch.cuda.empty_cache()
+
+    bf = torch.bfloat16
+    tol = GMM_TOL[bf]
+    records = {}
+    for label, N_tok in (("served", 4 * max(PROMPT_LENS)),
+                         ("trained", TRAIN_BATCH * TRAIN_SEQ)):
+        R, start, kept, C, counts = _gmm_served(gen, N_tok)
+        R_kept = int(kept.sum())
+        n_used = int((kept > 0).sum())
+        x = _rand(gen, (R, 2048), bf)
+        for K, N, transposed in ((2048, 1408, False), (1408, 2048, False),
+                                 (1408, 2048, True)):
+            if label == "served" and transposed:
+                continue                     # serving runs no backward
+            xk = x[:, :K].contiguous()
+            w = (torch.randn((60, N, K) if transposed else (60, K, N),
+                             generator=gen, device="cuda") * K ** -0.5
+                 ).to(bf)
+            shape = (f"{label}_R{R}_kept{R_kept}_K{K}_N{N}_G60_C{C}"
+                     f"{'_T' if transposed else ''}_bf16")
+            timed = _gmm_timed(
+                "grouped_mm", shape,
+                lambda: gm.grouped_mm(xk, w, start, kept, C,
+                                      transposed=transposed),
+                lambda: ref.grouped_mm_ref(xk, w, start, kept, transposed),
+                _library_grouped_mm(xk, w, counts, transposed),
+                lambda: gm.grouped_mm(xk, w, start, counts, R,
+                                      transposed=transposed),
+                *_gmm_cost(R_kept, K, N, n_used, R, 2), tol)
+            worst["grouped_mm"] = max(worst["grouped_mm"], timed[5])
+            if label == "served" and not transposed and K == 2048:
+                records["grouped_mm"] = timed
+            del w
+        if label == "trained":
+            dy = _rand(gen, (R, 1408), bf)
+            flops, nbytes = _gmm_cost(R_kept, 2048, 1408, 0, 0, 2)
+            nbytes += 2 * (R_kept * 1408 + 60 * 2048 * 1408)
+            timed = _gmm_timed(
+                "grouped_mm_wgrad",
+                f"{label}_R{R}_kept{R_kept}_M2048_N1408_G60_C{C}_bf16",
+                lambda: gm.grouped_mm_wgrad(x, dy, start, kept, C),
+                lambda: ref.grouped_mm_wgrad_ref(x, dy, start, kept),
+                _library_grouped_mm_wgrad(x, dy, counts),
+                lambda: gm.grouped_mm_wgrad(x, dy, start, counts, R),
+                flops, nbytes, tol)
+            worst["grouped_mm_wgrad"] = max(worst["grouped_mm_wgrad"],
+                                            timed[5])
+            records["grouped_mm_wgrad"] = timed
+            del dy
+        del x
+    torch.cuda.empty_cache()
+    out = []
+    for name in ("grouped_mm", "grouped_mm_wgrad"):
+        ms_, plain_ms, bound_ms, bound_by, library_ms, _ = records[name]
+        out.append({"name": name, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/grouped_mm.cu",
+                    "replaces": "src/repro/models/moe.py:74",
+                    "launches": None, "max_abs_err": worst[name],
+                    "ms": ms_, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": library_ms})
+    return out
+
+
 def moe_loop_ref(p, x, cfg, capacity_factor: float = 1.25):
     """Plain float32 version of ``moe.moe_block``: top-k of the softmax of
     the float32 router logits, renormalised; then a loop over the experts,
@@ -1394,12 +1647,14 @@ def moe_loop_ref(p, x, cfg, capacity_factor: float = 1.25):
     return out.view(B, T, d), ex, keep
 
 
-def _moe_layer_cost(cfg, N, C, itemsize):
-    """FLOPs of the router, the grouped FFN over all E x C slots and the
-    shared MLP; bytes of x, the weights and the output, each once."""
+def _moe_layer_cost(cfg, N, rows, itemsize):
+    """FLOPs of the router, the grouped FFN over ``rows`` assignments (the
+    kept ones: what the layer must compute; or every E x C slot of the
+    reference's buffer) and the shared MLP; bytes of x, the weights and the
+    output, each once."""
     d, E, f, fs = cfg.d_model, cfg.n_experts, cfg.moe_d_ff, \
         cfg.shared_expert_d_ff
-    flops = 2 * N * d * E + 6 * E * C * d * f + 6 * N * d * fs
+    flops = 2 * N * d * E + 6 * rows * d * f + 6 * N * d * fs
     nbytes = (4 * d * E + itemsize * (3 * E * d * f + 3 * d * fs)
               + 2 * itemsize * N * d)
     return flops, nbytes
@@ -1431,13 +1686,17 @@ def phase_moe_layer(gen) -> None:
             ms_ = cuda_ms(lambda: moe.moe_block(p, x, cfg))
             plain_ms = cuda_ms(lambda: moe_loop_ref(p, x, cfg), iters=3,
                                warmup=1)
-            flops, nbytes = _moe_layer_cost(cfg, N, C, 2)
+            flops, nbytes = _moe_layer_cost(cfg, N, int(want_keep.sum()),
+                                            2)
             t_ops = flops / PEAK_BF16_FLOPS * 1e3
             t_bytes = nbytes / PEAK_BYTES * 1e3
+            p_flops, p_bytes = _moe_layer_cost(cfg, N, E * C, 2)
+            padded = max(p_flops / PEAK_BF16_FLOPS, p_bytes / PEAK_BYTES)
             timing = dict(
                 ms=f"{ms_:.4f}", plain_ms=f"{plain_ms:.4f}",
                 bound_ms=f"{max(t_ops, t_bytes):.4f}",
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                padded_slots_bound_ms=f"{padded * 1e3:.4f}",
                 gflop=f"{flops / 1e9:.2f}", mbytes=f"{nbytes / 1e6:.2f}",
                 tflops=f"{flops / ms_ / 1e9:.2f}")
         log("moe-layer", shape=f"N{N}_E{E}_k{k}_C{C}_d{cfg.d_model}"
@@ -1466,8 +1725,10 @@ def _expected_counts(cfg, decode_steps: int) -> dict[str, int]:
     media K/V); the scan (``selective_scan`` for Mamba-1, ``mamba2_scan``
     for Mamba-2) once per Mamba layer in prefill and in every decode step;
     the hybrid's flash once per application of a shared block in
-    prefill."""
+    prefill; the MoE family's three grouped products per MoE layer in
+    prefill and in every decode step."""
     want = dict.fromkeys(COUNTED, 0)
+    want["grouped_mm"] = 3 * _moe_layers(cfg) * (1 + decode_steps)
     if cfg.family in ("ssm", "hybrid"):
         scan = "selective_scan" if cfg.mamba_version == 1 else "mamba2_scan"
         want[scan] = cfg.n_layers * (1 + decode_steps)
@@ -1811,9 +2072,8 @@ def _moe_against_forward(model, params, prompts, outs, dtype) -> bool:
 
 
 # the ATen ops whose own device time the profiles split out: cuBLAS GEMMs,
-# batched products (the experts' grouped FFN; in decode also the plain
-# attention's two einsums) and the index ops of MoE dispatch (and of the
-# embedding lookup)
+# batched products (decode's plain attention's two einsums) and the index
+# ops of MoE dispatch (and of the embedding lookup)
 _GEMM_OPS = {"aten::mm", "aten::addmm"}
 _BMM_OPS = {"aten::bmm", "aten::baddbmm"}
 _INDEX_OPS = {"aten::sort", "aten::topk", "aten::searchsorted",
@@ -1915,6 +2175,8 @@ def phase_profile(model, params, prompts, media=None) -> None:
         flash_us = sum(us for n, (us, _) in kernels.items() if "fa_fwd" in n)
         scan_us = sum(us for n, (us, _) in kernels.items()
                       if "selective_" in n or "mamba2_" in n)
+        gmm_us = sum(us for n, (us, _) in kernels.items()
+                     if "grouped_mm" in n)
         log("profile", arch=model.cfg.name, step=name,
             wall_ms=f"{wall_us / 1e3:.2f}",
             device_ms=(f"{dev_us / 1e3:.2f}" if dev_us else "not_measured"),
@@ -1922,7 +2184,7 @@ def phase_profile(model, params, prompts, media=None) -> None:
                         "not_measured"),
             device_events=sum(n for _, n in kernels.values()),
             flash_ms=f"{flash_us / 1e3:.2f}", scan_ms=f"{scan_us / 1e3:.2f}",
-            **_op_split(prof), **cross)
+            gmm_ms=f"{gmm_us / 1e3:.2f}", **_op_split(prof), **cross)
         for kname, (us, n) in sorted(kernels.items(),
                                      key=lambda kv: -kv[1][0])[:6]:
             print(f"    {us / 1e3:9.3f} ms  x{n:<5d} {kname[:90]}", flush=True)
@@ -2212,6 +2474,11 @@ def _attention_layers(cfg) -> int:
     return n
 
 
+def _moe_layers(cfg) -> int:
+    """MoE layers of one forward, each three grouped products."""
+    return cfg.n_layers // cfg.moe_every if cfg.family == "moe" else 0
+
+
 def _scan_layers(cfg) -> dict[str, int]:
     """Scan launches of one forward, by kernel: one a Mamba layer, of the
     Mamba-1 form (``selective_scan``) or of the Mamba-2 form."""
@@ -2265,6 +2532,9 @@ def _train(cfg, ckpt_dir, run, label) -> dict[str, int]:
     for scan, n in _scan_layers(cfg).items():
         want[scan] = 2 * n * TRAIN_STEPS                 # + recompute
         want[scan + "_bwd"] = n * TRAIN_STEPS
+    # forward, recompute and dX, then dW, of each of the three products
+    want["grouped_mm"] = 3 * 3 * _moe_layers(cfg) * TRAIN_STEPS
+    want["grouped_mm_wgrad"] = 3 * _moe_layers(cfg) * TRAIN_STEPS
     if counts != want:
         raise AssertionError(f"train launches {counts} != {want}")
     batch = trainer.corpus.batch_at(TRAIN_STEPS)
@@ -2286,10 +2556,15 @@ def _train(cfg, ckpt_dir, run, label) -> dict[str, int]:
 def _plain_backward():
     """The differentiable ops' backwards on their plain versions, the flash
     op's on ``flash_attention_bwd_ref`` and the scan ops' on
-    ``selective_scan_bwd_ref`` and ``mamba2_scan_bwd_ref`` (a check
-    only)."""
+    ``selective_scan_bwd_ref`` and ``mamba2_scan_bwd_ref``, and the
+    grouped products' on ``grouped_mm_ref`` (their dX form, the op with
+    the weight read transposed, which the model's forward never uses)
+    and ``grouped_mm_wgrad_ref`` (a check only).  The forwards stay on
+    the kernels: a bf16 rounding there moves the next layer's routing,
+    and the router's gradient with it (PERF.md §6)."""
     flash, scan = fa.flash_attention_bwd, ms.mamba2_scan_bwd
     sel = ms.selective_scan_bwd
+    gmm, wgrad = gm._forward, gm._wgrad
 
     def plain(q, k, v, o, lse, do, *, causal=True, window=0, softcap=0.0):
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
@@ -2298,12 +2573,17 @@ def _plain_backward():
     fa.flash_attention_bwd = plain
     ms.mamba2_scan_bwd = ref.mamba2_scan_bwd_ref
     ms.selective_scan_bwd = ref.selective_scan_bwd_ref
+    gm._forward = (lambda x, w, start, kept, capacity, transposed:
+                   ref.grouped_mm_ref(x, w, start, kept, True) if transposed
+                   else gmm(x, w, start, kept, capacity, False))
+    gm._wgrad = ref.grouped_mm_wgrad_ref
     try:
         yield
     finally:
         fa.flash_attention_bwd = flash
         ms.mamba2_scan_bwd = scan
         ms.selective_scan_bwd = sel
+        gm._forward, gm._wgrad = gmm, wgrad
 
 
 def phase_train_grad_vs_plain(arch: str) -> None:
@@ -2318,7 +2598,8 @@ def phase_train_grad_vs_plain(arch: str) -> None:
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in
              SyntheticCorpus(_data_cfg(cfg, 1)).batch_at(0).items()}
     want = {"flash_attention_bwd": _attention_layers(cfg),
-            "selective_scan_bwd": 0, "mamba2_scan_bwd": 0}
+            "selective_scan_bwd": 0, "mamba2_scan_bwd": 0,
+            "grouped_mm_wgrad": 3 * _moe_layers(cfg)}
     for scan, n in _scan_layers(cfg).items():
         want[scan + "_bwd"] = n
 
@@ -2326,8 +2607,10 @@ def phase_train_grad_vs_plain(arch: str) -> None:
         return {name: COUNTED[name].launches for name in want}
 
     before = bwd_launches()
+    g0 = gm.grouped_mm.launches
     loss, grads = train_step._loss_and_grads(model, params, batch, 1)
     after = bwd_launches()
+    g1 = gm.grouped_mm.launches
     if {k: after[k] - before[k] for k in want} != want:
         raise AssertionError(f"the kernel run launched {after} - {before} "
                              f"backward kernels, not {want}")
@@ -2335,6 +2618,13 @@ def phase_train_grad_vs_plain(arch: str) -> None:
         loss_p, plain = train_step._loss_and_grads(model, params, batch, 1)
     if bwd_launches() != after:
         raise AssertionError("the plain run launched a backward kernel")
+    # grouped products: forward, recompute and dX in the kernel run, the
+    # first two only in the plain one
+    n_gmm = 3 * _moe_layers(cfg)
+    if (g1 - g0, gm.grouped_mm.launches - g1) != (3 * n_gmm, 2 * n_gmm):
+        raise AssertionError(f"grouped_mm launched {g1 - g0} and "
+                             f"{gm.grouped_mm.launches - g1} times, not "
+                             f"{3 * n_gmm} and {2 * n_gmm}")
     worst, where = 0.0, ""
     for (path, g), w in zip(tree.items(grads), tree.leaves(plain)):
         if not bool(torch.isfinite(g.float()).all()):
@@ -2694,7 +2984,8 @@ def phase_mesh_train() -> None:
     mesh, the two runs apart (``_mesh_train``).  The flash forward and
     backward launch counts of each mesh step are asserted: the kernels ran
     on the DTensors' local shards through the ops' sharding rules
-    (qwen2-moe's MoE layers through ``moe_block``'s mesh path)."""
+    (qwen2-moe's MoE layers through ``moe_block``'s mesh path, its grouped
+    products on each rank's sorted rows)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     _one_rank_group("mesh_train_store")
@@ -2824,6 +3115,8 @@ def _mesh_train(mesh, arch: str, n_layers: int) -> None:
             out["mesh"], out["plain"]
         if not (dc["flash_attention_bwd"] == n_attn
                 and dc["flash_attention"] == pc["flash_attention"] > 0
+                and dc["grouped_mm"] == 3 * 3 * n_moe
+                and dc["grouped_mm_wgrad"] == 3 * n_moe
                 and dc == pc):
             raise AssertionError(f"{arch} mesh step {step} launched {dc}, "
                                  f"the plain one {pc}")
@@ -3022,7 +3315,8 @@ def main() -> None:
     records = [phase_flash(gen), phase_flash_backward(gen),
                phase_mamba_scan(gen), phase_selective_scan(gen),
                phase_selective_scan_bwd(gen), phase_mamba2_scan(gen),
-               phase_mamba2_scan_bwd(gen), phase_lut_matmul(gen)]
+               phase_mamba2_scan_bwd(gen), phase_lut_matmul(gen),
+               *phase_grouped_mm(gen)]
     phase_moe_layer(gen)
     by_name = {r["name"]: r for r in records}
     for arch in ARCHS:
@@ -3054,7 +3348,10 @@ def main() -> None:
             ("qwen2-moe-a2.7b", MOE_TRAIN_LAYERS, "train-moe"),
             ("musicgen-medium", None, "train-audio"),
             ("llama-3.2-vision-11b", VLM_TRAIN_LAYERS, "train-vlm")):
-        phase_train_with_trainer(arch, n_layers, label)
+        train_counts = phase_train_with_trainer(arch, n_layers, label)
+        if train_counts["grouped_mm_wgrad"]:
+            by_name["grouped_mm_wgrad"]["launches"] = train_counts[
+                "grouped_mm_wgrad"]
         gc.collect()
         torch.cuda.empty_cache()
         phase_train_grad_vs_plain(arch)

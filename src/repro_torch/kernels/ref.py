@@ -516,3 +516,36 @@ def lut_matmul_ref(x: torch.Tensor, codes: torch.Tensor, lut: torch.Tensor
     c = codes.reshape(g, K // g, N).long()
     w = torch.take_along_dim(lut.float().transpose(1, 2), c, dim=1)
     return x.float() @ w.reshape(K, N)
+
+
+def grouped_mm_ref(x: torch.Tensor, w: torch.Tensor, start: torch.Tensor,
+                   kept: torch.Tensor, transposed: bool = False
+                   ) -> torch.Tensor:
+    """The grouped product over kept prefixes, as a loop over the segments.
+
+    x (R, K); w (G, K, N), or (G, N, K) with ``transposed``; start, kept
+    (G,) int.  Row r of segment g's kept prefix ``[start_g, start_g +
+    kept_g)`` is ``x[r] @ w[g]`` (``x[r] @ w[g].T``), every other row zero;
+    (R, N) in ``x.dtype``, summed in float32 (float64 for float64 inputs).
+    Reads the lengths on the host: the CPU's path and the card's checks,
+    never the card's path."""
+    N = w.shape[1] if transposed else w.shape[2]
+    y = x.new_zeros((x.shape[0], N))
+    for g, (s, n) in enumerate(zip(start.tolist(), kept.tolist())):
+        if n > 0:
+            wg = w[g].transpose(0, 1) if transposed else w[g]
+            y[s:s + n] = (_wide(x[s:s + n]) @ _wide(wg)).to(x.dtype)
+    return y
+
+
+def grouped_mm_wgrad_ref(a: torch.Tensor, b: torch.Tensor,
+                         start: torch.Tensor, kept: torch.Tensor
+                         ) -> torch.Tensor:
+    """The weight gradient of ``grouped_mm_ref``: a (R, M), b (R, N) ->
+    (G, M, N) in ``a.dtype``, ``a[rows].T @ b[rows]`` over each segment's
+    kept rows (zero where it keeps none), summed as ``grouped_mm_ref``."""
+    out = a.new_zeros((start.shape[0], a.shape[1], b.shape[1]))
+    for g, (s, n) in enumerate(zip(start.tolist(), kept.tolist())):
+        if n > 0:
+            out[g] = (_wide(a[s:s + n]).T @ _wide(b[s:s + n])).to(a.dtype)
+    return out

@@ -1,24 +1,31 @@
 """Mixture-of-Experts layer (PyTorch port of ``repro/models/moe.py``).
 
 Top-k routing with capacity-bounded dispatch, as the reference: each
-token's k (expert, weight) assignments are flattened, sorted by expert id
-(a stable sort, as ``jnp.argsort``), and the first ``C`` of each expert's
-segment are copied into an (E, C, d) buffer; the experts' FFNs run as three
-batched products over the expert dim; each kept assignment's output is
-gathered back, weighted, and the k contributions of a token are summed.
-Assignments past an expert's capacity are dropped.
+token's k (expert, weight) assignments are flattened and sorted by expert
+id (a stable sort, as ``jnp.argsort``), and the first ``C`` of each
+expert's segment are kept; the rest are dropped.  The reference copies the
+kept assignments into an (E, C, d) buffer, runs the experts' FFNs as three
+einsums over it and gathers each kept output back.  The port runs the FFN
+on the sorted rows themselves: expert e's kept rows are a prefix of its
+segment, ``[seg_start_e, seg_start_e + kept_e)``, so three grouped
+products (``kernels/grouped_mm.py``, a hand-written kernel on a card) over
+those prefixes compute exactly the kept assignments' outputs and leave the
+dropped rows zero.  No buffer is filled or gathered, the work is the kept
+assignments' and not every padded slot's, and the segment lengths stay on
+the device.  Each row is weighted by its routing weight (zero if dropped),
+the sort is undone and a token's k rows are summed.
 
 The reference adds into the buffer and into the output with ``.at[].add``;
 on a card the port's equivalents with repeated indices would add by
-atomics, in an order that changes from run to run.  The port writes the
-buffer with unique slots (dropped assignments go to one spare row that is
-cut off) and sums a token's k contributions after undoing the sort, so a
-forward is bit-for-bit repeatable.
+atomics, in an order that changes from run to run.  The port sums a
+token's k contributions after undoing the sort, and the grouped products
+split no sum over blocks, so a forward and a backward are bit-for-bit
+repeatable.
 
 Under remat "dots" (``layers.remat_policy``) the router and the shared MLP
 dispatch as ``aten.mm`` and are saved; the grouped products dispatch as
-``aten.bmm`` and are recomputed, as the reference recomputes its
-batch-dim dots.
+``repro_torch::grouped_mm`` and are recomputed, as the reference
+recomputes its batch-dim dots.
 
 Under a ``DeviceMesh`` (``x`` a DTensor; ``_moe_block_mesh``) the
 reference leaves the layout to GSPMD over its sharding rule: EP, the
@@ -34,15 +41,16 @@ flat order; a rank's tokens are a contiguous run of that order, so an
 assignment's global position in its expert is its local position plus
 the expert's assignments on the earlier batch ranks, an exclusive prefix
 over the ranks' (E,) counts, which one all-gather over the batch axes
-gives.  Each rank then fills a static ``(E_loc, C_buf, d)`` buffer,
-``C_buf = min(C, N_local)`` (no rank sends more than its ``N_local``
-tokens to one expert): under EP with the kept assignments of the
-``E_loc = E / tp`` experts it holds, under TP with every kept assignment
-and its ``f / tp`` columns of the ffn.  Either way a rank's output is a
-partial sum over 'model', reduced once (``Partial`` -> ``Replicate``);
-the weights' FSDP shards are gathered over the batch axes first, as the
-dense path gathers them (``layers.fsdp``).  Where no expert dim divides
-'model' every rank runs all experts whole and nothing is reduced.
+gives.  A rank's kept rows of expert e are then the prefix of length
+``clamp(C - before_e, 0, count_e)`` of its segment, and the grouped
+products run on the rank's ``N_local * k`` sorted rows: under EP over the
+segments of the ``E_loc = E / tp`` experts it holds (the other experts'
+rows stay zero), under TP over every segment with its ``f / tp`` columns
+of the ffn.  Either way a rank's output is a partial sum over 'model',
+reduced once (``Partial`` -> ``Replicate``); the weights' FSDP shards are
+gathered over the batch axes first, as the dense path gathers them
+(``layers.fsdp``).  Where no expert dim divides 'model' every rank runs
+all experts whole and nothing is reduced.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ import math
 import torch
 
 from repro_torch.kernels import _symbolic
+from repro_torch.kernels.grouped_mm import grouped_mm
 from repro_torch.models import layers
 from repro_torch.models.layers import Params, dense_init
 from repro_torch.sharding import partition
@@ -126,18 +135,31 @@ def capacity(capacity_factor: float, k: int, N: int, E: int) -> int:
     return max(1, int(capacity_factor * k * N / E))
 
 
-def dispatch(experts: torch.Tensor, E: int, C: int
-             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(order, keep, slot) of the N*k assignments ``experts.reshape(-1)``:
-    the stable sort by expert id (assignment i is token i // k), whether
-    each sorted assignment is among the first C of its expert, and its row
-    ``expert * C + position`` of the (E*C, d) buffer."""
+def _segments(experts: torch.Tensor, E: int):
+    """(order, se, seg_start, counts, pos) of the assignments
+    ``experts.reshape(-1)``: the stable sort by expert id (assignment i is
+    token i // k), the sorted expert ids, each expert's segment of the
+    sorted rows (start and length, (E,)) and each sorted assignment's
+    position in its segment."""
     flat = experts.reshape(-1)
     order = torch.argsort(flat, stable=True)
     se = flat[order]
-    seg_start = torch.searchsorted(se, torch.arange(E, device=flat.device))
-    pos_in_e = torch.arange(flat.numel(), device=flat.device) - seg_start[se]
-    return order, pos_in_e < C, se * C + pos_in_e
+    ids = torch.arange(E, device=flat.device)
+    seg_start = torch.searchsorted(se, ids)
+    counts = torch.searchsorted(se, ids, right=True) - seg_start
+    pos = torch.arange(flat.numel(), device=flat.device) - seg_start[se]
+    return order, se, seg_start, counts, pos
+
+
+def dispatch(experts: torch.Tensor, E: int, C: int
+             ) -> tuple[torch.Tensor, torch.Tensor, tuple]:
+    """(order, keep, (start, kept)) of the N*k assignments
+    ``experts.reshape(-1)``: the stable sort by expert id, whether each
+    sorted assignment is among the first C of its expert, and each
+    expert's kept prefix of the sorted rows, ``[start_e, start_e +
+    kept_e)`` with ``kept_e = min(count_e, C)``."""
+    order, _, seg_start, counts, pos = _segments(experts, E)
+    return order, pos < C, (seg_start, counts.clamp(max=C))
 
 
 def moe_block(params: Params, x: torch.Tensor, cfg, *,
@@ -151,10 +173,10 @@ def moe_block(params: Params, x: torch.Tensor, cfg, *,
     xf = x.reshape(N, d)
     weights, experts = route(params, xf, k)
     C = capacity(capacity_factor, k, N, E)
-    order, keep, slot = dispatch(experts, E, C)
+    order, keep, segments = dispatch(experts, E, C)
     _record(experts, order, keep)
     sw = weights.reshape(-1)[order]
-    out = _experts(xf, order, keep, slot, sw, k, C,
+    out = _experts(xf, order, segments, sw, k, C,
                    (params["wi_gate"], params["wi_up"], params["wo"]),
                    cfg.act).view(B, T, d)
 
@@ -163,35 +185,25 @@ def moe_block(params: Params, x: torch.Tensor, cfg, *,
     return out
 
 
-def _experts(xf: torch.Tensor, order: torch.Tensor, keep: torch.Tensor,
-             slot: torch.Tensor, sw: torch.Tensor, k: int, C: int,
-             w: tuple, act: str) -> torch.Tensor:
-    """(N, d): the experts' FFN of the kept sorted assignments (``slot``
-    their rows of the (E*C, d) buffer, E the experts of ``w`` = (wi_gate,
-    wi_up, wo)), weighted by ``sw``, the sort undone and each token's k
-    outputs summed."""
+def _experts(xf: torch.Tensor, order: torch.Tensor, segments: tuple,
+             sw: torch.Tensor, k: int, C: int, w: tuple, act: str
+             ) -> torch.Tensor:
+    """(N, d): the experts' FFN of the kept sorted assignments, weighted by
+    ``sw``, the sort undone and each token's k outputs summed.
+    ``segments`` = (start, kept), (G,) each: the kept prefix of the sorted
+    rows of each of the G experts of ``w`` = (wi_gate, wi_up, wo), each
+    at most ``C`` long; every other row (a dropped assignment, or another
+    rank's expert's) comes out of the grouped products zero."""
     N, d = xf.shape
-    rows = w[0].shape[0] * C
-    # kept assignments to unique rows, dropped ones to the spare row
-    spare = torch.where(keep, slot, rows)
-    buf = xf.new_zeros((rows + 1, d)).index_put((spare,), xf[order // k])
-    buf = buf[:rows].view(-1, C, d)
-
-    # grouped expert FFN: (E, C, d) x (E, d, f)
-    g = layers._act(torch.bmm(buf, w[0]), act)
-    u = torch.bmm(buf, w[1])
-    out_e = torch.bmm(g * u, w[2]).view(rows, d)
-
-    # gather back, weight, undo the sort and sum each token's k outputs;
-    # a dropped assignment (weight 0) reads row i % rows, not one shared
-    # row: the gather's backward adds each row's reads one after another,
-    # so thousands of drops on one row would serialize there
-    src = torch.where(keep, slot,
-                      torch.arange(N * k, device=xf.device) % rows)
-    gathered = out_e[src] * (sw * keep).to(xf.dtype)[:, None]
+    start, kept = segments
+    xs = xf[order // k]
+    h = layers._act(grouped_mm(xs, w[0], start, kept, C), act) \
+        * grouped_mm(xs, w[1], start, kept, C)
+    y = grouped_mm(h, w[2], start, kept, C) * sw.to(xf.dtype)[:, None]
+    # undo the sort and sum each token's k outputs
     inverse = torch.empty_like(order).scatter_(
         0, order, torch.arange(N * k, device=xf.device))
-    return gathered[inverse].view(N, k, d).sum(1)
+    return y[inverse].view(N, k, d).sum(1)
 
 
 # --- under a DeviceMesh ----------------------------------------------------------
@@ -238,21 +250,16 @@ def earlier_counts(counts: torch.Tensor, mesh, bpl: list) -> torch.Tensor:
 
 
 def mesh_dispatch(experts: torch.Tensor, E: int, C: int, mesh, bpl: list
-                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(order, keep, pos) of this rank's assignments ``experts`` (N_local,
-    k): the stable sort by expert id, whether each sorted assignment is
-    among the first C of its expert in *global* flat order (the
-    reference's kept set), and its position among this rank's assignments
-    to that expert."""
-    flat = experts.reshape(-1)
-    order = torch.argsort(flat, stable=True)
-    se = flat[order]
-    ids = torch.arange(E, device=flat.device)
-    seg_start = torch.searchsorted(se, ids)
-    counts = torch.searchsorted(se, ids, right=True) - seg_start
-    pos = torch.arange(flat.numel(), device=flat.device) - seg_start[se]
+                  ) -> tuple[torch.Tensor, torch.Tensor, tuple]:
+    """(order, keep, (start, kept)) of this rank's assignments ``experts``
+    (N_local, k): the stable sort by expert id, whether each sorted
+    assignment is among the first C of its expert in *global* flat order
+    (the reference's kept set), and each expert's kept prefix of this
+    rank's sorted rows, ``kept_e = clamp(C - before_e, 0, count_e)``."""
+    order, se, seg_start, counts, pos = _segments(experts, E)
     before = earlier_counts(counts, mesh, bpl)
-    return order, before[se] + pos < C, pos
+    kept = torch.minimum((C - before).clamp(min=0), counts)
+    return order, before[se] + pos < C, (seg_start, kept)
 
 
 def _moe_block_mesh(params: Params, x: torch.Tensor, cfg,
@@ -305,22 +312,19 @@ def _moe_block_mesh(params: Params, x: torch.Tensor, cfg,
     xf = xl.reshape(Nl, d)
     weights, experts = _top_k(
         logits.to_local(grad_placements=local_grad).reshape(Nl, E), k)
-    order, keep, pos = mesh_dispatch(experts, E, C, mesh, bpl)
+    order, keep, (start, kept) = mesh_dispatch(experts, E, C, mesh, bpl)
     sw = weights.reshape(-1)[order]
-    se = experts.reshape(-1)[order]
 
-    C_buf = max(1, min(C, Nl))
     if layout == "ep":
         # this rank's experts: a run of E / tp from its 'model' coordinate
         e0 = partition.local_shape_and_offset(wg.shape, mesh,
                                               wg.placements)[1][0]
-        le = se - e0
+        le = experts.reshape(-1)[order] - e0
         keep = keep & (le >= 0) & (le < wgl.shape[0])
-    else:
-        le = se
+        start, kept = (t[e0:e0 + wgl.shape[0]] for t in (start, kept))
     _record(experts, order, keep)
-    out = _experts(xf, order, keep, le * C_buf + pos, sw, k, C_buf,
-                   (wgl, wul, wol), cfg.act).view(Bl, T, d)
+    out = _experts(xf, order, (start, kept), sw, k, C, (wgl, wul, wol),
+                   cfg.act).view(Bl, T, d)
     out = DTensor.from_local(out, mesh, local_grad, run_check=False,
                              shape=x.shape,
                              stride=partition.contiguous_strides(x.shape))

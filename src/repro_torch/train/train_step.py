@@ -110,8 +110,8 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     the rest in the backward: attention (the flash op, self and cross), the
     scans (the ``repro_torch::selective_scan`` and
     ``repro_torch::mamba2_scan`` ops, whose backwards recompute their
-    states themselves), the experts' grouped ``aten.bmm`` products, the
-    dispatch and the elementwise work (a Mamba layer's causal conv, gates
+    states themselves), the experts' grouped products (the
+    ``repro_torch::grouped_mm`` op), the dispatch and the elementwise work (a Mamba layer's causal conv, gates
     and, in Mamba-2, gated norm).  Under remat "full" a layer keeps only
     its input.  ``media @ media_proj`` runs once a step outside the groups
     and, an ``mm``, is kept.

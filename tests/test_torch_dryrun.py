@@ -324,6 +324,52 @@ def _flops_on_a_mesh_of_one(arch, monkeypatch):
     assert res["raw_cost"]["flops"] == counter.get_total_flops() > 0
 
 
+@pytest.mark.parametrize("layout", ["ep", "tp"])
+def test_moe_layer_flops_count_the_sorted_rows(layout, monkeypatch):
+    """One MoE layer of reduced qwen2-moe (16 experts, top-2, no shared
+    expert; 4 x 16 tokens, capacity factor 4) on the fake 2 x 4 mesh, its
+    forward under the planner: the router's local product and three
+    grouped products of 2 R d f_local FLOPs each over the rank's
+    N_local * k = 64 sorted rows (capped at E_loc * C, 128, under EP), not
+    over the old (E_loc, min(C, N_local), d) buffer's 512 (TP) and 128
+    (EP) rows."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.models import moe as tmoe
+
+    if layout == "tp":
+        monkeypatch.setenv("REPRO_MOE_TP", "1")
+    cfg = dataclasses.replace(treg.get("qwen2-moe-a2.7b").reduced(),
+                              n_experts=16, n_experts_active=2,
+                              shared_expert_d_ff=0)
+    B, T, cf = 4, 16, 4.0
+    E, k, d, f = cfg.n_experts, 2, cfg.d_model, cfg.moe_d_ff
+    with fake_group(8):
+        mesh = _mesh((2, 4))
+        with FakeTensorMode():
+            params = {"moe": tmoe.init_moe_params(
+                torch.Generator().manual_seed(0), d, cfg, torch.float32)}
+            dp = partition.distribute(
+                params, partition.param_shardings(params, mesh), mesh)["moe"]
+            x = partition.distribute(
+                {"x": torch.empty(B, T, d)},
+                partition.batch_shardings({"x": torch.empty(B, T, d)}, mesh,
+                                          B), mesh)["x"]
+            assert tuple(x.placements) == (Shard(0), Replicate())
+            assert tmoe.expert_layout(dp["wi_gate"]) == layout
+            res = dryrun.measure(
+                lambda p, x: tmoe.moe_block(p, x, cfg, capacity_factor=cf),
+                (dp, x), mesh)
+    C = tmoe.capacity(cf, k, B * T, E)
+    N_local, tp = B * T // 2, 4
+    E_loc, f_loc = (E // tp, f) if layout == "ep" else (E, f // tp)
+    rows = min(N_local * k, E_loc * C)
+    assert rows == 64 and E_loc * min(C, N_local) == (
+        128 if layout == "ep" else 512)
+    router = 2 * N_local * d * E
+    assert res["flops"] == router + 3 * 2 * rows * d * f_loc
+
+
 # ---- the kernels' ops on fake tensors -----------------------------------------
 
 def _meta(ts_):

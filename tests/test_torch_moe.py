@@ -136,7 +136,7 @@ def test_moe_block_matches_jax(case, seed):
 
 def test_moe_block_dtypes_and_contiguous_experts():
     """bfloat16 in, bfloat16 out; the router float32; the permuted expert
-    weights contiguous, as ``bmm`` wants them."""
+    weights contiguous, as the grouped product wants them."""
     _, tcfg = _layer_cfgs(8, 2, 64)
     p = tmoe.init_moe_params(torch.Generator().manual_seed(0), 16, tcfg,
                              torch.bfloat16)
@@ -400,12 +400,14 @@ def _backward_ops(policy):
 
 def test_remat_dots_recomputes_the_grouped_products_not_the_router():
     """Ops of the backward pass of reduced qwen2-moe (2 MoE layers): under
-    "dots" each layer's three grouped ``aten.bmm`` and its attention (the
-    flash op) run again, no ``aten.mm`` (projections, router, shared MLP)
-    does; the gradients equal those without remat."""
+    "dots" each layer's three grouped products (the
+    ``repro_torch::grouped_mm`` op) and its attention (the flash op) run
+    again, no ``aten.mm`` (projections, router, shared MLP) does; the
+    gradients equal those without remat."""
     dots, g_dots = _backward_ops("dots")
     none, g_none = _backward_ops("none")
-    assert dots.get("aten.bmm", 0) - none.get("aten.bmm", 0) == 3 * 2
+    gmm = "repro_torch.grouped_mm"
+    assert dots.get(gmm, 0) - none.get(gmm, 0) == 3 * 2
     assert dots.get("repro_torch.flash_attn", 0) == 2
     mm = ("aten.mm", "aten.addmm")
     assert sum(dots.get(k, 0) for k in mm) == sum(none.get(k, 0) for k in mm)
