@@ -40,10 +40,13 @@ Phases, each printing what it found; any failure raises and exits non-zero:
    ``selective_scan`` also timed at T = 2048, the LUT matmul, and the
    MoE layer's grouped products (``grouped_mm``, both weight layouts, and
    ``grouped_mm_wgrad``) against their plain versions on ``GMM_CASES``
-   (segments of length 0 and 1, drops, widths 88, 1408, 2048, 5120 and
-   8192, every row dropped, a decode step; float32 and bf16, two calls
-   bit-identical), held to them again and timed from a CUDA graph at
-   qwen2-moe's served and trained shapes beside the bound over the kept
+   (segments of length 0 and 1, drops, widths 88, 200, 1408, 2048, 5120
+   and 8192, every row dropped, a decode step, a k depth of 88, segments
+   across the 64-row stage and 128-row tile edges; every row outside the
+   kept prefixes NaN, those rows exactly zero in the output; float32 and
+   bf16, two calls bit-identical), held to them again and timed from a
+   CUDA graph at qwen2-moe's decode step (gate/up only), served and
+   trained shapes beside the bound over the kept
    rows and ``torch._grouped_mm`` with every row kept (the dX form and,
    by its 2d x 2d form, the weight gradient too), whose output is held to
    the kernel's with every row kept;
@@ -1390,7 +1393,10 @@ def phase_lut_matmul(gen) -> dict:
 # length 0 and 1, kept prefixes shorter than their segments, rows and
 # widths that are not tile multiples (qwen2-moe's TP shard of 88 columns,
 # its 1408-wide ffn, llama4's 5120 x 8192 experts under EP), every row
-# dropped, and a decode step's 16 rows over 60 experts
+# dropped, a decode step's 16 rows over 60 experts, qwen2-moe's TP down
+# product (a k depth of 88, shorter than two 64-deep stages), and segments
+# that start at rows no multiple of 8 with lengths and kept prefixes on
+# either side of the 64-row stage and the 128-row tile
 GMM_CASES = {
     "short_and_empty": dict(K=2048, N=1408, lead=0, tail=0,
                             counts=(0, 1, 3, 0, 200, 129),
@@ -1410,6 +1416,12 @@ GMM_CASES = {
                                 for e in range(60)),
                    kept=tuple(min(1, int(e % 15 == 0 or e % 7 == 3))
                               for e in range(60))),
+    "tp_down": dict(K=88, N=2048, lead=0, tail=0,
+                    counts=tuple(e * 37 % 71 for e in range(60)),
+                    kept=tuple(min(e * 37 % 71, 40) for e in range(60))),
+    "stage_edges": dict(K=1408, N=200, lead=5, tail=11,
+                        counts=(63, 64, 65, 127, 128, 129, 257),
+                        kept=(63, 50, 65, 100, 128, 129, 200)),
 }
 # against the plain version on the same inputs: float32 differs by the
 # order of its sums, bf16 by one rounding of the output
@@ -1426,6 +1438,26 @@ def gmm_segments(case: str) -> tuple[int, torch.Tensor, torch.Tensor, int]:
     R = c["lead"] + int(counts.sum()) + c["tail"]
     return R, start, torch.tensor(c["kept"], dtype=torch.int64), max(
         1, max(c["kept"]))
+
+
+def _kept_mask(R, start, kept) -> torch.Tensor:
+    """(R,) bool: the rows some segment's kept prefix holds."""
+    mask = torch.zeros(R, dtype=torch.bool, device=start.device)
+    for s, n in zip(start.tolist(), kept.tolist()):
+        mask[s:s + n] = True
+    return mask
+
+
+def nan_outside(t, start, kept):
+    """``t`` with every row outside the segments' kept prefixes NaN: rows
+    the kernels must neither read into a sum nor let into an output."""
+    return t.masked_fill(~_kept_mask(t.shape[0], start, kept)[:, None],
+                         float("nan"))
+
+
+def zero_outside(y, start, kept) -> bool:
+    """Whether every row of ``y`` outside the kept prefixes is exactly 0."""
+    return bool((y[~_kept_mask(y.shape[0], start, kept)] == 0).all())
 
 
 def _gmm_cost(R_kept, K, N, n_used, R, itemsize):
@@ -1509,8 +1541,11 @@ def _gmm_timed(name, shape, fn, plain, lib, full, flops, nbytes, tol):
 def phase_grouped_mm(gen) -> list[dict]:
     """``grouped_mm`` (both weight layouts) and ``grouped_mm_wgrad`` against
     ``ref.grouped_mm_ref`` / ``ref.grouped_mm_wgrad_ref`` on ``GMM_CASES``
-    in float32 and bf16 (``GMM_TOL``), two calls bit-identical; then held
-    to the plain versions and timed from a CUDA graph at qwen2-moe's served
+    in float32 and bf16 (``GMM_TOL``), with every row outside the kept
+    prefixes of x and dy NaN and those rows of the output exactly zero, two
+    calls bit-identical; then held to the plain versions and timed from a
+    CUDA graph at qwen2-moe's decode step (4 tokens, 16 rows: the gate/up
+    product, bound by the used experts' weights), served
     prefill (4 x 1100 tokens, R = 17,600: the gate/up product 2048 -> 1408
     and the down product 1408 -> 2048) and trained shapes (4 x 2048 tokens,
     R = 32,768: the forward, the dX form and the weight gradient), beside
@@ -1524,8 +1559,10 @@ def phase_grouped_mm(gen) -> list[dict]:
         G = len(c["counts"])
         for dtype in (torch.float32, torch.bfloat16):
             K, N = c["K"], c["N"]
-            x = _rand(gen, (R, K), dtype)
-            dy = _rand(gen, (R, N), dtype)
+            # the rows outside the kept prefixes are NaN: the kernels must
+            # give exact zeros there and keep them out of every sum
+            x = nan_outside(_rand(gen, (R, K), dtype), start, kept)
+            dy = nan_outside(_rand(gen, (R, N), dtype), start, kept)
             for transposed in (False, True):
                 shape = (G, N, K) if transposed else (G, K, N)
                 w = (torch.randn(shape, generator=gen, device="cuda")
@@ -1539,6 +1576,9 @@ def phase_grouped_mm(gen) -> list[dict]:
                                                      else "")
                 err = _held("grouped_mm", name, got, want, GMM_TOL[dtype])
                 worst["grouped_mm"] = max(worst["grouped_mm"], err)
+                if not zero_outside(got, start, kept):
+                    raise AssertionError(f"grouped_mm {name}: a row outside "
+                                         "the kept prefixes is not zero")
                 if not torch.equal(got, again):
                     raise AssertionError(f"grouped_mm {name}: two calls "
                                          "differ")
@@ -1558,7 +1598,7 @@ def phase_grouped_mm(gen) -> list[dict]:
     bf = torch.bfloat16
     tol = GMM_TOL[bf]
     records = {}
-    for label, N_tok in (("served", 4 * max(PROMPT_LENS)),
+    for label, N_tok in (("decode", 4), ("served", 4 * max(PROMPT_LENS)),
                          ("trained", TRAIN_BATCH * TRAIN_SEQ)):
         R, start, kept, C, counts = _gmm_served(gen, N_tok)
         R_kept = int(kept.sum())
@@ -1566,8 +1606,10 @@ def phase_grouped_mm(gen) -> list[dict]:
         x = _rand(gen, (R, 2048), bf)
         for K, N, transposed in ((2048, 1408, False), (1408, 2048, False),
                                  (1408, 2048, True)):
-            if label == "served" and transposed:
+            if label != "trained" and transposed:
                 continue                     # serving runs no backward
+            if label == "decode" and K != 2048:
+                continue                     # one product: the weights' bytes
             xk = x[:, :K].contiguous()
             w = (torch.randn((60, N, K) if transposed else (60, K, N),
                              generator=gen, device="cuda") * K ** -0.5
@@ -2366,9 +2408,10 @@ def _time_flash_bwd(gen, B, T, H, K, D, Tk=None, causal=True) -> dict:
 
 
 def _kernel_share(prof, wall_us, label) -> None:
-    """Busy share, the top kernels, and device time by kind (GEMMs, flash
-    forward and backward, the scans' forward and backward, the rest:
-    elementwise, copies, reductions) of one profiled region."""
+    """Busy share, the top kernels, and device time by kind (GEMMs, the
+    MoE experts' grouped products, flash forward and backward, the scans'
+    forward and backward, the rest: elementwise, copies, reductions) of
+    one profiled region."""
     kernels: dict[str, list] = {}
     for ev in prof.events():
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
@@ -2381,20 +2424,24 @@ def _kernel_share(prof, wall_us, label) -> None:
                  if "dkdv_" in n or "dq_bf16" in n or "dq_f32" in n
                  or "delta_kernel" in n)
     gemm_us = sum(us for n, (us, _) in kernels.items()
-                  if any(w in n for w in ("nvjet", "gemm", "xmma", "cutlass")))
+                  if "grouped_mm" not in n
+                  and any(w in n for w in ("nvjet", "gemm", "xmma", "cutlass")))
     scan_bwd_us = sum(us for n, (us, _) in kernels.items()
                       if "mamba2_bwd" in n or "selective_bwd" in n)
     scan_fwd_us = sum(us for n, (us, _) in kernels.items()
                       if ("mamba2_" in n or "selective_" in n)
                       and "mamba2_bwd" not in n and "selective_bwd" not in n)
     scan_us = scan_fwd_us + scan_bwd_us
+    # the MoE experts' grouped products, out of "other" before the GEMMs
+    gmm_us = sum(us for n, (us, _) in kernels.items() if "grouped_mm" in n)
+    other_us = dev_us - gemm_us - gmm_us - fwd_us - bwd_us - scan_us
     log("profile", step=label, wall_ms=f"{wall_us / 1e3:.2f}",
         device_ms=(f"{dev_us / 1e3:.2f}" if dev_us else "not_measured"),
         busy_share=(f"{dev_us / wall_us:.3f}" if dev_us else "not_measured"),
         device_events=sum(n for _, n in kernels.values()),
-        gemm_ms=f"{gemm_us / 1e3:.2f}",
+        gemm_ms=f"{gemm_us / 1e3:.2f}", gmm_ms=f"{gmm_us / 1e3:.2f}",
         ops=repr(_op_split(prof)).replace(" ", ""),
-        other_ms=f"{(dev_us - gemm_us - fwd_us - bwd_us - scan_us) / 1e3:.2f}",
+        other_ms=f"{other_us / 1e3:.2f}",
         scan_fwd_ms=f"{scan_fwd_us / 1e3:.2f}",
         scan_bwd_ms=f"{scan_bwd_us / 1e3:.2f}",
         flash_fwd_ms=f"{fwd_us / 1e3:.2f}", flash_bwd_ms=f"{bwd_us / 1e3:.2f}",

@@ -250,7 +250,7 @@ def grouped_mm(x: torch.Tensor, w: torch.Tensor, start: torch.Tensor,
     kept[g])``, zero elsewhere.  x (R, K); w (G, K, N) or (G, N, K); start
     and kept (G,) int64, segments in ascending order and disjoint;
     ``capacity`` bounds every kept (0: no bound) and only sizes the
-    kernel's grid and the FLOP count.  Differentiable in x and w."""
+    float32 kernel's grid and the FLOP count.  Differentiable in x and w."""
     _local("grouped_mm", x, w, start, kept)
     if _symbolic.symbolic(x, w, start, kept) or torch.is_grad_enabled() \
             and (x.requires_grad or w.requires_grad):

@@ -163,6 +163,38 @@ def test_card_cases_against_a_dense_form(case, transposed):
     assert int(kept.max()) <= cap
 
 
+@pytest.mark.parametrize("case", CASES)
+def test_plain_versions_ignore_rows_outside_the_kept_prefixes(case):
+    """The card phase fills every row outside the kept prefixes of x and
+    dy with NaN and holds the kernels to the plain versions there: the
+    oracle itself must give the same output (zeros in those rows) whatever
+    they hold, NaN or +-Inf, in both weight layouts and the weight
+    gradient; ``chip_smoke.nan_outside`` and ``zero_outside`` mark exactly
+    those rows."""
+    cs = _chip_smoke()
+    c = cs.GMM_CASES[case]
+    R, start, kept, _ = cs.gmm_segments(case)
+    G = len(c["counts"])
+    rng = np.random.default_rng(100 + CASES.index(case))
+    x, dy = _rand(rng, R, CPU_K), _rand(rng, R, CPU_N)
+    outside = ~cs._kept_mask(R, start, kept)
+    junk = torch.tensor([float("nan"), float("inf"), -float("inf")],
+                        dtype=x.dtype)
+    fill = junk[torch.arange(R) % 3][:, None]
+    x_bad = torch.where(outside[:, None], fill, x)
+    dy_bad = torch.where(outside[:, None], fill, dy)
+    assert torch.equal(torch.isnan(cs.nan_outside(x, start, kept)).any(1),
+                       outside)
+    for transposed in (False, True):
+        w = _rand(rng, *((G, CPU_N, CPU_K) if transposed
+                         else (G, CPU_K, CPU_N)))
+        want = ref.grouped_mm_ref(x, w, start, kept, transposed)
+        got = ref.grouped_mm_ref(x_bad, w, start, kept, transposed)
+        assert torch.equal(got, want) and cs.zero_outside(got, start, kept)
+    assert torch.equal(ref.grouped_mm_wgrad_ref(x_bad, dy_bad, start, kept),
+                       ref.grouped_mm_wgrad_ref(x, dy, start, kept))
+
+
 def test_segments_of_the_card_cases():
     """``chip_smoke.gmm_segments``: segments in ascending order, disjoint,
     each kept prefix within its segment, lead and tail rows outside."""
