@@ -172,6 +172,23 @@ Phases, each printing what it found; any failure raises and exits non-zero:
     card's name and power limit beside it); ``pluto_add``, ``pluto_mul``
     and ``pluto_sub`` on 2^20 random uint32 pairs and the width sweep
     4-32 likewise;
+20b. pim-sim: the Shared-PIM simulator's core (``repro_torch.core``
+   engine and scheduler) on the card: the five Fig-8 applications at the
+   paper's sizes (``PIM_FIG8``: MM n = 200, PMM n = 300, NTT n = 512,
+   BFS and DFS over 1000 nodes; 16 PEs) under both interconnects,
+   scheduled by the vector engine with its state on the card, each held
+   bit for bit (makespan, busy and stall times, counts, rows, energies
+   and a SHA-256 of the finish times) against the host's scalar engine
+   and ``core/reference.py``, then ``scheduler.schedule`` timed on the
+   card and with ``device="cpu"`` in turns (``PIM_TIMING_ROUNDS`` each;
+   median and range, the card's name and power limit beside them); MM
+   n = 64 on 256 PEs (``PIM_WIDE``), whose wide frontiers take the
+   engine's batched path, held the same way; every row of
+   ``benchmarks/paper_tables.py`` but its wall-clock ones
+   (``pim_paper_rows``: Table II, Fig 6, Fig 7, Fig 8 from the card's
+   schedules, the energy constants, Table III, Fig 9) printed beside its
+   paper value, each equal to the host's and the ``PIM_PAPER_ROWS`` with
+   a paper value within that module's tolerance;
 21. overlap: the distributed layer in an NCCL process group of one rank
     (a ``FileStore`` under ``build/``): ``ag_matmul``, ``matmul_rs`` and
     ``overlapped_ffn`` against the unsharded products (1e-5, 1e-4),
@@ -222,11 +239,13 @@ import contextlib
 import dataclasses
 import datetime
 import gc
+import hashlib
 import json
 import os
 import pathlib
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -243,6 +262,17 @@ from repro_torch import tree  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core import executor  # noqa: E402
 from repro_torch.core import pluto_alu as alu  # noqa: E402
+from repro_torch.core import area as pim_area  # noqa: E402
+from repro_torch.core import copy_models as pim_copy  # noqa: E402
+from repro_torch.core import engine as pim_engine  # noqa: E402
+from repro_torch.core import nonpim as pim_nonpim  # noqa: E402
+from repro_torch.core import pluto as pim_pluto  # noqa: E402
+from repro_torch.core import reference as pim_ref  # noqa: E402
+from repro_torch.core import scheduler as pim_sched  # noqa: E402
+from repro_torch.core import taskgraph as pim_tg  # noqa: E402
+from repro_torch.core.energy import DEFAULT_TABLE as PIM_ENERGY_TABLE  # noqa: E402
+from repro_torch.core.energy import move_energy as pim_move_energy  # noqa: E402
+from repro_torch.core.pluto import Interconnect  # noqa: E402
 from repro_torch.core.overlap import collective_matmul as cm  # noqa: E402
 from repro_torch.core.overlap import compression  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticCorpus  # noqa: E402
@@ -2818,6 +2848,231 @@ def phase_pluto(smi: str) -> None:
             card=repr(smi))
 
 
+# ---- the Shared-PIM simulator's core: the paper's tables on the card -------
+
+# the Fig-8 applications at the paper's sizes (taskgraph's defaults), each
+# with the improvement the paper reports; 16 subarray PEs, one bank
+PIM_N_PES = 16
+PIM_FIG8 = (("mm", dict(n=200), 0.40), ("pmm", dict(n=300), 0.44),
+            ("ntt", dict(n=512), 0.31), ("bfs", dict(n_nodes=1000), 0.29),
+            ("dfs", dict(n_nodes=1000), 0.29))
+# a wide bank whose frontiers run the batched (tensor) path of the vector
+# engine on the card, not just its small-batch path
+PIM_WIDE = ("mm", dict(n=64, n_pes=256))
+# how many rows benchmarks/paper_tables.py checks against a paper value,
+# and how many it computes besides its wall-clock rows
+PIM_PAPER_ROWS, PIM_ROWS = 42, 93
+PIM_TIMING_ROUNDS = 3
+
+
+def pim_row(name: str, value: float, paper: float | None, tol: float):
+    """One row as ``benchmarks/paper_tables.py`` makes it: (name, value,
+    paper value or None, within tolerance)."""
+    ok = paper is None or abs(value - paper) <= tol
+    return (name, value, paper, ok)
+
+
+def pim_paper_rows(device="cuda", fig8=None) -> list:
+    """Every row of ``benchmarks/paper_tables.py`` but its wall-clock ones,
+    computed from the port, with that module's paper values and
+    tolerances: Table II, Fig 6, Fig 7, Fig 8 (the schedules on
+    ``device``, or ``fig8[(app, mode)]`` where given), the energy
+    constants, Table III and Fig 9."""
+    rows = []
+    t2 = pim_copy.table2()
+    paper = {"memcpy (via mem. channel)": (1366.25, 6.2),
+             "RC-InterSA": (1363.75, 4.33),
+             "LISA": (260.5, 0.17),
+             "Shared-PIM": (52.75, 0.14)}
+    for mech, (lat, en) in t2.items():
+        plat, pen = paper[mech]
+        rows.append(pim_row(f"table2.{mech}.latency_ns", lat, plat, 0.01))
+        rows.append(pim_row(f"table2.{mech}.energy_uJ", en, pen, 0.01))
+    rows.append(pim_row("fig6.sharedpim_vs_lisa_speedup",
+                        pim_copy.lisa_copy(distance=1).latency_ns
+                        / pim_copy.sharedpim_copy().latency_ns, 4.94, 0.1))
+    rows.append(pim_row("fig6.sharedpim_vs_rc_speedup",
+                        pim_copy.rc_intersa_copy().latency_ns
+                        / pim_copy.sharedpim_copy().latency_ns, 25.85, 0.2))
+    paper_pct = {("add", 32): 0.18, ("mul", 32): 0.31,
+                 ("add", 128): 0.40, ("mul", 128): 0.40}
+    for (op, bits), v in pim_pluto.fig7_table().items():
+        rows.append(pim_row(f"fig7.{op}{bits}.lisa_ns", v["lisa_ns"], None, 0))
+        rows.append(pim_row(f"fig7.{op}{bits}.sharedpim_ns",
+                            v["shared_pim_ns"], None, 0))
+        rows.append(pim_row(f"fig7.{op}{bits}.improvement",
+                            v["improvement"], paper_pct.get((op, bits)),
+                            0.01))
+    savings = []
+    for app, kw, target in PIM_FIG8:
+        res = {}
+        for m in Interconnect:
+            res[m] = (fig8[(app, m)] if fig8 is not None else
+                      pim_sched.schedule(pim_tg.build(app, m, **kw), m,
+                                         device=device))
+        lisa, sp = res[Interconnect.LISA], res[Interconnect.SHARED_PIM]
+        imp = 1.0 - sp.makespan_ns / lisa.makespan_ns
+        esave = 1.0 - sp.transfer_energy_j / lisa.transfer_energy_j
+        savings.append(esave)
+        rows.append(pim_row(f"fig8.{app}.lisa_us", lisa.makespan_ns / 1e3,
+                            None, 0))
+        rows.append(pim_row(f"fig8.{app}.sharedpim_us",
+                            sp.makespan_ns / 1e3, None, 0))
+        rows.append(pim_row(f"fig8.{app}.improvement", imp, target, 0.04))
+        rows.append(pim_row(f"fig8.{app}.transfer_energy_saving", esave,
+                            None, 0))
+    rows.append(pim_row("fig8.avg_transfer_energy_saving",
+                        sum(savings) / len(savings), 0.18, 0.02))
+    t = PIM_ENERGY_TABLE
+    rows += [
+        pim_row("energy.lisa_row_uJ", t.lisa_row_j * 1e6, 0.17, 0.001),
+        pim_row("energy.sharedpim_row_uJ", t.sp_row_j * 1e6, 0.14, 0.001),
+        pim_row("energy.per_move_advantage", t.lisa_row_j / t.sp_row_j,
+                1.2, 0.02),
+        pim_row("energy.channel_row_uJ", t.channel_row_j * 1e6, 6.2, 0.001),
+        pim_row("energy.group_row_uJ", t.group_row_j * 1e6, 4.33 / 2, 0.001),
+        pim_row("energy.pe_op_uJ", t.op_j * 1e6, 0.17, 0.001),
+        pim_row("energy.refresh_window_uJ", t.refresh_window_j * 1e6,
+                0.17, 0.001),
+        pim_row("energy.move_lisa_d1_uJ",
+                pim_move_energy(Interconnect.LISA, 0, [1], 1) * 1e6,
+                pim_copy.lisa_copy(distance=1).energy_j * 1e6, 0.0),
+        pim_row("energy.move_sp_uJ",
+                pim_move_energy(Interconnect.SHARED_PIM, 0, [1], 1) * 1e6,
+                pim_copy.sharedpim_copy().energy_j * 1e6, 0.0),
+        pim_row("energy.move_sp_bcast4_uJ",
+                pim_move_energy(Interconnect.SHARED_PIM, 0, [1, 2, 3, 4],
+                                1) * 1e6,
+                pim_copy.sharedpim_broadcast(dests=(1, 2, 3, 4)).energy_j
+                * 1e6, 0.0),
+        pim_row("table3.base_dram_mm2", pim_area.total(0), 70.24, 0.01),
+        pim_row("table3.pluto_bsa_mm2", pim_area.total(1), 82.00, 0.02),
+        pim_row("table3.pluto_sharedpim_mm2", pim_area.total(2), 87.87,
+                0.01),
+        pim_row("table3.overhead_pct", pim_area.sharedpim_overhead_pct(),
+                7.16, 0.02),
+    ]
+    for app, r in pim_nonpim.fig9_table().items():
+        rows.append(pim_row(f"fig9.{app}.lisa_ipc", r["lisa"], None, 0))
+        rows.append(pim_row(f"fig9.{app}.sharedpim_ipc", r["shared_pim"],
+                            None, 0))
+        rows.append(pim_row(f"fig9.{app}.no_regression",
+                            float(r["shared_pim"] >= r["lisa"] >= 1.0),
+                            1.0, 0))
+    return rows
+
+
+def pim_record(r) -> dict:
+    """What ``tests/capture_goldens.py`` pins of a schedule: the floats,
+    the counts, the energies and a SHA-256 of the finish times packed as
+    (uid int64, finish float64) in uid order."""
+    blob = b"".join(struct.pack("<qd", uid, r.finish_times[uid])
+                    for uid in sorted(r.finish_times))
+    return {"makespan_ns": r.makespan_ns, "op_busy_ns": r.op_busy_ns,
+            "move_busy_ns": r.move_busy_ns, "stall_ns": r.stall_ns,
+            "n_ops": r.n_ops, "n_moves": r.n_moves,
+            "n_rows_moved": r.n_rows_moved,
+            "transfer_energy_j": r.transfer_energy_j,
+            "compute_energy_j": r.compute_energy_j,
+            "finish_sha256": hashlib.sha256(blob).hexdigest()}
+
+
+def _pim_result(st, mode):
+    """An engine's ``EngineStats`` as the scheduler's ``ScheduleResult``."""
+    return pim_sched.ScheduleResult(
+        mode, st.makespan_ns, st.op_busy_ns, st.move_busy_ns, st.stall_ns,
+        st.n_ops, st.n_moves, st.n_rows_moved, st.finish_times)
+
+
+def _pim_wall(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _pim_schedule(app, kw, mode, smi, timed: bool):
+    """One schedule on the card, held bit for bit against the host's scalar
+    engine and ``core/reference.py``; then (``timed``) the entry point
+    ``scheduler.schedule`` timed on the card and on the host in turns, its
+    results held to the same record."""
+    n_pes = kw.get("n_pes", PIM_N_PES)
+    g = pim_tg.build_ir(app, mode, **kw)
+    sess = pim_engine.EngineSession(pim_engine.BankModel(mode, n_pes),
+                                    device="cuda")
+    sess.admit(g)
+    sess.advance()
+    where = {t.device.type for t in (sess.free, sess._v_ready.a,
+                                      sess._v_finish.a, sess._v_M.a)}
+    if where != {"cuda"}:
+        raise AssertionError(f"pim-sim {app}: session state on {where}")
+    got = _pim_result(sess.stats(), mode)
+    rec = pim_record(got)
+    want = {"scalar": pim_record(_pim_result(pim_engine.run(
+                g, pim_engine.BankModel(mode, n_pes), engine="scalar",
+                device="cpu"), mode)),
+            "reference": pim_record(pim_ref.schedule(
+                pim_tg.build(app, mode, **kw), mode, n_pes))}
+    line = dict(app=app, mode=mode.value, n_pes=n_pes, tasks=g.n,
+                makespan_ns=repr(got.makespan_ns),
+                bit_equal="scalar,reference")
+    if timed:
+        card, host = [], []
+        for rnd in range(PIM_TIMING_ROUNDS):
+            out = {}
+            for dev, walls in (("cuda", card), ("cpu", host)):
+                walls.append(_pim_wall(lambda: out.__setitem__(
+                    dev, pim_sched.schedule(g, mode, n_pes, device=dev))))
+            for dev, r in out.items():
+                want[f"schedule(device={dev!r}), round {rnd}"] = \
+                    pim_record(r)
+        med_c, med_h = statistics.median(card), statistics.median(host)
+        line.update(card_ms=f"{med_c:.1f}",
+                    card_range=f"[{min(card):.1f},{max(card):.1f}]",
+                    host_ms=f"{med_h:.1f}",
+                    host_range=f"[{min(host):.1f},{max(host):.1f}]",
+                    card_over_host=f"{med_c / med_h:.2f}", card=repr(smi))
+    for oracle, w in want.items():
+        bad = [k for k in rec if rec[k] != w[k]]
+        if bad:
+            raise AssertionError(f"pim-sim {app}/{mode.value}: the card's "
+                                 f"schedule differs from {oracle} in {bad}")
+    log("pim-sim", **line)
+    return got
+
+
+def phase_pim_sim(smi: str) -> None:
+    t0 = time.perf_counter()
+    fig8 = {}
+    for app, kw, _ in PIM_FIG8:
+        for mode in Interconnect:
+            fig8[(app, mode)] = _pim_schedule(app, kw, mode, smi, True)
+    for mode in Interconnect:
+        _pim_schedule(*PIM_WIDE, mode, smi, False)
+    card = pim_paper_rows("cuda", fig8)
+    host = pim_paper_rows("cpu")
+    if len(card) != PIM_ROWS or sum(r[2] is not None for r in card) \
+            != PIM_PAPER_ROWS:
+        raise AssertionError(f"pim-sim: {len(card)} rows, "
+                             f"{sum(r[2] is not None for r in card)} with a "
+                             f"paper value; want {PIM_ROWS}, "
+                             f"{PIM_PAPER_ROWS}")
+    for (name, value, paper, ok), h in zip(card, host):
+        if (name, value) != h[:2]:
+            raise AssertionError(f"pim-sim row {name}: card {value!r}, "
+                                 f"host {h[1]!r}")
+        log("pim-sim", row=name, value=repr(value),
+            paper="-" if paper is None else paper, ok=ok)
+    off = [r[0] for r in card if not r[3]]
+    if off:
+        raise AssertionError(f"pim-sim: rows out of the paper's tolerance: "
+                             f"{off}")
+    log("pim-sim", rows=len(card), paper_rows=PIM_PAPER_ROWS,
+        within_tolerance=True, card_equals_host=True,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+
+
 # ---- the distributed layer in a group of one -------------------------------
 
 # under a one-card mesh at full width: granite-3-2b at 4 of its 40
@@ -3421,6 +3676,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_pluto(smi)
+    phase_pim_sim(smi)
     phase_overlap()
     phase_mesh_train()
     gc.collect()

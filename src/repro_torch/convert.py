@@ -13,6 +13,11 @@ and casting them back is exact.
 (``repro.train.train_step.make_train_state``: params, AdamW moments as
 float32 or as 8-bit ``{"c", "s"}`` codes and scales, and the two step
 counters) into the port's, so that both packages can start from one state.
+
+``taskgraph_from_numpy`` carries a simulator task graph of the reference
+(``repro.core.ir.TaskGraph``: its array fields as numpy arrays, plus
+``tags``) into the port's :class:`~repro_torch.core.ir.TaskGraph`, field
+for field in the same dtypes, so one graph can be scheduled by both.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import ir
 from repro_torch.device import resolve
 from repro_torch.models import model as model_lib
 
@@ -77,3 +83,33 @@ def train_state_from_numpy(state: dict, cfg: ModelConfig,
             "opt": {"m": moments(opt["m"]), "v": moments(opt["v"]),
                     "step": step(opt["step"])},
             "step": step(state["step"])}
+
+
+def taskgraph_from_numpy(fields: dict) -> ir.TaskGraph:
+    """A reference task graph's fields -> the port's (host) TaskGraph.
+
+    ``fields`` maps each of :data:`repro_torch.core.ir.ARRAY_FIELDS` to a
+    numpy array (e.g. ``{f: getattr(g, f) for f in ir.ARRAY_FIELDS}``) and
+    ``tags`` to a tuple of strings or None.  The arrays keep their values
+    and dtypes (int8 kinds, int16 op classes, bool ``dst_is_tuple``, int64
+    and float64 for the rest); the result is frozen like a built graph.
+    """
+    want = {"uids": torch.int64, "kinds": torch.int8,
+            "dep_indptr": torch.int64, "dep_pos": torch.int64,
+            "duration": torch.float64, "op_class": torch.int16,
+            "pe": torch.int64, "src": torch.int64,
+            "dst_indptr": torch.int64, "dst_flat": torch.int64,
+            "dst_is_tuple": torch.bool, "rows": torch.int64}
+    missing = set(ir.ARRAY_FIELDS) - set(fields)
+    if missing:
+        raise KeyError(f"task graph fields missing: {sorted(missing)}")
+    arrays = {}
+    for f in ir.ARRAY_FIELDS:
+        t = torch.from_numpy(np.array(fields[f]))
+        if t.dtype != want[f]:
+            raise TypeError(f"task graph field {f!r} has dtype {t.dtype}, "
+                            f"want {want[f]}")
+        arrays[f] = t
+    tags = fields.get("tags")
+    return ir.freeze(ir.TaskGraph(**arrays,
+                                  tags=None if tags is None else tuple(tags)))
