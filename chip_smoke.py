@@ -189,6 +189,25 @@ Phases, each printing what it found; any failure raises and exits non-zero:
    schedules, the energy constants, Table III, Fig 9) printed beside its
    paper value, each equal to the host's and the ``PIM_PAPER_ROWS`` with
    a paper value within that module's tolerance;
+20c. pim-device: the device-scale simulator (``repro_torch.device``,
+   ``passes``, ``frontend``) on the card: every ``device`` and ``synth``
+   case of ``tests/golden_schedules.json`` (104 schedules, the grid kept
+   here as ``GOLDEN_APP_KW``, ``GOLDEN_GEOMETRIES`` and ``GOLDEN_SYNTH``)
+   scheduled by ``device.scheduler.schedule(..., device="cuda")`` and held
+   exactly to the golden record (makespan, busy and stall times, counts,
+   rows, energies, rows by route, bus busy times and a SHA-256 of the
+   finish times); the HBM-scale device (``PIM_HBM``: 16 channels x 16
+   banks, 4 groups a channel, 16 PEs a bank, 4,096 PEs) running the five
+   Fig-8 applications at the paper's sizes, ``round_robin``, strong
+   scaling, under both interconnects through ``BatchRunner(device=
+   "cuda").run``, each held bit for bit to the same runner on the host
+   (BFS, DFS and PMM n = 32 also to the host's scalar engine), its
+   makespan beside the reference's (``PIM_HBM_REF``), timed on the card
+   and the host in turns (``PIM_TIMING_ROUNDS`` for ``PIM_HBM_REPEAT``,
+   once for MM, PMM and NTT) with the engine's batch counts;
+   qwen2-moe-a2.7b prefill at full depth on that device with and without
+   the passes pipeline (``DEFAULT_OPT``: 291 rewrites, the optimised
+   Shared-PIM makespan below the unoptimised one), card against host;
 21. overlap: the distributed layer in an NCCL process group of one rank
     (a ``FileStore`` under ``build/``): ``ag_matmul``, ``matmul_rs`` and
     ``overlapped_ffn`` against the unsharded products (1e-5, 1e-4),
@@ -220,8 +239,8 @@ Phases, each printing what it found; any failure raises and exits non-zero:
     ``PLANNER_MEM_RTOL`` of ``torch.cuda.max_memory_allocated`` of the
     same step run for real, its FLOPs equal to ``FlopCounterMode`` over
     the plain step;
-24. dryrun: ``python -m repro_torch.launch.dryrun`` in subprocesses on
-    ``DRYRUN_CELLS`` (granite-3-2b train_4k on the 256- and 512-rank
+24. dryrun: ``python -m repro_torch.launch.dryrun`` in subprocesses,
+    all started together, on ``DRYRUN_CELLS`` (granite-3-2b train_4k on the 256- and 512-rank
     meshes; glm4-9b decode_32k, qwen2-moe-a2.7b train_4k and
     llama4-maverick-400b-a17b decode_32k on the 256-rank one; a fake
     process group and fake CUDA tensors), every cell ``ok``, each cell's per-device
@@ -265,6 +284,8 @@ from repro_torch.core import pluto_alu as alu  # noqa: E402
 from repro_torch.core import area as pim_area  # noqa: E402
 from repro_torch.core import copy_models as pim_copy  # noqa: E402
 from repro_torch.core import engine as pim_engine  # noqa: E402
+from repro_torch.core import engine_vec as pim_engine_vec  # noqa: E402
+from repro_torch.core import ir as pim_ir  # noqa: E402
 from repro_torch.core import nonpim as pim_nonpim  # noqa: E402
 from repro_torch.core import pluto as pim_pluto  # noqa: E402
 from repro_torch.core import reference as pim_ref  # noqa: E402
@@ -276,6 +297,12 @@ from repro_torch.core.pluto import Interconnect  # noqa: E402
 from repro_torch.core.overlap import collective_matmul as cm  # noqa: E402
 from repro_torch.core.overlap import compression  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticCorpus  # noqa: E402
+from repro_torch import passes as pim_passes  # noqa: E402
+from repro_torch.device import batch as dev_batch  # noqa: E402
+from repro_torch.device import partition as dev_part  # noqa: E402
+from repro_torch.device import scheduler as dev_sched  # noqa: E402
+from repro_torch.device.geometry import DeviceGeometry  # noqa: E402
+from repro_torch.device.resources import DeviceModel  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import grouped_mm as gm  # noqa: E402
@@ -3073,6 +3100,279 @@ def phase_pim_sim(smi: str) -> None:
         seconds=f"{time.perf_counter() - t0:.1f}")
 
 
+# ---- the device-scale simulator: goldens, the HBM device, the passes -------
+
+# tests/capture_goldens.py's golden grid and handcrafted graphs, kept here
+# because this script imports nothing of the reference package (a CPU test
+# holds the copies equal to the originals)
+GOLDEN_APP_KW = {"mm": dict(n=30), "pmm": dict(n=30), "ntt": dict(n=64),
+                 "bfs": dict(n_nodes=60), "dfs": dict(n_nodes=60)}
+GOLDEN_GEOMETRIES = {
+    "1ch_1bank": dict(channels=1, banks_per_channel=1),
+    "1ch_4banks": dict(channels=1, banks_per_channel=4),
+    "2ch_4banks_2groups": dict(channels=2, banks_per_channel=4,
+                               bank_groups_per_channel=2),
+}
+GOLDEN_SYNTH = {
+    "bcast_mixed": [
+        pim_sched.Task(0, "move", src=0, dst=(1, 17, 18, 33), rows=2),
+        pim_sched.Task(1, "op", deps=(0,), pe=17, duration=300.0),
+        pim_sched.Task(2, "move", deps=(1,), src=17, dst=70, rows=3),
+        pim_sched.Task(3, "op", pe=2, duration=100.0),
+    ],
+    "fanout5": [
+        pim_sched.Task(0, "op", pe=0, duration=50.0),
+        pim_sched.Task(1, "move", deps=(0,), src=0, dst=(1, 2, 3, 4, 5),
+                       rows=2),
+        pim_sched.Task(2, "op", deps=(1,), pe=5, duration=75.0),
+    ],
+}
+# the HBM-scale device: 16 channels x 16 banks, 4 bank groups a channel,
+# 16 PEs a bank (4,096 PEs, 12,624 resource tokens)
+PIM_HBM = dict(channels=16, banks_per_channel=16, bank_groups_per_channel=4,
+               pes_per_bank=16)
+# the reference package's makespans (ns, to two decimals) of the Fig-8
+# applications at the paper's sizes on that device, round_robin, strong
+# scaling (its NumPy simulator on a host CPU)
+PIM_HBM_REF = {
+    ("mm", "lisa"): 49245370.86, ("mm", "shared_pim"): 33921611.30,
+    ("pmm", "lisa"): 166931354.62, ("pmm", "shared_pim"): 92723984.80,
+    ("ntt", "lisa"): 15422754.86, ("ntt", "shared_pim"): 3185970.80,
+    ("bfs", "lisa"): 30738233.57, ("bfs", "shared_pim"): 13818954.31,
+    ("dfs", "lisa"): 30738233.57, ("dfs", "shared_pim"): 13818954.31}
+# the apps timed PIM_TIMING_ROUNDS times on the HBM device; MM, PMM and
+# NTT (120,000, 270,000 and 184,320 tasks, 97% of the grid's time) are
+# timed once, so the phase stays under three minutes
+PIM_HBM_REPEAT = ("bfs", "dfs")
+# the held-against-the-scalar-engine cases besides BFS and DFS: the HBM
+# test's PMM n = 32
+PIM_HBM_SMALL = ("pmm", dict(n=32))
+# qwen2-moe-a2.7b prefill at full depth (24 layers) on the HBM device,
+# locality_first: tasks without and with the passes, the rewrites, and the
+# reference's makespans (ns) without and with them
+PIM_MOE = ("qwen2-moe-a2.7b", dict(phase="prefill"))
+PIM_MOE_TASKS, PIM_MOE_REWRITES = (10620, 10329), 291
+PIM_MOE_REF = {("lisa", False): 45307276.62, ("lisa", True): 43206300.54,
+               ("shared_pim", False): 10569127.37,
+               ("shared_pim", True): 10313996.92}
+
+
+def pim_device_record(r) -> dict:
+    """What ``tests/capture_goldens.py`` pins of a device schedule:
+    ``pim_record``'s fields, the cross moves, the rows by route and the
+    bus busy times."""
+    rec = pim_record(r)
+    rec.update(n_cross_moves=r.n_cross_moves,
+               rows_by_route=dict(r.rows_by_route),
+               bus_busy_ns=dict(r.bus_busy_ns))
+    return rec
+
+
+def _pim_scalar_device(g, mode, geom) -> dict:
+    """The record of ``g``'s schedule by the host's scalar engine, wrapped
+    as ``device.scheduler.schedule`` wraps the vector engine's."""
+    g = pim_ir.materialize(g, mode)
+    st = pim_engine.run(g, DeviceModel(mode, geom), engine="scalar",
+                        device="cpu")
+    e_row = (pim_pluto.E_MOVE_LISA if mode is Interconnect.LISA
+             else pim_pluto.E_MOVE_BUS)
+    return pim_device_record(dev_sched.DeviceScheduleResult(
+        mode, geom, st.makespan_ns, st.op_busy_ns, st.move_busy_ns,
+        st.stall_ns, st.n_ops, st.n_moves, st.n_rows_moved, st.finish_times,
+        st.energy_j + sum(st.rows_by_route.values()) * e_row,
+        st.n_cross_moves, st.rows_by_route, st.bus_busy_ns))
+
+
+def _pim_held(what: str, got: dict, want: dict, oracle: str) -> None:
+    bad = [k for k in got if got[k] != want[k]]
+    if bad:
+        raise AssertionError(f"pim-device {what}: the card's schedule "
+                             f"differs from {oracle} in {bad}")
+
+
+def _pim_device_goldens() -> None:
+    """Every device and synth golden, scheduled with the state on the
+    card, held exactly to its record."""
+    t0 = time.perf_counter()
+    golden = json.loads((ROOT / "tests" / "golden_schedules.json")
+                        .read_text())
+    n = 0
+    for gname, gkw in GOLDEN_GEOMETRIES.items():
+        geom = DeviceGeometry(**gkw)
+        for app, kw in GOLDEN_APP_KW.items():
+            for scaling in ("strong", "weak"):
+                policies = (("locality_first", "round_robin",
+                             "bandwidth_balanced")
+                            if scaling == "strong" and geom.n_banks > 1
+                            else ("locality_first",))
+                for policy in policies:
+                    for mode in Interconnect:
+                        g = dev_part.build_partitioned_ir(
+                            app, mode, geom, policy=policy, scaling=scaling,
+                            **kw)
+                        key = f"{app}/{mode.value}/{gname}/{scaling}/{policy}"
+                        _pim_held(key, pim_device_record(dev_sched.schedule(
+                            g, mode, geom, device="cuda")),
+                            golden["device"][key], "the golden")
+                        n += 1
+    big = DeviceGeometry(**GOLDEN_GEOMETRIES["2ch_4banks_2groups"])
+    for name, tasks in GOLDEN_SYNTH.items():
+        for mode in Interconnect:
+            key = f"{name}/{mode.value}"
+            _pim_held(key, pim_device_record(dev_sched.schedule(
+                tasks, mode, big, device="cuda")), golden["synth"][key],
+                "the golden")
+            n += 1
+    if n != len(golden["device"]) + len(golden["synth"]) or n != 104:
+        raise AssertionError(f"pim-device: {n} goldens run, the file has "
+                             f"{len(golden['device'])} + "
+                             f"{len(golden['synth'])}")
+    log("pim-device", goldens=n, bit_equal=True,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+
+
+def _pim_run_timed(runner, cfg):
+    """One config through ``runner.run``: (result, wall ms, batches, wide
+    batches), the counts from the engine's dispatch counters."""
+    pim_engine_vec.advance.batches = pim_engine_vec.advance.wide_batches = 0
+    out = []
+    ms_ = _pim_wall(lambda: out.extend(runner.run([cfg])))
+    return (out[0], ms_, pim_engine_vec.advance.batches,
+            pim_engine_vec.advance.wide_batches)
+
+
+def _pim_hbm_grid(smi: str) -> None:
+    """The five Fig-8 apps at the paper's sizes on the HBM device, card
+    against host in turns, and the small cases against the scalar
+    engine."""
+    geom = DeviceGeometry(**PIM_HBM)
+    card = dev_batch.BatchRunner(device="cuda")
+    host = dev_batch.BatchRunner(device="cpu")
+    cfgs = [dev_batch.SweepConfig.make(app, mode, geom, policy="round_robin",
+                                       **kw)
+            for app, kw, _ in PIM_FIG8 for mode in Interconnect]
+    walls = {cfg: ([], []) for cfg in cfgs}
+    want, got, batches = {}, {}, {}
+    for rnd in range(PIM_TIMING_ROUNDS):
+        for cfg in cfgs:
+            if rnd and cfg.app not in PIM_HBM_REPEAT:
+                continue
+            what = f"{cfg.app}/{cfg.mode.value} round {rnd}"
+            rc, ms_c, nb, nw = _pim_run_timed(card, cfg)
+            rh, ms_h, _, _ = _pim_run_timed(host, cfg)
+            walls[cfg][0].append(ms_c)
+            walls[cfg][1].append(ms_h)
+            rec = pim_device_record(rc)
+            if not rnd:
+                want[cfg], got[cfg] = pim_device_record(rh), rec
+                batches[cfg] = (nb, nw, rc.n_ops + rc.n_moves)
+            _pim_held(what, rec, want[cfg], "the host's BatchRunner")
+            _pim_held(what + " (host)", pim_device_record(rh), want[cfg],
+                      "the host's first round")
+    small = [dev_batch.SweepConfig.make(
+        PIM_HBM_SMALL[0], mode, geom, policy="round_robin",
+        **PIM_HBM_SMALL[1]) for mode in Interconnect]
+    for cfg in small:
+        got[cfg] = pim_device_record(card.run([cfg])[0])
+        want[cfg] = pim_device_record(host.run([cfg])[0])
+    for cfg in [c for c in cfgs if c.app in ("bfs", "dfs")] + small:
+        label = f"{cfg.app} {cfg.kwargs}/{cfg.mode.value}"
+        g = dev_part.partitioned_struct(cfg.app, geom, policy=cfg.policy,
+                                        **cfg.kwargs)
+        oracle = _pim_scalar_device(g, cfg.mode, geom)
+        _pim_held(label, got[cfg], oracle, "the host's scalar engine")
+        _pim_held(label + " (host)", want[cfg], oracle,
+                  "the host's scalar engine")
+        log("pim-device", hbm=cfg.app, kw=json.dumps(cfg.kwargs),
+            mode=cfg.mode.value, tasks=g.n,
+            makespan_ns=repr(got[cfg]["makespan_ns"]),
+            bit_equal="host BatchRunner,host scalar engine")
+    tot_c = tot_h = 0.0
+    for cfg in cfgs:
+        card_w, host_w = walls[cfg]
+        tot_c += card_w[0]
+        tot_h += host_w[0]
+        mk = want[cfg]["makespan_ns"]
+        ref_mk = PIM_HBM_REF[(cfg.app, cfg.mode.value)]
+        if round(mk, 2) != ref_mk:
+            raise AssertionError(f"pim-device {cfg.app}/{cfg.mode.value}: "
+                                 f"makespan {mk!r}, the reference's "
+                                 f"{ref_mk!r}")
+        nb, nw, n_tasks = batches[cfg]
+        med_c, med_h = statistics.median(card_w), statistics.median(host_w)
+        log("pim-device", hbm=cfg.app, mode=cfg.mode.value,
+            pes=geom.total_pes, tasks=n_tasks, makespan_ns=repr(mk),
+            reference_ns=ref_mk, bit_equal="host BatchRunner",
+            batches=nb, wide_batches=nw, rounds=len(card_w),
+            card_ms=f"{med_c:.1f}",
+            card_range=f"[{min(card_w):.1f},{max(card_w):.1f}]",
+            host_ms=f"{med_h:.1f}",
+            host_range=f"[{min(host_w):.1f},{max(host_w):.1f}]",
+            card_over_host=f"{med_c / med_h:.2f}", card=repr(smi))
+    log("pim-device", hbm_grid="first round", card_ms=f"{tot_c:.1f}",
+        host_ms=f"{tot_h:.1f}", card_over_host=f"{tot_c / tot_h:.2f}",
+        card=repr(smi))
+
+
+def _pim_moe_passes(smi: str) -> None:
+    """qwen2-moe-a2.7b prefill at full depth on the HBM device, with and
+    without the passes pipeline, card against host."""
+    geom = DeviceGeometry(**PIM_HBM)
+    app, kw = PIM_MOE
+    opt = pim_passes.DEFAULT_OPT
+    card = dev_batch.BatchRunner(device="cuda")
+    host = dev_batch.BatchRunner(device="cpu")
+    rewrites = dev_part.optimization_log(app, geom, opt=opt, **kw)
+    if rewrites.summary()["total"] != PIM_MOE_REWRITES:
+        raise AssertionError(f"pim-device {app}: {rewrites.summary()} "
+                             f"rewrites, want {PIM_MOE_REWRITES}")
+    pipe = pim_passes.optimization_pipeline(
+        opt, pes_per_bank=geom.pes_per_bank, total_pes=geom.total_pes)
+    log("pim-device", moe=app, rewrites=json.dumps(rewrites.summary()),
+        pipeline="|".join(pipe.describe()), fingerprint=pipe.fingerprint())
+    span = {}
+    for mode in Interconnect:
+        for on in (False, True):
+            cfg = dev_batch.SweepConfig.make(app, mode, geom,
+                                             opt=opt if on else (), **kw)
+            rc, ms_c, nb, nw = _pim_run_timed(card, cfg)
+            rh, ms_h, _, _ = _pim_run_timed(host, cfg)
+            what = f"{app}/{mode.value} passes={on}"
+            _pim_held(what, pim_device_record(rc), pim_device_record(rh),
+                      "the host's BatchRunner")
+            n_tasks = rc.n_ops + rc.n_moves
+            ref_mk = PIM_MOE_REF[(mode.value, on)]
+            if n_tasks != PIM_MOE_TASKS[on] or \
+                    round(rc.makespan_ns, 2) != ref_mk:
+                raise AssertionError(f"pim-device {what}: {n_tasks} tasks, "
+                                     f"makespan {rc.makespan_ns!r}; want "
+                                     f"{PIM_MOE_TASKS[on]}, {ref_mk}")
+            span[(mode, on)] = rc.makespan_ns
+            log("pim-device", moe=app, mode=mode.value, passes=on,
+                tasks=n_tasks, makespan_ns=repr(rc.makespan_ns),
+                reference_ns=ref_mk, bit_equal="host BatchRunner",
+                batches=nb, wide_batches=nw, card_ms=f"{ms_c:.1f}",
+                host_ms=f"{ms_h:.1f}", card=repr(smi))
+    sp = Interconnect.SHARED_PIM
+    if not span[(sp, True)] < span[(sp, False)]:
+        raise AssertionError(f"pim-device {app}: the passes did not shorten "
+                             f"the Shared-PIM makespan ({span[(sp, True)]!r}"
+                             f" >= {span[(sp, False)]!r})")
+    li = Interconnect.LISA
+    log("pim-device", moe=app,
+        sharedpim_gain=f"{1 - span[(sp, True)] / span[(sp, False)]:.4f}",
+        lisa_gain=f"{1 - span[(li, True)] / span[(li, False)]:.4f}")
+
+
+def phase_pim_device(smi: str) -> None:
+    t0 = time.perf_counter()
+    _pim_device_goldens()
+    _pim_hbm_grid(smi)
+    _pim_moe_passes(smi)
+    log("pim-device", goldens=True, hbm_grid=True, moe_passes=True,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+
+
 # ---- the distributed layer in a group of one -------------------------------
 
 # under a one-card mesh at full width: granite-3-2b at 4 of its 40
@@ -3551,25 +3851,40 @@ def phase_planner(smi: str) -> None:
 def phase_dryrun() -> None:
     """``python -m repro_torch.launch.dryrun`` in subprocesses (a fake
     process group of 256 or 512 ranks each, fake CUDA tensors) on
-    ``DRYRUN_CELLS``, each within ``DRYRUN_TIMEOUT_S``; every cell must come
-    out ``ok``.  Prints each cell's per-device planner counts: counts for a
-    mesh of cards this machine does not have, not timings."""
-    report = ROOT / "build" / "dryrun_smoke.json"
-    report.parent.mkdir(parents=True, exist_ok=True)
-    report.unlink(missing_ok=True)
+    ``DRYRUN_CELLS``, all started together, each with a report of its own
+    and within ``DRYRUN_TIMEOUT_S``; every cell must come out ``ok``.
+    Prints each cell's per-device planner counts: counts for a mesh of
+    cards this machine does not have, not timings."""
+    out_dir = ROOT / "build" / "dryrun_smoke"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    for argv in DRYRUN_CELLS:
-        t0 = time.perf_counter()
-        res = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
-             "--report", str(report)], cwd=ROOT, env=env,
-            capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
-        log("dryrun", args=" ".join(argv), rc=res.returncode,
-            seconds=f"{time.perf_counter() - t0:.1f}")
-        if res.returncode != 0:
-            print(res.stdout[-4000:], res.stderr[-4000:], flush=True)
-            raise AssertionError(f"dryrun {argv} exited {res.returncode}")
-    cells = json.loads(report.read_text())
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for i, argv in enumerate(DRYRUN_CELLS):
+            with open(out_dir / f"cell{i}.log", "w") as sink:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+                     "--report", str(out_dir / f"cell{i}.json")], cwd=ROOT,
+                    env=env, stdout=sink, stderr=subprocess.STDOUT))
+        for i, (argv, proc) in enumerate(zip(DRYRUN_CELLS, procs)):
+            rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                       - (time.perf_counter() - t0)))
+            log("dryrun", args=" ".join(argv), rc=rc,
+                seconds=f"{time.perf_counter() - t0:.1f}")
+            if rc != 0:
+                print((out_dir / f"cell{i}.log").read_text()[-8000:],
+                      flush=True)
+                raise AssertionError(f"dryrun {argv} exited {rc}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    cells = {}
+    for i in range(len(DRYRUN_CELLS)):
+        cells.update(json.loads((out_dir / f"cell{i}.json").read_text()))
     for key, cell in sorted(cells.items()):
         if cell["status"] != "ok":
             raise AssertionError(f"dryrun cell {key}: {cell}")
@@ -3677,6 +3992,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_pluto(smi)
     phase_pim_sim(smi)
+    phase_pim_device(smi)
     phase_overlap()
     phase_mesh_train()
     gc.collect()

@@ -17,7 +17,9 @@ counters) into the port's, so that both packages can start from one state.
 ``taskgraph_from_numpy`` carries a simulator task graph of the reference
 (``repro.core.ir.TaskGraph``: its array fields as numpy arrays, plus
 ``tags``) into the port's :class:`~repro_torch.core.ir.TaskGraph`, field
-for field in the same dtypes, so one graph can be scheduled by both.
+for field in the same dtypes, so one graph can be scheduled by both;
+``taskgraph_to_numpy`` is its inverse, so placed, optimised and lowered
+graphs of both packages can be compared array by array.
 """
 
 from __future__ import annotations
@@ -113,3 +115,14 @@ def taskgraph_from_numpy(fields: dict) -> ir.TaskGraph:
     tags = fields.get("tags")
     return ir.freeze(ir.TaskGraph(**arrays,
                                   tags=None if tags is None else tuple(tags)))
+
+
+def taskgraph_to_numpy(g: ir.TaskGraph) -> dict:
+    """The port's task graph -> its fields: each of
+    :data:`repro_torch.core.ir.ARRAY_FIELDS` as a numpy array in its own
+    dtype (a copy), and ``tags``.  The inverse of
+    :func:`taskgraph_from_numpy`; ``repro.core.ir.TaskGraph(**fields)``
+    builds the reference's graph from it."""
+    out = {f: getattr(g, f).numpy().copy() for f in ir.ARRAY_FIELDS}
+    out["tags"] = g.tags
+    return out

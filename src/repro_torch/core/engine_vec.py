@@ -537,7 +537,7 @@ def advance(session, until: float | None = None, *,
     observe = rec is not None or prof is not None
     rec_tasks = rec._tasks if rec is not None else None
     rec_segs = rec._segs if rec is not None else None
-    probes = vec_probes = n_batches = n_batched = heap_saved = 0
+    probes = vec_probes = n_batches = n_batched = heap_saved = n_wide = 0
     if prof is not None:
         _wall0 = time.perf_counter()
         _heap0 = len(heap)
@@ -1134,6 +1134,7 @@ def advance(session, until: float | None = None, *,
                         rec._jobdone.append((j, job_fin[j]))
         n_exec += k
         n_batches += 1
+        n_wide += 1
         if k > 1:
             n_batched += k
         prev_pushed = pushed
@@ -1150,6 +1151,8 @@ def advance(session, until: float | None = None, *,
     session._energy = energy
     session._refresh_ns = refresh_ns
     session._n_refresh = n_refresh
+    advance.batches += n_batches
+    advance.wide_batches += n_wide
     if prof is not None:
         prof.record_advance(
             wall_s=time.perf_counter() - _wall0, n_exec=n_exec,
@@ -1165,3 +1168,11 @@ def advance(session, until: float | None = None, *,
     elif until > session.now:
         session.now = until
     return completed
+
+
+# process-wide dispatch counters, in the manner of the kernels' launch
+# counts: every batch (``batches``, what the profile hook's ``batches``
+# sums) and the batches wider than SCALAR_K that run as device gathers and
+# scatters (``wide_batches``)
+advance.batches = 0
+advance.wide_batches = 0

@@ -40,12 +40,11 @@ vectorized lookup.  The legacy ``list[Task]`` entry points are preserved as
 converting wrappers.
 
 The builders emit **logical** IR: virtual PEs, symbolic op classes, every
-hand-off spelled out.  Physical decisions belong to the passes pipeline
-(``repro/passes`` in the reference: placement is its place stage, and
-redundant-move cleanup its optimize stage), which the port does not have
-yet, so ``build_ir(app, mode, opt=...)`` with passes raises.  With no
-passes — the default — the graphs are bit for bit the reference's (the
-golden schedules pin this).
+hand-off spelled out.  Physical decisions belong to the
+:mod:`repro_torch.passes` pipeline (placement is its place stage,
+redundant-move cleanup its optimize stage).  With no passes — the default
+— the graphs are bit for bit the reference's (the golden schedules pin
+this).
 """
 
 from __future__ import annotations
@@ -53,8 +52,6 @@ from __future__ import annotations
 import functools
 import inspect
 import math
-
-import importlib.util
 
 from repro_torch.core import ir
 from repro_torch.core.ir import TaskGraph
@@ -287,8 +284,8 @@ def register_app(app: str, struct_fn, params: tuple) -> None:
     expose ``cache_clear`` (the sweep runner's cold-start hook clears every
     registered builder); ``params`` is its ``((keyword, default), …)``
     signature, recorded exactly like the builtin apps'.  The model frontend
-    (``repro_torch.frontend``, once ported) registers every config-registry
-    arch this way.
+    (``repro_torch.frontend``) registers every config-registry arch this
+    way.
     """
     if app in APPS:
         raise ValueError(f"cannot re-register builtin app {app!r}")
@@ -301,18 +298,9 @@ def register_app(app: str, struct_fn, params: tuple) -> None:
     _STRUCTS[app] = (struct_fn, tuple(params))
 
 
-#: the module that registers the model archs as apps, once it is ported
-_FRONTEND = "repro_torch.frontend"
-
-
 def _load_registered_apps() -> None:
-    """Import the entry-point modules that register extra apps.
-
-    Until the port has its model frontend, the builtin apps are all there
-    is and this imports nothing.
-    """
-    if importlib.util.find_spec(_FRONTEND) is not None:
-        importlib.import_module(_FRONTEND)
+    """Import the entry-point modules that register extra apps."""
+    import repro_torch.frontend  # noqa: F401  (registers the model archs)
 
 
 def known_apps(load_registered: bool = True) -> tuple[str, ...]:
@@ -344,17 +332,15 @@ def build_ir(app: str, mode: Interconnect, *, opt: tuple = (),
              **kw) -> TaskGraph:
     """Materialized IR graph for (app, mode): the schedulers' fast path.
 
-    ``opt`` names optimization passes to run on the structural graph before
-    materializing.  The port has no passes pipeline yet, so a non-empty
-    ``opt`` raises; the default — no passes — is the pipeline-off path the
-    goldens pin.
+    ``opt`` names optimization passes (:data:`repro_torch.passes.OPT_PASSES`
+    keys) to run on the structural graph before materializing, in the
+    single-bank view (the whole PE space one bank); the default — no
+    passes — is the pipeline-off path the goldens pin.
     """
     g = structural(app, **kw)
     if opt:
-        raise NotImplementedError(
-            f"build_ir(opt={tuple(opt)!r}): the passes pipeline is not "
-            "ported yet (ROADMAP Queue 1, the passes/ item); build with "
-            "opt=()")
+        from repro_torch import passes  # passes imports this module's IR
+        g, _log = passes.optimization_pipeline(opt).run(g)
     return ir.materialize(g, mode)
 
 

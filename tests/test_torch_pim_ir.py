@@ -244,7 +244,7 @@ def test_structural_cache_and_registry():
         taskgraph.register_app("mm", taskgraph._matmul_struct, ())
     with pytest.raises(ValueError, match="cache_clear"):
         taskgraph.register_app("x-app", lambda: None, ())
-    with pytest.raises(NotImplementedError, match="passes"):
+    with pytest.raises(ValueError, match="unknown optimization pass"):
         taskgraph.build_ir("mm", Interconnect.LISA, opt=("dedup",), n=10)
 
 

@@ -205,7 +205,13 @@ def test_port_imports_neither_jax_nor_reference():
                 "launch/specs", "launch/dryrun", "core/timing",
                 "core/copy_models", "core/pluto", "core/energy", "core/area",
                 "core/nonpim", "core/ir", "core/taskgraph", "core/engine",
-                "core/engine_vec", "core/scheduler", "core/reference"):
+                "core/engine_vec", "core/scheduler", "core/reference",
+                "device/__init__", "device/geometry", "device/interconnect",
+                "device/resources", "device/scheduler", "device/partition",
+                "device/reference", "device/batch", "passes/__init__",
+                "passes/pipeline", "passes/rewrite", "passes/optimize",
+                "passes/placement", "passes/search", "frontend/__init__",
+                "frontend/lower"):
         assert port / f"{mod}.py" in files, mod
     for f in files:
         for mod in _imports(f):
