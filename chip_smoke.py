@@ -208,6 +208,26 @@ Phases, each printing what it found; any failure raises and exits non-zero:
    qwen2-moe-a2.7b prefill at full depth on that device with and without
    the passes pipeline (``DEFAULT_OPT``: 291 rewrites, the optimised
    Shared-PIM makespan below the unoptimised one), card against host;
+20d. pim-runtime: the simulator's observability, placement search and
+   serving runtime (``repro_torch.obs``, ``search``, ``runtime``) on the
+   card, every figure held to the reference's benchmark scripts' (constants
+   recorded from ``benchmarks/obs.py``, ``placement.py``, ``serving.py``
+   and ``continuous.py`` run with the JAX package on a host CPU): the two
+   recorder cells (``PIM_RT_OBS``, ``RefreshSpec()``) under both
+   interconnects on the card and on the host, in turns, their tasks,
+   makespans and trace events the reference's, recorded equal to plain
+   on each side and the trace JSON's SHA-256 the same on both; the two
+   placement cells (``PIM_RT_SEARCH``, the default ``SearchConfig``)
+   searched on the card with one worker and with ``PIM_RT_WORKERS``
+   spawned ones (the pool's start time printed) and on the host, digests,
+   makespans, evals and prunes the reference's, then the moe cell again
+   from the persistent cache the card's run wrote (zero engine evals); the
+   serving cells (the five-app tenant mix, 200 jobs, fifo, loads 0.3 and
+   0.9) and the continuous-batching cells (the chat and agent fleet,
+   loads 0.25-4.0), each on the card then the host, the card's results
+   equal to the host's and every p50/p99/jobs/s, tok/s and p99 the
+   reference's, with the engine's batch counts; the session-vs-offline
+   and continuous-off-vs-whole-job guards on the card;
 21. overlap: the distributed layer in an NCCL process group of one rank
     (a ``FileStore`` under ``build/``): ``ag_matmul``, ``matmul_rs`` and
     ``overlapped_ffn`` against the unsharded products (1e-5, 1e-4),
@@ -303,6 +323,9 @@ from repro_torch.device import partition as dev_part  # noqa: E402
 from repro_torch.device import scheduler as dev_sched  # noqa: E402
 from repro_torch.device.geometry import DeviceGeometry  # noqa: E402
 from repro_torch.device.resources import DeviceModel  # noqa: E402
+from repro_torch import obs as pim_obs  # noqa: E402
+from repro_torch import runtime as pim_runtime  # noqa: E402
+from repro_torch import search as pim_search  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import grouped_mm as gm  # noqa: E402
@@ -3373,6 +3396,469 @@ def phase_pim_device(smi: str) -> None:
         seconds=f"{time.perf_counter() - t0:.1f}")
 
 
+# ---- the simulator's observability, placement search and serving runtime --
+
+# the recorder cells (benchmarks/obs.py's): name -> (app, geometry, app
+# kwargs), each recorded under both interconnects with RefreshSpec()
+PIM_RT_OBS = {
+    "matmul": ("mm", dict(channels=1, banks_per_channel=4), dict(n=48)),
+    "moe": ("qwen2-moe-a2.7b",
+            dict(channels=1, banks_per_channel=4, pes_per_bank=8),
+            dict(phase="prefill", n_layers=3, seq_tiles=4)),
+}
+# the reference package's (tasks, makespan ns, trace events) of each
+# recorded cell (its NumPy simulator on a host CPU)
+PIM_RT_OBS_REF = {
+    ("matmul", "lisa"): (6048, 7483295.039999968, 9864),
+    ("matmul", "shared_pim"): (6048, 2047224.6600000004, 7276),
+    ("moe", "lisa"): (1338, 6499732.799999976, 4680),
+    ("moe", "shared_pim"): (1338, 2099461.9800000037, 2765),
+}
+# the placement-search cells (benchmarks/placement.py's), Shared-PIM, the
+# default SearchConfig; the reference's (best greedy ns, its policy,
+# searched ns, digest, engine evals, surrogate prunes)
+PIM_RT_SEARCH = {
+    "matmul": ("gemma3-1b", dict(channels=1, banks_per_channel=4),
+               dict(phase="prefill", n_layers=4, seq_tiles=4)),
+    "moe": ("qwen2-moe-a2.7b",
+            dict(channels=1, banks_per_channel=4, pes_per_bank=8),
+            dict(phase="prefill", n_layers=3, seq_tiles=4)),
+}
+PIM_RT_SEARCH_REF = {
+    "matmul": (1074230.040000002, "locality_first", 895976.5000000014,
+               "a4461064231e0617", 186, 9),
+    "moe": (1419344.0500000033, "locality_first", 1399745.0100000033,
+            "388c0039555b9eb5", 116, 62),
+}
+PIM_RT_WORKERS = 4
+# the serving cells (benchmarks/serving.py's full size): 1 channel of 8
+# banks in 4 groups, 16 PEs a bank, the five-app tenant mix with rates
+# calibrated to the LISA-serviced device, RefreshSpec(), fifo, seed 0,
+# 40 jobs a tenant
+PIM_RT_TENANTS = (("mm", "mm", 2, 0, dict(n=60)),
+                  ("pmm", "pmm", 2, 0, dict(n=60)),
+                  ("ntt", "ntt", 1, 0, dict(n=128)),
+                  ("bfs", "bfs", 1, 2, dict(n_nodes=200)),
+                  ("dfs", "dfs", 1, 1, dict(n_nodes=150)))
+PIM_RT_SERVE_GEOM = dict(channels=1, banks_per_channel=8,
+                         bank_groups_per_channel=4)
+PIM_RT_SERVE_LOADS = (0.3, 0.9)
+PIM_RT_SLO_REF = 32477884.55999991        # 4 x the slowest LISA service
+# the reference's (p50 ns, p99 ns, jobs/s) of each (load, mode)
+PIM_RT_SERVE_REF = {
+    (0.3, "lisa"): (12770116.745378923, 251100725.59113464,
+                    133.05917962885798),
+    (0.3, "shared_pim"): (2357429.3262094855, 16650909.591134649,
+                          133.74394008083615),
+    (0.9, "lisa"): (146538101.93183982, 848733081.1137115,
+                    234.4907230015862),
+    (0.9, "shared_pim"): (21103929.38375545, 255114724.86371154,
+                          399.97465716174855),
+}
+# the continuous-batching cells (benchmarks/continuous.py's full size): 1
+# channel of 16 banks in 4 groups, 2 PEs a bank; chat on gemma3-1b and an
+# agent on granite-3-2b (4 layers each), 8 sessions a spec, chunks of 128
+# tokens, 256 tokens a bank, the p99 TPOT SLO 6 x the slowest LISA decode
+# step
+PIM_RT_SESSIONS = (
+    dict(name="chat", app="gemma3-1b", n_layers=4, prompt_tokens=512,
+         decode_tokens=16, turns=2, think_ns=5e5, rate_sps=1500.0),
+    dict(name="agent", app="granite-3-2b", n_layers=4, prompt_tokens=256,
+         decode_tokens=12, turns=1, think_ns=0.0, rate_sps=1500.0))
+PIM_RT_CONT_GEOM = dict(channels=1, banks_per_channel=16,
+                        bank_groups_per_channel=4, pes_per_bank=2)
+PIM_RT_CONT_LOADS = (0.25, 0.5, 1.0, 2.0, 4.0)
+PIM_RT_TPOT_SLO_REF = 7353362.880000008
+# the reference's (decode tok/s, TPOT p99 ns, TTFT p99 ns, makespan ns,
+# preemptions, migrations) of each (load, mode)
+PIM_RT_CONT_REF = {
+    (0.25, "lisa"): (2091.7149566872336, 5027429.521600878,
+                     91802589.56029405, 168282967.46392354, 4, 3),
+    (0.25, "shared_pim"): (3248.3138297629807, 2916918.8068997916,
+                           52787516.25797825, 108363913.84809157, 1, 4),
+    (0.5, "lisa"): (2280.0971839810554, 4174189.652600797,
+                    90712831.95999335, 154379384.56000686, 0, 1),
+    (0.5, "shared_pim"): (3543.984544748878, 2782839.4489996317,
+                          58523881.77955143, 99323232.24195728, 1, 2),
+    (1.0, "lisa"): (2280.097183981057, 4174189.652600797,
+                    93864434.85589723, 154379384.56000674, 0, 1),
+    (1.0, "shared_pim"): (3904.741500670256, 2099009.6100004613,
+                          53548615.902099535, 90146812.52000384, 1, 2),
+    (2.0, "lisa"): (2280.0971839810586, 4174189.652600797,
+                    95440236.30384916, 154379384.56000662, 0, 1),
+    (2.0, "shared_pim"): (3904.741500670255, 2099009.6100004613,
+                          55124417.3500514, 90146812.52000386, 1, 2),
+    (4.0, "lisa"): (2280.0971839810595, 4174189.652600797,
+                    96228137.02782515, 154379384.56000656, 0, 1),
+    (4.0, "shared_pim"): (3904.741500670255, 2099009.6100004613,
+                          55912318.07402736, 90146812.52000387, 1, 2),
+}
+
+def _pim_rt_recorded(app, geom, kw, mode, device):
+    """(plain stats, wall ms, recorder, recorded stats, wall ms, trace
+    SHA-256) of one recorder cell on ``device``."""
+    cfg = dev_batch.SweepConfig.make(app, mode, geom, **kw)
+    g = pim_ir.materialize(dev_part.partitioned_struct(app, geom, **kw), mode)
+    plain = pim_engine.EngineSession(DeviceModel(mode, geom),
+                                     refresh=pim_engine.RefreshSpec(),
+                                     device=device)
+    plain_ms = _pim_wall(lambda: (plain.admit(g), plain.advance()))
+    out = []
+    rec_ms = _pim_wall(lambda: out.append(pim_obs.record_sweep(
+        cfg, refresh=pim_engine.RefreshSpec(), device=device)))
+    rec = out[0]
+    blob = json.dumps(rec.chrome_trace(), sort_keys=True,
+                      separators=(",", ":")).encode()
+    return (plain.stats(), plain_ms, rec, rec._session.stats(), rec_ms,
+            hashlib.sha256(blob).hexdigest())
+
+
+def _pim_rt_obs(smi: str) -> None:
+    """The recorder cells on the card and on the host, in turns."""
+    for name, (app, gkw, kw) in PIM_RT_OBS.items():
+        geom = DeviceGeometry(**gkw)
+        for mode in Interconnect:
+            card = _pim_rt_recorded(app, geom, kw, mode, "cuda")
+            host = _pim_rt_recorded(app, geom, kw, mode, "cpu")
+            n_tasks = card[2]._session.job(0).n_tasks
+            got = (n_tasks, card[3].makespan_ns, card[2].n_events)
+            want = PIM_RT_OBS_REF[(name, mode.value)]
+            if got != want:
+                raise AssertionError(f"pim-runtime obs {name}/{mode.value}:"
+                                     f" {got}, the reference's {want}")
+            for side, (plain, _, _, recorded, _, _) in (("card", card),
+                                                        ("host", host)):
+                if recorded != plain:
+                    raise AssertionError(f"pim-runtime obs {name}/"
+                                         f"{mode.value}: recorded differs "
+                                         f"from plain on the {side}")
+            if card[3] != host[3] or card[5] != host[5]:
+                raise AssertionError(f"pim-runtime obs {name}/{mode.value}:"
+                                     " the card's schedule or trace differs "
+                                     "from the host's")
+            log("pim-runtime", obs=name, mode=mode.value, tasks=n_tasks,
+                makespan_ns=repr(got[1]), trace_events=got[2],
+                trace_sha256=card[5][:16], bit_equal="host,plain",
+                card_plain_ms=f"{card[1]:.1f}",
+                card_recorded_ms=f"{card[4]:.1f}",
+                host_plain_ms=f"{host[1]:.1f}",
+                host_recorded_ms=f"{host[4]:.1f}",
+                card_over_host=f"{card[4] / host[4]:.2f}", card=repr(smi))
+
+
+def _pim_rt_search_one(name, device, cache=None):
+    """One placement cell searched by one worker on ``device``: (result,
+    wall ms)."""
+    app, gkw, kw = PIM_RT_SEARCH[name]
+    geom = DeviceGeometry(**gkw)
+    struct = pim_tg.structural(app, n_pes=geom.total_pes, **kw)
+    t0 = time.perf_counter()
+    oracle = pim_search.PlacementOracle(
+        struct, Interconnect.SHARED_PIM, geom, cache=cache,
+        n_workers=1, device=device)
+    res = pim_search.search_pe_map(struct, Interconnect.SHARED_PIM, geom,
+                                   config=pim_search.SearchConfig(seed=0),
+                                   oracle=oracle)
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+# the pool-backed search runs in a fresh interpreter started with ``-c``:
+# spawned workers re-run their parent's main module, and this script's
+# imports (every model, kernel and launcher) would be paid by each worker
+_PIM_RT_POOL_SEARCH = """
+import json, sys, time
+import torch
+from repro_torch import search
+from repro_torch.core import taskgraph
+from repro_torch.core.pluto import Interconnect
+from repro_torch.device.geometry import DeviceGeometry
+app, gkw, kw, n_workers = json.loads(sys.argv[1])
+geom = DeviceGeometry(**gkw)
+struct = taskgraph.structural(app, n_pes=geom.total_pes, **kw)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+oracle = search.PlacementOracle(struct, Interconnect.SHARED_PIM, geom,
+                                n_workers=n_workers, device="cuda")
+try:
+    res = search.search_pe_map(struct, Interconnect.SHARED_PIM, geom,
+                               config=search.SearchConfig(seed=0),
+                               oracle=oracle)
+finally:
+    oracle.close()
+torch.cuda.synchronize()
+print(json.dumps({"ms": (time.perf_counter() - t0) * 1e3,
+                  "pool_start_s": oracle.pool_start_s,
+                  "greedy_ns": res.incumbent_makespan_ns,
+                  "policy": res.incumbent_policy,
+                  "searched_ns": res.makespan_ns, "digest": res.digest,
+                  "stats": res.stats, "pe_map": res.pe_map.tolist()}))
+"""
+
+
+def _pim_rt_search_pool(name: str) -> dict:
+    """One placement cell searched on the card by ``PIM_RT_WORKERS``
+    spawned workers, in a fresh interpreter (see above)."""
+    app, gkw, kw = PIM_RT_SEARCH[name]
+    proc = subprocess.run(
+        [sys.executable, "-c", _PIM_RT_POOL_SEARCH,
+         json.dumps([app, gkw, kw, PIM_RT_WORKERS])],
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        print(proc.stderr[-8000:], flush=True)
+        raise AssertionError(f"pim-runtime search {name} with "
+                             f"{PIM_RT_WORKERS} workers exited "
+                             f"{proc.returncode}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _pim_rt_search(smi: str) -> None:
+    """The two placement cells searched on the card with one worker and
+    with ``PIM_RT_WORKERS`` spawned ones, and on the host, in turns; then
+    the moe cell again against the persistent cache the first card run
+    wrote: zero engine evals."""
+    cache_path = ROOT / "build" / "pim_runtime" / "oracle_cache.jsonl"
+    shutil.rmtree(cache_path.parent, ignore_errors=True)
+    for name in PIM_RT_SEARCH:
+        want = PIM_RT_SEARCH_REF[name]
+        cache = pim_search.OracleCache(cache_path) if name == "moe" else None
+        runs = {}
+        runs["card"] = _pim_rt_search_one(name, "cuda", cache)
+        runs["host"] = _pim_rt_search_one(name, "cpu")
+        pool = _pim_rt_search_pool(name)
+        sides = [(side, (r.incumbent_makespan_ns, r.incumbent_policy,
+                         r.makespan_ns, r.digest, r.stats["engine_evals"],
+                         r.stats["surrogate_prunes"]), r.pe_map.tolist())
+                 for side, (r, _) in runs.items()]
+        sides.append(("card_pool", (pool["greedy_ns"], pool["policy"],
+                                    pool["searched_ns"], pool["digest"],
+                                    pool["stats"]["engine_evals"],
+                                    pool["stats"]["surrogate_prunes"]),
+                      pool["pe_map"]))
+        for side, got, pe_map in sides:
+            if got != want:
+                raise AssertionError(f"pim-runtime search {name} ({side}): "
+                                     f"{got}, the reference's {want}")
+            if pe_map != sides[0][2]:
+                raise AssertionError(f"pim-runtime search {name}: the "
+                                     f"{side} map differs from the card's")
+        res = runs["card"][0]
+        log("pim-runtime", search=name, greedy_ns=repr(want[0]),
+            policy=want[1], searched_ns=repr(res.makespan_ns),
+            digest=res.digest, evals=res.stats["engine_evals"],
+            prunes=res.stats["surrogate_prunes"],
+            candidates=res.n_candidates, bit_equal="host,4 workers",
+            card_ms=f"{runs['card'][1]:.1f}",
+            host_ms=f"{runs['host'][1]:.1f}",
+            card_pool_ms=f"{pool['ms']:.1f}",
+            pool_workers=pool["stats"]["n_workers"],
+            pool_start_s=f"{pool['pool_start_s']:.2f}",
+            card_over_host=f"{runs['card'][1] / runs['host'][1]:.2f}",
+            card=repr(smi))
+        if name == "moe":
+            pim_search.clear_caches()
+            warm, ms_ = _pim_rt_search_one(
+                name, "cuda", pim_search.OracleCache(cache_path))
+            if (warm.stats["engine_evals"] != 0
+                    or warm.stats["cache_hits"] != want[4]
+                    or warm.digest != want[3]
+                    or warm.makespan_ns != want[2]):
+                raise AssertionError(f"pim-runtime search {name} warm: "
+                                     f"{warm.stats}, digest {warm.digest}")
+            log("pim-runtime", search=name, warm_cache=True, evals=0,
+                cache_hits=warm.stats["cache_hits"], digest=warm.digest,
+                card_ms=f"{ms_:.1f}", card=repr(smi))
+
+
+def _pim_rt_tenants(device):
+    """The serving tenants, their rates calibrated on ``device`` exactly as
+    ``benchmarks/serving.py`` does, and the p99 SLO."""
+    geom = DeviceGeometry(**PIM_RT_SERVE_GEOM)
+    tenants, s_max = [], 0.0
+    for name, app, banks, prio, kw in PIM_RT_TENANTS:
+        lease = tuple(range(banks))
+        struct = pim_tg.structural(app, n_pes=banks * geom.pes_per_bank,
+                                   **kw)
+        s = dev_sched.schedule(dev_part.place_on_banks(struct, geom, lease),
+                               Interconnect.LISA, geom,
+                               device=device).makespan_ns
+        s_max = max(s_max, s)
+        tenants.append(pim_runtime.TenantSpec.make(
+            name, app, rate_jps=geom.n_banks / (len(PIM_RT_TENANTS) * s
+                                                * banks) * 1e9,
+            priority=prio, banks=banks, **kw))
+    return geom, tenants, 4.0 * s_max
+
+
+def _pim_rt_cont_specs():
+    geom = DeviceGeometry(**PIM_RT_CONT_GEOM)
+    specs = [pim_runtime.SessionSpec.make(**s) for s in PIM_RT_SESSIONS]
+    return geom, specs
+
+
+def _pim_rt_tpot_slo(device) -> float:
+    """6 x the slowest LISA decode step at full-prompt KV, as
+    ``benchmarks/continuous.py`` calibrates it."""
+    from repro_torch.frontend.lower import decode_step
+    geom, specs = _pim_rt_cont_specs()
+    steps = []
+    for spec in specs:
+        kv = spec.prompt_tokens + spec.decode_tokens
+        nb = min(geom.n_banks, max(1, -(-kv // 256)))
+        g = decode_step(spec.app, n_pes=nb * geom.pes_per_bank, kv_len=kv,
+                        **spec.kwargs)
+        steps.append(dev_sched.schedule(
+            dev_part.place_on_banks(g, geom, tuple(range(nb))),
+            Interconnect.LISA, geom, device=device).makespan_ns)
+    return 6.0 * max(steps)
+
+
+def _pim_rt_cell(kind: str, load: float, mode: Interconnect, device: str,
+                 slo: float, tenants: list):
+    """One serving or continuous cell on ``device``: (results, summary,
+    wall ms, engine batches, wide batches)."""
+    if kind == "serving":
+        geom = DeviceGeometry(**PIM_RT_SERVE_GEOM)
+        trace = pim_runtime.open_loop_trace(tenants, jobs_per_tenant=40,
+                                            seed=0, load=load)
+        rt = pim_runtime.ServingRuntime(mode, geom, admission="fifo",
+                                        refresh=pim_engine.RefreshSpec(),
+                                        device=device)
+        run = lambda: rt.run(trace)  # noqa: E731
+    else:
+        geom, specs = _pim_rt_cont_specs()
+        trace = pim_runtime.session_trace(specs, sessions_per_spec=8, seed=0,
+                                          load=load)
+        rt = pim_runtime.ContinuousRuntime(mode, geom, chunk_tokens=128,
+                                           tokens_per_bank=256,
+                                           tpot_slo_ns=slo, device=device)
+        run = lambda: rt.run_sessions(trace)  # noqa: E731
+    pim_engine_vec.advance.batches = pim_engine_vec.advance.wide_batches = 0
+    out = []
+    ms_ = _pim_wall(lambda: out.extend(run()))
+    return (out, pim_runtime.summarize(out), ms_,
+            pim_engine_vec.advance.batches,
+            pim_engine_vec.advance.wide_batches)
+
+
+def _pim_rt_serving_row(s):
+    return (s["latency_ns"]["p50"], s["latency_ns"]["p99"],
+            s["throughput_jps"])
+
+
+def _pim_rt_cont_row(res, s):
+    return (s["decode_tps"], s["tpot_ns"].get("p99"),
+            s["ttft_ns"].get("p99"), s["makespan_ns"],
+            sum(r.n_preemptions for r in res),
+            sum(r.n_migrations for r in res))
+
+
+def _pim_rt_guards() -> None:
+    """The runtimes' bit-for-bit guards on the card: a single-job session
+    equals the offline schedule (``benchmarks/serving.py``'s mm n = 24 and
+    ntt n = 64 on the serving device), and the continuous runtime with
+    continuous batching off equals the whole-job runtime
+    (``benchmarks/continuous.py``'s mm n = 60 and bfs 66 nodes, 12 jobs a
+    tenant, on the continuous device)."""
+    geom = DeviceGeometry(**PIM_RT_SERVE_GEOM)
+    fields = ("makespan_ns", "op_busy_ns", "move_busy_ns", "stall_ns",
+              "n_ops", "n_moves", "n_rows_moved", "finish_times")
+    for app, kw in (("mm", dict(n=24)), ("ntt", dict(n=64))):
+        for mode in Interconnect:
+            g = pim_ir.materialize(dev_part.partitioned_struct(app, geom,
+                                                               **kw), mode)
+            offline = dev_sched.schedule(g, mode, geom, device="cuda")
+            sess = pim_engine.EngineSession(DeviceModel(mode, geom),
+                                            device="cuda")
+            sess.admit(g)
+            sess.advance()
+            st = sess.stats()
+            bad = [f for f in fields if getattr(st, f) != getattr(offline, f)]
+            if bad:
+                raise AssertionError(f"pim-runtime {app}/{mode.value}: the "
+                                     f"session differs from the offline "
+                                     f"schedule in {bad}")
+    geom, _ = _pim_rt_cont_specs()
+    tenants = [pim_runtime.TenantSpec.make("mm", "mm", n=60, banks=2,
+                                           rate_jps=2000.0),
+               pim_runtime.TenantSpec.make("bfs", "bfs", n_nodes=66, banks=2,
+                                           priority=1, rate_jps=2000.0)]
+    trace = pim_runtime.open_loop_trace(tenants, jobs_per_tenant=12, seed=0)
+    for mode in Interconnect:
+        base = pim_runtime.ServingRuntime(mode, geom, device="cuda").run(trace)
+        cont = pim_runtime.ContinuousRuntime(mode, geom, continuous=False,
+                                             device="cuda").run(trace)
+        if cont != base:
+            raise AssertionError(f"pim-runtime {mode.value}: continuous="
+                                 "False differs from the whole-job runtime")
+    log("pim-runtime", guards="session==offline,batch==whole-job",
+        bit_equal=True)
+
+
+def _pim_rt_runtimes(smi: str) -> None:
+    """The serving and continuous cells, each on the card then on the host;
+    every figure held to the reference's and the card's results to the
+    host's, bit for bit."""
+    _, tenants, slo = _pim_rt_tenants("cuda")
+    tpot_slo = _pim_rt_tpot_slo("cuda")
+    if (slo, tpot_slo) != (PIM_RT_SLO_REF, PIM_RT_TPOT_SLO_REF):
+        raise AssertionError(f"pim-runtime SLOs {slo!r}, {tpot_slo!r}; the "
+                             f"reference's {PIM_RT_SLO_REF!r}, "
+                             f"{PIM_RT_TPOT_SLO_REF!r}")
+    cells = [("serving", load, mode, slo)
+             for load in PIM_RT_SERVE_LOADS for mode in Interconnect]
+    cells += [("continuous", load, mode, tpot_slo)
+              for load in PIM_RT_CONT_LOADS for mode in Interconnect]
+    tot = {"serving": [0.0, 0.0], "continuous": [0.0, 0.0]}
+    for kind, load, mode, s in cells:
+        c = _pim_rt_cell(kind, load, mode, "cuda", s, tenants)
+        h = _pim_rt_cell(kind, load, mode, "cpu", s, tenants)
+        mv = mode.value
+        if c[0] != h[0] or c[1] != h[1]:
+            raise AssertionError(f"pim-runtime {kind} load {load} {mv}: the "
+                                 "card's results differ from the host's")
+        if kind == "serving":
+            got = _pim_rt_serving_row(c[1])
+            want = PIM_RT_SERVE_REF[(load, mv)]
+            extra = dict(p50_ns=repr(got[0]), p99_ns=repr(got[1]),
+                         jobs_per_s=repr(got[2]), jobs=len(c[0]))
+        else:
+            got = _pim_rt_cont_row(c[0], c[1])
+            want = PIM_RT_CONT_REF[(load, mv)]
+            extra = dict(decode_tps=repr(got[0]), tpot_p99_ns=repr(got[1]),
+                         ttft_p99_ns=repr(got[2]), makespan_ns=repr(got[3]),
+                         preemptions=got[4], migrations=got[5],
+                         sessions=len(c[0]))
+        if got != want:
+            raise AssertionError(f"pim-runtime {kind} load {load} {mv}: "
+                                 f"{got}, the reference's {want}")
+        tot[kind][0] += c[2]
+        tot[kind][1] += h[2]
+        log("pim-runtime", cell=kind, load=load, mode=mv, **extra,
+            bit_equal="host,reference", batches=c[3], wide_batches=c[4],
+            card_ms=f"{c[2]:.1f}", host_ms=f"{h[2]:.1f}",
+            card_over_host=f"{c[2] / h[2]:.2f}", card=repr(smi))
+    for kind, (c_ms, h_ms) in tot.items():
+        log("pim-runtime", cells=kind, card_ms=f"{c_ms:.1f}",
+            host_ms=f"{h_ms:.1f}", card_over_host=f"{c_ms / h_ms:.2f}",
+            card=repr(smi))
+
+
+def phase_pim_runtime(smi: str) -> None:
+    t0 = time.perf_counter()
+    _pim_rt_obs(smi)
+    t1 = time.perf_counter()
+    _pim_rt_search(smi)
+    t2 = time.perf_counter()
+    _pim_rt_runtimes(smi)
+    t3 = time.perf_counter()
+    _pim_rt_guards()
+    log("pim-runtime", obs=True, search=True, serving=True, continuous=True,
+        obs_s=f"{t1 - t0:.1f}", search_s=f"{t2 - t1:.1f}",
+        runtimes_s=f"{t3 - t2:.1f}", guards_s=f"{time.perf_counter() - t3:.1f}",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+
+
 # ---- the distributed layer in a group of one -------------------------------
 
 # under a one-card mesh at full width: granite-3-2b at 4 of its 40
@@ -3993,6 +4479,7 @@ def main() -> None:
     phase_pluto(smi)
     phase_pim_sim(smi)
     phase_pim_device(smi)
+    phase_pim_runtime(smi)
     phase_overlap()
     phase_mesh_train()
     gc.collect()

@@ -34,11 +34,13 @@ longest-path values are reduced in one segmented maximum.
 
 A session runs on a device (``cuda`` unless the caller asks for the CPU;
 asking for ``cuda`` without a card raises).  Under the default
-``engine="vector"`` the token free times, the per-task ready times,
-in-degrees and finish times, the plan's CSR arrays and the critical path
-live there (:mod:`repro_torch.core.engine_vec`); the ready frontier stays a
-Python list on the host.  ``engine="scalar"`` is the differential oracle:
-its loop runs on the host in Python floats.
+``engine="vector"`` the plan's CSR arrays and the critical path live
+there, and wide batches run there on device copies of the token free
+times and the per-task ready times, in-degrees and finish times, whose
+record is kept on the host, where batches of at most ``SCALAR_K`` run
+(:mod:`repro_torch.core.engine_vec`); the ready frontier is a Python list
+on the host.  ``engine="scalar"`` is the differential oracle: its loop
+runs on the host in Python floats.
 
 DRAM refresh is expressed in the same vocabulary as moves: a
 :class:`RefreshSpec` turns each bank's token block (the model's
@@ -568,9 +570,10 @@ class EngineSession:
     a session's footprint grows with total admitted tasks.
 
     ``engine`` selects the event-loop implementation: ``"vector"`` (the
-    default) runs the batched loop in :mod:`repro_torch.core.engine_vec`
-    over per-task tensors on the session's ``device`` (``free`` is a
-    float64 tensor there); ``"scalar"`` runs the plain-Python loop below
+    default) runs the batched loop in :mod:`repro_torch.core.engine_vec`,
+    its wide batches over per-task tensors on the session's ``device``
+    (``free`` is a float64 tensor there, a copy of the host record
+    ``_h_free``); ``"scalar"`` runs the plain-Python loop below
     over host lists.  Both produce bit-identical schedules — the scalar
     loop is the differential oracle the vectorized path is tested against.
 
@@ -1056,17 +1059,12 @@ class EngineSession:
         dominate the oracle's budget.  Identical to
         ``stats().makespan_ns`` under both event loops.
         """
-        if self._vec is not None:
-            n = self._v_finish.n
-            return float(self._v_finish.a[:n].max()) if n else 0.0
-        return max(self._finish) if self._finish else 0.0
+        finish = self._h_finish if self._vec is not None else self._finish
+        return max(finish) if finish else 0.0
 
     def stats(self) -> EngineStats:
         """Aggregate schedule outcome over everything executed so far."""
-        if self._vec is not None:
-            finish = self._v_finish.a[:self._v_finish.n].tolist()
-        else:
-            finish = self._finish
+        finish = self._h_finish if self._vec is not None else self._finish
         return EngineStats(
             makespan_ns=max(finish) if finish else 0.0,
             op_busy_ns=self._op_busy, move_busy_ns=self._move_busy,

@@ -18,15 +18,24 @@ session's device:
   successors, no refresh due, no job completion when the caller asked to
   stop on one — and executes the whole group at once.
 
-**Where the state lives.**  The token free times (``session.free``), the
-per-task ready times, in-degrees and finish times, the plan's CSR arrays,
-the successor CSR and the frontier columns are tensors on the session's
-device; the gathers, scatters and segmented maxima of a batch run there.
-The ready frontier stays a sorted Python list of key tuples on the host,
-and each dispatched batch comes back in one device-to-host copy, which
-feeds the heap pushes and the float accumulators.  Static per-task facts
-the host needs to form a batch (claims, successor lists, the formation
-bound) are kept as host lists beside the device copies.
+**Where the state lives.**  The plan's CSR arrays, the successor CSR and
+the frontier columns are tensors on the session's device, and so are
+copies of the token free times (``session.free``) and the per-task ready
+times, in-degrees and finish times; the gathers, scatters and segmented
+maxima of a wide batch run there.  The record of those four is kept on
+the host, as lists beside the device copies: a batch of at most
+``SCALAR_K`` members (nearly every batch of a serving session, a search
+candidate or a narrow bank) runs member by member on the host lists and
+touches the device not at all, and marks what it wrote; the marked
+entries go to the device in one write before the next device pass reads
+it (a wide batch, or a formation scan with refresh pending), and a wide
+batch's results come back in its one device-to-host copy, which also
+updates the host lists.  (A dispatch that went to the card and back cost
+0.13-0.42 ms there, against ~0.1 ms of host work, so the small batches
+stay on the host.)  The ready frontier is a sorted Python list of key
+tuples on the host, and static per-task facts the host needs to form a
+batch (claims, successor lists, the formation bound) are host lists
+beside the device copies.
 
 **The scalar engine is the differential oracle.**  Every cut condition
 above is an *equivalence* condition: a batch is exactly the sequence of
@@ -65,7 +74,7 @@ from repro_torch.core.engine import CIRCUIT, Compiled, _dev_key
 BATCH_CAP = 8192
 
 #: batches at or under this size execute member-by-member through the
-#: scalar-exact fast path on the batch's host copy — the vectorized
+#: scalar-exact fast path on the host record — the vectorized
 #: gathers carry a few tens of fixed-cost tensor calls per dispatch, which
 #: narrow frontiers never amortize
 SCALAR_K = 32
@@ -253,8 +262,18 @@ def init_state(session) -> None:
     session._v_sg_indptr_l: list = [0]
     session._v_succ_indptr_l: list = [0]
     session._v_succ_flat_l: list = []
-    session._v_rq_toks = [torch.tensor(toks, dtype=_I64, device=dev)
-                          for _, _, toks
+    # host records of the dynamic state (the device tensors above are
+    # copies, brought up to date by _flush before a device pass reads
+    # them); the sets hold the positions written since the last flush
+    session._h_free = [0.0] * session.model.n_resources()
+    session._h_ready: list = []
+    session._h_indeg: list = []
+    session._h_finish: list = []
+    session._d_free: set = set()
+    session._d_ready: set = set()
+    session._d_indeg: set = set()
+    session._d_finish: set = set()
+    session._v_rq_toks = [list(toks) for _, _, toks
                           in sorted(session._rq, key=lambda t: t[1])]
     # refresh units are normally contiguous token ranges (one block per
     # bank): slice reduce/fill beats fancy indexing per window
@@ -296,9 +315,13 @@ def admit_state(session, g, comp: Compiled, at: float, base: int,
     n = g.n
     dev = session.device
     soa = get_soa(comp, dev)
+    base_indeg = torch.diff(g.dep_indptr)
     session._v_ready.extend_fill(n, at)
-    session._v_indeg.extend(torch.diff(g.dep_indptr))
+    session._v_indeg.extend(base_indeg)
     session._v_finish.extend_fill(n, 0.0)
+    session._h_ready.extend([at] * n)
+    session._h_indeg.extend(base_indeg.tolist())
+    session._h_finish.extend([0.0] * n)
     session._v_dur.extend(soa.dur)
     tok_base = session._v_tok_flat.n
     session._v_tok_indptr.extend(soa.tok_indptr[1:] + tok_base)
@@ -328,26 +351,6 @@ def admit_state(session, g, comp: Compiled, at: float, base: int,
 # --- host <-> device helpers -----------------------------------------------------
 
 
-def _fetch(parts, device) -> list:
-    """One device-to-host copy of several gathers, as one list of floats.
-
-    ``parts`` is a sequence of ``(tensor, positions)``; each tensor is
-    gathered at its positions on the device and the gathers come back
-    concatenated as float64 (exact for the int64 counts held here).
-    """
-    idx = []
-    for _, pos in parts:
-        idx.extend(pos)
-    it = torch.tensor(idx, dtype=_I64).to(device)
-    out = []
-    o = 0
-    for t, pos in parts:
-        k = len(pos)
-        out.append(t[it[o:o + k]].to(_F64))
-        o += k
-    return torch.cat(out).tolist() if out else []
-
-
 def _store(parts, device) -> None:
     """Host values written to device tensors: ``(tensor, positions,
     values)`` triples, sent as one index and one value copy."""
@@ -368,13 +371,32 @@ def _store(parts, device) -> None:
         o += k
 
 
-def _ready_ahead(ready, heap, rp: list, k: int, device) -> None:
+def _ready_ahead(h_ready, heap, rp: list, k: int) -> None:
     """Extend ``rp`` (the ready times of ``heap[0:len(rp)]``, read from the
-    device) past index ``k``; refresh-bearing formation reads them."""
+    host record) past index ``k``; refresh-bearing formation reads them."""
     lo = len(rp)
     hi = min(len(heap), max(k + 1, 2 * lo, 64))
     if hi > lo:
-        rp.extend(_fetch([(ready, [h[3] for h in heap[lo:hi]])], device))
+        rp.extend([h_ready[h[3]] for h in heap[lo:hi]])
+
+
+def _flush(session, device) -> None:
+    """Write the host record's entries marked since the last flush to the
+    device copies, in one index and one value copy."""
+    parts = []
+    for t, h, d in ((session.free, session._h_free, session._d_free),
+                    (session._v_ready.a, session._h_ready,
+                     session._d_ready),
+                    (session._v_indeg.a, session._h_indeg,
+                     session._d_indeg),
+                    (session._v_finish.a, session._h_finish,
+                     session._d_finish)):
+        if d:
+            pos = list(d)
+            parts.append((t, pos, [h[i] for i in pos]))
+            d.clear()
+    if parts:
+        _store(parts, device)
 
 
 # --- sequential-order float reduction --------------------------------------------
@@ -494,6 +516,14 @@ def advance(session, until: float | None = None, *,
     ready = session._v_ready.a
     indeg = session._v_indeg.a
     finish = session._v_finish.a
+    h_free = session._h_free
+    h_ready = session._h_ready
+    h_indeg = session._h_indeg
+    h_finish = session._h_finish
+    d_free = session._d_free
+    d_ready = session._d_ready
+    d_indeg = session._d_indeg
+    d_finish = session._d_finish
     dur = session._v_dur.a
     tok_ip = session._v_tok_indptr.a
     tok_flat = session._v_tok_flat.a
@@ -575,11 +605,11 @@ def advance(session, until: float | None = None, *,
 
         # --- batch formation: a provably-independent sorted prefix -------
         i0 = h[3]
-        # with refresh pending, ready times are read from the device
-        # ahead of the scan (rp[j] is heap[j]'s)
+        # with refresh pending, ready times are read ahead of the scan
+        # (rp[j] is heap[j]'s)
         rp: list = []
         if rq:
-            _ready_ahead(ready, heap, rp, 0, dev)
+            _ready_ahead(h_ready, heap, rp, 0)
             dep0 = rp[0]
             if rq[0][0] <= dep0:
                 # the schedule frontier passed refresh due times: apply
@@ -592,9 +622,9 @@ def advance(session, until: float | None = None, *,
                     b = rq_bounds[u]
                     if b is None:
                         ta = rq_toks[u]
-                        fm = float(free[ta].max())
+                        fm = max([h_free[t] for t in ta])
                     else:
-                        fm = float(free[b[0]:b[1]].max())
+                        fm = max(h_free[b[0]:b[1]])
                     s = due if due > fm else fm
                     e = s + rdur
                     k = 1
@@ -616,9 +646,12 @@ def advance(session, until: float | None = None, *,
                     else:
                         rec._refresh.append((u, float(s), float(e)))
                     if b is None:
-                        free[ta] = e
+                        for t in ta:
+                            h_free[t] = e
+                        d_free.update(ta)
                     else:
-                        free[b[0]:b[1]] = e
+                        h_free[b[0]:b[1]] = [e] * (b[1] - b[0])
+                        d_free.update(range(b[0], b[1]))
                     n_refresh += k
                     # one add per window: += of a constant depends only on
                     # the add count, matching the scalar accumulator
@@ -651,7 +684,7 @@ def advance(session, until: float | None = None, *,
                     pos = hk[3]
                     if not no_rq:
                         if k >= len(rp):
-                            _ready_ahead(ready, heap, rp, k, dev)
+                            _ready_ahead(h_ready, heap, rp, k)
                         if rq_due <= rp[k]:
                             break
                     toks = claim[pos]
@@ -680,7 +713,7 @@ def advance(session, until: float | None = None, *,
             # over a window that grows geometrically until one fires
             quick = SCALAR_K if W > SCALAR_K else W
             if not no_rq and quick > len(rp):
-                _ready_ahead(ready, heap, rp, quick - 1, dev)
+                _ready_ahead(h_ready, heap, rp, quick - 1)
             while k < quick:
                 hk = heap[k]
                 if hk[0] >= min_m or hk[1] >= hz:
@@ -704,6 +737,8 @@ def advance(session, until: float | None = None, *,
                 k += 1
             if k == quick and quick < W \
                     and all(simple_l[i] for i in members):
+                if not no_rq:
+                    _flush(session, dev)     # the window reads ready times
                 if not cvalid and not prev_pushed:
                     # stable frontier: copy its columns to the device
                     # once; until something is pushed, later batches
@@ -777,7 +812,7 @@ def advance(session, until: float | None = None, *,
                         pos = hk[3]
                         if not no_rq:
                             if k >= len(rp):
-                                _ready_ahead(ready, heap, rp, k, dev)
+                                _ready_ahead(h_ready, heap, rp, k)
                             if rq_due <= rp[k]:
                                 break
                         toks = claim[pos]
@@ -802,34 +837,21 @@ def advance(session, until: float | None = None, *,
             coff += k
 
         if k <= SCALAR_K:
-            # small-batch fast path: the batch's token free times, ready
-            # times and successors' state come to the host in one copy;
-            # the members execute one by one the way the scalar oracle
-            # does (same IEEE operations, successor pushes interleaved),
-            # and the new state goes back in one write
-            toks = _claim_tokens(claim, members)
-            succ_seen: dict = {}
-            for i in members:
-                for sc in succ_flat_l[succ_ip_l[i]:succ_ip_l[i + 1]]:
-                    succ_seen[sc] = None
-            sl = list(succ_seen)
-            nt, nm, ns = len(toks), len(members), len(sl)
-            got = _fetch(((free, toks), (ready, members), (ready, sl),
-                          (indeg, sl)), dev)
-            fh = dict(zip(toks, got[:nt]))
-            rdy = dict(zip(sl, got[nt + nm:nt + nm + ns]))
-            ind = dict(zip(sl, (int(x) for x in got[nt + nm + ns:])))
-            fin_l = []
-            for mi, i0 in enumerate(members):
-                dep0 = got[nt + mi]
+            # small-batch fast path: the members execute one by one on
+            # the host record the way the scalar oracle does (same IEEE
+            # operations, successor pushes interleaved); what they write
+            # is marked for the device copies' next flush
+            for i0 in members:
+                dep0 = h_ready[i0]
                 p = exec_plan[i0]
                 lp = len(p)
                 if lp == 1:
                     mv_out: list = []
                     st_out: list = []
-                    e, energy = _exec_general(p, dep0, fh, bus_busy,
+                    e, energy = _exec_general(p, dep0, h_free, bus_busy,
                                               energy, mv_out, st_out,
                                               rec_segs, i0)
+                    d_free.update(claim[i0])
                     for du in mv_out:
                         move_busy += du
                     for sv in st_out:
@@ -838,10 +860,11 @@ def advance(session, until: float | None = None, *,
                         probes += len(claim[i0])
                 elif lp == 2:
                     rid, du = p
-                    f = fh[rid]
+                    f = h_free[rid]
                     s = f if f > dep0 else dep0
                     e = s + du
-                    fh[rid] = e
+                    h_free[rid] = e
+                    d_free.add(rid)
                     op_busy += du
                     if observe:
                         probes += 1
@@ -851,12 +874,13 @@ def advance(session, until: float | None = None, *,
                     rids, stall_counts, du = p
                     s = dep0
                     for r in rids:
-                        f = fh[r]
+                        f = h_free[r]
                         if f > s:
                             s = f
                     e = s + du
                     for r in rids:
-                        fh[r] = e
+                        h_free[r] = e
+                    d_free.update(rids)
                     move_busy += du
                     if stall_counts:
                         span = e - s
@@ -866,16 +890,19 @@ def advance(session, until: float | None = None, *,
                         probes += len(rids)
                         if rec_tasks is not None:
                             rec_tasks.append((i0, s, e))
-                fin_l.append(e)
+                h_finish[i0] = e
+                d_finish.add(i0)
                 a = succ_ip_l[i0]
                 b = succ_ip_l[i0 + 1]
                 if b > a:
                     push_items = []
                     for sc in succ_flat_l[a:b]:
-                        if rdy[sc] < e:
-                            rdy[sc] = e
-                        nd = ind[sc] - 1
-                        ind[sc] = nd
+                        if h_ready[sc] < e:
+                            h_ready[sc] = e
+                            d_ready.add(sc)
+                        nd = h_indeg[sc] - 1
+                        h_indeg[sc] = nd
+                        d_indeg.add(sc)
                         if not nd:
                             push_items.append((neg_cp[sc], e,
                                                guids[sc], sc))
@@ -899,10 +926,6 @@ def advance(session, until: float | None = None, *,
                     completed.append(j)
                     if rec is not None:
                         rec._jobdone.append((j, job_fin[j]))
-            _store(((free, toks, [fh[t] for t in toks]),
-                    (finish, members, fin_l),
-                    (ready, sl, [rdy[sc] for sc in sl]),
-                    (indeg, sl, [ind[sc] for sc in sl])), dev)
             n_exec += k
             n_batches += 1
             if k > 1:
@@ -911,6 +934,7 @@ def advance(session, until: float | None = None, *,
             continue
 
         # --- execute the batch on the device -----------------------------
+        _flush(session, dev)
         if mem is None:
             mem = torch.tensor(members, dtype=_I64).to(dev)
         deps = ready[mem]
@@ -925,21 +949,18 @@ def advance(session, until: float | None = None, *,
             # member order below
             gsel = [j for j in range(k) if gen[j]]
             gi = [members[j] for j in gsel]
-            gtoks = _claim_tokens(claim, gi)
-            got = _fetch(((free, gtoks), (ready, gi)), dev)
-            fh = dict(zip(gtoks, got[:len(gtoks)]))
             g_ends = []
-            for gj, i in enumerate(gi):
+            for i in gi:
                 mv_out = []
                 st_out = []
                 e, energy = _exec_general(
-                    exec_plan[i], got[len(gtoks) + gj], fh, bus_busy,
+                    exec_plan[i], h_ready[i], h_free, bus_busy,
                     energy, mv_out, st_out, rec_segs, i)
+                d_free.update(claim[i])
                 g_ends.append(e)
                 gen_results.append((mv_out, st_out))
                 if observe:
                     probes += len(claim[i])
-            _store(((free, gtoks, [fh[t] for t in gtoks]),), dev)
             ends[torch.tensor(gsel, dtype=_I64).to(dev)] = torch.tensor(
                 g_ends, dtype=_F64).to(dev)
             cl_sel_l = [j for j in range(k) if not gen[j]]
@@ -1029,7 +1050,8 @@ def advance(session, until: float | None = None, *,
             # the scalar loop keys each push with the end of the member
             # that zeroed the indegree — the successor's last in-batch
             # dependency in member order (the stable sort preserves it)
-            succ_part = (uniq.to(_F64), nd.to(_F64), se[grp_last])
+            succ_part = (uniq.to(_F64), nd.to(_F64), se[grp_last],
+                         ready[uniq])
 
         # --- the batch's one copy back: ends, stall terms, pushes --------
         parts = [ends]
@@ -1041,6 +1063,19 @@ def advance(session, until: float | None = None, *,
             parts.extend((s, e))
         host = torch.cat(parts).tolist()
         ends_l = host[:k]
+        # the host record takes the batch's writes: finish times, and each
+        # vectorized member's end on its tokens (the general members'
+        # tokens were written on the host above)
+        for i, e_ in zip(members, ends_l):
+            h_finish[i] = e_
+        for i, e_ in zip(cl_list, ends_l if not has_gen
+                         else [ends_l[j] for j in cl_sel_l]):
+            t = claim[i]
+            if type(t) is int:
+                h_free[t] = e_
+            else:
+                for r in t:
+                    h_free[r] = e_
         o = k
         st_l = []
         if st_contrib is not None:
@@ -1050,7 +1085,12 @@ def advance(session, until: float | None = None, *,
             uniq_l = host[o:o + n_grp]
             nd_l = host[o + n_grp:o + 2 * n_grp]
             pr_l = host[o + 2 * n_grp:o + 3 * n_grp]
-            o += 3 * n_grp
+            for u, ndv, rv in zip(uniq_l, nd_l,
+                                  host[o + 3 * n_grp:o + 4 * n_grp]):
+                u = int(u)
+                h_ready[u] = rv
+                h_indeg[u] = int(ndv)
+            o += 4 * n_grp
         if rec_tasks is not None and cl_list:
             sl_ = host[o:o + len(cl_list)]
             el_ = host[o + len(cl_list):o + 2 * len(cl_list)]
@@ -1162,7 +1202,7 @@ def advance(session, until: float | None = None, *,
             batches=n_batches, batched_tasks=n_batched,
             vector_probes=vec_probes, heap_ops_avoided=heap_saved)
     if until is None:
-        mx = float(finish[:n_tasks].max()) if n_tasks else 0.0
+        mx = max(h_finish) if n_tasks else 0.0
         if mx > session.now:
             session.now = mx
     elif until > session.now:

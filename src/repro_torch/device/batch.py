@@ -26,11 +26,9 @@ Every schedule runs on the runner's ``device`` — ``cuda`` unless the caller
 asks for the CPU (asking for ``cuda`` without a card raises at
 construction); the graphs and the models stay host data either way, and
 the results are bit-for-bit those of the preserved legacy scheduler
-(:mod:`repro_torch.device.reference`).
-
-The placement-search layers (:meth:`BatchRunner.placement_oracle`,
-:meth:`BatchRunner.search_placement`) raise until ``repro_torch.search`` is
-ported (ROADMAP Queue 1 item 17).
+(:mod:`repro_torch.device.reference`).  The placement-search layers
+(:meth:`BatchRunner.placement_oracle`, :meth:`BatchRunner.search_placement`)
+price their candidates on the same device.
 """
 
 from __future__ import annotations
@@ -47,7 +45,6 @@ from repro_torch.device import scheduler as dev_sched
 from repro_torch.device.geometry import DeviceGeometry
 from repro_torch.device.resources import DeviceModel
 from repro_torch.device.scheduler import DeviceScheduleResult
-from repro_torch.passes.search import search_layer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,11 +80,11 @@ class SweepConfig:
 class BatchRunner:
     """Schedules N (graph x geometry x interconnect x policy) configs.
 
-    An optional metrics registry aggregates the whole grid as it runs —
-    cells scheduled, per-interconnect makespan distributions, resource-model
-    cache misses.  Until the port has its observability layer (ROADMAP
-    Queue 1 item 16) it is duck-typed: anything with
-    ``.counter(name).inc()`` and ``.histogram(name).observe(x)``.
+    An optional :class:`~repro_torch.obs.metrics.MetricsRegistry`
+    aggregates the whole grid as it runs — cells scheduled,
+    per-interconnect makespan distributions, resource-model cache misses —
+    so a sweep script gets its grid-level numbers from the same registry a
+    serving run populates.
 
     Every schedule's engine session runs on ``device``.
     """
@@ -145,19 +142,19 @@ class BatchRunner:
 
     def placement_oracle(self, cfg: SweepConfig, *, cache=None,
                          n_workers: int | None = None, profile=None):
-        """A placement oracle (``repro_torch.search.PlacementOracle``) over
-        ``cfg``'s cell.
+        """A :class:`repro_torch.search.PlacementOracle` over ``cfg``'s cell,
+        on this runner's device.
 
         Layered on this runner's dedup caches: the structural graph comes
         from the ``taskgraph`` ``lru_cache`` and the resource model from
         :meth:`_model`, so an oracle and an ordinary sweep of the same
         (mode, geometry) share one :class:`DeviceModel` and its memoized
-        cross-bank plan prices.  ``cache`` (an oracle cache or a path)
-        adds the persistent layer; ``n_workers`` the process-pool one.
-        Raises until the search layer is ported.
+        cross-bank plan prices.  ``cache`` (an
+        :class:`repro_torch.search.OracleCache` or a path) adds the
+        persistent layer; ``n_workers`` the (spawned) process-pool one.
         """
+        from repro_torch import search
         from repro_torch.core import taskgraph
-        search = search_layer()
         struct = taskgraph.structural(
             cfg.app, n_pes=cfg.geometry.total_pes, **cfg.kwargs)
         if cache is not None and not hasattr(cache, "get"):
@@ -165,19 +162,18 @@ class BatchRunner:
         return search.PlacementOracle(
             struct, cfg.mode, cfg.geometry, cache=cache,
             model=self._model(cfg.mode, cfg.geometry),
-            n_workers=n_workers, profile=profile)
+            n_workers=n_workers, profile=profile, device=self.device)
 
     def search_placement(self, cfg: SweepConfig, *, config=None,
                          cache=None, n_workers: int | None = None,
                          profile=None):
         """Run the cost-driven placement search on one sweep cell.
 
-        Returns the search result; the oracle (and its worker pool, if
-        any) is torn down before returning.  Raises until the search layer
-        is ported.
+        Returns the :class:`repro_torch.search.SearchResult`; the oracle
+        (and its worker pool, if any) is torn down before returning.
         """
+        from repro_torch import search
         from repro_torch.core import taskgraph
-        search = search_layer()
         oracle = self.placement_oracle(cfg, cache=cache,
                                        n_workers=n_workers, profile=profile)
         struct = taskgraph.structural(
@@ -199,10 +195,11 @@ def run_grid(configs: Sequence[SweepConfig], *,
 def clear_caches() -> None:
     """Drop every cross-config cache (for cold-start benchmarking).
 
-    Also tears down the placement-search layers, once ported: every live
-    oracle's in-memory memo and surrogate tables and every oracle cache's
-    loaded state.  On-disk cache files survive — they are the *persistent*
-    layer; the next access re-reads them cold.
+    Also tears down the placement-search layers: every live oracle's
+    in-memory memo and surrogate tables and every
+    :class:`repro_torch.search.OracleCache`'s loaded state.  On-disk cache
+    files survive — they are the *persistent* layer; the next access
+    re-reads them cold.
     """
     from repro_torch.core import taskgraph
 

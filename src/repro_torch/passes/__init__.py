@@ -31,10 +31,6 @@ Quickstart::
 An *empty* ``opt`` tuple is the pipeline-off configuration: placement only,
 bit-for-bit identical to the pre-pipeline path (the golden schedules pin
 it).
-
-``search_pipeline`` and ``lease_search_pipeline`` build, but their place
-stage raises when run until the placement search is ported (ROADMAP
-Queue 1 item 17).
 """
 
 from __future__ import annotations

@@ -14,8 +14,9 @@ finish time must be identical.
 * ``DeviceModel.compile`` equal to the reference's, its token names,
   refresh units, bus classes and the lexicographic order of its move
   signatures included;
-* ``tests/test_batch.py`` but its search-layer tests (the port's runner
-  refuses them until the search layer is ported);
+* ``tests/test_batch.py``, and the runner's placement-search layers
+  against the reference's (``tests/test_torch_pim_search.py`` holds the
+  search itself);
 * the HBM-scale and fleet classes of ``tests/test_engine_vector.py``;
 * imports (the lazy ``repro_torch.device`` package in fresh interpreters),
   entry points that default to ``cuda`` and raise without a card,
@@ -738,11 +739,29 @@ class TestBatchRunner:
         assert taskgraph._matmul_struct.cache_info().currsize == 0
 
     def test_search_layers_refuse_until_ported(self):
+        """(Named for what the layers did before the search was ported.)
+        The runner's oracle prices a cell on the runner's device with its
+        shared model, and its search equals the reference runner's."""
+        from repro_torch.search import SearchConfig
         cfg = SweepConfig.make("mm", Interconnect.LISA, GEOM, n=12)
         runner = BatchRunner(device="cpu")
-        for call in (runner.placement_oracle, runner.search_placement):
-            with pytest.raises(NotImplementedError, match="item 17"):
-                call(cfg)
+        oracle = runner.placement_oracle(cfg, n_workers=1)
+        assert oracle.device == torch.device("cpu")
+        assert oracle.model is runner._model(cfg.mode, cfg.geometry)
+        small = dict(seed=2, beam_width=2, beam_rounds=1,
+                     neighbors_per_state=3, sa_rounds=2, sa_proposals=3,
+                     n_workers=1)
+        got = runner.search_placement(cfg, config=SearchConfig(**small),
+                                      n_workers=1)
+        rb = _ref("device.batch")
+        want = rb.BatchRunner().search_placement(
+            rb.SweepConfig.make("mm", _rmode(Interconnect.LISA),
+                                _rgeom(GEOM), n=12),
+            config=_ref("search").SearchConfig(**small), n_workers=1)
+        assert (got.digest, got.makespan_ns, got.greedy, got.n_candidates) \
+            == (want.digest, want.makespan_ns, want.greedy,
+                want.n_candidates)
+        assert got.pe_map.tolist() == want.pe_map.tolist()
 
 
 class TestBatchEdgeCases:

@@ -465,15 +465,18 @@ def test_general_moves_in_batches(seed, mode):
 @MODES
 @pytest.mark.parametrize("eng", ["vector", "scalar"])
 def test_recorder_and_profile_match_reference(mode, eng):
-    trace = importlib.import_module("repro.obs.trace")
-    profile = importlib.import_module("repro.obs.profile")
+    """The port's recorder and profile on the port's session, the
+    reference's on the reference's: the same raw stores and counters."""
+    from repro_torch import obs
+    robs = importlib.import_module("repro.obs")
     rng = random.Random(3)
     tasks = seeded_tasks(rng, 40)
     spec = RefreshSpec(interval_ns=2000.0, duration_ns=100.0)
     g = ir.from_tasks(tasks)
     recs = []
     for pkg in ("port", "ref"):
-        rec, prof = trace.Recorder(), profile.EngineProfile()
+        lib = obs if pkg == "port" else robs
+        rec, prof = lib.Recorder(), lib.EngineProfile()
         if pkg == "port":
             s = EngineSession(BankModel(mode), refresh=spec, recorder=rec,
                               profile=prof, engine=eng, device="cpu")

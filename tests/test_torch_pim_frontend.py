@@ -5,10 +5,11 @@ apps beside the Fig-8 builtins; placed, leased, optimised and materialized
 model graphs equal the reference's, and a single-job engine session on the
 device model equals the offline schedule.
 
-Mirrors ``tests/test_frontend.py`` but its serving-runtime tests (the
-port's runtime is not ported yet).  The port's config registry lists the
-archs in another order than the reference's, so the two ``MODEL_APPS``
-and ``known_apps()`` are compared as sets and everything else by name.
+Mirrors ``tests/test_frontend.py`` but its serving-runtime tests, which
+``tests/test_torch_pim_runtime.py`` holds (``TestModelFleet``).  The
+port's config registry lists the archs in another order than the
+reference's, so the two ``MODEL_APPS`` and ``known_apps()`` are compared
+as sets and everything else by name.
 The reference package is imported only inside the tests.
 """
 

@@ -6,11 +6,12 @@ entry, every ``Pipeline.fingerprint`` equal, and every schedule of a
 rewritten graph equal to the reference's and to the golden schedules.
 
 Mirrors ``tests/test_passes.py`` (its unit, mechanics, pipeline-off
-golden, property, benchmark-cell, lease and legacy-placement tests; the
-serving-runtime test waits for the port's runtime), with hypothesis at a
-bounded number of examples.  The search-driven place stage builds and
-raises until the search layer is ported.  The reference package is
-imported only inside the tests.
+golden, property, benchmark-cell, lease and legacy-placement tests; its
+serving-runtime test is in ``tests/test_torch_pim_runtime.py``), with
+hypothesis at a bounded number of examples.  The search-driven place
+stage runs the port's placement search and equals the reference's
+(``tests/test_torch_pim_search.py`` holds the search itself).  The
+reference package is imported only inside the tests.
 """
 
 import dataclasses
@@ -331,21 +332,48 @@ class TestPipelineMechanics:
 
 
 class TestSearchPlaceStage:
-    """The search-driven place stage builds; it raises only when run."""
+    """The search-driven place stage runs and equals the reference's."""
 
     def test_search_pipelines_build_and_refuse_to_run(self):
-        for pipe in (passes.search_pipeline(BIG, Interconnect.LISA,
-                                            opt=passes.DEFAULT_OPT),
-                     passes.lease_search_pipeline(
-                         BIG, (0, 2), Interconnect.SHARED_PIM)):
+        """(Named for what the stage did before the search was ported.)
+        Both search pipelines describe and fingerprint as the reference's,
+        and run to the reference's placed graph and rewrite log."""
+        from repro_torch.search import SearchConfig
+        small = SearchConfig(seed=0, beam_width=2, beam_rounds=1,
+                             neighbors_per_state=3, sa_rounds=2,
+                             sa_proposals=3, n_workers=1, device="cpu")
+        rsmall = _ref("search").SearchConfig(
+            seed=0, beam_width=2, beam_rounds=1, neighbors_per_state=3,
+            sa_rounds=2, sa_proposals=3, n_workers=1)
+        rp = _ref("passes")
+        pairs = [
+            (passes.search_pipeline(BIG, Interconnect.LISA, config=small,
+                                    opt=passes.DEFAULT_OPT),
+             rp.search_pipeline(_rgeom(BIG), _rmode(Interconnect.LISA),
+                                config=rsmall, opt=rp.DEFAULT_OPT)),
+            (passes.lease_search_pipeline(BIG, (0, 2),
+                                          Interconnect.SHARED_PIM,
+                                          config=small),
+             rp.lease_search_pipeline(_rgeom(BIG), (0, 2),
+                                      _rmode(Interconnect.SHARED_PIM),
+                                      config=rsmall))]
+        for pipe, rpipe in pairs:
             stage = pipe.passes[1]
             assert isinstance(stage, passes.SearchPlacePass)
             assert stage.stage == "place"
             assert stage.describe().startswith("search_place[")
-            assert len(pipe.fingerprint()) == 12
-            g = taskgraph.structural("mm", n_pes=BIG.total_pes, n=8)
-            with pytest.raises(NotImplementedError, match="item 17"):
-                pipe.run(g)
+            assert pipe.describe() == rpipe.describe()
+            assert pipe.fingerprint() == rpipe.fingerprint()
+            n_pes = BIG.total_pes if stage.banks is None \
+                else len(stage.banks) * BIG.pes_per_bank
+            g = taskgraph.structural("mm", n_pes=n_pes, n=8)
+            out, log = pipe.run(g)
+            rout, rlog = rpipe.run(_rgraph(g))
+            _same_graph(out, rout)
+            assert [str(e) for e in log.entries] == \
+                [str(e) for e in rlog.entries]
+            assert stage.last_result.digest == \
+                rpipe.passes[1].last_result.digest
 
 
 class TestBuildIrWithPasses:

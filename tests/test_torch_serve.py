@@ -211,7 +211,12 @@ def test_port_imports_neither_jax_nor_reference():
                 "device/reference", "device/batch", "passes/__init__",
                 "passes/pipeline", "passes/rewrite", "passes/optimize",
                 "passes/placement", "passes/search", "frontend/__init__",
-                "frontend/lower"):
+                "frontend/lower", "obs/__init__", "obs/__main__",
+                "obs/metrics", "obs/profile", "obs/trace", "obs/viewer",
+                "search/__init__", "search/cache", "search/surrogate",
+                "search/oracle", "search/place", "search/autotune",
+                "runtime/__init__", "runtime/trace", "runtime/allocator",
+                "runtime/serve"):
         assert port / f"{mod}.py" in files, mod
     for f in files:
         for mod in _imports(f):
