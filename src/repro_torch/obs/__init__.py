@@ -34,6 +34,18 @@ Quickstart (trace one sweep cell, view at ui.perfetto.dev)::
 ``record_sweep(cfg, device="cpu")`` records on the host.  ``python -m
 repro_torch.obs [--device cpu]`` emits a ready-made Shared-PIM vs LISA trace
 pair (see :mod:`repro_torch.obs.viewer`).
+
+The LM stack is traced apart from the simulator, by :mod:`spans`
+(``from repro_torch.obs import spans``): named ``record_function`` ranges,
+with a CUDA event pair each on a card, and :class:`Counter` counts.  Its
+one switch is a recording ``torch.profiler``; with none, a span is one
+boolean test.  The train step emits ``train.step``, ``train.forward``,
+``train.backward`` and ``train.optimizer``; the serving engine
+``serve.generate``, ``serve.prefill`` and ``serve.decode_step``, and the
+counters ``serve.prompt_tokens``, ``serve.padded_tokens`` and
+``serve.discarded_steps``.  ``spans.device_ms(name)`` sums a span's device
+time, ``spans.counters()`` reads the counts, ``spans.reset()`` forgets
+both.
 """
 
 from repro_torch.obs.metrics import (  # noqa: F401

@@ -8,6 +8,17 @@ reference, pads are token 0 and are not masked (a Mamba model runs them
 through its state), and all slots share one position.  The VLM and audio
 families take one media array a batch (the stub frontends' output), float32
 zeros unless the caller gives one.
+
+While a ``torch.profiler`` records (the one switch of
+``repro_torch.obs.spans``; off, a span is one boolean test), ``generate``
+emits the spans ``serve.generate`` (the whole call), ``serve.prefill``
+(the ``Model.prefill`` call alone) and ``serve.decode_step`` (each
+lockstep iteration: ``decode_step``, sampling and the host copy of the
+tokens), and adds to the counters ``serve.prompt_tokens`` (the prompts'
+lengths), ``serve.padded_tokens`` (B x the longest prompt, less those
+lengths) and ``serve.discarded_steps`` (decode steps whose sampled token
+``generate`` does not return: with ``max_new=1``, the one step run below
+``max_len - 1``).
 """
 
 from __future__ import annotations
@@ -19,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import Model
+from repro_torch.obs import spans
 
 
 @dataclasses.dataclass
@@ -56,6 +68,11 @@ class Engine:
         n_media_tokens, media_embed_dim)) goes to prefill and to every
         decode step, as in the reference.
         """
+        with spans.span("serve.generate", self.model.device):
+            return self._generate(prompts, max_new, media)
+
+    def _generate(self, prompts: list[list[int]], max_new: int,
+                  media) -> list[list[int]]:
         cfg = self.cfg
         B = len(prompts)
         if B > cfg.max_batch:
@@ -65,6 +82,9 @@ class Engine:
         toks = np.zeros((B, plen), np.int64)
         for i, p in enumerate(prompts):
             toks[i, plen - len(p):] = p          # left-pad
+        n_prompt = sum(len(p) for p in prompts)
+        spans.count("serve.prompt_tokens", n_prompt)
+        spans.count("serve.padded_tokens", B * plen - n_prompt)
         mcfg = self.model.cfg
         if media is not None:
             media = torch.as_tensor(media, device=dev)
@@ -75,14 +95,15 @@ class Engine:
         self.step_logits = []
         t0 = time.perf_counter()
         cache = self.model.init_cache(B, cfg.max_len)
-        logits, cache = self.model.prefill(
-            self.params, cache, torch.as_tensor(toks, device=dev), media)
+        with spans.span("serve.prefill", dev):
+            logits, cache = self.model.prefill(
+                self.params, cache, torch.as_tensor(toks, device=dev), media)
         cur = self._sample(logits, gen)
         cur_host = cur[:, 0].tolist()
         t1 = time.perf_counter()
         out = [list(p) for p in prompts]
         done = np.zeros(B, bool)
-        steps = 0
+        steps = dropped = 0
         for _ in range(max_new):
             for i in range(B):
                 if not done[i]:
@@ -90,11 +111,15 @@ class Engine:
                     done[i] |= cur_host[i] == cfg.eos_token
             if done.all() or cache["pos"] >= cfg.max_len - 1:
                 break
-            logits, cache = self.model.decode_step(self.params, cache, cur,
-                                                   media)
-            cur = self._sample(logits, gen)
-            cur_host = cur[:, 0].tolist()
+            with spans.span("serve.decode_step", dev):
+                logits, cache = self.model.decode_step(self.params, cache,
+                                                       cur, media)
+                cur = self._sample(logits, gen)
+                cur_host = cur[:, 0].tolist()
             steps += 1
+        else:
+            dropped = int(steps > 0)     # the last step's token is not kept
+        spans.count("serve.discarded_steps", dropped)
         t2 = time.perf_counter()
         self.timing = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
                        "decode_steps": steps}

@@ -9,6 +9,14 @@ cross-pod compressed gradient reduction (PyTorch port of
 ``P("pod")`` batch spec): the loss is averaged over 'pod' and the gradients
 are exchanged as int8 codes with error feedback
 (``compression.tree_psum_compressed``), kept in the state's ``grad_err``.
+
+While a ``torch.profiler`` records (the one switch of
+``repro_torch.obs.spans``; off, a span is one boolean test), the step
+emits the spans ``train.step`` (the whole step), ``train.forward``
+(``model.train_loss``, once a microbatch), ``train.backward``
+(``torch.autograd.grad``, remat's recompute included, once a microbatch)
+and ``train.optimizer`` (``adamw.apply_updates``: the global norm, the
+clip and the chunked passes).
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from repro_torch import tree
 from repro_torch.core.overlap import compression
 from repro_torch.kernels import _symbolic
 from repro_torch.models.model import Model
+from repro_torch.obs import spans
 from repro_torch.optim import adamw
 
 
@@ -61,8 +70,10 @@ def _split_microbatches(batch: dict, n: int) -> list[dict]:
 
 def _value_and_grad(model: Model, params, batch):
     leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
-    loss = model.train_loss(tree.unflatten(params, leaves), batch)
-    grads = torch.autograd.grad(loss, leaves)
+    with spans.span("train.forward", model.device):
+        loss = model.train_loss(tree.unflatten(params, leaves), batch)
+    with spans.span("train.backward", model.device):
+        grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), tree.unflatten(params, list(grads))
 
 
@@ -119,6 +130,10 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     pod = _pod_group(mesh) if settings.compress_pod_grads else None
 
     def step(state, batch):
+        with spans.span("train.step", model.device):
+            return _step(state, batch)
+
+    def _step(state, batch):
         batch = {k: v if _symbolic.symbolic(v) else
                  torch.as_tensor(v, device=model.device)
                  for k, v in batch.items()}
@@ -131,8 +146,9 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
             loss = loss / dist.get_world_size(pod)
             grads, new_state["grad_err"] = compression.tree_psum_compressed(
                 grads, state["grad_err"], pod)
-        params, opt, metrics = adamw.apply_updates(
-            opt_cfg, state["params"], grads, state["opt"])
+        with spans.span("train.optimizer", model.device):
+            params, opt, metrics = adamw.apply_updates(
+                opt_cfg, state["params"], grads, state["opt"])
         new_state.update(params=params, opt=opt, step=state["step"] + 1)
         return new_state, {"loss": loss, **metrics}
 
